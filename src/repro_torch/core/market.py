@@ -29,7 +29,6 @@ import dataclasses
 import io
 import itertools
 import math
-import os
 import weakref
 import zlib
 from datetime import datetime, timezone
@@ -427,9 +426,8 @@ class _RecRef:
 class ScalarLedger:
     """Reference ledger: one ``Allocation`` object per row, eager records.
 
-    Retained behind ``SpotMarket(ledger="scalar")`` (or the
-    ``REPRO_SCALAR_LEDGER=1`` environment flag) as the equivalence pin for
-    the columnar fast path."""
+    Retained behind ``SpotMarket(ledger="scalar")`` as the equivalence pin
+    for the columnar fast path (the port reads no environment flag)."""
 
     kind = "scalar"
 
@@ -667,8 +665,7 @@ class SpotMarket:
         self._pool_price_memo: Optional[tuple] = None
         self._pool_avg_memo: Optional[tuple] = None
         self._pool_rows_memo: Optional[tuple] = None
-        kind = ledger or ("scalar" if os.environ.get("REPRO_SCALAR_LEDGER")
-                          else "columnar")
+        kind = ledger or "columnar"
         if kind == "columnar":
             self.ledger = ColumnarLedger(self)
         elif kind == "scalar":

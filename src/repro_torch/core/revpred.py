@@ -18,8 +18,9 @@ one call of the fused cell (``kernels.ops.lstm_cell``), whatever G is.  The
 parameter layout is the JAX package's: ``w_ih`` (I, 4H), ``w_hh`` (H, 4H),
 gate order i, f, g, o; ``params_from_numpy`` carries its weights across.
 
-Training (``train_model``, ``RevPred.train``) and the sweep's cross-replica
-``predict_pool_multi`` are not ported yet.
+``predict_pool_multi`` is the sweep's cross-replica batch point: the cache
+misses of every request, across markets and replicas, go through one grouped
+forward.  Training (``train_model``, ``RevPred.train``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -420,11 +421,15 @@ class RevPred:
 @torch.inference_mode()
 def _stacked_forward(fn: Callable, params, hist: np.ndarray,
                      present: np.ndarray, device) -> np.ndarray:
-    """One batch-1 forward per group row -> p: the float32 sigmoid, then
-    float64 (as the JAX package's vmapped forward returns it)."""
+    """One batch-1 forward per group row -> p: a float32 sigmoid, then
+    float64 (as the JAX package's vmapped forward returns it).  The sigmoid
+    runs on the host in float64 and rounds to float32, so a row's answer
+    does not depend on where it sits in the batch (PyTorch's CPU sigmoid
+    computes the elements past the last full vector another way)."""
     lg = fn(params, torch.as_tensor(hist).to(device)[:, None],
             torch.as_tensor(present).to(device)[:, None])
-    return torch.sigmoid(lg).cpu().numpy()[:, 0].astype(np.float64)
+    lg = lg.float().cpu().numpy()[:, 0].astype(np.float64)
+    return (1.0 / (1.0 + np.exp(-lg))).astype(np.float32).astype(np.float64)
 
 
 def _eq3_deskew(p: np.ndarray, pos_frac: np.ndarray,
@@ -437,6 +442,84 @@ def _eq3_deskew(p: np.ndarray, pos_frac: np.ndarray,
     phi_n = np.maximum(1.0 - pos_frac, 1e-6)
     odds = (p * phi_n) / np.maximum((1.0 - p) * phi_p, 1e-9)
     return np.where(use_eq3, odds / (1.0 + odds), p)
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def predict_pool_multi(requests) -> list:
+    """Revocation probabilities for many ``(revpred, insts, t, max_prices)``
+    requests — the sweep runtime's cross-replica batch point.
+
+    All cache misses of every ``RevPred`` request sharing one model
+    architecture (and device) are answered by a single grouped forward:
+    each request's stacked per-market parameters are picked with
+    ``index_select`` and the picks concatenated along the group dimension,
+    across *markets and replicas*.  Each group row's arithmetic reads only
+    its own parameters, so the answers equal per-replica ``predict_pool``
+    calls.  Non-``RevPred`` predictors (oracle, zero, custom) fall back to
+    their own path."""
+    out = [None] * len(requests)
+    mixed: Dict[tuple, list] = {}     # (fn, leaf shapes, device) -> misses
+    for ri, (rp, insts, t, mps) in enumerate(requests):
+        if not isinstance(rp, RevPred):
+            pool = getattr(rp, "predict_pool", None)
+            out[ri] = (pool(insts, t, mps) if pool is not None else
+                       [rp.predict(inst, t, mp)
+                        for inst, mp in zip(insts, mps)])
+            continue
+        minute = int(t / MINUTE)
+        row = [None] * len(insts)
+        misses = []
+        for i, (inst, mp) in enumerate(zip(insts, mps)):
+            key = (inst.name, minute, round(mp, 5))
+            p = rp._p_cache.get(key)
+            if p is None:
+                misses.append((i, inst, mp, key))
+            else:
+                row[i] = p
+        out[ri] = row
+        if not misses:
+            continue
+        stack = rp._ensure_stack()
+        if stack is None:
+            for i, inst, mp, key in misses:
+                row[i] = rp.predict(inst, t, mp)
+            continue
+        # group by model fn, per-market param shapes and device: only
+        # same-width stacks on one device can share one concatenated forward
+        sig = tuple((tuple(leaf.shape[1:]), str(leaf.dtype))
+                    for leaf in _leaves(stack["params"]))
+        fid = (id(stack["fn"]), sig, str(rp.device))
+        mixed.setdefault(fid, []).append((ri, rp, stack, minute, misses))
+    for group in mixed.values():
+        hists, presents, trees, pfs, eq3s = [], [], [], [], []
+        device, fn = group[0][1].device, group[0][2]["fn"]
+        for ri, rp, stack, minute, misses in group:
+            rows = np.array([stack["row"][inst.name]
+                             for _, inst, _, _ in misses])
+            idx = torch.as_tensor(rows, device=device)
+            trees.append(tree_map(lambda x: x.index_select(0, idx),
+                                  stack["params"]))
+            for _, inst, mp, _ in misses:
+                h, pr = rp._sample(inst, minute, mp)
+                hists.append(h)
+                presents.append(pr)
+            pfs.append(stack["pos_frac"][rows])
+            eq3s.append(stack["use_eq3"][rows])
+        params = tree_map(lambda *xs: torch.cat(xs), *trees)
+        p = _stacked_forward(fn, params, np.stack(hists),
+                             np.stack(presents), device)
+        p = _eq3_deskew(p, np.concatenate(pfs), np.concatenate(eq3s))
+        pos = 0
+        for ri, rp, stack, minute, misses in group:
+            for i, _, _, key in misses:
+                out[ri][i] = rp._p_cache[key] = float(p[pos])
+                pos += 1
+    return out
 
 
 def _sliding_max(arr: np.ndarray, w: int) -> np.ndarray:

@@ -23,3 +23,37 @@ def lstm_cell_ref(x, h, c, w_ih, w_hh, b):
     c2 = torch.sigmoid(f) * c.to(f32) + torch.sigmoid(i) * torch.tanh(g)
     h2 = torch.sigmoid(o) * torch.tanh(c2)
     return h2.to(h.dtype), c2.to(c.dtype)
+
+
+# the sweep's "not running" boundary tick, the boundary min's identity
+_BIG = 1 << 60
+
+
+def ewma_fold_torch_ref(obs, lens, m0, first, ewma):
+    """The SoA round's EWMA fold on float64 tensors, column by column in the
+    order of the numpy ``soa_step.ewma_fold_ref``: obs (F,L), lens (F,)
+    int64, m0 (F,), first (F,) bool, ewma (F,) -> m (F,).  Each product
+    and the sum are separate operations, so every step rounds as numpy's
+    ``b * m + a * col`` does."""
+    m = torch.where(first, torch.zeros_like(m0), m0)
+    fr = first.clone()
+    b = 1.0 - ewma
+    for j in range(obs.shape[1]):
+        col = obs[:, j]
+        valid = j < lens
+        m = torch.where(valid & fr, col,
+                        torch.where(valid, b * m + ewma * col, m))
+        fr = fr & ~valid
+    return m
+
+
+def soa_step_fused_ref(obs, lens, m0, first, ewma, next_k, row_rep,
+                       n_reps: int):
+    """The fold and the per-replica boundary min: (m (F,) float64,
+    seg (n_reps,) int64) where seg[r] is the min of ``next_k`` over the
+    rows with ``row_rep == r``, and 2^60 for a replica with no row."""
+    m = ewma_fold_torch_ref(obs, lens, m0, first, ewma)
+    seg = torch.full((int(n_reps),), _BIG, dtype=torch.int64,
+                     device=next_k.device)
+    seg.scatter_reduce_(0, row_rep, next_k, "amin")
+    return m, seg

@@ -8,6 +8,10 @@ scheduler   Scheduler/Searcher protocols, Decision vocabulary, TrialView
 searchers   GridSearcher / RandomSearcher / ListSearcher /
             AdaptiveGridSearcher + ASHAScheduler
 spottune    the paper's theta + EarlyCurve top-mcnt policy as a Scheduler
+policies    Hyperband brackets, PBT exploit/explore, TrimTuner cost-aware
+            BO (ridge/grid) + its GP continuous relaxation (trimtuner-gp)
+registry    name -> factory registry (sweeps, conformance tests) +
+            supports_continuous space gating + describe() CLI
 tuner       Tuner facade + RunResult
 """
 
@@ -21,6 +25,14 @@ from repro_torch.tuner.events import (HourRotation, MetricReported,  # noqa: F40
 from repro_torch.tuner.scheduler import (CONTINUE, PAUSE, PROMOTE,  # noqa: F401
                                          STOP, Decision, DecisionKind,
                                          Scheduler, Searcher, TrialView)
+from repro_torch.tuner.policies import (HyperbandScheduler,  # noqa: F401
+                                        PBTScheduler, PBTSearcher,
+                                        TrimTunerGPSearcher,
+                                        TrimTunerSearcher)
+from repro_torch.tuner.registry import (POLICY_DEFAULTS,  # noqa: F401
+                                        SCHEDULERS, SEARCHERS, describe,
+                                        make_scheduler, make_searcher,
+                                        searcher_supports)
 from repro_torch.tuner.space import (Choice, Domain, IntUniform,  # noqa: F401
                                      LogUniform, Ordinal, SearchSpace,
                                      Uniform, config_hash)

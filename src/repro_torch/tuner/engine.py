@@ -53,7 +53,6 @@ import enum
 import heapq
 import itertools
 import math
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -126,12 +125,6 @@ class TrialState:
         return self.stopped
 
 
-def _exact_ticks_default() -> bool:
-    """REPRO_EXACT_TICKS=1 forces the legacy tick loop process-wide — the
-    lever benchmarks/run.py --exact uses to measure the fast-path speedup."""
-    return os.environ.get("REPRO_EXACT_TICKS", "0") not in ("", "0")
-
-
 @dataclasses.dataclass
 class EngineConfig:
     tick_s: float = 10.0
@@ -149,7 +142,7 @@ class EngineConfig:
     deploy_window_s: float = 0.0
     # False (default): event-driven boundary jumping; True: the legacy
     # tick-for-tick Algorithm 1 loop (the two are equivalence-pinned)
-    exact_ticks: bool = dataclasses.field(default_factory=_exact_ticks_default)
+    exact_ticks: bool = False
 
 
 def build_engine(market: SpotMarket, backend: TrialBackend, revpred,
