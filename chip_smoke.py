@@ -12,11 +12,19 @@ drives the port's two paths through them:
 * the fig9_sweep1000 grid (1000 replicas) through ``SweepRunner`` on the
   card, whose SoA rounds run the ``soa_step`` kernel (the EWMA fold and the
   per-replica boundary min), repeated on the CPU and compared replica by
-  replica, and a 20-replica sweep with RevPreds that reaches both kernels.
+  replica, and a 20-replica sweep with RevPreds that reaches both kernels;
+* the model server: zamba2-1.2b at full width (random weights from a seed)
+  through ``Server(device="cuda")``, 4 prompts of 512 tokens and 32 greedy
+  tokens each, whose prefill runs the ``flash_attention`` kernel (the
+  shared attention block, 7 times) and the ``ssd_chunk`` kernel (every
+  Mamba layer, 38 x 2 chunks), repeated on the card through the plain
+  versions (bf16 and float32) and compared, and the reduced zamba2 on the
+  card against the CPU.
 
-It profiles the card during the sweep and times both kernels beside their
-plain versions, their bounds and a PyTorch call where one exists.  Every
-phase is fatal on failure.  The last line of standard output is
+It profiles the card during the sweep and the serving run and times every
+kernel beside its plain version, its bound and a PyTorch call where one
+exists.  Every phase is fatal on failure.  The last line of standard output
+is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
@@ -207,7 +215,8 @@ def soa_bound_ms(lens, F, L, N, R):
     fold reads (sum of the windows), the per-row fold inputs and output,
     next_k and row_rep, and the R-slot result, each moved once over the HBM
     rate; against 3 float64 operations per observation and one compare per
-    boundary row over the float64 peak."""
+    boundary row over the float64 peak.  N = R = 0 is the fold-only entry
+    point."""
     import numpy as np
     n_obs = int(np.clip(lens, 0, L).sum())
     n_bytes = 8 * n_obs + F * (8 + 8 + 1 + 8 + 8) + N * 16 + R * 8
@@ -531,14 +540,17 @@ def soa_phases(torch) -> dict:
     dev_us = device_us_per_call(lambda: ksc.soa_step_fused_cuda(*T, R))
     plain_dev_us = device_us_per_call(lambda: ref.soa_step_fused_ref(*T, R),
                                       iters=10, warmup=2)
+    fold_dev_us = device_us_per_call(lambda: ksc.ewma_fold_cuda(*T[:5]))
     bound_ms, bound_by = soa_bound_ms(lens, F, L, N, R)
+    fold_bound_ms, fold_bound_by = soa_bound_ms(lens, F, L, 0, 0)
     print(f"(F, L, N, R) = {(F, L, N, R)}, float64 fold + int64 min: kernel "
           f"{ms:.5f} / {ms_b:.5f} ms, with the copies to and from the card "
           f"{ms_copies:.5f} / {ms_copies_b:.5f} ms, plain {plain_ms:.5f} / "
           f"{plain_ms_b:.5f} ms, fold-only entry {fold_ms:.5f} ms; bound "
           f"{bound_ms:.3g} ms ({bound_by})")
     print(f"card time per call (profiler): kernel {dev_us} us, plain "
-          f"{plain_dev_us} us")
+          f"{plain_dev_us} us; fold-only entry {fold_dev_us} us against its "
+          f"bound {fold_bound_ms:.3g} ms ({fold_bound_by})")
     print(f"library: torch.full + scatter_reduce_('amin') for the min half "
           f"alone {library_ms:.5f} ms (equal to the kernel's min: {lib_ok}); "
           "no single PyTorch call computes the fold")
@@ -553,6 +565,8 @@ def soa_phases(torch) -> dict:
         "max_abs_err": soa_err,
         "ms": ms, "kernel_ms": ms, "ms_with_copies": ms_copies,
         "plain_ms": plain_ms, "fold_only_ms": fold_ms,
+        "fold_only_device_us": fold_dev_us, "fold_only_bound_ms": fold_bound_ms,
+        "fold_only_bound_by": fold_bound_by,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "library": "torch.full + scatter_reduce_ amin, the min half alone",
@@ -565,6 +579,395 @@ def soa_phases(torch) -> dict:
                   "h2d_bytes": h2d, "d2h_bytes": d2h,
                   "card_busy_s": busy, "profiled_wall_s": prof_wall},
     }
+
+
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 4e-2}   # tests/test_kernels.py:53
+SSD_TOL = 1e-4                                     # tests/test_kernels.py:72
+# dt·|A| near 100: |cum| reaches ~6e3, where the float32 prefix sum's
+# order-dependent rounding (~4e-4) comes out of the exp as relative error
+SSD_LARGE_DECAY_TOL = 1e-2
+# kernel run against the plain run of the bf16 model on the card: the two
+# differ by float32 summation order inside the kernels, which flips a bf16
+# rounding here and there; 45 blocks carry those flips to the output
+SERVE_REL_TOL = 5e-2    # of the largest |value|: prefill logits, SSD states
+H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores, data sheet
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = (
+    "zamba2-1.2b", 4, 512, 32, 1024)
+
+
+def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes):
+    """Least time for one attention call: q, k, v read once and o written
+    once over the HBM rate, against the two products' multiply-adds over the
+    peak of the input type (bf16 tensor cores, or float32 outside them),
+    counting only the (query, key) pairs the mask keeps."""
+    n_bytes = elem_bytes * B * H * D * (2 * Sq + 2 * Sk)
+    if causal:
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    flops = 4.0 * B * H * pairs * D
+    peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bound_ms(B, Q, H, P, N):
+    """Least time for one SSD chunk (float32): x, dt, A, B, C and the state
+    read once, y and the new state written once, against the lower-triangle
+    score and output products, the state term and the state update over the
+    float32 peak outside the tensor cores."""
+    n_bytes = 4 * (B * Q * H * (2 * P + 1 + 2 * N) + H + 2 * B * H * P * N)
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * B * H * (tri * N + tri * P + 2 * Q * P * N)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def serve_phases(torch) -> tuple:
+    """The model-server slice: both kernels against their plain versions,
+    zamba2-1.2b served at full width on the card through the kernels and
+    through the plain versions (bf16, then float32), the reduced zamba2 on
+    the card against the CPU, the profile and the kernels' timing.  Returns
+    the two kernels' JSON rows."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.context import ModelCtx
+    from repro_torch.models.model import Model, tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+    # --------------------------------------- flash kernel against plain
+    phase("flash_attention kernel against its plain version")
+    cfg = get_config(SERVE_ARCH)
+    B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
+    cases = [(B, S, H, D, torch.bfloat16, c) for c in (True, False)]
+    cases += [(2, s, 4, 128, dt, c) for dt in (torch.float32, torch.bfloat16)
+              for s in (1, 200, 333) for c in (True, False)]
+    flash_err = {"float32": 0.0, "bfloat16": 0.0}
+    for b_, s_, h_, d_, dt, causal in cases:
+        q, k, v = (randn(b_, s_, h_, d_, dtype=dt) for _ in range(3))
+        o = kfa.flash_attention_cuda(q, k, v, causal)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        e = (o.float() - want.float()).abs().max().item()
+        tol = FLASH_TOL[names[dt]]
+        if not e <= tol:
+            fail(f"flash_attention {names[dt]} B={b_} S={s_} H={h_} D={d_} "
+                 f"causal={causal}: max abs err {e:.3g} > {tol}")
+        flash_err[names[dt]] = max(flash_err[names[dt]], e)
+    print(f"{len(cases)} cases (zamba2's prefill B={B} S={S} H={H} D={D} bf16 "
+          f"causal and not; f32 and bf16 at S in (1, 200, 333), D=128): max "
+          f"abs err f32 {flash_err['float32']:.3g} (tol {FLASH_TOL['float32']}), "
+          f"bf16 {flash_err['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']})")
+
+    # ----------------------------------------- ssd kernel against plain
+    phase("ssd_chunk kernel against its plain version")
+    Q, SH, SP, SN = cfg.ssm_chunk, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+
+    def ssd_inputs(b_, q_, h_, p_, n_, dt_scale=1.0):
+        dt = (torch.rand(b_, q_, h_, generator=gen) * 0.099 + 0.001) * dt_scale
+        A = -(torch.rand(h_, generator=gen) * 1.5 + 0.5)
+        return (randn(b_, q_, h_, p_), dt.cuda(), A.cuda(), randn(b_, q_, h_, n_),
+                randn(b_, q_, h_, n_), randn(b_, h_, p_, n_))
+
+    ssd_cases = [((B, Q, SH, SP, SN), 1.0), ((2, 32, 3, 8, 4), 1.0),
+                 ((1, 64, 2, 16, 8), 1.0), ((3, 16, 1, 4, 4), 1.0),
+                 ((2, 64, 3, 16, 8), 1000.0)]
+    ssd_err = 0.0
+    for shape, dt_scale in ssd_cases:
+        args = ssd_inputs(*shape, dt_scale=dt_scale)
+        y, st = kss.ssd_chunk_cuda(*args)
+        y2, st2 = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        tol = SSD_TOL if dt_scale == 1.0 else SSD_LARGE_DECAY_TOL
+        ok = all(torch.allclose(a, b_, rtol=tol, atol=tol)
+                 for a, b_ in ((y, y2), (st, st2)))
+        e = max((y - y2).abs().max().item(), (st - st2).abs().max().item())
+        r = max(((y - y2).abs() / y2.abs().clamp_min(1e-6)).max().item(),
+                ((st - st2).abs() / st2.abs().clamp_min(1e-6)).max().item())
+        if not (finite and ok):
+            fail(f"ssd_chunk {shape} dt x {dt_scale}: finite {finite}, max abs "
+                 f"err {e:.3g} (rtol = atol = {tol})")
+        if dt_scale == 1.0:
+            ssd_err = max(ssd_err, e)
+        else:
+            print(f"dt x {dt_scale} (dt|A| up to ~200): finite; max abs err "
+                  f"{e:.3g}, max rel err {r:.3g} (rtol = atol = {tol})")
+    print(f"{len(ssd_cases) - 1} cases (zamba2's chunk (B,Q,H,P,N) = "
+          f"{(B, Q, SH, SP, SN)} and tests/test_kernels.py's three shapes) "
+          f"agree within rtol = atol = {SSD_TOL}; max abs err {ssd_err:.3g}")
+
+    # -------------------------------------- the main path: the server
+    phase(f"main path: {SERVE_ARCH} served at full width on the card")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{cfg.name}: {n_params:,} parameters ({cfg.dtype}), {cfg.n_layers} "
+          f"Mamba2 layers (d_model {cfg.d_model}, {SH} SSD heads x {SP}, "
+          f"d_state {SN}, chunk {Q}) + the shared attention block x "
+          f"{model.n_shared_invocations} ({H} heads x {D}); random weights "
+          f"from seed 0, init {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT))
+    server = Server(cfg, params, max_len=SERVE_MAX_LEN, device="cuda")
+    plain = Server(cfg, params, ctx=ModelCtx(kernels="ref"),
+                   max_len=SERVE_MAX_LEN, device="cuda")
+    server.generate({"tokens": toks[:, :64]}, 2)         # warm-up
+    torch.cuda.synchronize()
+    kfa.LAUNCHES = kss.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = server.generate({"tokens": toks}, SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    fa_launches, ss_launches = kfa.LAUNCHES, kss.LAUNCHES
+    want_fa = model.n_shared_invocations
+    want_ss = cfg.n_layers * -(-SERVE_PROMPT // Q)
+    print(f"generate: {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens -> "
+          f"{tuple(out.shape)} tokens in {gen_s * 1e3:.1f} ms")
+    print(f"launches per prefill: flash_attention {fa_launches} (want "
+          f"{want_fa}), ssd_chunk {ss_launches} (want {cfg.n_layers} x "
+          f"{-(-SERVE_PROMPT // Q)} = {want_ss})")
+    if fa_launches != want_fa or ss_launches != want_ss:
+        fail("the server's prefill did not launch each kernel once per "
+             "attention block / SSD chunk")
+    if not (out.shape == (SERVE_BATCH, SERVE_NEW) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size):
+        fail("generated tokens out of range")
+
+    dev_tok = torch.as_tensor(toks, device="cuda").long()
+    with torch.inference_mode():
+        def prefill_ms(srv, n=3):
+            srv.prefill(dev_tok)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                srv.prefill(dev_tok)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n * 1e3
+        pre_ms = prefill_ms(server)
+        pre_plain_ms = prefill_ms(plain)
+        pre_ms_b = prefill_ms(server)
+        lg_k, cache_k = server.prefill(dev_tok)
+        lg_r, cache_r = plain.prefill(dev_tok)
+        torch.cuda.synchronize()
+    decode_ms = (gen_s * 1e3 - pre_ms) / (SERVE_NEW - 1)
+    print(f"prefill {pre_ms:.2f} / {pre_ms_b:.2f} ms through the kernels, "
+          f"{pre_plain_ms:.2f} ms through the plain versions; decode "
+          f"{decode_ms:.3f} ms per token step (generate less one prefill); "
+          f"{SERVE_BATCH * SERVE_NEW / gen_s:.1f} generated tokens/s, "
+          f"{SERVE_BATCH * SERVE_PROMPT / pre_ms * 1e3:.0f} prompt tokens/s")
+
+    phase("the same weights and prompts through the plain versions (bf16)")
+    out_r = plain.generate({"tokens": toks}, SERVE_NEW)
+    torch.cuda.synchronize()
+    lg_k, lg_r = lg_k.float()[:, -1], lg_r.float()[:, -1]
+    lg_err = (lg_k - lg_r).abs().max().item()
+    lg_tol = SERVE_REL_TOL * lg_r.abs().max().item()
+    st_k, st_r = cache_k["mamba"]["state"], cache_r["mamba"]["state"]
+    st_err = (st_k - st_r).abs().max().item()
+    st_tol = SERVE_REL_TOL * st_r.abs().max().item()
+    top2 = lg_r.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    sure = margin > lg_tol
+    first_ok = bool((out[:, 0] == out_r[:, 0])[sure].all())
+    same = int((out == out_r).sum())
+    print(f"prefill logits: max abs diff {lg_err:.4g} (tol {lg_tol:.4g} = "
+          f"{SERVE_REL_TOL} x max |logit| {lg_r.abs().max().item():.4g}); final "
+          f"SSD states ({tuple(st_r.shape)}): max abs diff {st_err:.4g} (tol "
+          f"{st_tol:.4g})")
+    print(f"first token: top-2 margins {[round(m, 4) for m in margin.tolist()]}; "
+          f"{int(sure.sum())} of {SERVE_BATCH} above the tolerance, equal there: "
+          f"{first_ok}; {same} of {out.numel()} generated tokens agree")
+    if not (lg_err <= lg_tol and st_err <= st_tol and first_ok):
+        fail("the bf16 server through the kernels and through the plain "
+             "versions disagree beyond the stated tolerance")
+
+    phase("the same in float32, through the kernels and the plain versions")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del cache_k, cache_r
+    s32 = Server(cfg32, p32, max_len=SERVE_MAX_LEN, device="cuda")
+    s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"),
+                   max_len=SERVE_MAX_LEN, device="cuda")
+    kfa.LAUNCHES = kss.LAUNCHES = 0
+    out32 = s32.generate({"tokens": toks}, SERVE_NEW)
+    torch.cuda.synchronize()
+    l32 = (kfa.LAUNCHES, kss.LAUNCHES)
+    out32_r = s32_r.generate({"tokens": toks}, SERVE_NEW)
+    with torch.inference_mode():
+        lg32_k = s32.prefill(dev_tok)[0].float()[:, -1]
+        lg32_r = s32_r.prefill(dev_tok)[0].float()[:, -1]
+    torch.cuda.synchronize()
+    same32 = int((out32 == out32_r).sum())
+    lg32_err = (lg32_k - lg32_r).abs().max().item()
+    bf16_dev = (lg_r - lg32_r).abs().max().item()
+    print(f"full depth ({cfg.n_layers} layers), float32 weights cast from the "
+          f"bf16 ones; launches {l32}; {same32} of {out32.numel()} tokens equal; "
+          f"prefill logits kernels against plain: max abs diff {lg32_err:.4g}")
+    print(f"bf16 rounding alone: the plain bf16 run's prefill logits are "
+          f"{bf16_dev:.4g} (max abs) from the plain float32 run's")
+    if same32 != out32.numel():
+        fail("float32 serving through the kernels and the plain versions "
+             "generated different tokens")
+    del p32, s32, s32_r
+
+    phase("reduced zamba2 (float32) on the card against the CPU")
+    rcfg = dataclasses.replace(get_config(SERVE_ARCH, reduced=True),
+                               dtype="float32")
+    rparams = Model(rcfg).init(torch.Generator().manual_seed(0), device="cpu")
+    rtoks = np.random.default_rng(1).integers(0, rcfg.vocab_size, size=(4, 100))
+    r_card = Server(rcfg, tree_map(lambda t: t.cuda(), rparams), max_len=160,
+                    device="cuda").generate({"tokens": rtoks}, 32)
+    r_cpu = Server(rcfg, rparams, max_len=160, device="cpu").generate(
+        {"tokens": rtoks}, 32)
+    r_same = bool(torch.equal(r_card.cpu(), r_cpu))
+    print(f"{rcfg.name}: 4 x 100 prompt tokens, 32 new: card and CPU tokens "
+          f"equal: {r_same}")
+    if not r_same:
+        fail("the reduced zamba2 generates different tokens on card and CPU")
+
+    # ------------------------------------------------ where the time goes
+    phase(f"{SERVE_ARCH} prefill and decode under torch.profiler")
+    from torch.profiler import ProfilerActivity, profile
+    spans = {}
+    with torch.inference_mode():
+        for what in ("prefill", "decode"):
+            logits, cache = server.prefill(dev_tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if what == "prefill":
+                    server.prefill(dev_tok)
+                else:
+                    for i in range(SERVE_NEW - 1):
+                        tok, cache = server.step(cache, tok, SERVE_PROMPT + i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            iv = device_intervals(prof)
+            spans[what] = (wall, iv)
+    kern_us = {}
+    for what, (wall, iv) in spans.items():
+        busy = busy_us(iv) / 1e6
+        by = {}
+        for s0, s1, nm in iv:
+            key = ("flash_attention kernel" if "flash_attention_kernel" in nm
+                   else "ssd_chunk kernel" if "ssd_chunk_kernel" in nm
+                   else "gemm" if "gemm" in nm.lower() or "cutlass" in nm.lower()
+                   or "sm90" in nm.lower() else "other")
+            n, tsum = by.get(key, (0, 0.0))
+            by[key] = (n + 1, tsum + (s1 - s0) / 1e6)
+        print(f"{what}: wall {wall * 1e3:.2f} ms (profiler on), {len(iv)} "
+              f"kernels, card busy {busy * 1e3:.2f} ms = "
+              f"{100 * busy / wall:.2f}%, idle {100 * (1 - busy / wall):.2f}%")
+        for key, (n, tsum) in sorted(by.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {tsum * 1e3:9.3f} ms  {100 * tsum / max(busy, 1e-12):6.2f}% "
+                  f"of busy  {n:6d} launches  {key}")
+            if key.endswith("kernel"):
+                kern_us[key] = tsum / n * 1e6
+    print(f"card time per call over the prefill: flash_attention "
+          f"{kern_us.get('flash_attention kernel')} us, ssd_chunk "
+          f"{kern_us.get('ssd_chunk kernel')} us")
+
+    # -------------------------------------------------------------- timing
+    phase("flash_attention and ssd_chunk timing at zamba2's shapes "
+          "(CUDA events)")
+    import torch.nn.functional as F
+    q, k, v = (randn(B, S, H, D, dtype=torch.bfloat16) for _ in range(3))
+    fa_ms = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
+    fa_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
+    fa_ms_b = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
+    fa_plain_b = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_err = (sdpa().transpose(1, 2).float()
+               - kfa.flash_attention_cuda(q, k, v, True).float()).abs().max().item()
+    fa_lib = cuda_ms(sdpa, iters=200)
+    fa_dev = device_us_per_call(lambda: kfa.flash_attention_cuda(q, k, v, True),
+                                iters=50)
+    fa_plain_dev = device_us_per_call(
+        lambda: ref.flash_attention_ref(q, k, v, True), iters=10, warmup=2)
+    fa_bound, fa_by = flash_bound_ms(B, S, S, H, D, True, 2)
+    print(f"flash_attention (B,S,H,D) = {(B, S, H, D)} bf16 causal: kernel "
+          f"{fa_ms:.4f} / {fa_ms_b:.4f} ms, plain {fa_plain:.4f} / "
+          f"{fa_plain_b:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms "
+          f"(agrees with the kernel to {lib_err:.3g}); bound {fa_bound:.4g} ms "
+          f"({fa_by}); card time per call (profiler): kernel {fa_dev} us, "
+          f"plain {fa_plain_dev} us")
+    args = ssd_inputs(B, Q, SH, SP, SN)
+    ss_ms = cuda_ms(lambda: kss.ssd_chunk_cuda(*args), iters=200)
+    ss_plain = cuda_ms(lambda: ref.ssd_chunk_ref(*args), iters=30)
+    ss_ms_b = cuda_ms(lambda: kss.ssd_chunk_cuda(*args), iters=200)
+    ss_plain_b = cuda_ms(lambda: ref.ssd_chunk_ref(*args), iters=30)
+    ss_dev = device_us_per_call(lambda: kss.ssd_chunk_cuda(*args), iters=50)
+    ss_plain_dev = device_us_per_call(lambda: ref.ssd_chunk_ref(*args),
+                                      iters=10, warmup=2)
+    ss_bound, ss_by = ssd_bound_ms(B, Q, SH, SP, SN)
+    print(f"ssd_chunk (B,Q,H,P,N) = {(B, Q, SH, SP, SN)} f32: kernel "
+          f"{ss_ms:.4f} / {ss_ms_b:.4f} ms, plain {ss_plain:.4f} / "
+          f"{ss_plain_b:.4f} ms; bound {ss_bound:.4g} ms ({ss_by}); card time "
+          f"per call (profiler): kernel {ss_dev} us, plain {ss_plain_dev} us; "
+          f"no single PyTorch call computes the chunk")
+    serve = {"arch": cfg.name, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+             "new_tokens": SERVE_NEW, "prefill_ms": pre_ms,
+             "prefill_plain_ms": pre_plain_ms, "decode_ms_per_token": decode_ms,
+             "generated_tokens_per_s": SERVE_BATCH * SERVE_NEW / gen_s,
+             "prefill_busy_ms": busy_us(spans["prefill"][1]) / 1e3,
+             "prefill_wall_ms": spans["prefill"][0] * 1e3,
+             "decode_busy_ms": busy_us(spans["decode"][1]) / 1e3,
+             "decode_wall_ms": spans["decode"][0] * 1e3,
+             "bf16_logit_err": lg_err, "bf16_state_err": st_err,
+             "f32_logit_err": lg32_err, "bf16_plain_vs_f32_logit_dev": bf16_dev,
+             "bf16_tokens_equal": same, "f32_tokens_equal": same32}
+    flash_row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77 "
+                    "(flash_attention_pallas)",
+        "launches": fa_launches, "max_abs_err": max(flash_err.values()),
+        "max_err_f32": flash_err["float32"], "max_err_bf16": flash_err["bfloat16"],
+        "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
+        "bound_by": fa_by, "library_ms": fa_lib,
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": "bfloat16",
+                  "causal": True},
+        "device_us": fa_dev, "plain_device_us": fa_plain_dev,
+        "prefill_device_us": kern_us.get("flash_attention kernel"),
+        "serve": serve,
+    }
+    ssd_row = {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:55 (ssd_chunk_pallas)",
+        "launches": ss_launches, "max_abs_err": ssd_err,
+        "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
+        "bound_by": ss_by, "library_ms": None,
+        "shape": {"B": B, "Q": Q, "H": SH, "P": SP, "N": SN, "dtype": "float32"},
+        "device_us": ss_dev, "plain_device_us": ss_plain_dev,
+        "prefill_device_us": kern_us.get("ssd_chunk kernel"),
+    }
+    return flash_row, ssd_row
 
 
 def main() -> None:
@@ -777,8 +1180,9 @@ def main() -> None:
     }
 
     soa_row = soa_phases(torch)
+    flash_row, ssd_row = serve_phases(torch)
     print(smi)
-    print(json.dumps({"kernels": [lstm_row, soa_row]}))
+    print(json.dumps({"kernels": [lstm_row, soa_row, flash_row, ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

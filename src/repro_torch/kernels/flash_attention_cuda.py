@@ -1,0 +1,81 @@
+"""Wrapper of the hand-written flash-attention CUDA kernel.
+
+``csrc/flash_attention.cu`` replaces the Pallas kernel
+``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (see its
+header for the design).  It is compiled by ``build.py`` at first use and
+called through ``ctypes`` on PyTorch's current stream.  q, k and v are read
+through their strides; a tensor whose last dimension is not contiguous is
+copied first (``.contiguous()``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+#: launches of the kernel since the count was last set to 0
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"flash_attention_cuda: {name} must be a CUDA tensor")
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention_cuda: {name} is {t.dtype}; q, k and "
+                            "v must all be float32 or all bfloat16")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention_cuda: {name} must be (B, S, H, D)")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, q "
+                             f"on {q.device}")
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if tuple(k.shape) != (B, Sk, H, D) or tuple(v.shape) != (B, Sk, H, D):
+        raise ValueError(f"flash_attention_cuda: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, Sk, H, D) with q's "
+                         f"B, H, D = {B}, {H}, {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+    if Sk == 0:
+        raise ValueError("flash_attention_cuda: no keys (Sk = 0)")
+    return B, Sq, Sk, H, D
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
+    """The kernel on CUDA tensors; the arguments of
+    ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type."""
+    global LAUNCHES
+    B, Sq, Sk, H, D = _check(q, k, v)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0 or H == 0:
+        return o
+    scale = float(scale if scale is not None else D ** -0.5)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B, Sq, Sk, H, D, *strides, scale, int(bool(causal)),
+                _DTYPES[q.dtype], q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed (code {err})")
+    LAUNCHES += 1
+    return o

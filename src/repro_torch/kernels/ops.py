@@ -9,8 +9,10 @@ plain version on any device, for tests and ``chip_smoke.py``.
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention_cuda import flash_attention_cuda
 from repro_torch.kernels.lstm_cell import lstm_cell_cuda
 from repro_torch.kernels.soa_step_cuda import ewma_fold_cuda, soa_step_fused_cuda
+from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_cuda
 
 
 def lstm_cell(x, h, c, w_ih, w_hh, b, force: str | None = None):
@@ -45,3 +47,26 @@ def ewma_fold(obs, lens, m0, first, ewma, force: str | None = None):
     if mode == "cuda":
         return ewma_fold_cuda(obs, lens, m0, first, ewma)
     raise ValueError(f"unknown ewma_fold mode {mode!r}")
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None,
+                    force: str | None = None):
+    """Attention over (B, S, H, D) with shared H -> (B, Sq, H, D) in q's
+    type.  force: None (by device) | 'ref' | 'cuda'."""
+    mode = force or ("cuda" if q.is_cuda else "ref")
+    if mode == "ref":
+        return ref.flash_attention_ref(q, k, v, causal, scale)
+    if mode == "cuda":
+        return flash_attention_cuda(q, k, v, causal, scale)
+    raise ValueError(f"unknown flash_attention mode {mode!r}")
+
+
+def ssd_chunk(x, dt, A, B_in, C_in, state, force: str | None = None):
+    """One Mamba2 SSD chunk -> (y, new_state), float32.
+    force: None (by device) | 'ref' | 'cuda'."""
+    mode = force or ("cuda" if x.is_cuda else "ref")
+    if mode == "ref":
+        return ref.ssd_chunk_ref(x, dt, A, B_in, C_in, state)
+    if mode == "cuda":
+        return ssd_chunk_cuda(x, dt, A, B_in, C_in, state)
+    raise ValueError(f"unknown ssd_chunk mode {mode!r}")

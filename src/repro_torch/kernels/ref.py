@@ -57,3 +57,51 @@ def soa_step_fused_ref(obs, lens, m0, first, ewma, next_k, row_rep,
                      device=next_k.device)
     seg.scatter_reduce_(0, row_rep, next_k, "amin")
     return m, seg
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
+    """Plain softmax attention, what ``flash_attention_pallas`` computes.
+    q (B,Sq,H,D); k, v (B,Sk,H,D) with the same H.  Scores, softmax and the
+    product are float32; the output comes back in q's type.  The causal
+    mask is qpos >= kpos with no offset; masked scores are -1e30."""
+    f32 = torch.float32
+    D = q.shape[-1]
+    Sq, Sk = q.shape[1], k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full((), -1e30, dtype=f32, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))
+    return o.to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, A, B_in, C_in, state):
+    """One Mamba2 SSD chunk with its incoming state: the arithmetic of the
+    JAX package's ``models.ssd._chunk_scan_step`` (what ``ssd_chunk_pallas``
+    tiles), in float32.  x (B,Q,H,P); dt (B,Q,H); A (H,); B_in, C_in
+    (B,Q,H,N); state (B,H,P,N) -> (y (B,Q,H,P), new_state (B,H,P,N)).
+    ``seg`` is masked before the exp: above the diagonal it is positive and
+    would overflow to inf."""
+    f32 = torch.float32
+    x, dt, A = x.to(f32), dt.to(f32), A.to(f32)
+    B_in, C_in, state = B_in.to(f32), C_in.to(f32), state.to(f32)
+    a = dt * A                                                  # (B,Q,H)
+    cum = torch.cumsum(a, dim=1)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]               # (B,Qi,Qj,H)
+    Q = x.shape[1]
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    mask = mask[None, :, :, None]
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    decay = torch.where(mask, torch.exp(torch.where(mask, seg, zero)), zero)
+    scores = torch.einsum("bihn,bjhn->bijh", C_in, B_in) * decay
+    xbar = x * dt[..., None]
+    y = torch.einsum("bijh,bjhp->bihp", scores, xbar)
+    y = y + torch.einsum("bhpn,bihn->bihp", state, C_in * torch.exp(cum)[..., None])
+    chunk_decay = torch.exp(cum[:, -1])                         # (B,H)
+    w = torch.exp(cum[:, -1:, :] - cum)                         # (B,Q,H)
+    new_state = state * chunk_decay[:, :, None, None] + torch.einsum(
+        "bjhp,bjhn->bhpn", xbar * w[..., None], B_in)
+    return y, new_state

@@ -1,0 +1,60 @@
+"""Serving: one prefill, then batched greedy decode.
+
+The port of ``repro.launch.serve``: one prefill over the prompts, then a
+host loop of single-token decode steps, each feeding back the argmax.  On
+the card the prefill runs the ``flash_attention`` and ``ssd_chunk`` kernels
+(through ``Model.prefill``); decode is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.context import ModelCtx, null_ctx
+from repro_torch.models.model import Model
+
+
+class Server:
+    """Batched greedy-decoding server for one model.  ``params`` must lie on
+    ``device`` (``Model.init`` or ``params_from_numpy`` with that device)."""
+
+    def __init__(self, cfg, params, ctx: Optional[ModelCtx] = None,
+                 max_len: int = 512, device="cuda"):
+        self.cfg = cfg
+        self.model = Model(cfg)
+        self.device = resolve_device(device)
+        self.params = params
+        self.ctx = ctx or null_ctx()
+        self.max_len = max_len
+
+    def prefill(self, tokens):
+        """(last-position logits (B,1,V), cache padded to ``max_len``)."""
+        return self.model.prefill(self.params, {"tokens": tokens}, self.ctx,
+                                  cache_len=self.max_len)
+
+    def step(self, cache, tok, pos: int):
+        """One decode step -> (next tokens (B,1) int64, cache)."""
+        logits, cache = self.model.decode_step(self.params, cache, tok, pos,
+                                               self.ctx)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
+
+    @torch.inference_mode()
+    def generate(self, batch: dict, max_new_tokens: int = 32):
+        """batch: prefill inputs ({'tokens': (B, S_prompt)}, numpy or a
+        tensor).  Returns (B, max_new_tokens) int32 greedy continuations, on
+        the server's device."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        prompt_len = tokens.shape[1]
+        if prompt_len + max_new_tokens > self.max_len:
+            raise ValueError(f"prompt {prompt_len} + {max_new_tokens} new tokens "
+                             f"exceeds max_len {self.max_len}")
+        logits, cache = self.prefill(tokens)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            tok, cache = self.step(cache, tok, prompt_len + i)
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32)

@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.core import revpred as rp
 from repro_torch.kernels import lstm_cell as klc
+from repro_torch.kernels import flash_attention_cuda as kfa
 from repro_torch.kernels import ops, ref, soa_step
 from repro_torch.kernels import soa_step_cuda as ksc
+from repro_torch.kernels import ssd_chunk_cuda as kss
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -142,3 +144,154 @@ def test_soa_step_kernel_rejects_what_it_does_not_take(card):
         ksc.soa_step_fused_cuda(*T[:5], T[5].cpu(), T[6], R)
     with pytest.raises(ValueError, match="contiguous"):
         ksc.ewma_fold_cuda(T[0].t().contiguous().t(), *T[1:5])
+
+
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 4e-2}
+SSD_TOL = 1e-4
+
+
+def _randn(gen, *shape, dtype=torch.float32, device="cuda", scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,D,dtype", [
+    (4, 512, 32, 64, torch.bfloat16),          # zamba2-1.2b's prefill
+    (2, 1, 4, 128, torch.float32), (2, 200, 4, 128, torch.float32),
+    (2, 333, 4, 128, torch.float32), (2, 1, 4, 128, torch.bfloat16),
+    (2, 200, 4, 128, torch.bfloat16), (2, 333, 4, 128, torch.bfloat16),
+    (2, 37, 4, 16, torch.float32), (1, 70, 2, 32, torch.bfloat16),
+])
+def test_flash_attention_kernel_matches_ref(B, S, H, D, dtype, causal, card):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (_randn(gen, B, S, H, D, dtype=dtype, device=card) for _ in range(3))
+    before = kfa.LAUNCHES
+    o = ops.flash_attention(q, k, v, causal)
+    assert kfa.LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == (B, S, H, D)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_strides_and_sq_ne_sk(card):
+    gen = torch.Generator().manual_seed(1)
+    wide = _randn(gen, 2, 96, 8, 64, device=card)
+    q = wide[:, 10:50, :4]                       # strided in S and H
+    k = _randn(gen, 2, 70, 4, 64, device=card)
+    v = _randn(gen, 2, 4, 70, 64, device=card).transpose(1, 2)
+    for causal in (True, False):
+        o = kfa.flash_attention_cuda(q, k, v, causal, scale=0.2)
+        want = ref.flash_attention_ref(q, k, v, causal, scale=0.2)
+        torch.testing.assert_close(o, want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
+    q = torch.zeros(1, 8, 2, 64, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        kfa.flash_attention_cuda(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(TypeError):
+        kfa.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kfa.flash_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="shape|must be"):
+        kfa.flash_attention_cuda(q, q[:, :, :1], q)
+
+
+def _ssd_inputs(gen, B, Q, H, P, N, device, dt_scale=1.0):
+    x = _randn(gen, B, Q, H, P, device=device)
+    dt = (torch.rand(B, Q, H, generator=gen) * 0.099 + 0.001) * dt_scale
+    A = -(torch.rand(H, generator=gen) * 1.5 + 0.5)
+    return (x, dt.to(device), A.to(device), _randn(gen, B, Q, H, N, device=device),
+            _randn(gen, B, Q, H, N, device=device), _randn(gen, B, H, P, N, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,H,P,N", [
+    (4, 256, 64, 64, 64),                      # zamba2-1.2b's chunk
+    (2, 32, 3, 8, 4), (1, 64, 2, 16, 8), (3, 16, 1, 4, 4),
+    (1, 256, 4, 64, 128),                      # mamba2-130m's state width
+    (2, 200, 3, 16, 16), (1, 1, 2, 64, 64),
+])
+def test_ssd_chunk_kernel_matches_ref(B, Q, H, P, N, card):
+    args = _ssd_inputs(torch.Generator().manual_seed(0), B, Q, H, P, N, card)
+    before = kss.LAUNCHES
+    y, s = ops.ssd_chunk(*args)
+    assert kss.LAUNCHES == before + 1
+    y2, s2 = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y2, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(s, s2, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# With dt·|A| near 100 the cumulative log-decay reaches |cum| ~ 6e3, where a
+# float32 prefix sum carries ~4e-4 of rounding that depends on the order of
+# the adds (the kernel's warp scan against torch.cumsum), and exp turns that
+# into the same relative error: 2.4e-3 seen on an H100.
+LARGE_DECAY_TOL = 1e-2
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_large_decay_is_finite(card):
+    """dt·|A| near 100 (dt scaled by 1000): the upper triangle's
+    cum_i - cum_j is large and positive, masked before the exp."""
+    args = _ssd_inputs(torch.Generator().manual_seed(2), 2, 64, 3, 16, 8, card,
+                       dt_scale=1000.0)
+    y, s = kss.ssd_chunk_cuda(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y2, s2 = ref.ssd_chunk_ref(*args)
+    tol = LARGE_DECAY_TOL
+    torch.testing.assert_close(y, y2, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s2, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_reads_chunk_slices_in_place(card):
+    x, dt, A, Bm, Cm, st = _ssd_inputs(torch.Generator().manual_seed(3),
+                                       2, 128, 4, 32, 16, card)
+    sl = slice(64, 128)
+    got = kss.ssd_chunk_cuda(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl], st)
+    want = kss.ssd_chunk_cuda(*(t[:, sl].contiguous() for t in (x, dt)), A,
+                              *(t[:, sl].contiguous() for t in (Bm, Cm)), st)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_rejects_what_it_does_not_take(card):
+    args = list(_ssd_inputs(torch.Generator().manual_seed(4), 1, 16, 2, 8, 4, card))
+    with pytest.raises(TypeError, match="float32"):
+        kss.ssd_chunk_cuda(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        kss.ssd_chunk_cuda(*args[:5], args[5][:, :, :4])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kss.ssd_chunk_cuda(*args[:2], args[2].cpu(), *args[3:])
+    big = _ssd_inputs(torch.Generator().manual_seed(5), 1, 16, 1, 72, 4, card)
+    with pytest.raises(ValueError, match="P <="):
+        kss.ssd_chunk_cuda(*big)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_serves_the_same_tokens_on_card_and_cpu(card):
+    """The port's server at float32 on the card (both kernels) and on the
+    CPU (plain versions) from the same weights: equal greedy tokens."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.model import Model, tree_map
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True),
+                              dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    fa, ss = kfa.LAUNCHES, kss.LAUNCHES
+    got = Server(cfg, tree_map(lambda t: t.to(card), params), max_len=64,
+                 device=card).generate({"tokens": toks}, 12)
+    model = Model(cfg)
+    assert kfa.LAUNCHES - fa == model.n_shared_invocations
+    assert kss.LAUNCHES - ss == cfg.n_layers * -(-40 // cfg.ssm_chunk)
+    want = Server(cfg, params, max_len=64, device="cpu").generate({"tokens": toks}, 12)
+    assert torch.equal(got.cpu(), want)
