@@ -7,16 +7,19 @@ nvcc, holds each kernel against its plain PyTorch version on the card, and
 drives the port's two paths through them:
 
 * the SpotTune tuning loop (12-day market, 16 trials, theta=0.7, mcnt=3) with
-  a RevPred whose LSTM cell is the ``lstm_cell`` kernel, repeated on the CPU
-  through the plain versions and compared;
+  a RevPred whose LSTM stack is one ``lstm_stack`` launch per forward (the
+  ``lstm_cell`` kernel is held against its plain version alone), repeated on
+  the CPU through the plain versions and compared;
 * the fig9_sweep1000 grid (1000 replicas) through ``SweepRunner`` on the
   card, whose SoA rounds run the ``soa_step`` kernel (the EWMA fold and the
   per-replica boundary min), repeated on the CPU and compared replica by
-  replica, and a 20-replica sweep with RevPreds that reaches both kernels;
+  replica, and a 20-replica sweep with RevPreds that reaches lstm_stack
+  and soa_step;
 * the model server: zamba2-1.2b at full width (random weights from a seed)
   through ``Server(device="cuda")``, 4 prompts of 512 tokens and 32 greedy
   tokens each, whose prefill runs the ``flash_attention`` kernel (the
-  shared attention block, 7 times) and the ``ssd_chunk`` kernel (every
+  shared attention block, 7 times, on its bf16 tensor-core route; the
+  float32 run takes its FFMA route) and the ``ssd_chunk`` kernel (every
   Mamba layer, 38 x 2 chunks), repeated on the card through the plain
   versions (bf16 and float32) and compared, and the reduced zamba2 on the
   card against the CPU.
@@ -145,6 +148,67 @@ def cell_bound_ms(G, B, I, H, elem_bytes=4):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# (I, T, H, G, B): RevPred's history (I = 6, T = 59) and Tributary's
+# (I = 7, T = 60), hidden 16 and 32, one group, the 6-market pool and a
+# 40-row cross-replica batch, batch 1 and 4
+STACK_SHAPES = [(I, T, H, G, B) for I, T in ((6, 59), (7, 60)) for H in (16, 32)
+                for G in (1, 6, 40) for B in (1, 4)]
+STACK_LAYERS = 3
+
+
+def stack_inputs(G, B, T, I, H, dtype, device, seed=0):
+    """Seeded xs (G,B,T,I) and three layers of weights and biases."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, dtype)
+
+    layers = []
+    for n in range(STACK_LAYERS):
+        d = I if n == 0 else H
+        layers.append({"w_ih": rnd(G, d, 4 * H, scale=d ** -0.5),
+                       "w_hh": rnd(G, H, 4 * H, scale=H ** -0.5),
+                       "b": rnd(G, 4 * H, scale=0.1)})
+    return rnd(G, B, T, I), layers
+
+
+def stack_bound_ms(G, B, T, I, H, elem_bytes=4):
+    """Least time for one stack call: x, every layer's weights and the
+    output moved once over the HBM rate, against the float32 operations
+    (both products and the elementwise tail, every step of every layer)
+    over the float32 peak.  It ignores that the steps depend on each
+    other: STACK_LAYERS x T of them run one after another."""
+    ins = [I] + [H] * (STACK_LAYERS - 1)
+    n_bytes = elem_bytes * (G * B * T * I + G * B * H
+                            + G * sum((i + H + 1) * 4 * H for i in ins))
+    flops = G * B * T * sum(2 * (i + H) * 4 * H + 4 * H + 10 * H for i in ins)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class ForwardCounter:
+    """Counts RevPred / Tributary LSTM-stack forwards by wrapping
+    ``revpred._run_lstm_stack`` (the forwards look it up at call time); the
+    wrapper calls straight through, so the kernels' counts are untouched."""
+
+    def __enter__(self):
+        from repro_torch.core import revpred as rp
+        self.mod, self.saved, self.n = rp, rp._run_lstm_stack, 0
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self.saved(*args, **kwargs)
+
+        rp._run_lstm_stack = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_lstm_stack = self.saved
+        return False
 
 
 def untrained_revpred(market, device, hidden=32, pos_frac=0.2):
@@ -442,16 +506,19 @@ def soa_phases(torch) -> dict:
 
     # ------------------------------------------- RevPred sweep, card/CPU
     phase("sweep with RevPred on the card (untrained weights)")
-    klc.LAUNCHES = 0
+    klc.LAUNCHES = klc.STACK_LAUNCHES = 0
     ksc.LAUNCHES = ksc.FOLD_LAUNCHES = 0
-    rp_tuners, rp_card, rp_wall = revpred_sweep("cuda")
-    rp_cell, rp_soa = klc.LAUNCHES, ksc.LAUNCHES
-    print(f"{len(rp_tuners)} replicas in {rp_wall:.3f} s; lstm_cell launches "
+    with ForwardCounter() as fwd:
+        rp_tuners, rp_card, rp_wall = revpred_sweep("cuda")
+    rp_cell, rp_stack, rp_soa = klc.LAUNCHES, klc.STACK_LAUNCHES, ksc.LAUNCHES
+    print(f"{len(rp_tuners)} replicas in {rp_wall:.3f} s; lstm_stack launches "
+          f"{rp_stack} for {fwd.n} RevPred forwards, lstm_cell launches "
           f"{rp_cell}, soa_step launches {rp_soa} "
           f"(fold-only {ksc.FOLD_LAUNCHES}); RevPred queries "
           f"{sum(len(rp._p_cache) for rp in rp_card.values())}")
-    if rp_cell <= 0 or rp_soa <= 0:
-        fail("the RevPred sweep did not launch both lstm_cell and soa_step")
+    if rp_stack <= 0 or rp_stack != fwd.n or rp_cell != 0 or rp_soa <= 0:
+        fail("the RevPred sweep did not launch lstm_stack once per forward "
+             "(and lstm_cell no time) and soa_step")
     cpu_tuners, rp_cpu, rp_cpu_wall = revpred_sweep("cpu")
     p_err, n_common = 0.0, 0
     for seed, rp in rp_card.items():
@@ -461,10 +528,11 @@ def soa_phases(torch) -> dict:
                 n_common += 1
                 p_err = max(p_err, abs(p - other[k]))
     same_cost = all(a.result.cost == b.result.cost
+                    and a.result.refunded == b.result.refunded
                     and a.result.predicted_rank == b.result.predicted_rank
                     for a, b in zip(rp_tuners, cpu_tuners))
     print(f"cpu wall {rp_cpu_wall:.3f} s; {n_common} common RevPred queries, "
-          f"max abs diff {p_err:.3g} (tol {P_CACHE_TOL}); costs and rankings "
+          f"max abs diff {p_err:.3g} (tol {P_CACHE_TOL}); costs, refunds and rankings "
           f"equal: {same_cost}")
     if not n_common or not p_err <= P_CACHE_TOL or not same_cost:
         fail("the RevPred sweep differs between the card and the CPU")
@@ -488,8 +556,8 @@ def soa_phases(torch) -> dict:
             kind = "soa_step kernel"
             n_soa += 1
             soa_s += d
-        elif "lstm_cell_kernel" in nm:
-            kind = "lstm_cell kernel"
+        elif "lstm_stack_kernel" in nm or "lstm_cell_kernel" in nm:
+            kind = "lstm kernels"
         elif "memcpy" in nm.lower():
             kind = "copies (" + ("H2D" if "HtoD" in nm else "D2H") + ")"
         elif "memset" in nm.lower():
@@ -573,6 +641,11 @@ def soa_phases(torch) -> dict:
         "shape": {"F": F, "L": L, "N": N, "R": R},
         "device_us": dev_us, "plain_device_us": plain_dev_us,
         "sweep_device_us_per_call": sweep_us,
+        "revpred_sweep": {"replicas": len(rp_tuners), "wall_s": rp_wall,
+                          "forwards": fwd.n, "lstm_stack_launches": rp_stack,
+                          "lstm_cell_launches": rp_cell,
+                          "soa_step_launches": rp_soa,
+                          "cpu_wall_s": rp_cpu_wall, "max_p_diff": p_err},
         "sweep": {"replicas": len(grid), "wall_s": card_wall,
                   "replicas_per_s": len(grid) / card_wall,
                   "cpu_wall_s": cpu_wall, "rounds": rounds,
@@ -653,25 +726,57 @@ def serve_phases(torch) -> tuple:
     phase("flash_attention kernel against its plain version")
     cfg = get_config(SERVE_ARCH)
     B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
-    cases = [(B, S, H, D, torch.bfloat16, c) for c in (True, False)]
-    cases += [(2, s, 4, 128, dt, c) for dt in (torch.float32, torch.bfloat16)
-              for s in (1, 200, 333) for c in (True, False)]
+    # (B, Sq, Sk, H, D, dtype, causal): zamba2's prefill; the bf16 wgmma
+    # kernel at every head dim, S in (1, 200, 333, 512) with Sk = Sq and
+    # Sk = Sq + 37; the float32 FFMA kernel at S in (1, 200, 333), D = 128
+    cases = [(B, S, S, H, D, torch.bfloat16, c) for c in (True, False)]
+    cases += [(2, s, sk, 4, d, torch.bfloat16, c) for d in (16, 32, 64, 128)
+              for s in (1, 200, 333, 512) for sk in (s, s + 37)
+              for c in (True, False)]
+    cases += [(2, s, s, 4, 128, torch.float32, c) for s in (1, 200, 333)
+              for c in (True, False)]
     flash_err = {"float32": 0.0, "bfloat16": 0.0}
-    for b_, s_, h_, d_, dt, causal in cases:
-        q, k, v = (randn(b_, s_, h_, d_, dtype=dt) for _ in range(3))
-        o = kfa.flash_attention_cuda(q, k, v, causal)
-        want = ref.flash_attention_ref(q, k, v, causal)
+
+    def check_flash(q, k, v, causal, what, scale=None):
+        o = kfa.flash_attention_cuda(q, k, v, causal, scale)
+        want = ref.flash_attention_ref(q, k, v, causal, scale)
         torch.cuda.synchronize()
         e = (o.float() - want.float()).abs().max().item()
-        tol = FLASH_TOL[names[dt]]
-        if not e <= tol:
-            fail(f"flash_attention {names[dt]} B={b_} S={s_} H={h_} D={d_} "
-                 f"causal={causal}: max abs err {e:.3g} > {tol}")
-        flash_err[names[dt]] = max(flash_err[names[dt]], e)
-    print(f"{len(cases)} cases (zamba2's prefill B={B} S={S} H={H} D={D} bf16 "
-          f"causal and not; f32 and bf16 at S in (1, 200, 333), D=128): max "
-          f"abs err f32 {flash_err['float32']:.3g} (tol {FLASH_TOL['float32']}), "
-          f"bf16 {flash_err['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']})")
+        tol = FLASH_TOL[names[q.dtype]]
+        if not (o.shape == q.shape and e <= tol):
+            fail(f"flash_attention {names[q.dtype]} {what} causal={causal}: "
+                 f"max abs err {e:.3g} > {tol}")
+        flash_err[names[q.dtype]] = max(flash_err[names[q.dtype]], e)
+
+    wg0 = kfa.WGMMA_LAUNCHES
+    for b_, s_, sk_, h_, d_, dt, causal in cases:
+        q = randn(b_, s_, h_, d_, dtype=dt)
+        k, v = (randn(b_, sk_, h_, d_, dtype=dt) for _ in range(2))
+        check_flash(q, k, v, causal, f"B={b_} Sq={s_} Sk={sk_} H={h_} D={d_}")
+    # strided views: q sliced in S and H, v a (B, H, S, D) tensor transposed,
+    # and the model's own layout (attention.py's q, k, v of one projection)
+    for dt in (torch.bfloat16, torch.float32):
+        wide = randn(2, 96, 8, 64, dtype=dt)
+        q = wide[:, 10:50, :4]
+        k = randn(2, 70, 4, 64, dtype=dt)
+        v = randn(2, 4, 70, 64, dtype=dt).transpose(1, 2)
+        for causal in (True, False):
+            check_flash(q, k, v, causal, "strided q and v", scale=0.2)
+        qkv = randn(2, 100, 3 * 4 * 64, dtype=dt).view(2, 100, 3, 4, 64)
+        check_flash(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
+                    "q, k, v slices of one (B, S, 3, H, D) tensor")
+    n_wg = kfa.WGMMA_LAUNCHES - wg0
+    n_bf16 = sum(1 for c in cases if c[5] == torch.bfloat16) + 3
+    if n_wg != n_bf16:
+        fail(f"the bf16 cases launched the wgmma kernel {n_wg} times, want "
+             f"{n_bf16}")
+    print(f"{len(cases) + 6} cases (zamba2's prefill B={B} S={S} H={H} D={D} "
+          f"bf16 causal and not; bf16 at D in (16, 32, 64, 128), S in (1, 200, "
+          f"333, 512), Sk = S and S + 37; f32 at S in (1, 200, 333), D=128; "
+          f"strided views in both types): max abs err f32 "
+          f"{flash_err['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
+          f"{flash_err['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']}); every "
+          f"bf16 case ran the wgmma kernel ({n_wg} launches)")
 
     # ----------------------------------------- ssd kernel against plain
     phase("ssd_chunk kernel against its plain version")
@@ -731,22 +836,25 @@ def serve_phases(torch) -> tuple:
                    max_len=SERVE_MAX_LEN, device="cuda")
     server.generate({"tokens": toks[:, :64]}, 2)         # warm-up
     torch.cuda.synchronize()
-    kfa.LAUNCHES = kss.LAUNCHES = 0
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kss.LAUNCHES = 0
     t0 = time.perf_counter()
     out = server.generate({"tokens": toks}, SERVE_NEW)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     fa_launches, ss_launches = kfa.LAUNCHES, kss.LAUNCHES
+    fa_wgmma = kfa.WGMMA_LAUNCHES
     want_fa = model.n_shared_invocations
     want_ss = cfg.n_layers * -(-SERVE_PROMPT // Q)
     print(f"generate: {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens -> "
           f"{tuple(out.shape)} tokens in {gen_s * 1e3:.1f} ms")
-    print(f"launches per prefill: flash_attention {fa_launches} (want "
+    print(f"launches per prefill: flash_attention {fa_launches}, all of them "
+          f"the bf16 wgmma kernel: {fa_wgmma == fa_launches} (want "
           f"{want_fa}), ssd_chunk {ss_launches} (want {cfg.n_layers} x "
           f"{-(-SERVE_PROMPT // Q)} = {want_ss})")
-    if fa_launches != want_fa or ss_launches != want_ss:
+    if fa_launches != want_fa or fa_wgmma != want_fa or ss_launches != want_ss:
         fail("the server's prefill did not launch each kernel once per "
-             "attention block / SSD chunk")
+             "attention block / SSD chunk, the bf16 attention through the "
+             "wgmma kernel")
     if not (out.shape == (SERVE_BATCH, SERVE_NEW) and int(out.min()) >= 0
             and int(out.max()) < cfg.vocab_size):
         fail("generated tokens out of range")
@@ -869,7 +977,7 @@ def serve_phases(torch) -> tuple:
         busy = busy_us(iv) / 1e6
         by = {}
         for s0, s1, nm in iv:
-            key = ("flash_attention kernel" if "flash_attention_kernel" in nm
+            key = ("flash_attention kernel" if "flash_attention" in nm
                    else "ssd_chunk kernel" if "ssd_chunk_kernel" in nm
                    else "gemm" if "gemm" in nm.lower() or "cutlass" in nm.lower()
                    or "sm90" in nm.lower() else "other")
@@ -904,6 +1012,7 @@ def serve_phases(torch) -> tuple:
     lib_err = (sdpa().transpose(1, 2).float()
                - kfa.flash_attention_cuda(q, k, v, True).float()).abs().max().item()
     fa_lib = cuda_ms(sdpa, iters=200)
+    fa_lib_dev = device_us_per_call(sdpa, iters=50)
     fa_dev = device_us_per_call(lambda: kfa.flash_attention_cuda(q, k, v, True),
                                 iters=50)
     fa_plain_dev = device_us_per_call(
@@ -914,7 +1023,8 @@ def serve_phases(torch) -> tuple:
           f"{fa_plain_b:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms "
           f"(agrees with the kernel to {lib_err:.3g}); bound {fa_bound:.4g} ms "
           f"({fa_by}); card time per call (profiler): kernel {fa_dev} us, "
-          f"plain {fa_plain_dev} us")
+          f"plain {fa_plain_dev} us, scaled_dot_product_attention "
+          f"{fa_lib_dev} us")
     args = ssd_inputs(B, Q, SH, SP, SN)
     ss_ms = cuda_ms(lambda: kss.ssd_chunk_cuda(*args), iters=200)
     ss_plain = cuda_ms(lambda: ref.ssd_chunk_ref(*args), iters=30)
@@ -945,11 +1055,13 @@ def serve_phases(torch) -> tuple:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77 "
                     "(flash_attention_pallas)",
-        "launches": fa_launches, "max_abs_err": max(flash_err.values()),
+        "launches": fa_launches, "wgmma_launches": fa_wgmma,
+        "max_abs_err": max(flash_err.values()),
         "max_err_f32": flash_err["float32"], "max_err_bf16": flash_err["bfloat16"],
         "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
         "bound_by": fa_by, "library_ms": fa_lib,
         "library": "torch.nn.functional.scaled_dot_product_attention",
+        "library_device_us": fa_lib_dev,
         "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": "bfloat16",
                   "causal": True},
         "device_us": fa_dev, "plain_device_us": fa_plain_dev,
@@ -1030,6 +1142,25 @@ def main() -> None:
           f"f32 {err[torch.float32]:.3g} (tol {F32_TOL}), "
           f"bf16 {err[torch.bfloat16]:.3g} (tol {BF16_TOL})")
 
+    phase("lstm_stack kernel against its plain version")
+    stack_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for I, T, H, G, B in STACK_SHAPES:
+            xs, layers = stack_inputs(G, B, T, I, H, dtype, "cuda")
+            h1 = klc.lstm_stack_cuda(xs, layers)
+            h2 = ref.lstm_stack_ref(xs, layers)
+            torch.cuda.synchronize()
+            e = (h1.float() - h2.float()).abs().max().item()
+            if not (h1.shape == (G, B, H) and e <= tol):
+                fail(f"lstm_stack {dtype} I={I} T={T} H={H} G={G} B={B}: "
+                     f"max abs err {e:.3g} > {tol}")
+            stack_err[dtype] = max(stack_err[dtype], e)
+    print(f"{len(STACK_SHAPES)} shapes (I, T) in ((6, 59), (7, 60)), H in "
+          f"(16, 32), G in (1, 6, 40), B in (1, 4), {STACK_LAYERS} layers, x 2 "
+          f"dtypes agree with ref.lstm_stack_ref: max abs err f32 "
+          f"{stack_err[torch.float32]:.3g} (tol {F32_TOL}), bf16 "
+          f"{stack_err[torch.bfloat16]:.3g} (tol {BF16_TOL})")
+
     gen = torch.Generator().manual_seed(0)
     G = 6
     stacked = rp.tree_map(lambda *xs: torch.stack(xs),
@@ -1037,30 +1168,36 @@ def main() -> None:
                             for _ in range(G)])
     hist = torch.rand(G, 1, rp.HISTORY, rp.N_FEAT, generator=gen).cuda()
     present = torch.rand(G, 1, rp.N_FEAT + 1, generator=gen).cuda()
+    before = klc.STACK_LAUNCHES, klc.LAUNCHES
     with torch.inference_mode():
         lg_k = rp.revpred_logits(stacked, hist, present)
+    fwd_launches = (klc.STACK_LAUNCHES - before[0], klc.LAUNCHES - before[1])
+    with torch.inference_mode():
         lg_r = rp.revpred_logits(stacked, hist, present, force="ref")
     fwd_err = (lg_k - lg_r).abs().max().item()
-    if not fwd_err <= FORWARD_TOL:
-        fail(f"revpred_logits through the kernel: max abs err {fwd_err:.3g}")
-    print(f"revpred_logits G={G}: kernel against plain max abs err "
-          f"{fwd_err:.3g} (tol {FORWARD_TOL})")
+    if not fwd_err <= FORWARD_TOL or fwd_launches != (1, 0):
+        fail(f"revpred_logits through the kernel: max abs err {fwd_err:.3g}, "
+             f"(stack, cell) launches {fwd_launches} (want (1, 0))")
+    print(f"revpred_logits G={G}: one lstm_stack launch, no lstm_cell launch; "
+          f"kernel against plain max abs err {fwd_err:.3g} (tol {FORWARD_TOL})")
 
     # --------------------------------------------------------- main path
     phase("main path: SpotTune tuning loop on the card")
     print("RevPred weights are untrained (fresh init, one generator seed per "
           "market, pos_frac=0.2): RevPred training is a later slice")
-    klc.LAUNCHES = 0
-    engine, revpred, res, wall = run_scenario("cuda")
-    launches = klc.LAUNCHES
+    klc.LAUNCHES = klc.STACK_LAUNCHES = 0
+    with ForwardCounter() as fwd:
+        engine, revpred, res, wall = run_scenario("cuda")
+    launches, cell_launches, n_fwd = klc.STACK_LAUNCHES, klc.LAUNCHES, fwd.n
     print(f"cost ${res.cost:.4f}  refund ${res.refunded:.4f}  "
           f"JCT {res.jct / 3600:.4f} h  events {len(engine.events)}")
     print(f"predicted top-3 {res.predicted_rank[:3]}  true best "
           f"{res.true_rank[0]}  wall {wall:.2f} s")
-    print(f"RevPred queries {len(revpred._p_cache)}, lstm_cell launches "
-          f"{launches}")
-    if launches <= 0:
-        fail("the main path launched the lstm_cell kernel no time")
+    print(f"RevPred queries {len(revpred._p_cache)}, forwards {n_fwd}, "
+          f"lstm_stack launches {launches}, lstm_cell launches {cell_launches}")
+    if launches <= 0 or launches != n_fwd or cell_launches != 0:
+        fail("the main path did not launch the lstm_stack kernel once per "
+             "RevPred forward and the lstm_cell kernel no time")
     ps = list(revpred._p_cache.values())
     if not (all(0.0 <= p <= 1.0 for p in ps) and math.isfinite(res.cost)
             and len(res.predicted_rank) == 16):
@@ -1075,9 +1212,14 @@ def main() -> None:
           f"max abs diff {p_err:.3g} (tol {P_CACHE_TOL})")
     if not common or not p_err <= P_CACHE_TOL:
         fail(f"card and CPU revocation probabilities differ by {p_err:.3g}")
-    print(f"cost agrees: {res.cost == cpu_res.cost} "
-          f"(card ${res.cost:.6f}, cpu ${cpu_res.cost:.6f}); "
-          f"ranking agrees: {res.predicted_rank == cpu_res.predicted_rank}")
+    same = (res.cost == cpu_res.cost and res.refunded == cpu_res.refunded
+            and res.predicted_rank == cpu_res.predicted_rank)
+    print(f"cost, refund and ranking agree: {same} (card ${res.cost:.6f} / "
+          f"${res.refunded:.6f}, cpu ${cpu_res.cost:.6f} / "
+          f"${cpu_res.refunded:.6f})")
+    if not same:
+        fail("the tuning loop's cost, refund or ranking differs between the "
+             "card and the CPU")
 
     # ------------------------------------------------- where the time goes
     phase("main path on the card under torch.profiler")
@@ -1089,12 +1231,14 @@ def main() -> None:
     by_name = {}
     for s0, s1, nm in iv:
         by_name[nm] = by_name.get(nm, 0.0) + (s1 - s0) / 1e6
-    cell_s = sum(v for k, v in by_name.items() if "lstm_cell_kernel" in k)
+    stack_s = sum(v for k, v in by_name.items() if "lstm_stack_kernel" in k)
+    n_stack = sum(1 for _, _, nm in iv if "lstm_stack_kernel" in nm)
     print(f"profiled wall {prof_wall:.3f} s (profiler on), {len(iv)} kernels, "
           f"card busy {busy:.4f} s = {100 * busy / prof_wall:.2f}% of wall, "
           f"idle {100 * (1 - busy / prof_wall):.2f}%")
-    print(f"lstm_cell kernel busy {cell_s:.4f} s; other kernels "
-          f"{busy - cell_s:.4f} s; busy against the unprofiled wall "
+    print(f"lstm_stack kernel busy {stack_s:.4f} s over {n_stack} launches "
+          f"({stack_s / max(n_stack, 1) * 1e6:.2f} us each); other kernels "
+          f"{busy - stack_s:.4f} s; busy against the unprofiled wall "
           f"{wall:.3f} s: {100 * busy / wall:.2f}%")
     for nm, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {v * 1e3:9.3f} ms  {nm[:100]}")
@@ -1126,10 +1270,9 @@ def main() -> None:
     fwd_kernel_ms = wall_ms(lambda: fwd(None))
     fwd_plain_ms = wall_ms(lambda: fwd("ref"))
     fwd_kernel_ms_b = wall_ms(lambda: fwd(None))
-    n_fwd = launches / (3 * rp.HISTORY)
     print(f"G={G}: through the kernel {fwd_kernel_ms:.3f} / "
           f"{fwd_kernel_ms_b:.3f} ms, through the plain version "
-          f"{fwd_plain_ms:.3f} ms; the main path ran {n_fwd:.0f} forwards "
+          f"{fwd_plain_ms:.3f} ms; the main path ran {n_fwd} forwards "
           f"= {n_fwd * fwd_kernel_ms / 1e3:.3f} s of its {wall:.3f} s wall")
 
     # ------------------------------------------------------------ timing
@@ -1163,11 +1306,14 @@ def main() -> None:
           f"{plain_dev_us} us")
     print(f"G=1: kernel {ms_g1:.5f} ms, torch.lstm_cell {library_ms:.5f} ms "
           f"(agrees with the kernel to {lib_err:.3g})")
+
     lstm_row = {
         "name": "lstm_cell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas)",
-        "launches": launches,
+        "launches": cell_launches,
+        "paths": "none since the stack kernel: held against its plain "
+                 "version only (RevPred training will step through it)",
         "max_abs_err": max(err.values()),
         "max_err_f32": err[torch.float32], "max_err_bf16": err[torch.bfloat16],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -1179,10 +1325,78 @@ def main() -> None:
         "device_us": dev_us, "plain_device_us": plain_dev_us,
     }
 
+    # ---------------------------------------------------- the stack's timing
+    phase("lstm_stack timing: a full-pool forward's stack (CUDA events)")
+    G, B, I, T, H = len(engine.market.pool), 1, rp.N_FEAT, rp.HISTORY, 32
+    xs, layers = stack_inputs(G, B, T, I, H, torch.float32, "cuda", seed=1)
+    st_ms = cuda_ms(lambda: klc.lstm_stack_cuda(xs, layers), iters=1000)
+    st_plain = cuda_ms(lambda: ref.lstm_stack_ref(xs, layers), iters=20, warmup=3)
+    st_ms_b = cuda_ms(lambda: klc.lstm_stack_cuda(xs, layers), iters=1000)
+    st_plain_b = cuda_ms(lambda: ref.lstm_stack_ref(xs, layers), iters=20,
+                         warmup=3)
+    st_dev = device_us_per_call(lambda: klc.lstm_stack_cuda(xs, layers))
+    st_plain_dev = device_us_per_call(lambda: ref.lstm_stack_ref(xs, layers),
+                                      iters=10, warmup=2)
+    st_bound, st_by = stack_bound_ms(G, B, T, I, H)
+    wave = klc.lstm_stack_plan(B, I, H, T, STACK_LAYERS)[0]
+    # a wave of all layers is a wavefront: T + L - 1 dependent steps
+    steps = T + STACK_LAYERS - 1 if wave == STACK_LAYERS else STACK_LAYERS * T
+    # cuDNN's nn.LSTM computes one group (G = 1): weights (4H, I_l), b_ih = b
+    # and b_hh = 0, gate order i, f, g, o as here; TF32 is off (set above)
+    x1, l1 = stack_inputs(1, B, T, I, H, torch.float32, "cuda", seed=1)
+    st_g1 = cuda_ms(lambda: klc.lstm_stack_cuda(x1, l1), iters=1000)
+    lstm = torch.nn.LSTM(I, H, num_layers=STACK_LAYERS, batch_first=True).cuda()
+    with torch.no_grad():
+        for n, lp in enumerate(l1):
+            getattr(lstm, f"weight_ih_l{n}").copy_(lp["w_ih"][0].t())
+            getattr(lstm, f"weight_hh_l{n}").copy_(lp["w_hh"][0].t())
+            getattr(lstm, f"bias_ih_l{n}").copy_(lp["b"][0])
+            getattr(lstm, f"bias_hh_l{n}").zero_()
+    with torch.inference_mode():
+        lib_h = lstm(x1[0])[1][0][-1]
+        st_lib_err = (lib_h - klc.lstm_stack_cuda(x1, l1)[0]).abs().max().item()
+        st_lib = cuda_ms(lambda: lstm(x1[0]), iters=500)
+    st_lib_dev = device_us_per_call(lambda: lstm(x1[0]))
+    print(f"G={G} B={B} I={I} T={T} H={H} {STACK_LAYERS} layers f32: kernel "
+          f"{st_ms:.5f} / {st_ms_b:.5f} ms, plain (the per-step cell loop) "
+          f"{st_plain:.4f} / {st_plain_b:.4f} ms; bound {st_bound:.3g} ms "
+          f"({st_by}); {wave} layers a wave, {steps} dependent steps, "
+          f"{st_ms / steps * 1e3:.4f} us of kernel each")
+    print(f"card time per call (profiler): kernel {st_dev} us, plain "
+          f"{st_plain_dev} us")
+    print(f"G=1: kernel {st_g1:.5f} ms; cuDNN nn.LSTM ({STACK_LAYERS} layers, "
+          f"TF32 off) {st_lib:.5f} ms, {st_lib_dev} us of card time (agrees "
+          f"with the kernel to {st_lib_err:.3g})")
+    stack_row = {
+        "name": "lstm_stack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas, "
+                    "scanned over RevPred's 3 x 59 steps by "
+                    "src/repro/core/revpred.py:187 _run_lstm_stack)",
+        "launches": launches, "forwards": n_fwd,
+        "max_abs_err": max(stack_err.values()),
+        "max_err_f32": stack_err[torch.float32],
+        "max_err_bf16": stack_err[torch.bfloat16],
+        "ms": st_ms, "plain_ms": st_plain, "bound_ms": st_bound,
+        "bound_by": st_by, "dependent_steps": steps, "wave": wave,
+        "library_ms": st_lib,
+        "library": "torch.nn.LSTM (cuDNN, TF32 off), G = 1",
+        "library_device_us": st_lib_dev, "ms_g1": st_g1,
+        "shape": {"G": G, "B": B, "I": I, "T": T, "H": H,
+                  "layers": STACK_LAYERS, "dtype": "float32"},
+        "device_us": st_dev, "plain_device_us": st_plain_dev,
+        "forward_wall_ms": fwd_kernel_ms, "forward_plain_wall_ms": fwd_plain_ms,
+        "tuning_wall_s": wall, "tuning_busy_s": busy,
+    }
+
     soa_row = soa_phases(torch)
+    sweep = soa_row["revpred_sweep"]
+    stack_row["revpred_sweep_launches"] = sweep["lstm_stack_launches"]
+    stack_row["revpred_sweep_forwards"] = sweep["forwards"]
     flash_row, ssd_row = serve_phases(torch)
     print(smi)
-    print(json.dumps({"kernels": [lstm_row, soa_row, flash_row, ssd_row]}))
+    print(json.dumps({"kernels": [lstm_row, stack_row, soa_row, flash_row,
+                                  ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,8 @@ Model (faithful to the paper):
 The feature engineering, dataset construction, Eq. 3 de-skew and the oracle
 are numpy and carry over from the JAX package unchanged.  The forwards are
 PyTorch over a leading group dimension G: every parameter leaf carries one
-row per group (``jax.vmap`` written out), and each LSTM step of each layer is
-one call of the fused cell (``kernels.ops.lstm_cell``), whatever G is.  The
+row per group (``jax.vmap`` written out), and the whole LSTM stack (every
+layer, every step) is one call of ``kernels.ops.lstm_stack``, whatever G is.  The
 parameter layout is the JAX package's: ``w_ih`` (I, 4H), ``w_hh`` (H, 4H),
 gate order i, f, g, o; ``params_from_numpy`` carries its weights across.
 
@@ -222,21 +222,10 @@ def init_revpred(generator: torch.Generator, hidden: int = 32, device="cuda"):
 
 
 def _run_lstm_stack(params, seq, force=None):
-    """seq (G, B, T, I) -> final hidden (G, B, H) of the top layer; one fused
-    cell call per step per layer."""
-    G, B = seq.shape[:2]
-    xs = seq.permute(2, 0, 1, 3).contiguous()        # time-major (T, G, B, I)
-    for lp in params:
-        hdim = lp["w_hh"].shape[-2]
-        h = torch.zeros(G, B, hdim, dtype=seq.dtype, device=seq.device)
-        c = torch.zeros_like(h)
-        hs = []
-        for t in range(xs.shape[0]):
-            h, c = kops.lstm_cell(xs[t], h, c, lp["w_ih"], lp["w_hh"], lp["b"],
-                                  force=force)
-            hs.append(h)
-        xs = torch.stack(hs)
-    return h
+    """seq (G, B, T, I) -> final hidden (G, B, H) of the top layer; the
+    whole stack is one ``kops.lstm_stack`` call (one kernel launch on the
+    card)."""
+    return kops.lstm_stack(seq.contiguous(), params, force=force)
 
 
 def _dense(x, p):

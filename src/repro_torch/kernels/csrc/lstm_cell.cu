@@ -25,6 +25,47 @@
 // so each weight row is read coalesced (32 consecutive floats per warp and
 // gate at H = 32), and the x / h operands a warp shares are broadcast loads.
 // No tensor cores (wgmma) and no TMA: the products are far too small.
+//
+// lstm_stack_fwd: RevPred's whole LSTM stack in one launch.  The callers
+// (RevPred and Tributary forwards) run L = 3 layers over T = 59 or 60 steps:
+// launched cell by cell that is 177 launches per forward, each a few
+// microseconds of kernel and tens of microseconds of host work around it,
+// so the forward was bound by launches, not by the card.  The stack kernel
+// takes the whole recurrence in one launch:
+//
+//   xs (G,B,T,I), layers l = 0..L-1 with w_ih (G,I_l,4H), w_hh (G,H,4H),
+//   b (G,4H), I_0 = I and I_l = H above  ->  the top layer's last h (G,B,H)
+//
+// One block per (group g, tile of `rows` batch rows).  The layers run in
+// waves: all L layers at once where their weights fit in shared memory
+// (H = 16 and 32: 3 layers are 108 KiB of float32 at H = 32), one at a time
+// where they do not (H = 64: one layer is 136 KiB); the wrapper picks the
+// wave and the rows per block.  Within a wave the layers form a wavefront:
+// at diagonal step d, layer w of the wave runs its step t = d - w, so a
+// 3-layer stack over 59 steps takes 61 dependent steps instead of 177.
+// Each layer writes its output sequence to its own (T, rows, H) buffer in
+// shared memory (the layer above reads it as input; it never leaves the
+// block), so one barrier per diagonal step suffices: step t reads x_t (the
+// layer below wrote it a diagonal earlier) and h_{t-1} (its own, a diagonal
+// earlier) and writes h_t, which nobody reads in the same diagonal.
+// Threads: per (layer of the wave, batch row) 8 per hidden unit j, two k
+// lanes for each of its four gate columns.  A lane sums every second term
+// of x.W_ih and of h.W_hh from the weight column in shared memory (columns
+// stored unit by unit, j * 4 + gate, rows padded by 16 floats, so a warp's
+// 32 lanes read 32 different banks; x and h are near-broadcasts); the two
+// lanes join with one shuffle and add the two products and b, in that
+// order, as the cell kernel and ref.lstm_cell_ref do; three more shuffles
+// bring the unit's four gates to its first lane, which applies the
+// nonlinearities, keeps c in a register and writes h.  h and c round to
+// the input type after every step, as the cell's outputs do, so a bfloat16
+// stack computes what 3 x T bfloat16 cell calls compute.
+//
+// What bounds it: at G = 6, H = 32, T = 59 the operations (15.5 MFLOP of
+// products and gate arithmetic, ~0.23 us at 67 TFLOP/s) and the bytes (the
+// weights, x and the output, ~0.5 MB, ~0.15 us at 3.35 TB/s) are tiny; the
+// recurrence is T + L - 1 dependent steps (a wave of all L layers) of one
+// barrier, an (I + H) / 2-long dot product and the gate arithmetic each,
+// which is what the time is made of.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,6 +146,170 @@ int launch(const void* x, const void* h, const void* c, const void* w_ih,
   return (int)cudaGetLastError();
 }
 
+
+constexpr int MAX_LAYERS = 8;
+constexpr int MAX_THREADS = 1024;
+constexpr int KSPLIT = 2;               // k lanes per gate column
+constexpr int LANES = 4 * KSPLIT;       // threads per hidden unit
+constexpr int WPAD = 16;                // weight row padding (floats)
+constexpr size_t SMEM_LIMIT = 232448;   // what one block may have on sm_90
+
+struct StackLayers {
+  const void* w_ih[MAX_LAYERS];
+  const void* w_hh[MAX_LAYERS];
+  const void* b[MAX_LAYERS];
+};
+
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// output buffers a stack needs: one per layer of a wave, and one more to
+// carry a wave's last output into the next wave
+__host__ __device__ inline int stack_buffers(int L, int wave) { return wave >= L ? L : wave + 1; }
+
+// floats of shared memory one block uses; mirrored by the wrapper's
+// lstm_stack_smem_bytes
+__host__ __device__ inline size_t stack_smem_floats(int I, int H, int T, int rows, int L,
+                                                    int wave) {
+  const size_t H4 = 4 * (size_t)H, WS = H4 + WPAD;
+  const size_t w_rows = (size_t)(I > H ? I : H) + H + (size_t)(wave - 1) * 2 * H;
+  return w_rows * WS + (size_t)wave * H4 + (size_t)T * rows * I +
+         (size_t)stack_buffers(L, wave) * T * rows * H;
+}
+
+// HT > 0 fixes the hidden size at compile time (16, 32, 64: the loops over
+// H unroll, so a lane's shared-memory loads are all in flight at once);
+// HT = 0 takes it from the argument
+template <typename T, int HT>
+__global__ void lstm_stack_kernel(const T* __restrict__ x, StackLayers p,
+                                  T* __restrict__ h_out, int n_layers, int B,
+                                  int Tn, int I, int h_arg, int rows, int wave) {
+  extern __shared__ float sm[];
+  const int H = HT > 0 ? HT : h_arg;
+  const int H4 = 4 * H;
+  const int WS = H4 + WPAD;
+  const int W0 = I > H ? I : H;      // input rows of a wave's first layer slot
+  const int nb = stack_buffers(n_layers, wave);
+  float* w_s = sm;                   // per slot: [in rows + H rows][WS]
+  float* b_s = w_s + ((size_t)W0 + H + (size_t)(wave - 1) * 2 * H) * WS;   // [wave][4H]
+  float* xbuf = b_s + (size_t)wave * H4;                                 // [T][rows][I]
+  float* bufs = xbuf + (size_t)Tn * rows * I;                            // [nb][T][rows][H]
+  const size_t buf_len = (size_t)Tn * rows * H;
+
+  const int64_t g = blockIdx.x;
+  const int r0 = blockIdx.y * rows;
+  const int nr = min(rows, B - r0);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  // thread (layer slot w, row r, unit j, gate q, k lane ks); a unit's 8
+  // lanes are neighbours, and a (slot, row)'s 8H threads whole warps
+  const int per_row = H * LANES;
+  const int w = tid / (rows * per_row);
+  const int r = (tid / per_row) % rows;
+  const int u = tid % per_row;
+  const int j = u / LANES, q = (u / KSPLIT) % 4, ks = u % KSPLIT;
+  const int lane0 = (threadIdx.x & 31) & ~(LANES - 1);   // the unit's first lane
+
+  for (int e = tid; e < nr * Tn * I; e += nthreads) {
+    const int rr = e / (Tn * I), rem = e % (Tn * I);
+    const int t = rem / I, k = rem % I;
+    xbuf[((size_t)t * rows + rr) * I + k] =
+        load_f(x, ((g * B + r0 + rr) * Tn + t) * (int64_t)I + k);
+  }
+
+  // slot w's weights start after the slots below it: slot 0 has W0 input
+  // rows, the others H
+  auto slot_w = [&](int s) { return w_s + (size_t)(s == 0 ? 0 : W0 + H + (s - 1) * 2 * H) * WS; };
+
+  float c = 0.f;   // held by lane (q = 0, ks = 0) of each unit
+  for (int l0 = 0; l0 < n_layers; l0 += wave) {
+    const int nw = min(wave, n_layers - l0);
+    __syncthreads();   // x is staged; the previous wave's weights are read
+    for (int s = 0; s < nw; ++s) {
+      const int l = l0 + s, in = l == 0 ? I : H;
+      const T* wi = (const T*)p.w_ih[l] + g * in * H4;
+      const T* wh = (const T*)p.w_hh[l] + g * H * H4;
+      const T* bg = (const T*)p.b[l] + g * H4;
+      float* ws = slot_w(s);
+      // column q * H + jj of the weights goes to column jj * 4 + q
+#pragma unroll 4
+      for (int e = tid; e < in * H4; e += nthreads)
+        ws[(size_t)(e / H4) * WS + (e % H) * 4 + (e % H4) / H] = load_f(wi, e);
+#pragma unroll 4
+      for (int e = tid; e < H * H4; e += nthreads)
+        ws[(size_t)(in + e / H4) * WS + (e % H) * 4 + (e % H4) / H] = load_f(wh, e);
+      for (int e = tid; e < H4; e += nthreads) b_s[s * H4 + (e % H) * 4 + e / H] = load_f(bg, e);
+    }
+    c = 0.f;
+    __syncthreads();
+    const int l = l0 + w;
+    const bool active = w < nw && r < nr;   // uniform over each warp
+    const int in = l == 0 ? I : H;
+    const float* inb = l == 0 ? xbuf : bufs + (size_t)((l - 1) % nb) * buf_len;
+    float* outb = bufs + (size_t)(l % nb) * buf_len;
+    const float* wcol = slot_w(w) + j * 4 + q;
+    const float bias = active ? b_s[w * H4 + j * 4 + q] : 0.f;
+    for (int d = 0; d < Tn + nw - 1; ++d) {
+      const int t = d - w;
+      if (active && t >= 0 && t < Tn) {
+        const float* xr = inb + ((size_t)t * rows + r) * in;
+        float xs = 0.f;
+        if (l == 0) {
+          for (int k = ks; k < I; k += KSPLIT) xs = fmaf(xr[k], wcol[(size_t)k * WS], xs);
+        } else {
+#pragma unroll
+          for (int k = ks; k < H; k += KSPLIT) xs = fmaf(xr[k], wcol[(size_t)k * WS], xs);
+        }
+        float hs = 0.f;
+        if (t > 0) {
+          const float* hr = outb + ((size_t)(t - 1) * rows + r) * H;
+          const float* wh = wcol + (size_t)in * WS;
+#pragma unroll
+          for (int k = ks; k < H; k += KSPLIT) hs = fmaf(hr[k], wh[(size_t)k * WS], hs);
+        }
+        xs += __shfl_xor_sync(0xffffffffu, xs, 1);
+        hs += __shfl_xor_sync(0xffffffffu, hs, 1);
+        const float gate = xs + hs + bias;
+        const float gi = __shfl_sync(0xffffffffu, gate, lane0);
+        const float gf = __shfl_sync(0xffffffffu, gate, lane0 + KSPLIT);
+        const float gg = __shfl_sync(0xffffffffu, gate, lane0 + 2 * KSPLIT);
+        const float go = __shfl_sync(0xffffffffu, gate, lane0 + 3 * KSPLIT);
+        if (q == 0 && ks == 0) {
+          const float c2 = sigmoid_f(gf) * c + sigmoid_f(gi) * tanhf(gg);
+          c = round_as(c2, x);
+          outb[((size_t)t * rows + r) * H + j] = round_as(sigmoid_f(go) * tanhf(c2), x);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int top = (n_layers - 1) % nb;
+  for (int e = tid; e < nr * H; e += nthreads) {
+    const int rr = e / H, jj = e % H;
+    store_f(h_out, (g * B + r0 + rr) * (int64_t)H + jj,
+            bufs[(size_t)top * buf_len + ((size_t)(Tn - 1) * rows + rr) * H + jj]);
+  }
+}
+
+template <typename T>
+int launch_stack(const void* x, const StackLayers& p, void* h_out, int n_layers, int G,
+                 int B, int Tn, int I, int H, int rows, int wave, cudaStream_t stream) {
+  const size_t smem = stack_smem_floats(I, H, Tn, rows, n_layers, wave) * sizeof(float);
+  if (smem > SMEM_LIMIT) return -1;
+  auto kern = H == 16   ? lstm_stack_kernel<T, 16>
+              : H == 32 ? lstm_stack_kernel<T, 32>
+              : H == 64 ? lstm_stack_kernel<T, 64>
+                        : lstm_stack_kernel<T, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)G, (unsigned)((B + rows - 1) / rows));
+  kern<<<grid, wave * rows * H * LANES, smem, stream>>>((const T*)x, p, (T*)h_out, n_layers,
+                                                        B, Tn, I, H, rows, wave);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns the CUDA error of the launch
@@ -121,4 +326,36 @@ extern "C" int lstm_cell_fwd(const void* x, const void* h, const void* c,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, h, c, w_ih, w_hh, b, h_out, c_out, G, B, I, H, s);
   return -1;
+}
+
+// The whole stack: xs (G,B,T,I) and n_layers layers of weights (host arrays
+// of device pointers, w_ih[l] (G,I_l,4H), w_hh[l] (G,H,4H), b[l] (G,4H))
+// -> h_out (G,B,H), the top layer's last h.  `rows` batch rows per block
+// and `wave` layers resident at once (the wrapper picks both under the
+// thread and shared-memory limits).  Returns the CUDA error of the launch
+// (0 on success); -1 for a shape it does not take (empty, more than 8
+// layers, more than 1024 threads a block, more shared memory than a block
+// may have), -2 for an unknown dtype.
+extern "C" int lstm_stack_fwd(const void* x, const void* const* w_ih,
+                              const void* const* w_hh, const void* const* b,
+                              int n_layers, void* h_out, int G, int B, int T, int I,
+                              int H, int rows, int wave, int dtype, int device, void* stream) {
+  if (G <= 0 || B <= 0 || T <= 0 || I <= 0 || H <= 0 || rows <= 0 || n_layers <= 0 ||
+      n_layers > MAX_LAYERS || wave <= 0 || wave > n_layers || H % 4 != 0 ||
+      (B + rows - 1) / rows > 65535 || (int64_t)wave * rows * H * LANES > MAX_THREADS)
+    return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  StackLayers p{};
+  for (int l = 0; l < n_layers; ++l) {
+    p.w_ih[l] = w_ih[l];
+    p.w_hh[l] = w_hh[l];
+    p.b[l] = b[l];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_stack<float>(x, p, h_out, n_layers, G, B, T, I, H, rows, wave, s);
+  if (dtype == 1)
+    return launch_stack<__nv_bfloat16>(x, p, h_out, n_layers, G, B, T, I, H, rows, wave, s);
+  return -2;
 }

@@ -1,11 +1,15 @@
-"""Wrapper of the hand-written flash-attention CUDA kernel.
+"""Wrapper of the hand-written flash-attention CUDA kernels.
 
 ``csrc/flash_attention.cu`` replaces the Pallas kernel
 ``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (see its
-header for the design).  It is compiled by ``build.py`` at first use and
-called through ``ctypes`` on PyTorch's current stream.  q, k and v are read
-through their strides; a tensor whose last dimension is not contiguous is
-copied first (``.contiguous()``).
+header for the design): bfloat16 inputs run the TMA-fed ``wgmma`` kernel on
+the tensor cores, float32 inputs the float32 FFMA kernel.  It is compiled
+by ``build.py`` at first use and called through ``ctypes`` on PyTorch's
+current stream.  q, k and v are read through their strides; a tensor whose
+last dimension is not contiguous is copied first (``.contiguous()``), and
+so is a bfloat16 tensor whose base is not 16-byte aligned or whose batch,
+sequence or head stride is not a multiple of 16 bytes (what a TMA tensor
+map takes).  A copy, not a change of route.
 """
 
 from __future__ import annotations
@@ -16,8 +20,10 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the kernel since the count was last set to 0
+#: launches of the kernels since the count was last set to 0 (both routes)
 LAUNCHES = 0
+#: of those, launches of the bfloat16 tensor-core (wgmma) kernel
+WGMMA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -60,17 +66,40 @@ def _check(q, k, v):
     return B, Sq, Sk, H, D
 
 
+def tma_strides(t):
+    """(batch, sequence, head) element strides of a bfloat16 (B, S, H, D)
+    tensor as its TMA map takes them, or None where the map cannot take
+    the tensor as it is (a base not 16-byte aligned, a stride of a dimension
+    longer than 1 not a multiple of 16 bytes).  A dimension of length 1 is
+    never stepped, so its stride is replaced by a valid one."""
+    if t.data_ptr() % 16:
+        return None
+    out = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        if n == 1:
+            st = t.shape[3]
+        elif st <= 0 or (st * t.element_size()) % 16:
+            return None
+        out.append(st)
+    return out
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     """The kernel on CUDA tensors; the arguments of
     ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type."""
-    global LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES
     B, Sq, Sk, H, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o
     scale = float(scale if scale is not None else D ** -0.5)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    if q.dtype == torch.bfloat16:     # o is new and contiguous: it passes
+        q, k, v = (t if tma_strides(t) is not None else t.contiguous()
+                   for t in (q, k, v))
+        strides = [s for t in (q, k, v, o) for s in tma_strides(t)]
+    else:
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B, Sq, Sk, H, D, *strides, scale, int(bool(causal)),
@@ -78,4 +107,6 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {err})")
     LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        WGMMA_LAUNCHES += 1
     return o

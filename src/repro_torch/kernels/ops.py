@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention_cuda import flash_attention_cuda
-from repro_torch.kernels.lstm_cell import lstm_cell_cuda
+from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_stack_cuda
 from repro_torch.kernels.soa_step_cuda import ewma_fold_cuda, soa_step_fused_cuda
 from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_cuda
 
@@ -23,6 +23,17 @@ def lstm_cell(x, h, c, w_ih, w_hh, b, force: str | None = None):
     if mode == "cuda":
         return lstm_cell_cuda(x, h, c, w_ih, w_hh, b)
     raise ValueError(f"unknown lstm_cell mode {mode!r}")
+
+
+def lstm_stack(xs, layers, force: str | None = None):
+    """Grouped LSTM stack over a sequence -> the top layer's last h.
+    force: None (by device) | 'ref' | 'cuda'."""
+    mode = force or ("cuda" if xs.is_cuda else "ref")
+    if mode == "ref":
+        return ref.lstm_stack_ref(xs, layers)
+    if mode == "cuda":
+        return lstm_stack_cuda(xs, layers)
+    raise ValueError(f"unknown lstm_stack mode {mode!r}")
 
 
 def soa_step_fused(obs, lens, m0, first, ewma, next_k, row_rep, n_reps: int,

@@ -25,6 +25,29 @@ def lstm_cell_ref(x, h, c, w_ih, w_hh, b):
     return h2.to(h.dtype), c2.to(c.dtype)
 
 
+def lstm_stack_ref(xs, layers):
+    """A stack of grouped LSTM layers over a sequence: xs (G,B,T,I); layers
+    a list of {w_ih (G,I_l,4H), w_hh (G,H,4H), b (G,4H)}, I_0 = I and
+    I_l = H above -> the top layer's last h (G,B,H).  Each layer starts
+    from h = c = 0 and feeds its output sequence to the next; every step is
+    one ``lstm_cell_ref``, so h and c round to the input type at each step
+    as the cell's outputs do (the JAX package's ``revpred._run_lstm_stack``,
+    a ``lax.scan`` of the cell per layer)."""
+    G, B = xs.shape[:2]
+    seq = xs.permute(2, 0, 1, 3).contiguous()        # time-major (T, G, B, I)
+    h = None
+    for lp in layers:
+        hdim = lp["w_hh"].shape[-2]
+        h = torch.zeros(G, B, hdim, dtype=xs.dtype, device=xs.device)
+        c = torch.zeros_like(h)
+        hs = []
+        for t in range(seq.shape[0]):
+            h, c = lstm_cell_ref(seq[t], h, c, lp["w_ih"], lp["w_hh"], lp["b"])
+            hs.append(h)
+        seq = torch.stack(hs)
+    return h
+
+
 # the sweep's "not running" boundary tick, the boundary min's identity
 _BIG = 1 << 60
 

@@ -103,3 +103,29 @@ def test_dispatch_modes_on_the_cpu():
         ops.flash_attention(q, q, q, force="pallas")
     torch.testing.assert_close(ops.flash_attention(q, q, q, force="ref"),
                                ref.flash_attention_ref(q, q, q))
+
+
+def test_tma_strides_take_views_as_they_are():
+    """The bf16 route's tensor maps read (B, S, H, D) views through their
+    strides: contiguous tensors, slices in S and H and a (B, H, S, D)
+    tensor transposed to (B, S, H, D) need no copy."""
+    wide = torch.zeros(2, 96, 8, 64, dtype=torch.bfloat16)
+    assert kfa.tma_strides(wide) == [96 * 8 * 64, 8 * 64, 64]
+    assert kfa.tma_strides(wide[:, 10:50, :4]) == [96 * 8 * 64, 8 * 64, 64]
+    bhsd = torch.zeros(2, 4, 70, 16, dtype=torch.bfloat16)
+    assert kfa.tma_strides(bhsd.transpose(1, 2)) == [4 * 70 * 16, 16, 70 * 16]
+    # a dimension of length 1 is never stepped: any stride will do
+    one = torch.zeros(1, 5, 1, 32, dtype=torch.bfloat16)
+    assert kfa.tma_strides(one) == [32, 32, 32]
+
+
+def test_tma_strides_refuse_what_a_tensor_map_cannot_take():
+    """A base off 16 bytes or a stride not a multiple of 16 bytes: the
+    wrapper copies such a tensor (``.contiguous()``) before the launch."""
+    flat = torch.zeros(1 + 2 * 8 * 2 * 16, dtype=torch.bfloat16)
+    assert kfa.tma_strides(flat[1:].view(2, 8, 2, 16)) is None
+    padded = torch.zeros(2, 8, 2, 20, dtype=torch.bfloat16)[..., :16]
+    assert kfa.tma_strides(padded) is None
+    assert kfa.tma_strides(padded.contiguous()) == [8 * 2 * 16, 2 * 16, 16]
+    expanded = torch.zeros(2, 1, 2, 16, dtype=torch.bfloat16).expand(2, 8, 2, 16)
+    assert kfa.tma_strides(expanded) is None

@@ -77,12 +77,58 @@ def test_revpred_forward_through_kernel_matches_plain(card):
                          *[rp.init_revpred(gen, 32, device=card) for _ in range(G)])
     hist = torch.rand(G, 1, rp.HISTORY, rp.N_FEAT, generator=gen).to(card)
     present = torch.rand(G, 1, rp.N_FEAT + 1, generator=gen).to(card)
-    before = klc.LAUNCHES
+    before = klc.STACK_LAUNCHES, klc.LAUNCHES
     with torch.inference_mode():
         lg = rp.revpred_logits(params, hist, present)
         lg_ref = rp.revpred_logits(params, hist, present, force="ref")
-    assert klc.LAUNCHES == before + 3 * rp.HISTORY
+    # the whole LSTM stack is one launch; no per-step cell launch remains
+    assert (klc.STACK_LAUNCHES, klc.LAUNCHES) == (before[0] + 1, before[1])
     torch.testing.assert_close(lg, lg_ref, rtol=1e-4, atol=1e-4)
+
+
+def _stack_inputs(gen, G, B, T, I, H, dtype, device, n_layers=3):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device, dtype)
+    layers = [{"w_ih": rnd(G, I if n == 0 else H, 4 * H, scale=0.3),
+               "w_hh": rnd(G, H, 4 * H, scale=0.3), "b": rnd(G, 4 * H, scale=0.1)}
+              for n in range(n_layers)]
+    return rnd(G, B, T, I), layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("I,T,H,G,B", [(6, 59, 32, 6, 1), (7, 60, 16, 1, 4),
+                                       (6, 59, 32, 40, 1), (7, 60, 32, 3, 4),
+                                       (6, 59, 64, 2, 3)])
+def test_lstm_stack_kernel_matches_ref(I, T, H, G, B, dtype, card):
+    xs, layers = _stack_inputs(torch.Generator().manual_seed(0), G, B, T, I, H,
+                               dtype, card)
+    before = klc.STACK_LAUNCHES
+    h = ops.lstm_stack(xs, layers)
+    assert klc.STACK_LAUNCHES == before + 1
+    want = ref.lstm_stack_ref(xs, layers)
+    torch.cuda.synchronize()
+    assert h.dtype == dtype and h.shape == (G, B, H)
+    tol = TOL[dtype]
+    torch.testing.assert_close(h.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lstm_stack_kernel_rejects_what_it_does_not_take(card):
+    gen = torch.Generator().manual_seed(0)
+    xs, layers = _stack_inputs(gen, 2, 1, 10, 6, 16, torch.float32, card)
+    bad = [dict(lp) for lp in layers]
+    bad[1]["w_ih"] = bad[1]["w_ih"][:, :8]
+    with pytest.raises(ValueError, match="shape"):
+        klc.lstm_stack_cuda(xs, bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        klc.lstm_stack_cuda(torch.cat([xs, xs], dim=-1)[..., :6], layers)
+    with pytest.raises(TypeError):
+        klc.lstm_stack_cuda(xs.double(), [{k: v.double() for k, v in lp.items()}
+                                          for lp in layers])
+    big_x, big = _stack_inputs(gen, 1, 1, 4, 6, 128, torch.float32, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        klc.lstm_stack_cuda(big_x, big)
 
 
 def _soa_inputs(F, L, N, R, alpha, seed=8):
@@ -166,9 +212,11 @@ def _randn(gen, *shape, dtype=torch.float32, device="cuda", scale=1.0):
 def test_flash_attention_kernel_matches_ref(B, S, H, D, dtype, causal, card):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (_randn(gen, B, S, H, D, dtype=dtype, device=card) for _ in range(3))
-    before = kfa.LAUNCHES
+    before = kfa.LAUNCHES, kfa.WGMMA_LAUNCHES
     o = ops.flash_attention(q, k, v, causal)
-    assert kfa.LAUNCHES == before + 1
+    # bfloat16 runs the tensor-core (wgmma) kernel, float32 the FFMA kernel
+    wgmma = int(dtype == torch.bfloat16)
+    assert (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES) == (before[0] + 1, before[1] + wgmma)
     want = ref.flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o.shape == (B, S, H, D)
@@ -187,6 +235,42 @@ def test_flash_attention_kernel_reads_strides_and_sq_ne_sk(card):
         o = kfa.flash_attention_cuda(q, k, v, causal, scale=0.2)
         want = ref.flash_attention_ref(q, k, v, causal, scale=0.2)
         torch.testing.assert_close(o, want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(1, 38), (200, 237), (333, 333), (512, 549)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_kernel_head_dims_and_sq_ne_sk(D, Sq, Sk, causal, card):
+    gen = torch.Generator().manual_seed(D + Sq)
+    q = _randn(gen, 2, Sq, 4, D, dtype=torch.bfloat16, device=card)
+    k, v = (_randn(gen, 2, Sk, 4, D, dtype=torch.bfloat16, device=card)
+            for _ in range(2))
+    before = kfa.WGMMA_LAUNCHES
+    o = kfa.flash_attention_cuda(q, k, v, causal)
+    assert kfa.WGMMA_LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(o.float(), want.float(), rtol=4e-2, atol=4e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_kernel_reads_strided_views(card):
+    """Strided views go to the tensor maps as they are; a view whose
+    strides a map cannot take is copied first.  Both agree with the plain
+    version."""
+    gen = torch.Generator().manual_seed(2)
+    wide = _randn(gen, 2, 96, 8, 64, dtype=torch.bfloat16, device=card)
+    q = wide[:, 10:50, :4]
+    k = _randn(gen, 2, 70, 4, 64, dtype=torch.bfloat16, device=card)
+    v = _randn(gen, 2, 4, 70, 64, dtype=torch.bfloat16, device=card).transpose(1, 2)
+    odd = _randn(gen, 2, 70, 4, 72, dtype=torch.bfloat16, device=card)[..., 1:65]
+    assert kfa.tma_strides(q) is not None and kfa.tma_strides(odd) is None
+    for kk in (k, odd):
+        for causal in (True, False):
+            o = kfa.flash_attention_cuda(q, kk, v, causal, scale=0.2)
+            want = ref.flash_attention_ref(q, kk, v, causal, scale=0.2)
+            torch.testing.assert_close(o.float(), want.float(), rtol=4e-2,
+                                       atol=4e-2)
 
 
 @pytest.mark.cuda

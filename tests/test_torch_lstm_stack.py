@@ -1,0 +1,158 @@
+"""The port's LSTM stack (``ops.lstm_stack``, one kernel launch per RevPred
+or Tributary forward on the card) against the per-step cell loop it
+replaces and against the JAX package's ``revpred._run_lstm_stack``.
+
+On the CPU the stack takes its plain version, ``ref.lstm_stack_ref``; the
+kernel itself is held against it on the card (``test_torch_kernels_cuda.py``
+and ``chip_smoke.py``).  Inputs are made from a seed with numpy and handed to
+both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import _torch_port  # noqa: F401  (one intra-op thread)
+
+import repro.core.revpred as jr
+from repro_torch.kernels import lstm_cell as klc
+from repro_torch.kernels import ops, ref
+
+F32_TOL = 1e-5       # the Pallas cell's float32 tolerance (tests/test_kernels.py)
+BF16_TOL = 3e-2
+
+
+def _stack(rng, G, T, I, H, n_layers=3):
+    """numpy xs (G,1,T,I) and layers with random weights and biases."""
+    xs = rng.standard_normal((G, 1, T, I)).astype(np.float32)
+    layers = []
+    for n in range(n_layers):
+        d = I if n == 0 else H
+        layers.append({
+            "w_ih": (rng.standard_normal((G, d, 4 * H)) / np.sqrt(d)).astype(np.float32),
+            "w_hh": (rng.standard_normal((G, H, 4 * H)) / np.sqrt(H)).astype(np.float32),
+            "b": (rng.standard_normal((G, 4 * H)) * 0.1).astype(np.float32)})
+    return xs, layers
+
+
+def _torch(xs, layers, dtype=torch.float32):
+    return (torch.from_numpy(xs).to(dtype),
+            [{k: torch.from_numpy(v).to(dtype) for k, v in lp.items()}
+             for lp in layers])
+
+
+def _cell_loop(xs, layers):
+    """The per-step loop ``revpred._run_lstm_stack`` ran before the stack:
+    one ``lstm_cell_ref`` call per step per layer."""
+    G, B = xs.shape[:2]
+    seq = xs.permute(2, 0, 1, 3).contiguous()
+    for lp in layers:
+        H = lp["w_hh"].shape[-2]
+        h = torch.zeros(G, B, H, dtype=xs.dtype)
+        c = torch.zeros_like(h)
+        hs = []
+        for t in range(seq.shape[0]):
+            h, c = ref.lstm_cell_ref(seq[t], h, c, lp["w_ih"], lp["w_hh"], lp["b"])
+            hs.append(h)
+        seq = torch.stack(hs)
+    return h
+
+
+# revpred's history (I = 6, T = 59) and tributary's (I = 7, T = 60)
+SHAPES = [(I, T, H, G) for I, T in ((6, 59), (7, 60)) for H in (16, 32)
+          for G in (1, 3)]
+
+
+@pytest.mark.parametrize("I,T,H,G", SHAPES)
+def test_stack_ref_matches_cell_loop_and_jax(I, T, H, G):
+    rng = np.random.default_rng(100 * I + H + G)
+    xs, layers = _stack(rng, G, T, I, H)
+    tx, tl = _torch(xs, layers)
+    got = ref.lstm_stack_ref(tx, tl)
+    assert got.shape == (G, 1, H) and got.dtype == torch.float32
+    assert torch.equal(got, _cell_loop(tx, tl))
+    run = jax.vmap(jr._run_lstm_stack)
+    want = np.asarray(run(jax.tree.map(jnp.asarray, layers), jnp.asarray(xs)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("I,T,H", [(6, 59, 32), (7, 60, 16)])
+def test_stack_ref_bf16_matches_cell_loop(I, T, H):
+    """In bfloat16 h and c round at every step, as the cell's outputs do."""
+    xs, layers = _stack(np.random.default_rng(7), 2, T, I, H)
+    tx, tl = _torch(xs, layers, torch.bfloat16)
+    got = ref.lstm_stack_ref(tx, tl)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, _cell_loop(tx, tl))
+    f32 = ref.lstm_stack_ref(*_torch(xs, layers))
+    np.testing.assert_allclose(got.float().numpy(), f32.numpy(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+def test_groups_and_rows_are_independent():
+    """A (group, row)'s h does not depend on its neighbours in the call, up
+    to the float32 rounding of a product batched another way."""
+    xs, layers = _stack(np.random.default_rng(3), 4, 20, 6, 16)
+    xs = np.concatenate([xs, xs[:, ::-1] * 0.5], axis=1)     # B = 2
+    tx, tl = _torch(np.ascontiguousarray(xs), layers)
+    h = ref.lstm_stack_ref(tx, tl)
+    for g in range(4):
+        for b in range(2):
+            one = ref.lstm_stack_ref(tx[g:g + 1, b:b + 1],
+                                     [{k: v[g:g + 1] for k, v in lp.items()}
+                                      for lp in tl])
+            torch.testing.assert_close(one[0, 0], h[g, b], rtol=0, atol=1e-6)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    tx, tl = _torch(*_stack(np.random.default_rng(4), 2, 12, 6, 16))
+    before = klc.STACK_LAUNCHES, klc.LAUNCHES
+    assert torch.equal(ops.lstm_stack(tx, tl), ref.lstm_stack_ref(tx, tl))
+    assert (klc.STACK_LAUNCHES, klc.LAUNCHES) == before
+
+
+def test_forced_kernel_on_cpu_tensors_raises():
+    """No fallback: asking for the kernel on a CPU tensor raises instead of
+    returning the plain result, and counts no launch."""
+    tx, tl = _torch(*_stack(np.random.default_rng(5), 1, 8, 6, 16))
+    before = klc.STACK_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.lstm_stack(tx, tl, force="cuda")
+    with pytest.raises(ValueError, match="unknown"):
+        ops.lstm_stack(tx, tl, force="pallas")
+    assert klc.STACK_LAUNCHES == before
+
+
+@pytest.mark.parametrize("I,H,T", [(6, 16, 59), (7, 32, 60), (6, 64, 59),
+                                   (7, 64, 60)])
+def test_smem_budget_admits_up_to_hidden_64(I, H, T):
+    wave, rows, smem = klc.lstm_stack_plan(4, I, H, T)
+    assert wave in (1, 3) and 1 <= rows <= 4
+    assert wave * rows * H * klc.LANES <= klc.MAX_THREADS
+    assert smem == klc.lstm_stack_smem_bytes(I, H, T, rows, 3, wave) <= klc.SMEM_LIMIT
+    # the weights of the resident layers, as float32, are the bulk of it
+    assert smem >= 4 * wave * 2 * H * 4 * H
+
+
+def test_smem_budget_raises_for_hidden_128():
+    with pytest.raises(ValueError, match="shared memory"):
+        klc.lstm_stack_plan(1, 6, 128, 59)
+    assert klc.lstm_stack_smem_bytes(6, 128, 59, 1, 3, 1) > klc.SMEM_LIMIT
+    with pytest.raises(ValueError, match="multiple of 4"):
+        klc.lstm_stack_plan(1, 6, 30, 59)
+
+
+def test_smem_budget_waves_and_rows():
+    """RevPred's widths run all three layers as one wavefront; hidden 64
+    runs one layer at a time.  Then rows fill 1024 threads (8H a layer
+    and row) and the memory limit."""
+    assert klc.lstm_stack_plan(1, 6, 32, 59)[:2] == (3, 1)
+    assert klc.lstm_stack_plan(40, 6, 32, 59)[:2] == (3, 1)
+    assert klc.lstm_stack_plan(40, 7, 16, 60)[:2] == (3, 2)
+    assert klc.lstm_stack_plan(1, 6, 16, 59)[:2] == (3, 1)
+    assert klc.lstm_stack_plan(40, 6, 64, 60)[:2] == (1, 2)
+    # the budget mirrors the kernel's layout: padded weight rows, one
+    # output buffer per layer of the wave
+    assert klc.lstm_stack_smem_bytes(6, 32, 59, 1, 3, 3) == 4 * (
+        (32 + 32 + 2 * 64) * 144 + 3 * 128 + 59 * 6 + 3 * 59 * 32)
