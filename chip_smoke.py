@@ -20,13 +20,15 @@ drives the port's two paths through them:
   tokens each, whose prefill runs the ``flash_attention`` kernel (the
   shared attention block, 7 times, on its bf16 tensor-core route; the
   float32 run takes its FFMA route) and the ``ssd_chunk`` kernel (every
-  Mamba layer, 38 x 2 chunks), repeated on the card through the plain
+  Mamba layer, 38 x 2 chunks, 3xTF32 on the tensor cores, B and C handed
+  over with head stride 0), repeated on the card through the plain
   versions (bf16 and float32) and compared, and the reduced zamba2 on the
   card against the CPU.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
-exists.  Every phase is fatal on failure.  The last line of standard output
+exists; soa_step also beside its floor, one row of the recorded round's
+longest window folded alone.  Every phase is fatal on failure.  The last line of standard output
 is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -582,6 +584,31 @@ def soa_phases(torch) -> dict:
     host = timed[:7]
     lens = host[1]
     T = [torch.from_numpy(a).cuda() for a in host]
+    m_k, seg_k = ksc.soa_step_fused_cuda(*T, R)
+    m_p, seg_p = ref.soa_step_fused_ref(*T, R)
+    round_equal = bool(torch.equal(m_k, m_p) and torch.equal(seg_k, seg_p)
+                       and torch.equal(ksc.ewma_fold_cuda(*T[:5]), m_p))
+    print(f"the recorded round: kernel (fused and fold-only) equal to the "
+          f"plain version by torch.equal: {round_equal}")
+    if not round_equal:
+        fail("soa_step on the recorded round is not bit-exact to its plain "
+             "version")
+    # the floor: one row as long as the round's longest, folded alone (its
+    # dependent float64 chain of max(lens) steps, plus the launch)
+    n_max = int(np.clip(lens, 0, L).max())
+    i_max = int(np.argmax(np.clip(lens, 0, L)))
+    chain = [T[0][i_max:i_max + 1, :n_max].contiguous(),
+             torch.tensor([n_max], dtype=torch.int64, device="cuda"),
+             T[2][i_max:i_max + 1].clone(),
+             torch.zeros(1, dtype=torch.bool, device="cuda"),
+             T[4][i_max:i_max + 1].clone()]
+    chain_us = device_us_per_call(lambda: ksc.ewma_fold_cuda(*chain))
+    chain_ok = torch.equal(ksc.ewma_fold_cuda(*chain),
+                           ref.ewma_fold_torch_ref(*chain))
+    print(f"chain floor: one row of max(lens) = {n_max} observations folded "
+          f"alone: {chain_us} us of card time (equal to plain: {chain_ok})")
+    if not chain_ok:
+        fail("soa_step's single-row fold is not bit-exact to its plain version")
     ms = cuda_ms(lambda: ksc.soa_step_fused_cuda(*T, R), iters=2000)
     ms_copies = cuda_ms(lambda: soa_step.soa_step_fused(*host, R,
                                                         device="cuda"),
@@ -634,6 +661,8 @@ def soa_phases(torch) -> dict:
         "ms": ms, "kernel_ms": ms, "ms_with_copies": ms_copies,
         "plain_ms": plain_ms, "fold_only_ms": fold_ms,
         "fold_only_device_us": fold_dev_us, "fold_only_bound_ms": fold_bound_ms,
+        "chain_floor_us": chain_us, "chain_floor_len": n_max,
+        "recorded_round_equal": round_equal,
         "fold_only_bound_by": fold_bound_by,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
@@ -685,16 +714,27 @@ def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_bound_ms(B, Q, H, P, N):
-    """Least time for one SSD chunk (float32): x, dt, A, B, C and the state
-    read once, y and the new state written once, against the lower-triangle
-    score and output products, the state term and the state update over the
-    float32 peak outside the tensor cores."""
-    n_bytes = 4 * (B * Q * H * (2 * P + 1 + 2 * N) + H + 2 * B * H * P * N)
+H100_TF32_FLOPS = 495e12         # dense TF32 on the tensor cores, data sheet
+
+
+def ssd_bound_ms(B, Q, H, P, N, groups=None):
+    """Least time for one SSD chunk (float32): x, dt, A and the state read
+    once, y and the new state written once, and B and C read once per head
+    (``groups=None``, what the FFMA kernel of PRs 13-14 was given) or once
+    per group; against the lower-triangle score products (once per head,
+    or once per (batch, group)), the output products, the state term and
+    the state update.  With ``groups=None`` the operations run at the
+    float32 peak outside the tensor cores (the FFMA kernel's bound); with
+    groups at the 3xTF32 rate, three TF32 products per float32 product on
+    the tensor cores (495 / 3 TFLOP/s)."""
+    bc_heads = H if groups is None else groups
+    n_bytes = 4 * (B * Q * H * (2 * P + 1) + 2 * B * Q * bc_heads * N + H
+                   + 2 * B * H * P * N)
     tri = Q * (Q + 1) // 2
-    flops = 2.0 * B * H * (tri * N + tri * P + 2 * Q * P * N)
+    flops = 2.0 * B * (bc_heads * tri * N + H * tri * P + 2 * H * Q * P * N)
+    peak = H100_F32_FLOPS if groups is None else H100_TF32_FLOPS / 3
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -788,12 +828,34 @@ def serve_phases(torch) -> tuple:
         return (randn(b_, q_, h_, p_), dt.cuda(), A.cuda(), randn(b_, q_, h_, n_),
                 randn(b_, q_, h_, n_), randn(b_, h_, p_, n_))
 
-    ssd_cases = [((B, Q, SH, SP, SN), 1.0), ((2, 32, 3, 8, 4), 1.0),
-                 ((1, 64, 2, 16, 8), 1.0), ((3, 16, 1, 4, 4), 1.0),
-                 ((2, 64, 3, 16, 8), 1000.0)]
+    def stride0(args):
+        """B and C as the model hands them over for one group: a (B,Q,N)
+        tensor expanded over the heads (head stride 0)."""
+        x, dt, A, Bm, Cm, st = args
+        return (x, dt, A, Bm[:, :, :1].expand_as(Bm), Cm[:, :, :1].expand_as(Cm),
+                st)
+
+    # (shape, dt scale, B and C with head stride 0, chunk slice of S = 2Q)
+    ssd_cases = [((B, Q, SH, SP, SN), 1.0, True, False),
+                 ((B, Q, SH, SP, SN), 1.0, False, False),
+                 ((2, Q, 8, SP, SN), 1.0, True, True),
+                 ((1, Q, 4, SP, 128), 1.0, True, False),
+                 ((2, 200, 3, SP, SN), 1.0, True, False),
+                 ((2, 32, 3, 8, 4), 1.0, False, False),
+                 ((1, 64, 2, 16, 8), 1.0, False, False),
+                 ((3, 16, 1, 4, 4), 1.0, False, False),
+                 ((2, 64, 3, 16, 8), 1000.0, False, False)]
     ssd_err = 0.0
-    for shape, dt_scale in ssd_cases:
-        args = ssd_inputs(*shape, dt_scale=dt_scale)
+    for shape, dt_scale, s0, sliced in ssd_cases:
+        if sliced:
+            b_, q_, h_, p_, n_ = shape
+            x, dt, A, Bm, Cm, st = ssd_inputs(b_, 2 * q_, h_, p_, n_)
+            sl = slice(q_, 2 * q_)
+            args = (x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl], st)
+        else:
+            args = ssd_inputs(*shape, dt_scale=dt_scale)
+        if s0:
+            args = stride0(args)
         y, st = kss.ssd_chunk_cuda(*args)
         y2, st2 = ref.ssd_chunk_ref(*args)
         torch.cuda.synchronize()
@@ -804,17 +866,22 @@ def serve_phases(torch) -> tuple:
         e = max((y - y2).abs().max().item(), (st - st2).abs().max().item())
         r = max(((y - y2).abs() / y2.abs().clamp_min(1e-6)).max().item(),
                 ((st - st2).abs() / st2.abs().clamp_min(1e-6)).max().item())
+        what = (f"{shape} dt x {dt_scale}" + (", B/C head stride 0" if s0 else "")
+                + (", a chunk slice of S = 2Q" if sliced else ""))
         if not (finite and ok):
-            fail(f"ssd_chunk {shape} dt x {dt_scale}: finite {finite}, max abs "
-                 f"err {e:.3g} (rtol = atol = {tol})")
+            fail(f"ssd_chunk {what}: finite {finite}, max abs err {e:.3g} "
+                 f"(rtol = atol = {tol})")
         if dt_scale == 1.0:
             ssd_err = max(ssd_err, e)
+            print(f"  {what}: max abs err {e:.3g}")
         else:
             print(f"dt x {dt_scale} (dt|A| up to ~200): finite; max abs err "
                   f"{e:.3g}, max rel err {r:.3g} (rtol = atol = {tol})")
     print(f"{len(ssd_cases) - 1} cases (zamba2's chunk (B,Q,H,P,N) = "
-          f"{(B, Q, SH, SP, SN)} and tests/test_kernels.py's three shapes) "
-          f"agree within rtol = atol = {SSD_TOL}; max abs err {ssd_err:.3g}")
+          f"{(B, Q, SH, SP, SN)} with B/C of head stride 0 and per head, a "
+          f"chunk slice of the stride-0 view, N = 128, Q = 200, and "
+          f"tests/test_kernels.py's three shapes) agree within rtol = atol = "
+          f"{SSD_TOL}; max abs err {ssd_err:.3g}")
 
     # -------------------------------------- the main path: the server
     phase(f"main path: {SERVE_ARCH} served at full width on the card")
@@ -1025,20 +1092,29 @@ def serve_phases(torch) -> tuple:
           f"({fa_by}); card time per call (profiler): kernel {fa_dev} us, "
           f"plain {fa_plain_dev} us, scaled_dot_product_attention "
           f"{fa_lib_dev} us")
-    args = ssd_inputs(B, Q, SH, SP, SN)
+    # as the prefill hands them over: B and C of head stride 0 (one group)
+    args = stride0(ssd_inputs(B, Q, SH, SP, SN))
+    per_head = args[:3] + tuple(t.contiguous() for t in args[3:5]) + args[5:]
     ss_ms = cuda_ms(lambda: kss.ssd_chunk_cuda(*args), iters=200)
     ss_plain = cuda_ms(lambda: ref.ssd_chunk_ref(*args), iters=30)
     ss_ms_b = cuda_ms(lambda: kss.ssd_chunk_cuda(*args), iters=200)
     ss_plain_b = cuda_ms(lambda: ref.ssd_chunk_ref(*args), iters=30)
     ss_dev = device_us_per_call(lambda: kss.ssd_chunk_cuda(*args), iters=50)
+    ss_dev_ph = device_us_per_call(lambda: kss.ssd_chunk_cuda(*per_head),
+                                   iters=50)
+    ss_dev_b = device_us_per_call(lambda: kss.ssd_chunk_cuda(*args), iters=50)
     ss_plain_dev = device_us_per_call(lambda: ref.ssd_chunk_ref(*args),
                                       iters=10, warmup=2)
-    ss_bound, ss_by = ssd_bound_ms(B, Q, SH, SP, SN)
-    print(f"ssd_chunk (B,Q,H,P,N) = {(B, Q, SH, SP, SN)} f32: kernel "
-          f"{ss_ms:.4f} / {ss_ms_b:.4f} ms, plain {ss_plain:.4f} / "
-          f"{ss_plain_b:.4f} ms; bound {ss_bound:.4g} ms ({ss_by}); card time "
-          f"per call (profiler): kernel {ss_dev} us, plain {ss_plain_dev} us; "
-          f"no single PyTorch call computes the chunk")
+    ss_bound, ss_by = ssd_bound_ms(B, Q, SH, SP, SN, groups=cfg.ssm_groups)
+    ss_bound_ffma, ss_by_ffma = ssd_bound_ms(B, Q, SH, SP, SN)
+    print(f"ssd_chunk (B,Q,H,P,N) = {(B, Q, SH, SP, SN)} f32, B/C head stride "
+          f"0: kernel {ss_ms:.4f} / {ss_ms_b:.4f} ms, plain {ss_plain:.4f} / "
+          f"{ss_plain_b:.4f} ms; bound {ss_bound:.4g} ms ({ss_by}, 3xTF32 "
+          f"rate, B/C and C.B^T once per group), the FFMA bound of PRs 13-14 "
+          f"{ss_bound_ffma:.4g} ms ({ss_by_ffma}); card time per call "
+          f"(profiler): kernel {ss_dev} / {ss_dev_b} us (B/C per head: "
+          f"{ss_dev_ph} us), plain {ss_plain_dev} us; no single PyTorch call "
+          f"computes the chunk")
     serve = {"arch": cfg.name, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
              "new_tokens": SERVE_NEW, "prefill_ms": pre_ms,
              "prefill_plain_ms": pre_plain_ms, "decode_ms_per_token": decode_ms,
@@ -1069,14 +1145,17 @@ def serve_phases(torch) -> tuple:
         "serve": serve,
     }
     ssd_row = {
-        "name": "ssd_chunk", "route": "cuda",
+        "name": "ssd_chunk", "route": "cuda", "cuda_route": "wgmma-3xtf32",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:55 (ssd_chunk_pallas)",
         "launches": ss_launches, "max_abs_err": ssd_err,
         "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
-        "bound_by": ss_by, "library_ms": None,
+        "bound_by": ss_by, "bound_ms_ffma": ss_bound_ffma,
+        "bound_by_ffma": ss_by_ffma, "library_ms": None,
+        "bc_head_stride": int(args[3].stride(2)),
         "shape": {"B": B, "Q": Q, "H": SH, "P": SP, "N": SN, "dtype": "float32"},
-        "device_us": ss_dev, "plain_device_us": ss_plain_dev,
+        "device_us": ss_dev, "device_us_b": ss_dev_b,
+        "device_us_bc_per_head": ss_dev_ph, "plain_device_us": ss_plain_dev,
         "prefill_device_us": kern_us.get("ssd_chunk kernel"),
     }
     return flash_row, ssd_row

@@ -1,107 +1,397 @@
-// One Mamba2 SSD chunk (state-space duality) for Hopper (sm_90a).
+// One Mamba2 SSD chunk (state-space duality) for Hopper (sm_90a), its
+// products on the tensor cores at float32 accuracy (3xTF32).
 //
 // Replaces src/repro/kernels/ssd_scan.py:ssd_chunk_pallas (the Pallas body
 // `_kernel`), the TPU version of src/repro/models/ssd.py:_chunk_scan_step.
 // Per (batch b, head h), with a = dt * A and cum its inclusive prefix sum
-// over the chunk's Q rows:
+// over the chunk's Q rows and xbar_j = dt_j x_j:
 //
-//   y[i]   = sum_{j <= i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j
+//   y[i]   = sum_{j <= i} exp(cum_i - cum_j) (C_i . B_j) xbar_j
 //            + exp(cum_i) (C_i . state)
-//   state' = exp(cum_{Q-1}) state + sum_j exp(cum_{Q-1} - cum_j) dt_j x_j (x) B_j
+//   state' = exp(cum_{Q-1}) state + sum_j exp(cum_{Q-1} - cum_j) xbar_j (x) B_j
 //
 //   x (B,Q,H,P), dt (B,Q,H), A (H,), B and C (B,Q,H,N), state (B,H,P,N), all
 //   float32  ->  y (B,Q,H,P), state' (B,H,P,N), float32, contiguous.
 //
 // x, dt, B and C are read through their (batch, row, head) strides, so a
-// chunk's slice of a whole-sequence tensor needs no copy; their last
-// dimension must be contiguous.  P <= 64 and N <= 128 (every config of the
-// repo: P = 64, N = 64 or 128).
+// chunk's slice of a whole-sequence tensor needs no copy, and B and C may
+// have head stride 0: the model hands one group's (B,S,N) tensor to all the
+// heads as an expanded view.  Their last dimension must be contiguous.
+// P <= 64 and N <= 128 (every config of the repo: P = 64, N = 64 or 128);
+// any Q whose prefix sum fits in shared memory (a ragged last tile is
+// masked).
 //
-// Design: one block of 256 threads per (h, b).  cum (Q floats) is computed
-// once into shared memory with a warp-shuffle scan.  The TPU kernel holds
-// the whole (Q, Q) score tile (256 KiB at Q = 256, over the 227 KB a block
-// may have), so here the rows are walked in 64-row i-tiles and, inside each,
-// 64-row j-tiles up to the diagonal: C_i^T, B_j^T and dt_j x_j are staged in
-// shared memory, the 64 x 64 tile (C_i . B_j) exp(cum_i - cum_j) is built
-// with the upper triangle masked BEFORE the exp (there cum_i - cum_j > 0 and
-// overflows, ssd.py:85-91), and multiplied into the 64 x P output tile held
-// in registers.  The state term is one more product per i-tile, and the new
-// state a last pass over the j-tiles, 64 state columns at a time.  Every
-// product is one routine: a thread owns a 4 x 4 output patch and each k step
-// costs two 16-byte shared-memory loads for 16 FFMAs.  Shared memory:
-// 88 KB at N = 64 (two blocks per SM), 140 KB at N = 128.
+// Precision (3xTF32).  A TF32 product keeps 10 mantissa bits of each
+// operand, which does not hold the 1e-4 the plain version is held to.  Each
+// float32 operand x is split into hi = tf32(x) (cvt.rna) and lo = tf32(x -
+// hi), and every product is hi.hi + hi.lo + lo.hi accumulated in float32 by
+// wgmma (tf32, k = 8): the dropped lo.lo term and lo's own rounding are
+// ~2^-21 of each product.  tests/test_torch_ssd_chunk.py shows on the CPU
+// that this split holds 1e-4 and that 1xTF32 does not.
 //
-// Precision: float32 FFMA throughout (TF32 would not hold the 1e-4 the
-// plain version is held to).  What bounds it: at zamba2-1.2b's chunk
-// (B=4, Q=256, H=64, P=N=64) one call moves ~74 MB (22 us at 3.35 TB/s) and
-// needs ~3.2 GFLOP of float32 products (48 us at 67 TFLOP/s): operations.
-// No tensor cores and no TMA in this first kernel.
+// What bounds it: at zamba2-1.2b's chunk (B=4, Q=256, H=64, P=N=64, B and C
+// read once per group) ~42.6 MB move (12.7 us at 3.35 TB/s) and ~2.15
+// GFLOP of products are needed with C.B^T counted once per (batch, group),
+// 13 us at the 3xTF32 rate (495 / 3 TFLOP/s): operations.  This kernel
+// computes C.B^T once per (batch, head), 3.2 GFLOP (19.5 us at that rate).
+//
+// Design: one block per (h, b) of three warpgroups.  Warpgroups 1-2 (the
+// producers) read tiles from global memory (16-byte loads, all of a tile's
+// issued before they wait for a free slot), split them into tf32 hi and
+// lo, and store both in 128-byte-swizzled K-major shared memory, the
+// layout wgmma reads.  They run ahead through a ring of STAGES tile slots
+// and CBUFS C_i buffers (two of each at N <= 64, one at N = 128) guarded
+// by mbarriers, so the loads overlap the products.  Warpgroup 0 (the
+// consumer) runs the products on 64-row tiles:
+//   * per 64-row i-tile: C_i is staged once; the state term C_i . state^T
+//     (state is K-major as it lies, (p, n)) is scaled by exp(cum_i) per
+//     row; then for each j-tile up to the diagonal G = C_i . B_j^T (B_j
+//     K-major as it lies) lands in registers, the decay exp(cum_i - cum_j)
+//     and the causal mask are applied there, each element's (i, j) taken
+//     from the accumulator layout, the mask BEFORE the exp (above the
+//     diagonal cum_i - cum_j > 0 overflows), and S = G (.) decay is split
+//     in registers and is the register A operand of y += S . xbar_j.
+//   * tf32 wgmma reads shared-memory operands only K-major, so xbar_j is
+//     staged transposed, (p, j), by the producer's stores.  The
+//     accumulator layout of S is not the tf32 A-fragment layout: a thread
+//     holds S's columns 2t, 2t+1 of each 8 and the A fragment wants t,
+//     t+4.  Instead of moving S, the k index is permuted inside each
+//     8-wide k step: A slot t takes column 2t and slot t+4 column 2t+1,
+//     and xbar_j's rows are staged in the same permuted order.
+//   * the new state is a last pass over the j-tiles: state' (p, n) =
+//     (xbar w)^T (p, j) . B^T (n, j), both staged transposed with the same
+//     permutation of j, w_j = exp(cum_{Q-1} - cum_j).
+// Diagonal tiles run whole k steps: an m64 wgmma spans all 64 rows of the
+// i-tile, and row 63 needs every column, so no k step of the diagonal
+// tile can be skipped.  The tiles come in through 16-byte loads into
+// registers, not TMA or cp.async: every element has to pass through
+// registers for its hi/lo split anyway, and the transposed tiles are 4-byte
+// elements TMA cannot transpose.  Shared memory (ssd_chunk_smem_bytes in
+// ssd_chunk_cuda.py): 198,704 bytes at Q = 256 and N = 64, 165,936 at
+// N = 128, so one block a SM and zamba2's 256 blocks in two waves.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W: 85-125
+// us of card time at zamba2's chunk (the FFMA kernel before it: ~207),
+// ~127 us inside a prefill (~251), 6.5-10x the 13 us bound.  What holds it
+// there: each block walks its 18 tiles one after another, and a tile is a
+// chain of ~3 us (the consumer's two wgmma chains, waited for, and the
+// decay, mask and split between them, ~2.3 us alone; the producers'
+// loads, splits and stores overlap it only in part), with one consumer
+// warpgroup per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int T = 64;          // rows per i-tile and j-tile, columns per block
-constexpr int LD = T + 4;      // row length of every staged tile (floats)
-constexpr int THREADS = 256;
+constexpr int T = 64;              // rows of an i-tile and a j-tile; P is padded to 64
+constexpr int CONSUMERS = 128;     // warpgroup 0: the products
+constexpr int PRODUCERS = 256;     // warpgroups 1-2: global -> tf32 hi/lo -> shared
+constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_STAGES = 2;
 
 struct Str3 {
   int64_t b, q, h;
 };
 
-// acc[r][c] += sum_k At[k][i0 + r] * Bk[k][j0 + c], both operands k-major
-// with rows of LD floats.
-__device__ __forceinline__ void mm4x4(float (&acc)[4][4], const float* At, const float* Bk,
-                                      int K, int i0, int j0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(At + k * LD + i0);
-    const float4 b = *reinterpret_cast<const float4*>(Bk + k * LD + j0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
+template <int NT>
+struct Cfg {
+  static constexpr int STAGES = NT <= 64 ? 2 : 1;
+  static constexpr int CBUFS = NT <= 64 ? 2 : 1;   // C_i tiles in flight
+  static constexpr int TILE = T * NT * 4;   // bytes of a 64 x NT (or NT x 64) tile
+  static constexpr int XT = T * T * 4;      // bytes of a 64 x 64 tile
+  // C_i hi and lo, then per stage: the B slot (B_j, state or B_j^T) hi and
+  // lo and the X slot (xbar_j^T) hi and lo
+  static constexpr int STAGE = 2 * TILE + 2 * XT;
+  static constexpr size_t TILES = (size_t)CBUFS * 2 * TILE + (size_t)STAGES * STAGE;
+};
+
+size_t smem_bytes(int Q, int NT) {
+  const size_t tile = (size_t)T * NT * 4, xt = (size_t)T * T * 4;
+  const size_t stages = NT <= 64 ? 2 : 1, cbufs = stages;
+  // + 1 KiB to align the tiles to the swizzle's 1024-byte period; cum (Q
+  // floats, rounded up to 4) and the scan's warp sums
+  return 1024 + cbufs * 2 * tile + stages * (2 * tile + 2 * xt) +
+         4 * ((((size_t)Q + 3) & ~(size_t)3) + WARPS);
+}
+
+// ---------------------------------------------------------------- helpers
+
+// the producer's generic stores, made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (~2^-22 |x|), both tf32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// Byte offset of element (r, k) of an R-row tile stored K-major for wgmma:
+// 32-float (128-byte) column blocks of R rows each, 128-byte swizzle (the
+// 16-byte chunk index XOR the row within its 8-row group).
+__device__ __forceinline__ uint32_t sw_off(int r, int k, int R) {
+  return (uint32_t)((k >> 5) * (R * 128) + r * 128 + ((((k & 31) >> 2) ^ (r & 7)) << 4) +
+                    (k & 3) * 4);
+}
+
+// the K-major descriptor of the k-th 8-wide k step of an R-row tile: rows
+// of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk, int R) {
+  return desc_sw128(base + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024);
+}
+
+// d (m64 x n64, f32) += A (smem, K-major) . B (smem, K-major), tf32
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n128, f32) += A (smem, K-major) . B (smem, K-major), tf32
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n64, f32) += A (registers, tf32) . B (smem, K-major), tf32
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x n64) += A . B over K = 8 * ksteps with both operands split:
+// lo.hi, hi.lo, then hi.hi for each k step (smallest terms first)
+__device__ __forceinline__ void mma3_ss_n64(float (&d)[32], uint32_t a_hi, uint32_t a_lo,
+                                            uint32_t b_hi, uint32_t b_lo, int ksteps, int rb) {
+  for (int kk = 0; kk < ksteps; ++kk) {
+    wgmma_ss_n64(d, desc_k(a_lo, kk, T), desc_k(b_hi, kk, rb));
+    wgmma_ss_n64(d, desc_k(a_hi, kk, T), desc_k(b_lo, kk, rb));
+    wgmma_ss_n64(d, desc_k(a_hi, kk, T), desc_k(b_hi, kk, rb));
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+__device__ __forceinline__ void mma3_ss_n128(float (&d)[64], uint32_t a_hi, uint32_t a_lo,
+                                             uint32_t b_hi, uint32_t b_lo, int ksteps) {
+  for (int kk = 0; kk < ksteps; ++kk) {
+    wgmma_ss_n128(d, desc_k(a_lo, kk, T), desc_k(b_hi, kk, 128));
+    wgmma_ss_n128(d, desc_k(a_hi, kk, T), desc_k(b_lo, kk, 128));
+    wgmma_ss_n128(d, desc_k(a_hi, kk, T), desc_k(b_hi, kk, 128));
+  }
 }
 
-size_t smem_floats(int Q, int N) {
-  const size_t qp = ((size_t)Q + 3) & ~(size_t)3;
-  const size_t nt = (size_t)(N > T ? N : T);
-  // cum, C_i^T (N x LD), B_j^T or B_j (max(N, T) x LD), dt x (T x LD),
-  // scores^T (T x LD), state^T (N x LD), warp sums
-  return qp + (size_t)N * LD + nt * LD + 2 * (size_t)T * LD + (size_t)N * LD + WARPS;
+// ------------------------------------------------------- producer stages
+//
+// Each stage is two phases: every global load of the tile is issued first
+// (into registers, before the producer waits for a free slot, so their
+// latency overlaps the wait), then the values are split and stored.  Loads
+// are 16 bytes where the tensor allows (a 16-byte-aligned base, strides
+// and the row length multiples of 4 floats: flag `vec`), else 4.
+
+__device__ __forceinline__ float4 load4(const float* row, int k, int cols, bool vec) {
+  if (vec) return k < cols ? __ldg(reinterpret_cast<const float4*>(row + k)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v;
+  v.x = k < cols ? __ldg(row + k) : 0.f;
+  v.y = k + 1 < cols ? __ldg(row + k + 1) : 0.f;
+  v.z = k + 2 < cols ? __ldg(row + k + 2) : 0.f;
+  v.w = k + 3 < cols ? __ldg(row + k + 3) : 0.f;
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ float get(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, uint32_t off, float4 v) {
+  uint4 h, l;
+  split(v.x, h.x, l.x);
+  split(v.y, h.y, l.y);
+  split(v.z, h.z, l.z);
+  split(v.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
+// A (64, NT) tile of rows: element (r, k) = src[r * ld + k] where r < rows
+// and k < cols, else 0.  A thread takes 4 consecutive k of a row; eight
+// neighbouring threads fill one 128-byte row, conflict-free.
+template <int NT>
+struct Rows {
+  static constexpr int KC = NT / 4;
+  static constexpr int U = T * KC / PRODUCERS;
+  float4 v[U];
+
+  __device__ __forceinline__ void load(const float* src, int64_t ld, int rows, int cols,
+                                       bool vec, int ptid) {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * PRODUCERS, r = u / KC, k = (u % KC) * 4;
+      v[m] = r < rows ? load4(src + (int64_t)r * ld, k, cols, vec)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo, int ptid) const {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * PRODUCERS;
+      store_split(hi, lo, sw_off(u / KC, (u % KC) * 4, T), v[m]);
+    }
+  }
+};
+
+// An (R, 64) tile whose K index is column jj of a 64-row j-tile, in the
+// permuted order (inside each 8-wide k step even jj in slots 0-3, odd jj in
+// slots 4-7): element (r, slot of jj) = src[jj * ld + r] * s1[jj] * s2[jj]
+// for jj < rows and r < cols, else 0.  A thread takes a 4 x 4 block: rows
+// 4g..4g+3 (one 16-byte load along r per column) and the 16-byte chunk c,
+// slots 4c..4c+3, which hold the columns jj = 8 (c / 2) + 2 q + (c % 2),
+// q = 0..3.  Neighbouring threads take neighbouring row groups, so the
+// loads are coalesced; each thread starts its four row stores at another
+// row of the group, so a store phase of eight threads meets at most two
+// of them in one bank.
+template <int R>
+struct Cols {
+  static constexpr int G = R / 4;
+  static constexpr int U = G * 16 / PRODUCERS;
+  float4 v[U][4];
+  float sc[U][4][2];
+
+  template <typename S>
+  __device__ __forceinline__ void load(const float* src, int64_t ld, int rows, int cols,
+                                       bool vec, S scale, int ptid) {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * PRODUCERS, g = u % G, c = u / G;
+      const int jj0 = 8 * (c >> 1) + (c & 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int jj = jj0 + 2 * q;
+        const bool ok = jj < rows;
+        v[m][q] = ok ? load4(src + (int64_t)jj * ld, 4 * g, cols, vec)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        scale(jj, ok, sc[m][q][0], sc[m][q][1]);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo, int ptid) const {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * PRODUCERS, g = u % G, c = u / G;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = (i + g) & 3;   // this thread's i-th row of its group
+        float4 o;
+        o.x = get(v[m][0], q) * sc[m][0][0] * sc[m][0][1];
+        o.y = get(v[m][1], q) * sc[m][1][0] * sc[m][1][1];
+        o.z = get(v[m][2], q) * sc[m][2][0] * sc[m][2][1];
+        o.w = get(v[m][3], q) * sc[m][3][0] * sc[m][3][1];
+        store_split(hi, lo, sw_off(4 * g + q, 4 * c, R), o);
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------------------ kernel
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, const float* __restrict__ state,
                  float* __restrict__ y, float* __restrict__ state_out, int Q, int H, int P,
-                 int N, Str3 sx, Str3 sdt, Str3 sB, Str3 sC) {
-  extern __shared__ float4 smem4[];
-  const int qp = (Q + 3) & ~3;
-  const int nt = N > T ? N : T;
-  float* cum = reinterpret_cast<float*>(smem4);
-  float* Ct = cum + qp;          // [N][LD]   C_i^T
-  float* Bt = Ct + N * LD;       // [N][LD]   B_j^T; [T][LD] B_j in the state pass
-  float* Xj = Bt + nt * LD;      // [T][LD]   dt_j x_j (times the decay in the state pass)
-  float* St = Xj + T * LD;       // [T][LD]   masked scores^T, [j][i]
-  float* Sst = St + T * LD;      // [N][LD]   state^T, [n][p]
-  float* wsum = Sst + N * LD;    // [WARPS]
+                 int N, Str3 sx, Str3 sdt, Str3 sB, Str3 sC, int vec) {
+  using Cf = Cfg<NT>;
+  constexpr int STAGES = Cf::STAGES;
+  constexpr int CBUFS = Cf::CBUFS;
+  extern __shared__ uint8_t smem_raw[];
+  // c_full[2], c_empty[2], full[MAX_STAGES], empty[MAX_STAGES]
+  __shared__ __align__(8) uint64_t bars[4 + 2 * MAX_STAGES];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // C buffer c: hi at base + 2 c TILE, lo after it
+  uint8_t* ring = base + CBUFS * 2 * Cf::TILE;   // stage s: B hi, B lo, X hi, X lo
+  float* cum = reinterpret_cast<float*>(base + Cf::TILES);
+  float* wsum = cum + ((Q + 3) & ~3);
+  uint64_t* c_full = bars;
+  uint64_t* c_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + MAX_STAGES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
   const int h = blockIdx.x, b = blockIdx.y;
   const float Ah = A[h];
   const float* xb = x + b * sx.b + h * sx.h;
@@ -111,13 +401,22 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int64_t sbh = ((int64_t)b * H + h) * P * N;
   const float* st = state + sbh;
   float* so = state_out + sbh;
-  float* yb = y + ((int64_t)b * Q * H + h) * P;
-  const int64_t ys = (int64_t)H * P;
 
-  // cum: inclusive prefix sum of dt * A, 256 rows at a time
+  if (tid == 0) {
+    for (int c = 0; c < CBUFS; ++c) {
+      mbar_init(&c_full[c], PRODUCERS);
+      mbar_init(&c_empty[c], CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], PRODUCERS);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // cum: inclusive prefix sum of dt * A, THREADS rows at a time
   float carry = 0.f;
-  for (int base = 0; base < Q; base += THREADS) {
-    const int qi = base + tid;
+  for (int base_q = 0; base_q < Q; base_q += THREADS) {
+    const int qi = base_q + tid;
     float val = qi < Q ? dtb[(int64_t)qi * sdt.q] * Ah : 0.f;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -135,118 +434,234 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
     carry += total;
   }
-  for (int e = tid; e < N * T; e += THREADS) {
-    const int n = e / T, p = e % T;
-    Sst[n * LD + p] = p < P ? st[(int64_t)p * N + n] : 0.f;
-  }
+  __syncthreads();   // the barriers are initialised, cum is complete
 
   const int n_tiles = (Q + T - 1) / T;
+  const float c_last = cum[Q - 1];
+
+  if (tid >= CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    const int ptid = tid - CONSUMERS;
+    int t = 0;   // ring tiles filled
+    auto acquire = [&]() {
+      const int s = t % STAGES;
+      mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+      return ring + s * Cf::STAGE;
+    };
+    auto publish = [&]() {
+      fence_async_shared();
+      mbar_arrive(&full[t % STAGES]);
+      ++t;
+    };
+    const bool vx = vec & 1, vb = vec & 2, vc = vec & 4, vs = vec & 8;
+    // xbar_j = x_j dt_j (times w_j = exp(cum_last - cum_j) in the state pass)
+    auto x_scale = [&](int j0, bool weighted) {
+      return [=](int jj, bool ok, float& s1, float& s2) {
+        const int j = j0 + jj;
+        s1 = ok ? __ldg(dtb + (int64_t)j * sdt.q) : 0.f;
+        s2 = (ok && weighted) ? expf(c_last - cum[j]) : 1.f;
+      };
+    };
+    auto unit = [](int, bool, float& s1, float& s2) { s1 = s2 = 1.f; };
+    Rows<NT> rows;
+    Cols<T> xs;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int i0 = it * T;
+      rows.load(Cb + (int64_t)i0 * sC.q, sC.q, min(T, Q - i0), N, vc, ptid);
+      const int cbuf = it % CBUFS;
+      mbar_wait(&c_empty[cbuf], ((it / CBUFS) & 1) ^ 1);
+      rows.store(base + cbuf * 2 * Cf::TILE, base + (cbuf * 2 + 1) * Cf::TILE, ptid);
+      fence_async_shared();
+      mbar_arrive(&c_full[cbuf]);
+      rows.load(st, N, P, N, vs, ptid);   // state (p, n)
+      uint8_t* slot = acquire();
+      rows.store(slot, slot + Cf::TILE, ptid);
+      publish();
+      for (int jt = 0; jt <= it; ++jt) {
+        const int j0 = jt * T, nj = min(T, Q - j0);
+        rows.load(Bb + (int64_t)j0 * sB.q, sB.q, nj, N, vb, ptid);
+        xs.load(xb + (int64_t)j0 * sx.q, sx.q, nj, P, vx, x_scale(j0, false), ptid);
+        slot = acquire();
+        rows.store(slot, slot + Cf::TILE, ptid);
+        xs.store(slot + 2 * Cf::TILE, slot + 2 * Cf::TILE + Cf::XT, ptid);
+        publish();
+      }
+    }
+    Cols<NT> bt;
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int j0 = jt * T, nj = min(T, Q - j0);
+      bt.load(Bb + (int64_t)j0 * sB.q, sB.q, nj, N, vb, unit, ptid);   // B_j^T (n, j)
+      xs.load(xb + (int64_t)j0 * sx.q, sx.q, nj, P, vx, x_scale(j0, true), ptid);
+      uint8_t* slot = acquire();
+      bt.store(slot, slot + Cf::TILE, ptid);
+      xs.store(slot + 2 * Cf::TILE, slot + 2 * Cf::TILE + Cf::XT, ptid);
+      publish();
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumer
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = warp * 16 + g;   // accumulator rows row0 and row0 + 8
+  float yacc[32], gacc[32];
+  uint32_t a_hi[32], a_lo[32];
+  int t_take = 0, t_give = 0;   // ring tiles waited for and given back
+  auto take = [&]() {
+    const int s = t_take % STAGES;
+    mbar_wait(&full[s], (t_take / STAGES) & 1);
+    ++t_take;
+    return smem_u32(ring + s * Cf::STAGE);
+  };
+  auto give_back = [&]() {
+    mbar_arrive(&empty[t_give % STAGES]);
+    ++t_give;
+  };
+  const int64_t ys = (int64_t)H * P;
+  float* yb = y + ((int64_t)b * Q * H + h) * P;
+
   for (int it = 0; it < n_tiles; ++it) {
     const int i0 = it * T;
-    __syncthreads();
-    for (int e = tid; e < T * N; e += THREADS) {
-      const int i = e / N, n = e % N;
-      Ct[n * LD + i] = i0 + i < Q ? Cb[(int64_t)(i0 + i) * sC.q + n] : 0.f;
-    }
-    __syncthreads();
-
-    // state term: exp(cum_i) (C_i . state[p])
-    float acc[4][4];
-    zero(acc);
-    mm4x4(acc, Ct, Sst, N, ty * 4, tx * 4);
+    const int cbuf = it % CBUFS;
+    mbar_wait(&c_full[cbuf], (it / CBUFS) & 1);
+    const uint32_t ch = smem_u32(base + cbuf * 2 * Cf::TILE), cl = ch + Cf::TILE;
+    // state term, scaled per row by exp(cum_i)
+    uint32_t slot = take();
+    zero(yacc);
+    wg_fence();
+    mma3_ss_n64(yacc, ch, cl, slot, slot + Cf::TILE, NT / 8, T);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(yacc);
+    give_back();
+    const int ia = i0 + row0, ib = ia + 8;
+    const float ca = ia < Q ? cum[ia] : 0.f, cb = ib < Q ? cum[ib] : 0.f;
+    const float ea = ia < Q ? expf(ca) : 0.f, eb = ib < Q ? expf(cb) : 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-      const float e_i = i < Q ? expf(cum[i]) : 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] *= e_i;
-    }
+    for (int r = 0; r < 32; ++r) yacc[r] *= (r & 2) ? eb : ea;
 
+    // G of the first j-tile; each later one after the tile before is done
+    slot = take();
+    zero(gacc);
+    wg_fence();
+    mma3_ss_n64(gacc, ch, cl, slot, slot + Cf::TILE, NT / 8, T);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(gacc);
     for (int jt = 0; jt <= it; ++jt) {
       const int j0 = jt * T;
-      __syncthreads();
-      for (int e = tid; e < T * N; e += THREADS) {
-        const int j = e / N, n = e % N;
-        Bt[n * LD + j] = j0 + j < Q ? Bb[(int64_t)(j0 + j) * sB.q + n] : 0.f;
-      }
-      for (int e = tid; e < T * T; e += THREADS) {
-        const int j = e / T, p = e % T;
-        float val = 0.f;
-        if (j0 + j < Q && p < P)
-          val = xb[(int64_t)(j0 + j) * sx.q + p] * dtb[(int64_t)(j0 + j) * sdt.q];
-        Xj[j * LD + p] = val;
-      }
-      __syncthreads();
-      float s[4][4];
-      zero(s);
-      mm4x4(s, Ct, Bt, N, ty * 4, tx * 4);
+      // S = G (.) exp(cum_i - cum_j), masked before the exp, split into the
+      // A fragments: slot t of k step kk is column 2t, slot t + 4 is 2t + 1
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty * 4 + r;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = j0 + tx * 4 + c;
-          // mask before the exp: above the diagonal cum_i - cum_j > 0
-          const float val = (j <= i && i < Q) ? s[r][c] * expf(cum[i] - cum[j]) : 0.f;
-          St[(tx * 4 + c) * LD + ty * 4 + r] = val;
-        }
+      for (int kk = 0; kk < 8; ++kk) {
+        const int ja = j0 + kk * 8 + 2 * t4;
+        const float cja = ja < Q ? cum[ja] : 0.f, cjb = ja + 1 < Q ? cum[ja + 1] : 0.f;
+        float v[4];
+        // d[4kk + q]: q = 0 (ia, ja), 1 (ia, ja + 1), 2 (ib, ja), 3 (ib, ja + 1)
+        v[0] = (ja <= ia && ia < Q) ? gacc[4 * kk + 0] * expf(ca - cja) : 0.f;
+        v[1] = (ja + 1 <= ia && ia < Q) ? gacc[4 * kk + 1] * expf(ca - cjb) : 0.f;
+        v[2] = (ja <= ib && ib < Q) ? gacc[4 * kk + 2] * expf(cb - cja) : 0.f;
+        v[3] = (ja + 1 <= ib && ib < Q) ? gacc[4 * kk + 3] * expf(cb - cjb) : 0.f;
+        // A fragment: a0 (row g, slot t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        split(v[0], a_hi[4 * kk + 0], a_lo[4 * kk + 0]);
+        split(v[2], a_hi[4 * kk + 1], a_lo[4 * kk + 1]);
+        split(v[1], a_hi[4 * kk + 2], a_lo[4 * kk + 2]);
+        split(v[3], a_hi[4 * kk + 3], a_lo[4 * kk + 3]);
       }
-      __syncthreads();
-      mm4x4(acc, St, Xj, T, ty * 4, tx * 4);
+      const uint32_t x_hi = slot + 2 * Cf::TILE, x_lo = x_hi + Cf::XT;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_rs_n64(yacc, a_lo + 4 * kk, desc_k(x_hi, kk, T));
+        wgmma_rs_n64(yacc, a_hi + 4 * kk, desc_k(x_lo, kk, T));
+        wgmma_rs_n64(yacc, a_hi + 4 * kk, desc_k(x_hi, kk, T));
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(yacc);
+      give_back();
+      if (jt < it) {
+        slot = take();
+        zero(gacc);
+        wg_fence();
+        mma3_ss_n64(gacc, ch, cl, slot, slot + Cf::TILE, NT / 8, T);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(gacc);
+      }
     }
+    mbar_arrive(&c_empty[cbuf]);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-      if (i >= Q) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int p = tx * 4 + c;
-        if (p < P) yb[(int64_t)i * ys + p] = acc[r][c];
-      }
+    for (int r = 0; r < 32; ++r) {
+      const int i = (r & 2) ? ib : ia;
+      const int p = (r >> 2) * 8 + 2 * t4 + (r & 1);
+      if (i < Q && p < P) yb[(int64_t)i * ys + p] = yacc[r];
     }
   }
 
-  // state' = exp(cum_last) state + sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
-  const float c_last = cum[Q - 1];
+  // state' (p, n) = exp(cum_last) state + (xbar w)^T (p, j) . B^T (n, j)
   const float decay = expf(c_last);
-  for (int n0 = 0; n0 < N; n0 += T) {
-    float acc[4][4];
-    zero(acc);
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      const int j0 = jt * T;
-      __syncthreads();
-      for (int e = tid; e < T * T; e += THREADS) {
-        const int j = e / T, c = e % T;
-        const bool row = j0 + j < Q;
-        float xv = 0.f;
-        if (row && c < P)
-          xv = xb[(int64_t)(j0 + j) * sx.q + c] * dtb[(int64_t)(j0 + j) * sdt.q] *
-               expf(c_last - cum[j0 + j]);
-        Xj[j * LD + c] = xv;
-        Bt[j * LD + c] = row && n0 + c < N ? Bb[(int64_t)(j0 + j) * sB.q + n0 + c] : 0.f;
-      }
-      __syncthreads();
-      mm4x4(acc, Xj, Bt, T, ty * 4, tx * 4);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = ty * 4 + r;
-      if (p >= P) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = n0 + tx * 4 + c;
-        if (n < N) so[(int64_t)p * N + n] = st[(int64_t)p * N + n] * decay + acc[r][c];
-      }
-    }
+  constexpr int SREG = NT / 2;
+  float sacc[SREG];
+  zero(sacc);
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const uint32_t slot = take();
+    const uint32_t x_hi = slot + 2 * Cf::TILE, x_lo = x_hi + Cf::XT;
+    wg_fence();
+    if constexpr (NT == 128)
+      mma3_ss_n128(sacc, x_hi, x_lo, slot, slot + Cf::TILE, T / 8);
+    else
+      mma3_ss_n64(sacc, x_hi, x_lo, slot, slot + Cf::TILE, T / 8, NT);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sacc);
+    give_back();
   }
+#pragma unroll
+  for (int r = 0; r < SREG; ++r) {
+    const int p = row0 + ((r & 2) ? 8 : 0);
+    const int n = (r >> 2) * 8 + 2 * t4 + (r & 1);
+    if (p < P && n < N) so[(int64_t)p * N + n] = st[(int64_t)p * N + n] * decay + sacc[r];
+  }
+}
+
+template <int NT>
+int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+           const void* state, void* y, void* state_out, int64_t B, int64_t Q, int64_t H,
+           int64_t P, int64_t N, Str3 sx, Str3 sdt, Str3 sB, Str3 sC, cudaStream_t stream) {
+  auto kern = ssd_chunk_kernel<NT>;
+  // which of x, B, C and the state take 16-byte loads (bits 0-3)
+  auto v16 = [](const void* p, int64_t cols, Str3 s) {
+    return ((uintptr_t)p % 16 == 0) && cols % 4 == 0 && s.b % 4 == 0 && s.q % 4 == 0 &&
+           s.h % 4 == 0;
+  };
+  const int vec = (v16(x, P, sx) ? 1 : 0) | (v16(Bm, N, sB) ? 2 : 0) | (v16(Cm, N, sC) ? 4 : 0) |
+                  (v16(state, N, Str3{P * N, N, 0}) ? 8 : 0);
+  const size_t smem = smem_bytes((int)Q, NT);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)H, (unsigned)B);
+  kern<<<grid, THREADS, smem, stream>>>((const float*)x, (const float*)dt, (const float*)A,
+                                        (const float*)Bm, (const float*)Cm,
+                                        (const float*)state, (float*)y, (float*)state_out,
+                                        (int)Q, (int)H, (int)P, (int)N, sx, sdt, sB, sC,
+                                        vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Shared memory of one block (bytes) at chunk length Q and state width N;
+// 0 for a shape the kernel does not take.
+extern "C" int64_t ssd_chunk_smem_bytes(int64_t Q, int64_t N) {
+  if (Q <= 0 || N <= 0 || N > 2 * T || Q > ((int64_t)1 << 20)) return 0;
+  return (int64_t)smem_bytes((int)Q, N <= T ? T : 2 * T);
+}
+
 // Returns the CUDA error of the launch (0 on success), or -1 for a shape the
 // kernel does not take (P > 64, N > 128, an empty chunk, or more shared
 // memory than a block may have).  Strides are in elements: (batch, row,
-// head) for each of x, dt, B and C.
+// head) for each of x, dt, B and C; B's and C's head stride may be 0.
 extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                              const void* Cm, const void* state, void* y, void* state_out,
                              int64_t B, int64_t Q, int64_t H, int64_t P, int64_t N,
@@ -256,18 +671,12 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A, const
   if (B <= 0 || Q <= 0 || H <= 0 || P <= 0 || N <= 0 || P > T || N > 2 * T ||
       B > 65535 || H > ((int64_t)1 << 30))
     return -1;
-  const size_t smem = smem_floats((int)Q, (int)N) * sizeof(float);
-  if (Q > ((int64_t)1 << 20) || smem > 232448) return -1;
+  const int64_t smem = ssd_chunk_smem_bytes(Q, N);
+  if (smem == 0 || smem > 232448) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)H, (unsigned)B);
-  ssd_chunk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      (const float*)Cm, (const float*)state, (float*)y, (float*)state_out, (int)Q, (int)H,
-      (int)P, (int)N, Str3{xb, xq, xh}, Str3{db, dq, dh}, Str3{bb, bq, bh},
-      Str3{cb, cq, ch});
-  return (int)cudaGetLastError();
+  const Str3 sx{xb, xq, xh}, sdt{db, dq, dh}, sB{bb, bq, bh}, sC{cb, cq, ch};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N <= T) return launch<T>(x, dt, A, Bm, Cm, state, y, state_out, B, Q, H, P, N, sx, sdt, sB, sC, st);
+  return launch<2 * T>(x, dt, A, Bm, Cm, state, y, state_out, B, Q, H, P, N, sx, sdt, sB, sC, st);
 }

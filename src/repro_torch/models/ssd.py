@@ -87,7 +87,9 @@ def ssd_chunked(x, dt, A, B_in, C_in, chunk: int, state=None,
     """Full-sequence SSD, chunk by chunk.
 
     x (B,S,H,P); dt (B,S,H) (already softplus'd); A (H,) negative;
-    B_in/C_in (B,S,H,N) (group-broadcast done by the caller).
+    B_in/C_in (B,S,H,N) (group-broadcast done by the caller; a float32 view
+    with head stride 0, as ``_broadcast_groups`` gives for one group, stays
+    a view: each chunk's slice of it goes to the kernel as it lies).
     Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32)."""
     Bb, S, H, P = x.shape
     N = B_in.shape[-1]
@@ -97,9 +99,7 @@ def ssd_chunked(x, dt, A, B_in, C_in, chunk: int, state=None,
     x, dt, B_in, C_in = (t.to(f32) for t in (x, dt, B_in, C_in))
     if pad:
         # dt = 0 padding is exact: decay exp(0) = 1 and zero state injection
-        def padded(t):
-            return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-        x, dt, B_in, C_in = (padded(t) for t in (x, dt, B_in, C_in))
+        x, dt, B_in, C_in = (_pad_rows(t, pad) for t in (x, dt, B_in, C_in))
     state = (torch.zeros((Bb, H, P, N), dtype=f32, device=x.device)
              if state is None else state)
     A = A.to(f32)
@@ -111,6 +111,16 @@ def ssd_chunked(x, dt, A, B_in, C_in, chunk: int, state=None,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y, state
+
+
+def _pad_rows(t, pad: int):
+    """t padded with ``pad`` zero rows along dim 1.  A (B,S,H,N) view with
+    head stride 0 is padded at one head and expanded again, so no per-head
+    copy is made."""
+    if t.dim() == 4 and t.stride(2) == 0:
+        one = F.pad(t[:, :, :1], (0, 0, 0, 0, 0, pad))
+        return one.expand(-1, -1, t.shape[2], -1)
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
 def ssd_ref(x, dt, A, B_in, C_in, state=None):
@@ -157,10 +167,17 @@ def _finish(y, x4, z, p, cfg):
 
 
 def _broadcast_groups(t, cfg):
-    """(B,S,G*N) -> (B,S,H,N)."""
+    """(B,S,G*N) -> (B,S,H,N) float32.  The cast comes first, at (B,S,G*N):
+    casting an expanded view would materialise it.  With one group the
+    result is an ``expand``ed view of that tensor (head stride 0, its
+    storage shared), so every head reads the one group's rows; with G > 1
+    each group is copied to its H/G heads."""
     Bb, S = t.shape[:2]
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads
-    return t.reshape(Bb, S, g, n).repeat_interleave(h // g, dim=2)
+    t = t.to(torch.float32).reshape(Bb, S, g, n)
+    if g == 1:
+        return t.expand(Bb, S, h, n)
+    return t.repeat_interleave(h // g, dim=2)
 
 
 def _dt_A(dt_r, p):

@@ -359,6 +359,107 @@ def test_ssd_chunk_kernel_rejects_what_it_does_not_take(card):
         kss.ssd_chunk_cuda(*big)
 
 
+def _stride0(gen, B, Q, H, N, device):
+    """B and C as the model hands them over for one group: a (B,Q,N) tensor
+    expanded to (B,Q,H,N) with head stride 0."""
+    return [_randn(gen, B, Q, 1, N, device=device).expand(B, Q, H, N)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,H,P,N", [
+    (4, 256, 64, 64, 64),                      # zamba2-1.2b's chunk
+    (1, 256, 4, 64, 128),                      # N = 128
+    (2, 200, 3, 64, 64),                       # a ragged last tile
+    (2, 37, 5, 16, 8),
+])
+def test_ssd_chunk_kernel_on_head_stride0_b_and_c(B, Q, H, P, N, card):
+    gen = torch.Generator().manual_seed(6)
+    x, dt, A, _, _, st = _ssd_inputs(gen, B, Q, H, P, N, card)
+    Bm, Cm = _stride0(gen, B, Q, H, N, card)
+    assert Bm.stride(2) == 0
+    before = kss.LAUNCHES
+    y, s = ops.ssd_chunk(x, dt, A, Bm, Cm, st)
+    assert kss.LAUNCHES == before + 1
+    y2, s2 = ref.ssd_chunk_ref(x, dt, A, Bm, Cm, st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y2, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(s, s2, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_reads_a_chunk_slice_of_the_stride0_view(card):
+    gen = torch.Generator().manual_seed(7)
+    x, dt, A, _, _, st = _ssd_inputs(gen, 2, 512, 8, 64, 64, card)
+    Bm, Cm = _stride0(gen, 2, 512, 8, 64, card)
+    sl = slice(256, 512)
+    y, s = kss.ssd_chunk_cuda(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl], st)
+    y2, s2 = ref.ssd_chunk_ref(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl], st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y2, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(s, s2, rtol=SSD_TOL, atol=SSD_TOL)
+    # the same bits as from contiguous copies of the slices
+    want = kss.ssd_chunk_cuda(*(t[:, sl].contiguous() for t in (x, dt)), A,
+                              *(t[:, sl].contiguous() for t in (Bm, Cm)), st)
+    for a, b in zip((y, s), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_shared_memory_stays_in_a_block(card):
+    """The kernel's own count of its shared memory equals the wrapper's
+    and stays under the 227 KB a block may have at the configs' chunk."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load("ssd_chunk").ssd_chunk_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64
+    for Q, N in ((256, 64), (256, 128), (200, 16), (1, 4), (4096, 128)):
+        assert fn(Q, N) == kss.ssd_chunk_smem_bytes(Q, N)
+    assert kss.ssd_chunk_smem_bytes(256, 128) <= kss.SMEM_LIMIT
+    props = torch.cuda.get_device_properties(card)
+    limit = getattr(props, "shared_memory_per_block_optin", kss.SMEM_LIMIT)
+    assert kss.ssd_chunk_smem_bytes(256, 128) <= limit
+
+
+def _soa_edge(kind, L=354, F=48, N=4096, R=97, alpha=0.3, seed=11):
+    """SoA inputs with long rows (every lens = L), all-first rows, lens = 0
+    rows, or unsorted row_rep."""
+    rng = np.random.default_rng(seed)
+    obs = rng.uniform(0.5, 2.0, size=(F, L))
+    lens = np.full(F, L, np.int64)
+    m0 = rng.uniform(0.5, 2.0, size=F)
+    first = rng.random(F) < 0.3
+    if kind == "all_first":
+        first[:] = True
+        lens = rng.integers(0, L + 1, size=F).astype(np.int64)
+    if kind == "lens0":
+        lens[::2] = 0
+    ewma = np.full(F, alpha)
+    next_k = rng.integers(0, 10_000, size=N).astype(np.int64)
+    next_k[rng.random(N) < 0.2] = soa_step._BIG
+    row_rep = np.sort(rng.integers(0, R, size=N)).astype(np.int64)
+    if kind == "unsorted":
+        row_rep = rng.permutation(row_rep)
+    return obs, lens, m0, first, ewma, next_k, row_rep, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,L", [("long", 354), ("long", 1024),
+                                    ("all_first", 354), ("lens0", 354),
+                                    ("unsorted", 64)])
+def test_soa_step_kernel_bit_exact_on_edge_rows(kind, L, card):
+    obs, lens, m0, first, ewma, next_k, row_rep, R = _soa_edge(kind, L)
+    T = [torch.from_numpy(a).to(card)
+         for a in (obs, lens, m0, first, ewma, next_k, row_rep)]
+    m, seg = ksc.soa_step_fused_cuda(*T, R)
+    pm, pseg = ref.soa_step_fused_ref(*T, R)
+    fold = ksc.ewma_fold_cuda(*T[:5])
+    torch.cuda.synchronize()
+    assert torch.equal(m, pm) and torch.equal(seg, pseg) and torch.equal(fold, pm)
+    assert np.array_equal(m.cpu().numpy(),
+                          soa_step.ewma_fold_ref(obs, lens, m0, first, ewma))
+
+
 @pytest.mark.cuda
 def test_reduced_zamba2_serves_the_same_tokens_on_card_and_cpu(card):
     """The port's server at float32 on the card (both kernels) and on the

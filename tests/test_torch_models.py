@@ -228,3 +228,28 @@ def test_entry_points_raise_without_a_card():
         TServer(cfg, {}, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy(cfg, {})
+
+
+def test_two_group_hybrid_prefill_matches_the_jax_package():
+    """ssm_groups = 2: each group's B and C are copied to its heads (the
+    copy path; one group takes a head-stride-0 view).  The reduced zamba2's
+    float32 prefill logits and every cache leaf within 1e-4 of the JAX
+    package's."""
+    jc = dataclasses.replace(jget("zamba2-1.2b", reduced=True),
+                             dtype="float32", ssm_groups=2)
+    tc = dataclasses.replace(tget("zamba2-1.2b", reduced=True),
+                             dtype="float32", ssm_groups=2)
+    jp = jax.jit(JModel(jc).init)(jax.random.key(2))
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(9).integers(0, jc.vocab_size, size=(2, PROMPT),
+                                             dtype=np.int32)
+    jl, jcache = jax.jit(lambda p, b: JModel(jc).prefill(p, b, cache_len=MAX_LEN))(
+        jp, {"tokens": jnp.asarray(toks)})
+    tl, tcache = TModel(tc).prefill(tp, {"tokens": torch.as_tensor(toks).long()},
+                                    cache_len=MAX_LEN)
+    np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=TOL, atol=TOL)
+    jflat, tflat = _flat(jax.tree.map(np.asarray, jcache)), _flat(tcache)
+    assert jflat.keys() == tflat.keys()
+    for key in jflat:
+        np.testing.assert_allclose(_f32(tflat[key]), _f32(jflat[key]),
+                                   rtol=TOL, atol=TOL, err_msg=key)

@@ -122,3 +122,143 @@ def test_dispatch_modes_on_the_cpu():
         ops.ssd_chunk(*t, force="pallas")
     for a, b in zip(ops.ssd_chunk(*t, force="ref"), ref.ssd_chunk_ref(*t)):
         torch.testing.assert_close(a, b)
+
+
+# ------------------------------------------------------------ group broadcast
+
+def _cfg(groups):
+    from repro_torch.configs.base import get_config
+    import dataclasses
+    return dataclasses.replace(get_config("zamba2-1.2b", reduced=True),
+                               ssm_groups=groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_group_broadcast_is_a_float32_view_with_head_stride_0(dtype):
+    cfg = _cfg(1)
+    h, n = cfg.ssm_nheads, cfg.ssm_state
+    t = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 9, n)).astype(np.float32)).to(dtype)
+    out = tssd._broadcast_groups(t, cfg)
+    assert out.shape == (2, 9, h, n) and out.dtype == torch.float32
+    assert out.stride(2) == 0 and out.stride(-1) == 1
+    f32 = t.to(torch.float32)
+    if dtype == torch.float32:          # no cast: the view shares t's storage
+        assert out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+    copy = f32.reshape(2, 9, 1, n).repeat_interleave(h, dim=2)
+    assert torch.equal(out, copy)
+
+
+def test_two_group_broadcast_copies_each_group_to_its_heads():
+    cfg = _cfg(2)
+    h, n = cfg.ssm_nheads, cfg.ssm_state
+    t = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 9, 2 * n)).astype(np.float32))
+    out = tssd._broadcast_groups(t, cfg)
+    assert out.stride(2) != 0 and out.is_contiguous()
+    want = np.asarray(jssd._broadcast_groups(jnp.asarray(t.numpy()), cfg))
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (45, 16), (7, 16)])
+def test_ssd_chunked_on_the_stride0_view_equals_the_copy_bit_for_bit(S, chunk):
+    """The one-group view and the repeat_interleave copy hold the same
+    values, so the chunked scan (a padded last chunk included) gives the
+    same bits from either."""
+    rng = np.random.default_rng(7)
+    H, P, N = 3, 8, 4
+    x = torch.from_numpy(rng.standard_normal((2, S, H, P)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (2, S, H)).astype(np.float32))
+    A = torch.from_numpy(-rng.uniform(0.5, 2.0, H).astype(np.float32))
+    Bg, Cg = (torch.from_numpy(rng.standard_normal((2, S, 1, N)).astype(np.float32))
+              for _ in range(2))
+    view = [t.expand(2, S, H, N) for t in (Bg, Cg)]
+    copy = [t.repeat_interleave(H, dim=2) for t in (Bg, Cg)]
+    assert view[0].stride(2) == 0
+    y, s = tssd.ssd_chunked(x, dt, A, *view, chunk)
+    y2, s2 = tssd.ssd_chunked(x, dt, A, *copy, chunk)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_padding_keeps_the_head_stride_0_view():
+    t = torch.arange(2 * 5 * 1 * 3, dtype=torch.float32).reshape(2, 5, 1, 3)
+    v = t.expand(2, 5, 4, 3)
+    out = tssd._pad_rows(v, 3)
+    assert out.shape == (2, 8, 4, 3) and out.stride(2) == 0
+    assert torch.equal(out, torch.nn.functional.pad(v.contiguous(),
+                                                    (0, 0, 0, 0, 0, 3)))
+
+
+def test_smem_budget_fits_the_configs_chunks():
+    """The kernel's shared memory at the configs' chunk (Q = 256) with
+    N = 64 and 128 stays under the 227 KB a block may have; a chunk long
+    enough to overflow it raises before any launch."""
+    assert ksc.ssd_chunk_smem_bytes(256, 64) == 198704
+    assert ksc.ssd_chunk_smem_bytes(256, 128) == 165936
+    assert ksc.ssd_chunk_smem_bytes(200, 16) <= ksc.SMEM_LIMIT
+    assert ksc.ssd_chunk_smem_bytes(20000, 64) > ksc.SMEM_LIMIT
+
+
+# ------------------------------------------------- the kernel's precision
+#
+# The kernel computes its four products on the tensor cores in TF32 with
+# each float32 operand split as hi = tf32(x), lo = tf32(x - hi), and sums
+# hi.hi + hi.lo + lo.hi in float32 (3xTF32).  The emulation below repeats
+# that arithmetic in plain torch: TF32 rounding is cvt.rna's, round to
+# nearest with ties away from zero, onto 10 mantissa bits (bit masking).
+# It is a test of the precision argument, on no path of the port.
+
+def _tf32(t):
+    u = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000               # the magnitude, half up
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+    return u.view(torch.float32)
+
+
+def _mm(eq, a, b, terms):
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _ssd_chunk_tf32(x, dt, A, B_in, C_in, state, terms):
+    """ref.ssd_chunk_ref with its four products in emulated TF32."""
+    a = dt * A
+    cum = torch.cumsum(a, dim=1)
+    Q = x.shape[1]
+    seg = cum[:, :, None, :] - cum[:, None, :, :]
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[None, :, :, None]
+    decay = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+    scores = _mm("bihn,bjhn->bijh", C_in, B_in, terms) * decay
+    xbar = x * dt[..., None]
+    y = _mm("bijh,bjhp->bihp", scores, xbar, terms)
+    y = y + torch.exp(cum)[..., None] * _mm("bhpn,bihn->bihp", state,
+                                                  C_in, terms)
+    w = torch.exp(cum[:, -1:, :] - cum)
+    new_state = state * torch.exp(cum[:, -1])[:, :, None, None] + _mm(
+        "bjhp,bjhn->bhpn", xbar * w[..., None], B_in, terms)
+    return y, new_state
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                      # representable in TF32
+    t = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, one], dtype=torch.float32)
+    assert _tf32(t).tolist() == [one, -one, 1.0, one]
+
+
+def test_3xtf32_holds_the_contract_and_1xtf32_does_not():
+    """At zamba2's chunk widths (Q = 256, P = N = 64), three heads: the
+    3-term split is within rtol = atol = 1e-4 of ``ref.ssd_chunk_ref``; one
+    TF32 product per term is not, which is why the kernel splits."""
+    _, t = _inputs(np.random.default_rng(8), 1, 256, 3, 64, 64)
+    want = ref.ssd_chunk_ref(*t)
+    got3 = _ssd_chunk_tf32(*t, terms=3)
+    got1 = _ssd_chunk_tf32(*t, terms=1)
+    for g, w in zip(got3, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    assert not all(torch.allclose(g, w, rtol=TOL, atol=TOL)
+                   for g, w in zip(got1, want))
