@@ -23,7 +23,17 @@ drives the port's two paths through them:
   Mamba layer, 38 x 2 chunks, 3xTF32 on the tensor cores, B and C handed
   over with head stride 0), repeated on the card through the plain
   versions (bf16 and float32) and compared, and the reduced zamba2 on the
-  card against the CPU.
+  card against the CPU;
+* RevPred training (fig10): the LSTM stack's training kernels
+  (``lstm_stack_fwd_train``, ``lstm_stack_bwd``) held against autograd of
+  the plain version, then ``RevPred.train`` for revpred, tributary and
+  logreg on the card, their held-out accuracy and F1 and the integrated
+  ``build_spottune`` runs, each row held to a band around the JAX
+  package's (BENCH_simcore.json), one market's training on the card
+  against the CPU, and the training's profile and timing beside cuDNN;
+* phi3-mini-3.8b at full width (random bf16 weights from a seed): its
+  prefill runs flash attention at head dim 96, through the kernels and the
+  plain versions, bf16 and float32.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -692,6 +702,10 @@ SSD_LARGE_DECAY_TOL = 1e-2
 # differ by float32 summation order inside the kernels, which flips a bf16
 # rounding here and there; 45 blocks carry those flips to the output
 SERVE_REL_TOL = 5e-2    # of the largest |value|: prefill logits, SSD states
+# phi3's float32 prefill logits, kernels against plain, absolute: the port's
+# float32 prefill-logit tolerance against the JAX package
+# (tests/test_torch_models.py)
+PHI3_F32_LOGIT_TOL = 1e-4
 H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores, data sheet
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = (
     "zamba2-1.2b", 4, 512, 32, 1024)
@@ -766,14 +780,20 @@ def serve_phases(torch) -> tuple:
     phase("flash_attention kernel against its plain version")
     cfg = get_config(SERVE_ARCH)
     B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
-    # (B, Sq, Sk, H, D, dtype, causal): zamba2's prefill; the bf16 wgmma
-    # kernel at every head dim, S in (1, 200, 333, 512) with Sk = Sq and
-    # Sk = Sq + 37; the float32 FFMA kernel at S in (1, 200, 333), D = 128
+    # (B, Sq, Sk, H, D, dtype, causal): zamba2's prefill and phi3's (head
+    # dim 96) in both types; the bf16 wgmma kernel at every head dim, S in
+    # (1, 200, 333, 512) with Sk = Sq and Sk = Sq + 37; the float32 FFMA
+    # kernel at S in (1, 200, 333), Sk = Sq and Sq + 37, D in (96, 128)
+    p3 = get_config(PHI3_ARCH)
     cases = [(B, S, S, H, D, torch.bfloat16, c) for c in (True, False)]
-    cases += [(2, s, sk, 4, d, torch.bfloat16, c) for d in (16, 32, 64, 128)
-              for s in (1, 200, 333, 512) for sk in (s, s + 37)
-              for c in (True, False)]
-    cases += [(2, s, s, 4, 128, torch.float32, c) for s in (1, 200, 333)
+    cases += [(PHI3_BATCH, PHI3_PROMPT, PHI3_PROMPT, p3.n_heads,
+               p3.d_model // p3.n_heads, dt, c)
+              for dt in (torch.bfloat16, torch.float32) for c in (True, False)]
+    cases += [(2, s, sk, 4, d, torch.bfloat16, c)
+              for d in (16, 32, 64, 96, 128) for s in (1, 200, 333, 512)
+              for sk in (s, s + 37) for c in (True, False)]
+    cases += [(2, s, sk, 4, d, torch.float32, c) for d in (96, 128)
+              for s in (1, 200, 333) for sk in (s, s + 37)
               for c in (True, False)]
     flash_err = {"float32": 0.0, "bfloat16": 0.0}
 
@@ -811,9 +831,11 @@ def serve_phases(torch) -> tuple:
         fail(f"the bf16 cases launched the wgmma kernel {n_wg} times, want "
              f"{n_bf16}")
     print(f"{len(cases) + 6} cases (zamba2's prefill B={B} S={S} H={H} D={D} "
-          f"bf16 causal and not; bf16 at D in (16, 32, 64, 128), S in (1, 200, "
-          f"333, 512), Sk = S and S + 37; f32 at S in (1, 200, 333), D=128; "
-          f"strided views in both types): max abs err f32 "
+          f"bf16 causal and not; {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} "
+          f"H={p3.n_heads} D={p3.d_model // p3.n_heads} in both types; bf16 at "
+          f"D in (16, 32, 64, 96, 128), S in (1, 200, 333, 512), Sk = S and "
+          f"S + 37; f32 at D in (96, 128), S in (1, 200, 333), Sk = S and "
+          f"S + 37; strided views in both types): max abs err f32 "
           f"{flash_err['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
           f"{flash_err['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']}); every "
           f"bf16 case ran the wgmma kernel ({n_wg} launches)")
@@ -1161,6 +1183,561 @@ def serve_phases(torch) -> tuple:
     return flash_row, ssd_row
 
 
+# ------------------------------------------------------------------------
+# the training slice: the LSTM stack's backward, fig10, card against CPU
+# ------------------------------------------------------------------------
+
+# (G, B, T, I, H, layers): RevPred's and Tributary's training batches (the
+# batch of train_model is always full), then B in (1, 7), H = 16, one and
+# two layers
+BWD_CASES = [(1, 256, 59, 6, 32, 3), (1, 256, 60, 7, 32, 3),
+             (1, 1, 59, 6, 32, 3), (1, 7, 60, 7, 32, 3), (1, 7, 59, 6, 16, 3),
+             (1, 7, 59, 6, 32, 1), (1, 7, 59, 6, 32, 2)]
+GRAD_TOL = 1e-5     # of each gradient leaf's largest magnitude (float32)
+TRAIN_BS = 256      # train_model's batch
+# fig10 (benchmarks/fig10_revpred.py): 12-day market of seed 3, 9 days of
+# training, 4 epochs, stride 5; 3 held-out days, default_rng(1), stride 2
+FIG10_TRAIN_DAYS, FIG10_EVAL_DAYS, FIG10_EPOCHS, FIG10_STRIDE = 9, 3, 4, 5
+# BENCH_simcore.json's fig10 rows: the JAX package's results on the CPU of
+# its development container (not a card's)
+FIG10_GOLDEN = {
+    "revpred_accuracy": 0.644, "revpred_f1": 0.3018,
+    "tributary_accuracy": 0.528, "tributary_f1": 0.5029,
+    "logreg_accuracy": 0.6347, "logreg_f1": 0.0,
+    "integrated_revpred_cost_usd": 19.36, "integrated_revpred_pcr": 3.3112,
+    "integrated_tributary_cost_usd": 20.894, "integrated_tributary_pcr": 3.0679,
+}
+# Bands written before the first timed run, printed by tools/fig10_band.py
+# with the readings they come from (PERF.md, fig10): golden +- (max(3 x
+# spread, floor) + drift).  spread: the standard deviation of the JAX
+# package's own fig10 rows over three other init keys on the CPU; drift: how
+# far its rerun with the golden key lands from the golden on that CPU;
+# floor: 0.03 in accuracy and F1, 5 % of the golden for the integrated rows
+# (three keys do not show a discrete simulation's tails).  Logreg is
+# deterministic (zero init): golden +- 0.005.
+FIG10_BAND = {
+    "revpred_accuracy": (0.6124, 0.6756), "revpred_f1": (0.2282, 0.3754),
+    "tributary_accuracy": (0.4912, 0.5648), "tributary_f1": (0.4278, 0.5780),
+    "logreg_accuracy": (0.6297, 0.6397), "logreg_f1": (-0.005, 0.005),
+    "integrated_revpred_cost_usd": (11.3872, 27.3328),
+    "integrated_revpred_pcr": (1.7374, 4.8850),
+    "integrated_tributary_cost_usd": (19.5300, 22.2580),
+    "integrated_tributary_pcr": (2.8636, 3.2722),
+}
+# one market's revpred trained on the card (kernels) and on the CPU (plain
+# versions) from one initialisation: float32 sums in other orders, 40 steps
+TRAIN_LOSS_RTOL = 1e-4      # per-step loss, relative
+TRAIN_PARAM_ATOL = 1e-3     # final parameters
+
+
+def grad_case(G, B, T, I, H, L, seed=0):
+    """Seeded float32 inputs on the card: xs and every layer's weights
+    requiring grad, and an upstream gradient dh of the top layer's last h."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    xs = rnd(G, B, T, I).requires_grad_(True)
+    layers = [{"w_ih": rnd(G, I if n == 0 else H, 4 * H,
+                           scale=(I if n == 0 else H) ** -0.5).requires_grad_(True),
+               "w_hh": rnd(G, H, 4 * H, scale=H ** -0.5).requires_grad_(True),
+               "b": rnd(G, 4 * H, scale=0.1).requires_grad_(True)}
+              for n in range(L)]
+    return xs, layers, rnd(G, B, H)
+
+
+def lstm_train_bound_ms(G, B, T, I, H, L):
+    """Least times of the training kernels' work, float32: (backward bound,
+    its limit, forward + backward bound, its limit).  The backward kernel
+    reads every layer's saved gates and c and the weights and writes
+    dgates; it computes dh_{t-1} = dgates . W_hh^T (t > 0) and, above layer
+    0, dx_t = dgates . W_ih^T, and ~20 H elementwise operations per (layer,
+    step, row).  The whole training call takes xs, the weights and dh in
+    and gives h and every gradient out; it adds the forward's products and
+    ~14 H elementwise operations, and the weight gradients' products."""
+    n = G * B * T
+    ins = [I] + [H] * (L - 1)
+    w_floats = G * sum((i + H + 1) * 4 * H for i in ins)
+    rec = 2 * 4 * H * H
+    bwd_bytes = 4 * (L * n * 5 * H + L * n * 4 * H + w_floats + G * B * H)
+    bwd_ops = L * n * 20 * H + L * G * B * (T - 1) * rec + (L - 1) * n * rec
+    fwd_ops = sum(n * (2 * (i + H) * 4 * H + 14 * H) for i in ins)
+    wgrad_ops = sum(n * 2 * (i + H) * 4 * H + n * 4 * H for i in ins)
+    pair_bytes = 4 * (n * I + 2 * w_floats + 2 * G * B * H)
+    pair_ops = fwd_ops + bwd_ops + wgrad_ops
+
+    def bound(n_bytes, ops):
+        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    return bound(bwd_bytes, bwd_ops) + bound(pair_bytes, pair_ops)
+
+
+def fig10_steps(market, train_minutes, epochs, stride, bs=TRAIN_BS):
+    """train_model's steps for one kind over the pool: build_dataset's
+    sample count per market (it depends on the window only), full batches
+    per epoch."""
+    import numpy as np
+    n = len(np.arange(60, train_minutes - 61, stride))
+    return len(market.pool) * epochs * (n // bs)
+
+
+def fig10_run(device):
+    """fig10 through the port's entry points on ``device``: RevPred.train
+    for the three kinds, their accuracy and F1 on the held-out days averaged
+    over the pool, and the integrated SpotTune runs of revpred and
+    tributary through ``build_spottune``.  -> (rows, predictors, wall s)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.market import SpotMarket
+    from repro_torch.core.orchestrator import build_spottune
+    from repro_torch.core.revpred import RevPred, build_dataset, evaluate
+    from repro_torch.core.trial import WORKLOADS, SimTrialBackend, make_trials
+    market = SpotMarket(days=FIG10_TRAIN_DAYS + FIG10_EVAL_DAYS, seed=3)
+    train_min = FIG10_TRAIN_DAYS * 1440
+    eval_lo, eval_hi = train_min, (FIG10_TRAIN_DAYS + FIG10_EVAL_DAYS) * 1440 - 70
+    rows, preds, walls = {}, {}, {}
+    for kind in ("revpred", "tributary", "logreg"):
+        t0 = time.perf_counter()
+        rp = RevPred.train(market, train_min, kind=kind, epochs=FIG10_EPOCHS,
+                           stride=FIG10_STRIDE, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        preds[kind] = rp
+        accs, f1s = [], []
+        rng = np.random.default_rng(1)
+        for inst in market.pool:
+            data = build_dataset(market.traces[inst.name], inst.od_price,
+                                 eval_lo, eval_hi, "random", rng, stride=2)
+            m = evaluate(rp.predictors[inst.name], data)
+            accs.append(m["accuracy"])
+            f1s.append(m["f1"])
+        rows[f"{kind}_accuracy"] = float(np.mean(accs))
+        rows[f"{kind}_f1"] = float(np.mean(f1s))
+    trials = make_trials(WORKLOADS[0])
+    for kind in ("revpred", "tributary"):
+        m = SpotMarket(days=FIG10_TRAIN_DAYS + FIG10_EVAL_DAYS, seed=3)
+        rp = preds[kind]
+        rp.market = m          # the same traces (same seed), a fresh ledger
+        rp._p_cache = {}
+        res = build_spottune(trials, m, SimTrialBackend(m.pool), rp, theta=0.7,
+                             mcnt=3, seed=0, device=device).run()
+        rows[f"integrated_{kind}_cost_usd"] = float(res.cost)
+        rows[f"integrated_{kind}_pcr"] = float(res.pcr() * 1e6)
+    return rows, preds, walls, market
+
+
+def train_phases(torch) -> dict:
+    """The training slice: the stack's backward against autograd of its
+    plain version, fig10 on the card (the slice's main path), one market's
+    training on the card against the CPU, the profile and the timing.
+    Returns the backward kernel's JSON row."""
+    import numpy as np
+    from repro_torch.core import revpred as rp
+    from repro_torch.kernels import lstm_cell as klc
+    from repro_torch.kernels import ops, ref
+
+    # ------------------------------- the backward against its plain version
+    phase("lstm_stack backward (training kernels) against autograd of the "
+          "plain version")
+    bwd_err = saved_err = 0.0
+    for G, B, T, I, H, L in BWD_CASES:
+        xs, layers, dh = grad_case(G, B, T, I, H, L)
+        flat = [xs] + [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b")]
+        before = klc.TRAIN_LAUNCHES, klc.BWD_LAUNCHES
+        got = torch.autograd.grad(ops.lstm_stack(xs, layers), flat, dh)
+        launched = (klc.TRAIN_LAUNCHES - before[0], klc.BWD_LAUNCHES - before[1])
+        want = torch.autograd.grad(ref.lstm_stack_ref(xs, layers), flat, dh)
+        with torch.no_grad():
+            saved = klc.lstm_stack_fwd_train_cuda(xs, layers)
+            plain = ref.lstm_stack_fwd_train_ref(xs, layers)
+            dg = klc.lstm_stack_bwd_cuda(dh, plain[1], plain[2], layers)
+            dg_ref = ref.lstm_stack_bwd_ref(dh, plain[1], plain[2], layers)
+        torch.cuda.synchronize()
+        e = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(got, want))
+        e_dg = (dg - dg_ref).abs().max().item() / dg_ref.abs().max().item()
+        e_sv = max((a - b).abs().max().item() for a, b in zip(saved, plain))
+        what = f"G={G} B={B} T={T} I={I} H={H} layers={L}"
+        if not (e <= GRAD_TOL and e_dg <= GRAD_TOL and e_sv <= F32_TOL
+                and launched == (1, 1)):
+            fail(f"lstm_stack backward {what}: gradients {e:.3g} of their "
+                 f"largest (tol {GRAD_TOL}), dgates {e_dg:.3g}, saved state "
+                 f"{e_sv:.3g} (tol {F32_TOL}), launches {launched}")
+        bwd_err, saved_err = max(bwd_err, e, e_dg), max(saved_err, e_sv)
+        print(f"  {what}: gradient leaves within {e:.3g} of their largest, "
+              f"dgates {e_dg:.3g}, saved gates/c/h {e_sv:.3g}")
+    print(f"{len(BWD_CASES)} cases agree with autograd of ref.lstm_stack_ref "
+          f"(tol {GRAD_TOL} of each leaf's largest magnitude): max {bwd_err:.3g}")
+    bf = grad_case(1, 2, 10, 6, 16, 3)
+    try:
+        ops.lstm_stack(bf[0].detach().bfloat16().requires_grad_(True),
+                       [{k: v.detach().bfloat16().requires_grad_(True)
+                         for k, v in lp.items()} for lp in bf[1]])
+    except TypeError as exc:
+        print(f"bfloat16 with grad raises TypeError: {exc}")
+    else:
+        fail("lstm_stack with bfloat16 inputs that require grad did not raise")
+
+    # ------------------------------------------------ the main path: fig10
+    phase("main path: fig10 on the card (RevPred.train, evaluate, "
+          "build_spottune)")
+    klc.LAUNCHES = klc.STACK_LAUNCHES = klc.TRAIN_LAUNCHES = klc.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows, preds, walls, market = fig10_run("cuda")
+    torch.cuda.synchronize()
+    fig10_wall = time.perf_counter() - t0
+    launches = {"lstm_stack_fwd_train": klc.TRAIN_LAUNCHES,
+                "lstm_stack_bwd": klc.BWD_LAUNCHES,
+                "lstm_stack (inference)": klc.STACK_LAUNCHES,
+                "lstm_cell": klc.LAUNCHES}
+    steps = fig10_steps(market, FIG10_TRAIN_DAYS * 1440, FIG10_EPOCHS,
+                        FIG10_STRIDE)
+    print("rows beside BENCH_simcore.json's (the JAX package's results on "
+          "the CPU of its container) and the band written before the run:")
+    bad = []
+    for name, v in rows.items():
+        lo, hi = FIG10_BAND[name]
+        inside = lo <= v <= hi
+        bad += [] if inside else [name]
+        print(f"  fig10_{name:32s} {v:10.4f}   golden {FIG10_GOLDEN[name]:8.4f}  "
+              f"band [{lo}, {hi}]  {'inside' if inside else 'OUTSIDE'}")
+    print(f"wall {fig10_wall:.2f} s (training: revpred {walls['revpred']:.2f} s, "
+          f"tributary {walls['tributary']:.2f} s, logreg {walls['logreg']:.2f} s); "
+          f"{steps} training steps per kind; launches {launches}")
+    if bad:
+        fail(f"fig10 rows outside their band: {bad}")
+    if not (launches["lstm_stack_fwd_train"] == launches["lstm_stack_bwd"]
+            == 2 * steps and launches["lstm_cell"] == 0
+            and launches["lstm_stack (inference)"] > 0):
+        fail(f"the fig10 run did not launch the training kernels once per "
+             f"LSTM training step ({2 * steps} steps of revpred and tributary): "
+             f"{launches}")
+
+    # ------------------------------------------- card against the CPU
+    phase("one market's revpred trained on the card and on the CPU")
+    inst = market.pool[0]
+    data = rp.build_dataset(market.traces[inst.name], inst.od_price, 0,
+                            FIG10_TRAIN_DAYS * 1440, "algo2",
+                            np.random.default_rng(0), FIG10_STRIDE)
+    init = rp.init_revpred(torch.Generator().manual_seed(7), device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        losses = []
+        t0 = time.perf_counter()
+        params, _ = rp.train_model(rp.revpred_logits, init, data,
+                                   epochs=FIG10_EPOCHS, seed=0, device=dev,
+                                   on_step=losses.append)
+        losses = [float(x) for x in losses]
+        runs[dev] = (rp.params_to_numpy(params), losses,
+                     time.perf_counter() - t0)
+    (pc, lc, wc), (pp, lp, wp) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, lp))
+    param_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(rp.tree_leaves(pc), rp.tree_leaves(pp)))
+    print(f"{inst.name}: {len(lc)} steps, card {wc:.2f} s, CPU {wp:.2f} s; "
+          f"per-step loss max rel diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}), "
+          f"final parameters max abs diff {param_err:.3g} (tol "
+          f"{TRAIN_PARAM_ATOL}); losses {lc[0]:.6f} -> {lc[-1]:.6f}")
+    if not (len(lc) == len(lp) > 0 and loss_rel <= TRAIN_LOSS_RTOL
+            and param_err <= TRAIN_PARAM_ATOL):
+        fail("the card and CPU trainings disagree beyond their tolerances")
+
+    # ------------------------------------------------- where the time goes
+    phase("revpred training (6 markets) under torch.profiler")
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.revpred import RevPred
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        RevPred.train(market, FIG10_TRAIN_DAYS * 1440, kind="revpred",
+                      epochs=FIG10_EPOCHS, stride=FIG10_STRIDE, device="cuda")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    iv = device_intervals(prof)
+    busy = busy_us(iv) / 1e6
+    by = {}
+    for s0, s1, nm in iv:
+        key = ("lstm_stack_bwd" if "lstm_stack_bwd_kernel" in nm
+               else "lstm_stack_fwd_train" if "lstm_stack_kernel" in nm
+               and "true" in nm.lower() else "lstm_stack" if "lstm_stack_kernel"
+               in nm else "gemm" if "gemm" in nm.lower() or "sm90" in nm.lower()
+               else "other")
+        n, tsum = by.get(key, (0, 0.0))
+        by[key] = (n + 1, tsum + (s1 - s0) / 1e6)
+    print(f"wall {prof_wall:.3f} s (profiler on; {walls['revpred']:.3f} s "
+          f"unprofiled), {len(iv)} kernels, card busy {busy * 1e3:.2f} ms = "
+          f"{100 * busy / prof_wall:.2f}%, idle {100 * (1 - busy / prof_wall):.2f}%")
+    for key, (n, tsum) in sorted(by.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {tsum * 1e3:9.3f} ms  {100 * tsum / max(busy, 1e-12):6.2f}% of "
+              f"busy  {n:6d} launches  {key}")
+
+    # -------------------------------------------------------------- timing
+    phase("lstm_stack training kernels at RevPred's training batch (CUDA "
+          "events)")
+    G, B, T, I, H, L = BWD_CASES[0]
+    xs, layers, dh = grad_case(G, B, T, I, H, L, seed=1)
+    xs = xs.detach()
+    wflat = [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b")]
+    with torch.no_grad():
+        _, gates, c, _ = klc.lstm_stack_fwd_train_cuda(xs, layers)
+
+    def pair():
+        return torch.autograd.grad(ops.lstm_stack(xs, layers), wflat, dh)
+
+    def pair_plain():
+        return torch.autograd.grad(ref.lstm_stack_ref(xs, layers), wflat, dh)
+
+    def fwd_train():
+        with torch.no_grad():
+            return klc.lstm_stack_fwd_train_cuda(xs, layers)
+
+    def bwd():
+        with torch.no_grad():
+            return klc.lstm_stack_bwd_cuda(dh, gates, c, layers)
+
+    def bwd_plain():
+        with torch.no_grad():
+            return ref.lstm_stack_bwd_ref(dh, gates, c, layers)
+
+    # cuDNN's nn.LSTM forward + backward at the same shape (G = 1): weights
+    # (4H, I_l), b_ih = b, b_hh = 0, gate order i, f, g, o; TF32 off
+    lstm = torch.nn.LSTM(I, H, num_layers=L, batch_first=True).cuda()
+    with torch.no_grad():
+        for n, lp in enumerate(layers):
+            getattr(lstm, f"weight_ih_l{n}").copy_(lp["w_ih"][0].t())
+            getattr(lstm, f"weight_hh_l{n}").copy_(lp["w_hh"][0].t())
+            getattr(lstm, f"bias_ih_l{n}").copy_(lp["b"][0])
+            getattr(lstm, f"bias_hh_l{n}").zero_()
+    lib_params = list(lstm.parameters())
+
+    def cudnn_pair():
+        return torch.autograd.grad(lstm(xs[0])[1][0][-1], lib_params, dh[0])
+
+    lib_g = cudnn_pair()
+    ker_g = pair()
+    lib_err = (lib_g[0] - ker_g[0][0].t()).abs().max().item() / \
+        ker_g[0].abs().max().item()
+    t = {}
+    t["fwd_train_ms"] = cuda_ms(fwd_train, iters=200)
+    t["bwd_ms"] = cuda_ms(bwd, iters=200)
+    t["pair_ms"] = cuda_ms(pair, iters=100)
+    t["pair_plain_ms"] = cuda_ms(pair_plain, iters=3, warmup=1)
+    t["bwd_plain_ms"] = cuda_ms(bwd_plain, iters=3, warmup=1)
+    t["pair_library_ms"] = cuda_ms(cudnn_pair, iters=100)
+    t["bwd_ms_b"] = cuda_ms(bwd, iters=200)
+    t["pair_ms_b"] = cuda_ms(pair, iters=100)
+    t["fwd_train_device_us"] = device_us_per_call(fwd_train, iters=50)
+    t["bwd_device_us"] = device_us_per_call(bwd, iters=50)
+    t["pair_device_us"] = device_us_per_call(pair, iters=50)
+    t["pair_plain_device_us"] = device_us_per_call(pair_plain, iters=2, warmup=1)
+    t["pair_library_device_us"] = device_us_per_call(cudnn_pair, iters=50)
+    bwd_bound, bwd_by, pair_bound, pair_by = lstm_train_bound_ms(G, B, T, I, H, L)
+    wave, rows_, smem = klc.lstm_stack_bwd_plan(B, H, T, L)
+    diag = T + L - 1 if wave == L else L * T
+    print(f"G={G} B={B} T={T} I={I} H={H} {L} layers f32 ({wave} layers a wave, "
+          f"{rows_} row a block, {smem} bytes of shared memory, {diag} "
+          f"dependent diagonals):")
+    print(f"  forward with save {t['fwd_train_ms']:.5f} ms, "
+          f"{t['fwd_train_device_us']} us of card time")
+    print(f"  backward kernel {t['bwd_ms']:.5f} / {t['bwd_ms_b']:.5f} ms, "
+          f"{t['bwd_device_us']} us of card time; its plain version "
+          f"(ref.lstm_stack_bwd_ref) {t['bwd_plain_ms']:.4f} ms; bound "
+          f"{bwd_bound:.4g} ms ({bwd_by}); {t['bwd_ms'] / diag * 1e3:.4f} us "
+          f"a diagonal")
+    print(f"  forward + backward through the kernels (LstmStack, weight "
+          f"gradients by torch.bmm) {t['pair_ms']:.5f} / {t['pair_ms_b']:.5f} "
+          f"ms, {t['pair_device_us']} us of card time; autograd of the plain "
+          f"version {t['pair_plain_ms']:.4f} ms, {t['pair_plain_device_us']} us; "
+          f"cuDNN nn.LSTM forward + backward (TF32 off) {t['pair_library_ms']:.5f} "
+          f"ms, {t['pair_library_device_us']} us (its dW_ih of layer 0 agrees "
+          f"with the kernels' to {lib_err:.3g} of the largest); bound "
+          f"{pair_bound:.4g} ms ({pair_by})")
+    print(f"  launches per training step: 1 lstm_stack_fwd_train + 1 "
+          f"lstm_stack_bwd (revpred, tributary); per fig10 run: "
+          f"{launches['lstm_stack_bwd']} of each")
+    return {
+        "name": "lstm_stack_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas, "
+                    "differentiated through its lax.scan by jax.value_and_grad "
+                    "at src/repro/core/revpred.py:289-297; no Pallas backward)",
+        "launches": launches["lstm_stack_bwd"],
+        "fwd_train_launches": launches["lstm_stack_fwd_train"],
+        "max_abs_err": bwd_err, "err_is": "of each gradient leaf's largest",
+        "saved_state_err": saved_err,
+        "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
+        "bound_ms": bwd_bound, "bound_by": bwd_by,
+        "library_ms": None,
+        "library": "none computes the backward alone; cuDNN's forward + "
+                   "backward is pair_library_ms, to be read against pair_ms",
+        "pair_library": "torch.nn.LSTM (cuDNN, TF32 off) forward + backward",
+        "pair_bound_ms": pair_bound, "pair_bound_by": pair_by,
+        "shape": {"G": G, "B": B, "T": T, "I": I, "H": H, "layers": L,
+                  "dtype": "float32", "wave": wave, "rows": rows_},
+        **t, "fig10": {"rows": rows, "wall_s": fig10_wall,
+                       "train_wall_s": walls, "steps_per_kind": steps,
+                       "launches": launches, "card_busy_s": busy,
+                       "profiled_wall_s": prof_wall,
+                       "card_vs_cpu": {"loss_rel": loss_rel,
+                                       "param_abs": param_err,
+                                       "card_s": wc, "cpu_s": wp}},
+    }
+
+
+# ------------------------------------------------------------------------
+# phi3-mini-3.8b: flash attention at head dim 96
+# ------------------------------------------------------------------------
+
+PHI3_ARCH, PHI3_BATCH, PHI3_PROMPT, PHI3_NEW = "phi3-mini-3.8b", 2, 256, 8
+
+
+def phi3_phase(torch) -> dict:
+    """phi3-mini-3.8b at full width (random bf16 weights from a seed, 32
+    layers of 32 heads x 96): 2 prompts x 256 tokens prefilled through the
+    kernels and through the plain versions in bf16, then in float32 with 8
+    greedy tokens; flash_attention's D = 96 routes timed at its shape.
+    Returns the D = 96 numbers for flash_attention's JSON row."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.context import ModelCtx
+    from repro_torch.models.model import Model, tree_leaves, tree_map
+
+    phase(f"main path: {PHI3_ARCH} prefill at full width (flash attention "
+          f"at head dim 96)")
+    cfg = get_config(PHI3_ARCH)
+    D = cfg.d_model // cfg.n_heads
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{cfg.name}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f}"
+          f" GB), {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads x {D}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; random weights "
+          f"from seed 0, init {time.perf_counter() - t0:.2f} s; depth not cut")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                             size=(PHI3_BATCH, PHI3_PROMPT))
+    dev_tok = torch.as_tensor(toks, device="cuda").long()
+    max_len = PHI3_PROMPT + PHI3_NEW
+    server = Server(cfg, params, max_len=max_len, device="cuda")
+    plain = Server(cfg, params, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    server.prefill(dev_tok)                               # warm-up
+    torch.cuda.synchronize()
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = 0
+    lg_k = server.prefill(dev_tok)[0].float()[:, -1]
+    torch.cuda.synchronize()
+    fa, fa_wg = kfa.LAUNCHES, kfa.WGMMA_LAUNCHES
+    lg_r = plain.prefill(dev_tok)[0].float()[:, -1]
+
+    def prefill_ms(srv, n=5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            srv.prefill(dev_tok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    pre_ms, pre_plain_ms, pre_ms_b = (prefill_ms(server), prefill_ms(plain),
+                                      prefill_ms(server))
+    lg_err = (lg_k - lg_r).abs().max().item()
+    lg_tol = SERVE_REL_TOL * lg_r.abs().max().item()
+    finite = bool(torch.isfinite(lg_k).all())
+    print(f"bf16 prefill {PHI3_BATCH} x {PHI3_PROMPT}: flash_attention launches "
+          f"{fa}, all on the wgmma route at D = {D}: {fa_wg == fa} (want "
+          f"{cfg.n_layers}); {pre_ms:.2f} / {pre_ms_b:.2f} ms through the kernels, "
+          f"{pre_plain_ms:.2f} ms through the plain versions; last-position "
+          f"logits max abs diff {lg_err:.4g} (tol {lg_tol:.4g} = {SERVE_REL_TOL} "
+          f"x max |logit|), finite {finite}")
+    if not (D == 96 and fa == fa_wg == cfg.n_layers and finite
+            and lg_err <= lg_tol):
+        fail(f"{PHI3_ARCH} bf16 prefill: {fa} flash launches ({fa_wg} wgmma, "
+             f"want {cfg.n_layers}), logits {lg_err:.4g} apart (tol {lg_tol:.4g})")
+    del server, plain
+
+    phase(f"{PHI3_ARCH} in float32: prefill and {PHI3_NEW} greedy tokens, "
+          "kernels against plain")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    s32 = Server(cfg32, p32, max_len=max_len, device="cuda")
+    s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    kfa.LAUNCHES = 0
+    out32 = s32.generate({"tokens": toks}, PHI3_NEW)
+    torch.cuda.synchronize()
+    fa32 = kfa.LAUNCHES
+    out32_r = s32_r.generate({"tokens": toks}, PHI3_NEW)
+    lg32_k = s32.prefill(dev_tok)[0].float()[:, -1]
+    lg32_r = s32_r.prefill(dev_tok)[0].float()[:, -1]
+    torch.cuda.synchronize()
+    same32 = int((out32 == out32_r).sum())
+    lg32_err = (lg32_k - lg32_r).abs().max().item()
+    pre32_ms, pre32_plain_ms = prefill_ms(s32, 3), prefill_ms(s32_r, 3)
+    print(f"float32: flash launches {fa32} (prefill, want {cfg.n_layers}); "
+          f"{same32} of {out32.numel()} tokens equal; prefill logits kernels "
+          f"against plain max abs diff {lg32_err:.4g} (tol {PHI3_F32_LOGIT_TOL}); "
+          f"prefill {pre32_ms:.2f} ms "
+          f"through the kernels, {pre32_plain_ms:.2f} ms plain")
+    if (fa32 != cfg.n_layers or same32 != out32.numel()
+            or not lg32_err <= PHI3_F32_LOGIT_TOL):
+        fail(f"{PHI3_ARCH} float32 through the kernels and the plain versions: "
+             f"{same32} of {out32.numel()} tokens equal, {fa32} flash launches, "
+             f"prefill logits {lg32_err:.4g} apart (tol {PHI3_F32_LOGIT_TOL})")
+    del s32, s32_r, p32
+    torch.cuda.empty_cache()
+
+    phase(f"flash_attention at {PHI3_ARCH}'s shape, head dim 96 (CUDA events)")
+    gen = torch.Generator().manual_seed(12)
+    B, S, H = PHI3_BATCH, PHI3_PROMPT, cfg.n_heads
+    out = {"d96_shape": {"B": B, "S": S, "H": H, "D": D, "causal": True},
+           "d96_prefill_launches": fa, "d96_prefill_ms": pre_ms,
+           "d96_prefill_plain_ms": pre_plain_ms, "d96_bf16_logit_err": lg_err,
+           "d96_f32_tokens_equal": same32}
+    for dtype, name, tol in ((torch.bfloat16, "bf16", FLASH_TOL["bfloat16"]),
+                             (torch.float32, "f32", FLASH_TOL["float32"])):
+        q, k, v = ((torch.randn(B, S, H, D, generator=gen)).to("cuda", dtype)
+                   for _ in range(3))
+        ms = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
+        ms_b = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=200)
+        dev_us = device_us_per_call(
+            lambda: kfa.flash_attention_cuda(q, k, v, True), iters=50)
+        lib_us = device_us_per_call(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=50)
+        err = (kfa.flash_attention_cuda(q, k, v, True).float()
+               - ref.flash_attention_ref(q, k, v, True).float()).abs().max().item()
+        bound, by = flash_bound_ms(B, S, S, H, D, True, q.element_size())
+        print(f"{name} (B,S,H,D) = {(B, S, H, D)} causal: kernel {ms:.4f} / "
+              f"{ms_b:.4f} ms, {dev_us} us of card time; plain {plain_ms:.4f} "
+              f"ms; scaled_dot_product_attention {lib_ms:.4f} ms, {lib_us} us; "
+              f"bound {bound:.4g} ms ({by}); max abs err {err:.3g} (tol {tol})")
+        if not err <= tol:
+            fail(f"flash_attention {name} at {PHI3_ARCH}'s shape: max abs err "
+                 f"{err:.3g} > {tol}")
+        out.update({f"d96_{name}_ms": ms, f"d96_{name}_device_us": dev_us,
+                    f"d96_{name}_plain_ms": plain_ms,
+                    f"d96_{name}_library_ms": lib_ms,
+                    f"d96_{name}_library_device_us": lib_us,
+                    f"d96_{name}_bound_ms": bound, f"d96_{name}_bound_by": by,
+                    f"d96_{name}_err": err})
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1263,7 +1840,7 @@ def main() -> None:
     # --------------------------------------------------------- main path
     phase("main path: SpotTune tuning loop on the card")
     print("RevPred weights are untrained (fresh init, one generator seed per "
-          "market, pos_frac=0.2): RevPred training is a later slice")
+          "market, pos_frac=0.2); the fig10 phase trains them")
     klc.LAUNCHES = klc.STACK_LAUNCHES = 0
     with ForwardCounter() as fwd:
         engine, revpred, res, wall = run_scenario("cuda")
@@ -1392,7 +1969,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas)",
         "launches": cell_launches,
         "paths": "none since the stack kernel: held against its plain "
-                 "version only (RevPred training will step through it)",
+                 "version only (training runs the stack's own training "
+                 "kernels, row lstm_stack_bwd)",
         "max_abs_err": max(err.values()),
         "max_err_f32": err[torch.float32], "max_err_bf16": err[torch.bfloat16],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -1473,9 +2051,15 @@ def main() -> None:
     stack_row["revpred_sweep_launches"] = sweep["lstm_stack_launches"]
     stack_row["revpred_sweep_forwards"] = sweep["forwards"]
     flash_row, ssd_row = serve_phases(torch)
+    # the training slice and phi3 run last, so the earlier paths run as
+    # they did before them
+    bwd_row = train_phases(torch)
+    stack_row["fig10_launches"] = bwd_row["fig10"]["launches"][
+        "lstm_stack (inference)"]
+    flash_row.update(phi3_phase(torch))
     print(smi)
-    print(json.dumps({"kernels": [lstm_row, stack_row, soa_row, flash_row,
-                                  ssd_row]}))
+    print(json.dumps({"kernels": [lstm_row, stack_row, bwd_row, soa_row,
+                                  flash_row, ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,10 @@ Eq. 1-2 provisioner, RevPred inference and EarlyCurve.
 market        transient-resource market simulator (prices, revocation, refund)
 trial         HP grids + simulated workload suite (paper Table II)
 provisioner   Eq. 1-2 expected step cost, argmin instance selection
-revpred       LSTM revocation-probability predictor (inference; the fused
-              LSTM cell runs as a CUDA kernel on the card)
+revpred       LSTM revocation-probability predictor: inference and
+              training (the LSTM stack runs as CUDA kernels on the card)
 earlycurve    staged training-trend prediction
+orchestrator  the legacy Orchestrator / build_spottune layer over the tuner
 
 Drive it through ``repro_torch.tuner``::
 

@@ -20,7 +20,10 @@ gate order i, f, g, o; ``params_from_numpy`` carries its weights across.
 
 ``predict_pool_multi`` is the sweep's cross-replica batch point: the cache
 misses of every request, across markets and replicas, go through one grouped
-forward.  Training (``train_model``, ``RevPred.train``) is not ported yet.
+forward.  ``train_model`` and ``RevPred.train`` train the three predictors
+with the reference's AdamW (``repro_torch.optim``), batch order and loss; on
+the card the LSTM stack's gradient is the hand-written backward kernel
+(``kernels.lstm_cell.LstmStack``), on the CPU autograd of its plain version.
 """
 
 from __future__ import annotations
@@ -30,10 +33,13 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.market import MINUTE, InstanceType, SpotMarket
+from repro_torch.core.market import MINUTE, InstanceType, SpotMarket, stable_hash
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.optim import adamw
+from repro_torch.optim.optimizers import tree_leaves, tree_map, tree_unflatten
 
 HISTORY = 59
 N_FEAT = 6
@@ -166,22 +172,18 @@ def build_dataset(trace: np.ndarray, od_price: float, t_lo: int, t_hi: int,
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn: Callable, *trees):
-    """``fn`` over the leaves of parameter trees (nested dicts and lists)."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return [tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
-
-
 def params_from_numpy(tree, device="cuda"):
     """A JAX parameter pytree, as nested dicts and lists of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as tensors on ``device`` in the
     same layout and dtype."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of ``params_from_numpy``: tensors as numpy arrays on the
+    host, in the same layout."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int):
@@ -214,6 +216,23 @@ def init_revpred(generator: torch.Generator, hidden: int = 32, device="cuda"):
         "head": {"w": dense_init(generator, 2 * hidden, 1), "b": torch.zeros(1)},
     }
     return tree_map(lambda t: t.to(dev), params)
+
+
+def init_tributary(generator: torch.Generator, hidden: int = 32, device="cuda"):
+    """Tributary-style baseline parameters: everything through the LSTM."""
+    dev = resolve_device(device)
+    params = {
+        "lstm": _init_lstm_stack(generator, N_FEAT + 1, hidden, 3),
+        "head": {"w": dense_init(generator, hidden, 1), "b": torch.zeros(1)},
+    }
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def init_logreg(device="cuda"):
+    """Logistic-regression parameters: zeros, as the reference's."""
+    dev = resolve_device(device)
+    return {"w": torch.zeros(N_FEAT + 1, device=dev),
+            "b": torch.zeros((), device=dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +294,69 @@ def _grouped(params):
     return tree_map(lambda t: t[None], params)
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def weighted_bce(logits, labels, pos_frac: float):
+    """Class-weighted BCE: positive weight φ₋, negative weight φ₊ (paper)."""
+    w_pos, w_neg = 1.0 - pos_frac, pos_frac
+    logp = F.logsigmoid(logits)
+    lognp = F.logsigmoid(-logits)
+    return -torch.mean(labels * w_pos * logp + (1 - labels) * w_neg * lognp)
+
+
+def bce(logits, labels):
+    """Unweighted BCE in the log-sigmoid form (logreg's loss)."""
+    return -torch.mean(labels * F.logsigmoid(logits)
+                       + (1 - labels) * F.logsigmoid(-logits))
+
+
+def train_model(logit_fn: Callable, params, data: dict, epochs: int = 8,
+                bs: int = 256, lr: float = 3e-3, seed: int = 0,
+                weighted: bool = True, device="cuda", on_step=None):
+    """Train any of the three predictors on ``device``.  -> (params, pos_frac).
+
+    The reference's recipe: AdamW (lr, weight decay 1e-4, global-norm clip
+    1.0, no master copy), batches of ``bs`` in the order of
+    ``default_rng(seed).permutation(n)`` each epoch with the last partial
+    batch dropped, the class-weighted loss with pos_frac clamped to
+    [1e-3, 1 - 1e-3] (``weighted=False``: plain BCE).  ``params`` are
+    ungrouped; the logit functions see them as a group of one.  On the
+    card the LSTM stack's gradient is the backward kernel.  ``on_step(loss)``
+    is called with each step's loss tensor."""
+    dev = resolve_device(device)
+    n = len(data["label"])
+    pos_frac = float(np.mean(data["label"])) if n else 0.0
+    pf = min(max(pos_frac, 1e-3), 1 - 1e-3)
+    opt = adamw(lr, weight_decay=1e-4, grad_clip=1.0, keep_master=False)
+    params = tree_map(lambda t: t.detach().to(dev), params)
+    state = opt.init(params)
+    hist = torch.as_tensor(data["hist"]).to(dev)
+    present = torch.as_tensor(data["present"]).to(dev)
+    label = torch.as_tensor(data["label"]).to(dev)
+
+    def loss_fn(p, idx):
+        lg = logit_fn(_grouped(p), hist[idx][None], present[idx][None])[0]
+        return weighted_bce(lg, label[idx], pf) if weighted else bce(lg, label[idx])
+
+    rng = np.random.default_rng(seed)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for i in range(0, n - bs + 1, bs):
+            idx = torch.as_tensor(order[i:i + bs]).to(dev)
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                loss = loss_fn(p, idx)
+                grads = torch.autograd.grad(loss, tree_leaves(p))
+            grads = tree_unflatten(p, grads)
+            params, state, _ = opt.update(grads, state, params)
+            if on_step is not None:
+                on_step(loss.detach())
+    return params, pf
+
+
 @dataclasses.dataclass
 class TrainedPredictor:
     """Per-market predictor bundle with Eq. 3 calibration.  ``params`` are
@@ -318,6 +400,43 @@ class RevPred:
         self._feat_cache: Dict[str, np.ndarray] = {}
         self._p_cache: Dict = {}
         self._stack = None      # lazily-built batched-inference bundle
+
+    @classmethod
+    def train(cls, market: SpotMarket, train_minutes: int, kind: str = "revpred",
+              epochs: int = 6, seed: int = 0, stride: int = 3,
+              device="cuda") -> "RevPred":
+        """One predictor per pool market, trained on the first
+        ``train_minutes`` of its trace: kind 'revpred' (Algorithm-2
+        labels, the split model, Eq. 3), 'tributary' (random labels,
+        everything through the LSTM) or 'logreg' (unweighted, zero init).
+        One numpy generator from ``seed`` draws every market's dataset in
+        pool order; each market's weights start from a torch generator
+        seeded by its name."""
+        resolve_device(device)
+        preds = {}
+        rng = np.random.default_rng(seed)
+        kinds = {"revpred": ("algo2", revpred_logits, True),
+                 "tributary": ("random", tributary_logits, False),
+                 "logreg": ("random", logreg_logits, False)}
+        if kind not in kinds:
+            raise ValueError(kind)
+        mode, fn, use_eq3 = kinds[kind]
+        for inst in market.pool:
+            trace = market.traces[inst.name]
+            gen = torch.Generator().manual_seed(stable_hash(inst.name) & 0x7FFFFFFF)
+            data = build_dataset(trace, inst.od_price, 0, train_minutes, mode,
+                                 rng, stride)
+            if kind == "revpred":
+                init = init_revpred(gen, device=device)
+            elif kind == "tributary":
+                init = init_tributary(gen, device=device)
+            else:
+                init = init_logreg(device=device)
+            params, pf = train_model(fn, init, data, epochs=epochs, seed=seed,
+                                     weighted=kind != "logreg", device=device)
+            preds[inst.name] = TrainedPredictor(fn, params, pf, use_eq3,
+                                                device=device)
+        return cls(market, preds, device=device)
 
     def _features(self, inst: InstanceType) -> np.ndarray:
         if inst.name not in self._feat_cache:
@@ -433,12 +552,6 @@ def _eq3_deskew(p: np.ndarray, pos_frac: np.ndarray,
     return np.where(use_eq3, odds / (1.0 + odds), p)
 
 
-def _leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
 def predict_pool_multi(requests) -> list:
     """Revocation probabilities for many ``(revpred, insts, t, max_prices)``
     requests — the sweep runtime's cross-replica batch point.
@@ -481,7 +594,7 @@ def predict_pool_multi(requests) -> list:
         # group by model fn, per-market param shapes and device: only
         # same-width stacks on one device can share one concatenated forward
         sig = tuple((tuple(leaf.shape[1:]), str(leaf.dtype))
-                    for leaf in _leaves(stack["params"]))
+                    for leaf in tree_leaves(stack["params"]))
         fid = (id(stack["fn"]), sig, str(rp.device))
         mixed.setdefault(fid, []).append((ri, rp, stack, minute, misses))
     for group in mixed.values():
@@ -509,6 +622,22 @@ def predict_pool_multi(requests) -> list:
                 out[ri][i] = rp._p_cache[key] = float(p[pos])
                 pos += 1
     return out
+
+
+def evaluate(pred: TrainedPredictor, data: dict) -> dict:
+    """Accuracy / precision / recall / F1 at threshold 0.5 (paper Fig. 10)."""
+    p = pred.predict(data["hist"], data["present"])
+    yhat = (p >= 0.5).astype(np.float32)
+    y = data["label"]
+    tp = float(np.sum((yhat == 1) & (y == 1)))
+    fp = float(np.sum((yhat == 1) & (y == 0)))
+    fn = float(np.sum((yhat == 0) & (y == 1)))
+    acc = float(np.mean(yhat == y))
+    prec = tp / max(tp + fp, 1.0)
+    rec = tp / max(tp + fn, 1.0)
+    f1 = 2 * prec * rec / max(prec + rec, 1e-9)
+    return {"accuracy": acc, "precision": prec, "recall": rec, "f1": f1,
+            "pos_rate": float(np.mean(y))}
 
 
 def _sliding_max(arr: np.ndarray, w: int) -> np.ndarray:

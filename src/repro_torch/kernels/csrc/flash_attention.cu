@@ -9,9 +9,11 @@
 //
 // with the causal mask qpos >= kpos (no offset) when `causal`; masked
 // scores are -1e30 and the row sum is floored at 1e-30 before the
-// division, as in the TPU kernel.  D is 16, 32, 64 or 128 (a template
-// parameter: zamba2 and the dense configs have 64 or 128, their reduced
-// test configs 16).  q, k and v are read through their batch, sequence and
+// division, as in the TPU kernel.  D is 16, 32, 64, 96 or 128 (a template
+// parameter: zamba2 and the dense configs have 64 or 128, phi3-mini 96,
+// the reduced test configs 16).  Both kernels keep D in whole 64-column
+// blocks: D < 64 takes one, D = 96 two, the columns past D zero (the
+// products over them add nothing) and never stored.  q, k and v are read through their batch, sequence and
 // head strides (the last dimension must be contiguous).  Rows past Sq and
 // keys past Sk are masked (the TPU kernel asserts S % block == 0).  Two
 // kernels, chosen by the input type in flash_attention_fwd:
@@ -26,14 +28,14 @@
 //   grid's slow dimension walks the q tiles from the last to the first, so
 //   the causal blocks with the most K tiles start first.  The producer
 //   loads the Q tile once by TMA and streams 64-row K and V tiles by TMA
-//   into a three-stage ring (two at D = 128) guarded by mbarriers (a full
+//   into a three-stage ring (two at D = 96 and 128) guarded by mbarriers (a full
 //   barrier each for K and V, one empty barrier the consumers release); the
 //   maps are encoded on the host and kept by address, shape and strides, so
 //   a repeated call encodes nothing.  A causal block loads
 //   no tile above its diagonal (the Pallas kernel's `pl.when` skip).  All
 //   tiles are bf16 in 128-byte-swizzled shared memory, 64 columns a box (D =
-//   128 is two boxes; D < 64 loads one box whose columns past D the TMA
-//   fills with zeros).  The tensor maps are 4-D over (D, H, S, B) with the
+//   128 is two boxes; D < 64 loads one box and D = 96 two, whose columns
+//   past D the TMA fills with zeros).  The tensor maps are 4-D over (D, H, S, B) with the
 //   tensors' own strides, so strided views need no copy, and rows past S
 //   come back as zeros.  S = Q.K^T is wgmma m64n64k16 from shared memory
 //   (D/16 k steps), f32 accumulators in registers, multiplied by
@@ -90,7 +92,7 @@ __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 // the output patch's width: D rounded up to whole 64-column blocks
 template <int D>
-__host__ __device__ constexpr int padded_d() { return D < 64 ? 64 : D; }
+__host__ __device__ constexpr int padded_d() { return (D + 63) / 64 * 64; }
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -231,7 +233,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int d = nb * 64 + tx * 4 + c;
-        if (D >= 64 || d < D) put(orow + d, acc[r][nb * 4 + c] / denom);
+        if (DW == D || d < D) put(orow + d, acc[r][nb * 4 + c] / denom);
       }
   }
 }
@@ -258,6 +260,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int64_t B
     case 16: return launch<float, 16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
     case 32: return launch<float, 32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
     case 64: return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
+    case 96: return launch<float, 96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
     case 128: return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
     default: return -1;
   }
@@ -271,7 +274,7 @@ namespace tc {
 
 constexpr int BM = 64;                 // q rows per block (one warpgroup)
 constexpr int BN = 64;                 // k/v rows per tile
-constexpr int MAX_STAGES = 3;          // depth of the K/V ring: 3, 2 at D = 128
+constexpr int MAX_STAGES = 3;          // depth of the K/V ring: 3, 2 at D = 96 and 128
 constexpr int CONSUMERS = 128;         // warps 0-3
 constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
 constexpr int BOX_BYTES = 64 * 128;    // one box: 64 rows x 64 bf16 columns
@@ -279,7 +282,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  static constexpr int DP = D < 64 ? 64 : D;   // columns in shared memory
+  static constexpr int DP = (D + 63) / 64 * 64;   // columns in shared memory
   static constexpr int CH = DP / 64;           // boxes per tile
   static constexpr int KS = D / 16;            // k steps of Q.K^T
   static constexpr int OREG = DP / 2;          // O accumulator floats a thread
@@ -329,7 +332,7 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 }
 
 // MN-major operand (V as B of P.V): a 16-key step is two 8-key groups 1024
-// bytes apart; the 64-column boxes of D = 128 are BOX_BYTES apart
+// bytes apart; the 64-column boxes of D = 96 and 128 are BOX_BYTES apart
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return desc_sw128(addr, BOX_BYTES, 1024);
 }
@@ -736,6 +739,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, in
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 96: return launch<96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     default: return -1;
@@ -747,7 +751,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, in
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success); -1 for a shape the
-// kernel does not take (D not 16, 32, 64 or 128, an empty or oversized
+// kernel does not take (D not 16, 32, 64, 96 or 128, an empty or oversized
 // grid), -2 for a dtype code other than 0 (float32) or 1 (bfloat16), -3
 // when a bfloat16 tensor map cannot be made (a base not 16-byte aligned, a
 // stride not a multiple of 16 bytes: the wrapper copies such tensors

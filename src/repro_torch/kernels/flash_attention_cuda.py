@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernels since the count was last set to 0 (both routes)
 LAUNCHES = 0
@@ -26,7 +27,8 @@ LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernels are built for (96: phi3-mini's 3072 / 32)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 _FN = None
 
 
@@ -60,7 +62,8 @@ def _check(q, k, v):
                          f"{tuple(v.shape)} must be (B, Sk, H, D) with q's "
                          f"B, H, D = {B}, {H}, {D}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention_cuda: head dim {D} is not one of "
+                         f"the supported {HEAD_DIMS}")
     if Sk == 0:
         raise ValueError("flash_attention_cuda: no keys (Sk = 0)")
     return B, Sq, Sk, H, D
@@ -88,6 +91,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     """The kernel on CUDA tensors; the arguments of
     ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type."""
     global LAUNCHES, WGMMA_LAUNCHES
+    check_no_grad("flash_attention_cuda", q, k, v)
     B, Sq, Sk, H, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -5,7 +5,12 @@
 design) with two entries: ``lstm_cell_fwd``, one grouped cell step (the
 direct counterpart of the Pallas kernel), and ``lstm_stack_fwd``, a whole
 stack of layers over a sequence in one launch (RevPred's and Tributary's
-forwards).  They are compiled by ``build.py`` at first use and called
+forwards).  Training goes through ``LstmStack``, a ``torch.autograd.Function``
+over two more entries: ``lstm_stack_fwd_train`` (the stack kernel, also
+saving every step's gates, c and h) and ``lstm_stack_bwd`` (the backward's
+recurrence, a reverse wavefront over the layers); the weight gradients,
+which have no recurrence, are one ``torch.bmm`` per weight over the
+kernel's dgates.  They are compiled by ``build.py`` at first use and called
 through ``ctypes`` on PyTorch's current stream.
 """
 
@@ -16,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -63,6 +69,7 @@ def _check(x, h, c, w_ih, w_hh, b):
 def lstm_cell_cuda(x, h, c, w_ih, w_hh, b):
     """The kernel on CUDA tensors; the shapes of ``ref.lstm_cell_ref``."""
     global LAUNCHES
+    check_no_grad("lstm_cell_cuda", x, h, c, w_ih, w_hh, b)
     G, B, I, H = _check(x, h, c, w_ih, w_hh, b)
     fn = _fn()
     h_out = torch.empty_like(h)
@@ -120,33 +127,38 @@ def lstm_stack_smem_bytes(I: int, H: int, T: int, rows: int, n_layers: int = 3,
                 + n_buf * T * rows * H)
 
 
-def lstm_stack_plan(B: int, I: int, H: int, T: int, n_layers: int = 3):
-    """-> (layers per wave, rows per block, shared-memory bytes).  All
-    layers run as one wavefront where their weights fit in shared memory
-    and their threads (8H a layer and row) in 1024, else one layer at a
-    time; then as many batch rows per block as fit both limits.  Raises
-    ValueError where one layer of one row does not fit (H = 128: one
-    layer's weights alone are over 512 KiB, and it would need 1024
-    threads)."""
+def _plan(what: str, B: int, H: int, n_layers: int, smem) -> tuple:
+    """-> (layers per wave, rows per block, shared-memory bytes) under a
+    block's limits: 8H threads a layer and row (1024 a block) and
+    ``smem(rows, wave)`` bytes (``SMEM_LIMIT``).  Every layer at once where
+    that fits, else one at a time; then as many batch rows per block as
+    fit.  Raises ValueError where one layer of one row does not fit."""
     if H % 4:
-        raise ValueError(f"lstm_stack_cuda: hidden size {H} is not a multiple "
-                         "of 4")
+        raise ValueError(f"{what}: hidden size {H} is not a multiple of 4")
 
     def fits(wave, rows):
         return (wave * rows * H * LANES <= MAX_THREADS and
-                lstm_stack_smem_bytes(I, H, T, rows, n_layers, wave) <= SMEM_LIMIT)
+                smem(rows, wave) <= SMEM_LIMIT)
 
     if not fits(1, 1):
         raise ValueError(
-            f"lstm_stack_cuda: I={I} H={H} T={T} needs "
-            f"{lstm_stack_smem_bytes(I, H, T, 1, n_layers, 1)} bytes of shared "
-            f"memory and {H * LANES} threads a block for one layer of one batch "
-            f"row; a block has {SMEM_LIMIT} bytes and {MAX_THREADS} threads")
+            f"{what} needs {smem(1, 1)} bytes of shared memory and "
+            f"{H * LANES} threads a block for one layer of one batch row; a "
+            f"block has {SMEM_LIMIT} bytes and {MAX_THREADS} threads")
     wave = n_layers if fits(n_layers, 1) else 1
     rows = 1
     while rows < B and fits(wave, rows + 1):
         rows += 1
-    return wave, rows, lstm_stack_smem_bytes(I, H, T, rows, n_layers, wave)
+    return wave, rows, smem(rows, wave)
+
+
+def lstm_stack_plan(B: int, I: int, H: int, T: int, n_layers: int = 3):
+    """-> (layers per wave, rows per block, shared-memory bytes) of the
+    stack kernel (``_plan``).  H = 128 raises: one layer's weights alone
+    are over 512 KiB, and it would need 1024 threads."""
+    return _plan(f"lstm_stack_cuda: I={I} H={H} T={T}", B, H, n_layers,
+                 lambda rows, wave: lstm_stack_smem_bytes(I, H, T, rows,
+                                                          n_layers, wave))
 
 
 def _check_stack(xs, layers):
@@ -184,10 +196,23 @@ def _check_stack(xs, layers):
     return G, B, T, I, H
 
 
+def _flat(layers):
+    return [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b")]
+
+
+def _unflat(flat):
+    return [dict(zip(("w_ih", "w_hh", "b"), flat[i:i + 3]))
+            for i in range(0, len(flat), 3)]
+
+
 def lstm_stack_cuda(xs, layers):
     """The stack kernel on CUDA tensors; the arguments of
-    ``ref.lstm_stack_ref``.  Returns the top layer's last h (G,B,H)."""
+    ``ref.lstm_stack_ref``.  Returns the top layer's last h (G,B,H).  It
+    has no gradient: inputs that require one go through ``LstmStack``
+    (``ops.lstm_stack`` sends them there)."""
     global STACK_LAUNCHES
+    check_no_grad("lstm_stack_cuda (use ops.lstm_stack to train)", xs,
+                  *_flat(layers))
     G, B, T, I, H = _check_stack(xs, layers)
     n = len(layers)
     wave, rows, _ = lstm_stack_plan(B, I, H, T, n)
@@ -202,3 +227,186 @@ def lstm_stack_cuda(xs, layers):
         raise RuntimeError(f"lstm_stack kernel launch failed (code {err})")
     STACK_LAUNCHES += 1
     return h_out
+
+
+# --------------------------------------------------------------------------
+# training: the forward with its saved state, and the backward
+# (``lstm_stack_fwd_train``, ``lstm_stack_bwd``)
+# --------------------------------------------------------------------------
+
+#: launches of the training forward and of the backward since set to 0
+TRAIN_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+#: weight rows of the backward padded by 4 floats (8 rows x 4 parts of a
+#: warp fall on 32 different banks)
+_BWD_WPAD = 4
+_TRAIN_FN = None
+_BWD_FN = None
+
+
+def _train_fn():
+    global _TRAIN_FN
+    if _TRAIN_FN is None:
+        fn = build.load("lstm_cell").lstm_stack_fwd_train
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _TRAIN_FN = fn
+    return _TRAIN_FN
+
+
+def _bwd_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = build.load("lstm_cell").lstm_stack_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
+
+
+def lstm_stack_bwd_smem_bytes(H: int, T: int, rows: int, n_layers: int = 3,
+                              wave: int = 1) -> int:
+    """Shared memory of one backward block with ``wave`` layers resident:
+    each layer's W_hh and W_ih (2H rows of 4H, padded by 4 floats), its
+    dgates (rows, 4H) and recurrent dh (rows, H), and the dx sequences
+    handed down the layers ((T, rows, H) each: one per receiving layer when
+    the wave is the whole stack, two in turn otherwise), all float32
+    (``bwd_smem_floats`` in ``csrc/lstm_cell.cu``)."""
+    H4 = 4 * H
+    n_dx = (max(n_layers - 1, 1) if wave >= n_layers else 2)
+    return 4 * (wave * 2 * H * (H4 + _BWD_WPAD) + wave * rows * (H4 + H)
+                + n_dx * T * rows * H)
+
+
+def lstm_stack_bwd_plan(B: int, H: int, T: int, n_layers: int = 3):
+    """-> (layers per wave, rows per block, shared-memory bytes) of the
+    backward kernel, under the forward's limits (``_plan``)."""
+    return _plan(f"lstm_stack_bwd: H={H} T={T}", B, H, n_layers,
+                 lambda rows, wave: lstm_stack_bwd_smem_bytes(H, T, rows,
+                                                              n_layers, wave))
+
+
+def lstm_stack_fwd_train_cuda(xs, layers):
+    """The training forward on float32 CUDA tensors: -> (h (G,B,H), gates
+    (L,G,B,T,4H) after the nonlinearities, c (L,G,B,T,H), hs (L,G,B,T,H))."""
+    global TRAIN_LAUNCHES
+    G, B, T, I, H = _check_stack(xs, layers)
+    if xs.dtype != torch.float32:
+        raise TypeError(f"lstm_stack training takes float32, got {xs.dtype} "
+                        "(the reference trains in float32)")
+    n = len(layers)
+    wave, rows, _ = lstm_stack_plan(B, I, H, T, n)
+    ptrs = [(ctypes.c_void_p * n)(*[lp[k].data_ptr() for lp in layers])
+            for k in ("w_ih", "w_hh", "b")]
+    dev = xs.device
+    h_out = torch.empty(G, B, H, dtype=torch.float32, device=dev)
+    gates = torch.empty(n, G, B, T, 4 * H, dtype=torch.float32, device=dev)
+    c = torch.empty(n, G, B, T, H, dtype=torch.float32, device=dev)
+    hs = torch.empty(n, G, B, T, H, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _train_fn()(xs.data_ptr(), *ptrs, n, h_out.data_ptr(),
+                      gates.data_ptr(), c.data_ptr(), hs.data_ptr(), G, B, T,
+                      I, H, rows, wave, dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_stack_fwd_train launch failed (code {err})")
+    TRAIN_LAUNCHES += 1
+    return h_out, gates, c, hs
+
+
+def lstm_stack_bwd_cuda(dh_top, gates, c, layers):
+    """The backward's recurrence on float32 CUDA tensors: the upstream
+    gradient of the top layer's last h (G,B,H) and the training forward's
+    gates and c -> dgates (L,G,B,T,4H), the gradient of every layer's
+    pre-activation gates."""
+    global BWD_LAUNCHES
+    L, G, B, T, H4 = gates.shape
+    H = H4 // 4
+    if len(layers) != L or tuple(dh_top.shape) != (G, B, H) or \
+            tuple(c.shape) != (L, G, B, T, H):
+        raise ValueError(f"lstm_stack_bwd: dh {tuple(dh_top.shape)}, gates "
+                         f"{tuple(gates.shape)} and c {tuple(c.shape)} do not "
+                         f"match {len(layers)} layers")
+    for t in (dh_top, gates, c, *_flat(layers)):
+        if t.dtype != torch.float32 or t.device != gates.device or \
+                not t.is_contiguous():
+            raise ValueError("lstm_stack_bwd takes contiguous float32 tensors "
+                             f"on one device, got {t.dtype} on {t.device}")
+    wave, rows, _ = lstm_stack_bwd_plan(B, H, T, L)
+    ptrs = [(ctypes.c_void_p * L)(*[lp[k].data_ptr() for lp in layers])
+            for k in ("w_ih", "w_hh")]
+    dgates = torch.empty_like(gates)
+    dev = gates.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_fn()(dh_top.data_ptr(), gates.data_ptr(), c.data_ptr(), *ptrs,
+                    L, dgates.data_ptr(), G, B, T, H, rows, wave, dev.index,
+                    stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_stack_bwd launch failed (code {err})")
+    BWD_LAUNCHES += 1
+    return dgates
+
+
+def stack_weight_grads(xs, hs, dgates, layers, want):
+    """The gradients the recurrence leaves to plain products: per layer
+    dW_ih = sum_t x_t^T dgates_t (x = xs below, the layer below's h above),
+    dW_hh = sum_t h_{t-1}^T dgates_t (h_{-1} = 0) and db = sum dgates, over
+    the batch and the steps, one ``torch.bmm`` (or sum) each; and dxs =
+    dgates_0 . W_ih0^T.  ``want`` flags (xs, then w_ih, w_hh, b per layer);
+    an unwanted gradient is None."""
+    L, G, B, T, H4 = dgates.shape
+    H = H4 // 4
+    out = []
+    for n, lp in enumerate(layers):
+        dg = dgates[n]                                   # (G, B, T, 4H)
+        x = xs if n == 0 else hs[n - 1]                  # (G, B, T, I_l)
+        dw_ih = dw_hh = db = None
+        if want[1 + 3 * n]:
+            dw_ih = torch.bmm(x.reshape(G, B * T, -1).transpose(1, 2),
+                              dg.reshape(G, B * T, H4))
+        if want[2 + 3 * n]:
+            dw_hh = torch.bmm(
+                hs[n][:, :, :-1].reshape(G, B * (T - 1), H).transpose(1, 2),
+                dg[:, :, 1:].reshape(G, B * (T - 1), H4))
+        if want[3 + 3 * n]:
+            db = dg.sum(dim=(1, 2))
+        out += [dw_ih, dw_hh, db]
+    dxs = None
+    if want[0]:
+        dxs = torch.bmm(dgates[0].reshape(G, B * T, H4),
+                        layers[0]["w_ih"].transpose(1, 2)).reshape(xs.shape)
+    return [dxs] + out
+
+
+class LstmStack(torch.autograd.Function):
+    """``lstm_stack`` with a gradient, on float32 CUDA tensors: the forward
+    is ``lstm_stack_fwd_train``, the backward ``lstm_stack_bwd`` and the
+    products of ``stack_weight_grads``.  No fallback to the plain version:
+    a build or launch failure raises."""
+
+    @staticmethod
+    def forward(ctx, xs, *flat):
+        h, gates, c, hs = lstm_stack_fwd_train_cuda(xs, _unflat(flat))
+        ctx.save_for_backward(xs, gates, c, hs, *flat)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        xs, gates, c, hs, *flat = ctx.saved_tensors
+        layers = _unflat(flat)
+        dgates = lstm_stack_bwd_cuda(dh.contiguous(), gates, c, layers)
+        return tuple(stack_weight_grads(xs, hs, dgates, layers,
+                                        ctx.needs_input_grad))
+
+
+def lstm_stack_train(xs, layers):
+    """The stack with a gradient (``LstmStack``) -> the top layer's last h.
+    bfloat16 inputs raise TypeError: the reference trains in float32."""
+    if xs.dtype != torch.float32 or any(t.dtype != torch.float32
+                                        for t in _flat(layers)):
+        raise TypeError("lstm_stack with a gradient takes float32 (the "
+                        f"reference trains in float32), got {xs.dtype}")
+    return LstmStack.apply(xs, *_flat(layers))

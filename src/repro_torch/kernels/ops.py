@@ -8,9 +8,12 @@ plain version on any device, for tests and ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention_cuda import flash_attention_cuda
-from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_stack_cuda
+from repro_torch.kernels.lstm_cell import (lstm_cell_cuda, lstm_stack_cuda,
+                                           lstm_stack_train)
 from repro_torch.kernels.soa_step_cuda import ewma_fold_cuda, soa_step_fused_cuda
 from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_cuda
 
@@ -27,11 +30,18 @@ def lstm_cell(x, h, c, w_ih, w_hh, b, force: str | None = None):
 
 def lstm_stack(xs, layers, force: str | None = None):
     """Grouped LSTM stack over a sequence -> the top layer's last h.
-    force: None (by device) | 'ref' | 'cuda'."""
+    force: None (by device) | 'ref' | 'cuda'.  On CUDA tensors, inputs that
+    require grad (with grad mode on) take the training kernels
+    (``LstmStack``: forward with its saved state, then the backward);
+    others the inference kernel.  The plain version trains by autograd."""
     mode = force or ("cuda" if xs.is_cuda else "ref")
     if mode == "ref":
         return ref.lstm_stack_ref(xs, layers)
     if mode == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in [xs] + [lp[k] for lp in layers
+                                                 for k in ("w_ih", "w_hh", "b")]):
+            return lstm_stack_train(xs, layers)
         return lstm_stack_cuda(xs, layers)
     raise ValueError(f"unknown lstm_stack mode {mode!r}")
 

@@ -48,6 +48,70 @@ def lstm_stack_ref(xs, layers):
     return h
 
 
+def lstm_stack_fwd_train_ref(xs, layers):
+    """What the training forward ``lstm_stack_fwd_train`` computes, float32:
+    the arguments of ``lstm_stack_ref`` -> (the top layer's last h (G,B,H),
+    gates (L,G,B,T,4H) after their nonlinearities, c and h (L,G,B,T,H) of
+    every layer and step), each step the arithmetic of ``lstm_cell_ref``."""
+    G, B, T = xs.shape[:3]
+    seq = xs
+    gates, cs, hs = [], [], []
+    for lp in layers:
+        H = lp["w_hh"].shape[-2]
+        h = torch.zeros(G, B, H, dtype=xs.dtype, device=xs.device)
+        c = torch.zeros_like(h)
+        g_l, c_l, h_l = [], [], []
+        for t in range(T):
+            pre = (torch.bmm(seq[:, :, t], lp["w_ih"]) + torch.bmm(h, lp["w_hh"])
+                   + lp["b"][:, None, :])
+            i, f, g, o = pre.chunk(4, dim=-1)
+            i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            g_l.append(torch.cat([i, f, g, o], dim=-1))
+            c_l.append(c)
+            h_l.append(h)
+        seq = torch.stack(h_l, dim=2)
+        gates.append(torch.stack(g_l, dim=2))
+        cs.append(torch.stack(c_l, dim=2))
+        hs.append(seq)
+    return h, torch.stack(gates), torch.stack(cs), torch.stack(hs)
+
+
+def lstm_stack_bwd_ref(dh_top, gates, c, layers):
+    """What the backward kernel ``lstm_stack_bwd`` computes, float32: BPTT
+    from the upstream gradient of the top layer's last h (G,B,H) and the
+    training forward's gates and c -> dgates (L,G,B,T,4H), the gradient of
+    every layer's pre-activation gates, layer by layer from the top and
+    step by step from the last."""
+    L, G, B, T, H4 = gates.shape
+    H = H4 // 4
+    dgates = torch.empty_like(gates)
+    dx = None                           # (G, B, T, H) from the layer above
+    for n in reversed(range(L)):
+        dh_rec = torch.zeros(G, B, H, dtype=gates.dtype, device=gates.device)
+        dc = torch.zeros_like(dh_rec)
+        dx_below = torch.empty(G, B, T, H, dtype=gates.dtype,
+                               device=gates.device) if n > 0 else None
+        for t in reversed(range(T)):
+            dh = dh_rec + (dx[:, :, t] if dx is not None
+                           else dh_top if t == T - 1 else 0.0)
+            i, f, g, o = gates[n, :, :, t].chunk(4, dim=-1)
+            ct = c[n, :, :, t]
+            cp = c[n, :, :, t - 1] if t > 0 else torch.zeros_like(ct)
+            tc = torch.tanh(ct)
+            dc = dc + dh * o * (1 - tc * tc)
+            dg = torch.cat([dc * g * i * (1 - i), dc * cp * f * (1 - f),
+                            dc * i * (1 - g * g), dh * tc * o * (1 - o)], dim=-1)
+            dc = dc * f
+            dgates[n, :, :, t] = dg
+            dh_rec = torch.bmm(dg, layers[n]["w_hh"].transpose(1, 2))
+            if n > 0:
+                dx_below[:, :, t] = torch.bmm(dg, layers[n]["w_ih"].transpose(1, 2))
+        dx = dx_below
+    return dgates
+
+
 # the sweep's "not running" boundary tick, the boundary min's identity
 _BIG = 1 << 60
 

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._grad import check_no_grad
 from repro_torch.kernels.ref import _BIG
 
 #: launches of the kernel (both entry points) since the count was last set
@@ -82,6 +83,7 @@ def soa_step_fused_cuda(obs, lens, m0, first, ewma, next_k, row_rep,
     int64); the arguments of ``ref.soa_step_fused_ref``.  ``row_rep`` must
     lie in [0, n_reps): the kernel skips a row outside it."""
     global LAUNCHES
+    check_no_grad("soa_step_fused_cuda", obs, m0, ewma)
     F, L, named = _fold_args(obs, lens, m0, first, ewma)
     if not isinstance(next_k, torch.Tensor) or next_k.dim() != 1:
         raise ValueError("soa_step_cuda: next_k must be a 1-D (N,) tensor")
@@ -109,6 +111,7 @@ def soa_step_fused_cuda(obs, lens, m0, first, ewma, next_k, row_rep,
 def ewma_fold_cuda(obs, lens, m0, first, ewma):
     """The fold-only entry point on CUDA tensors -> m (F,) float64."""
     global LAUNCHES, FOLD_LAUNCHES
+    check_no_grad("ewma_fold_cuda", obs, m0, ewma)
     F, L, named = _fold_args(obs, lens, m0, first, ewma)
     dev = _check(named)
     m = torch.empty(F, dtype=torch.float64, device=dev)

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -93,6 +94,7 @@ def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
     float32 and contiguous.  Any (batch, row, head) strides are taken,
     head stride 0 for B_in and C_in included."""
     global LAUNCHES
+    check_no_grad("ssd_chunk_cuda", x, dt, A, B_in, C_in, state)
     Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
     x, dt, B_in, C_in = (t if t.stride(-1) == 1 else t.contiguous()
                          for t in (x, dt, B_in, C_in))

@@ -30,11 +30,15 @@ class Server:
         self.ctx = ctx or null_ctx()
         self.max_len = max_len
 
+    @torch.inference_mode()
     def prefill(self, tokens):
-        """(last-position logits (B,1,V), cache padded to ``max_len``)."""
+        """(last-position logits (B,1,V), cache padded to ``max_len``).
+        Serving takes no gradient: the kernels run as they do in
+        ``generate``, whatever the weights' ``requires_grad``."""
         return self.model.prefill(self.params, {"tokens": tokens}, self.ctx,
                                   cache_len=self.max_len)
 
+    @torch.inference_mode()
     def step(self, cache, tok, pos: int):
         """One decode step -> (next tokens (B,1) int64, cache)."""
         logits, cache = self.model.decode_step(self.params, cache, tok, pos,

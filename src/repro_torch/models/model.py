@@ -29,21 +29,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
 from repro_torch.models.context import ModelCtx, null_ctx
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
 
 
 def _stacked_init(init_fn, n):

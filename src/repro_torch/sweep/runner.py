@@ -124,7 +124,8 @@ class SweepRunner:
             if rp is None:
                 rp = shared_rp[rp_key] = build_revpred(
                     spec, market, train_minutes=self.train_minutes,
-                    epochs=self.revpred_epochs, stride=self.revpred_stride)
+                    epochs=self.revpred_epochs, stride=self.revpred_stride,
+                    device=self.device)
             tuners.append(build_replica(spec, market, _backend(spec.backend),
                                         rp, device=self.device))
         return tuners
@@ -265,7 +266,7 @@ class SweepRunner:
             backend = make_backend(spec.backend, pool=market.pool)
             rp = build_revpred(spec, market, train_minutes=self.train_minutes,
                                epochs=self.revpred_epochs,
-                               stride=self.revpred_stride)
+                               stride=self.revpred_stride, device=self.device)
             tuner = build_replica(spec, market, backend, rp,
                                   device=self.device)
             results.append(ReplicaResult(spec, tuner.run(), _histories(tuner)))

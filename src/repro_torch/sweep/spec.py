@@ -20,7 +20,7 @@ from typing import Dict, Iterable, List, Optional, Union
 from repro_torch.backends.base import TrialBackend
 from repro_torch.core.market import SpotMarket
 from repro_torch.core.provisioner import ZeroRevPred
-from repro_torch.core.revpred import OracleRevPred
+from repro_torch.core.revpred import OracleRevPred, RevPred
 from repro_torch.core.trial import WORKLOADS, Workload, continuous_variant
 from repro_torch.tuner import (POLICY_DEFAULTS, Scheduler, Searcher, Tuner,
                          build_engine, make_scheduler, make_searcher)
@@ -239,18 +239,18 @@ def build_searcher(spec: ScenarioSpec,
 
 def build_revpred(spec: ScenarioSpec, market: SpotMarket,
                   train_minutes: int = 2880, epochs: int = 4,
-                  stride: int = 5):
-    """The spec's predictor.  The learned kinds need ``RevPred.train``,
-    which the port does not have yet: build a ``RevPred`` from weights and
-    pass it to ``build_replica`` instead."""
+                  stride: int = 5, device="cuda"):
+    """The spec's predictor; the learned kinds are trained by
+    ``RevPred.train`` on ``device``."""
     if spec.revpred == "oracle":
         return OracleRevPred(market)
     if spec.revpred == "zero":
         return ZeroRevPred()
     if spec.revpred in ("revpred", "tributary", "logreg"):
-        raise NotImplementedError(
-            f"revpred={spec.revpred!r} needs RevPred.train, which is not "
-            "ported yet (ROADMAP slice 3)")
+        return RevPred.train(market, train_minutes=train_minutes,
+                             kind=spec.revpred, epochs=epochs,
+                             seed=spec.engine_seed, stride=stride,
+                             device=device)
     raise ValueError(f"unknown revpred {spec.revpred!r}")
 
 

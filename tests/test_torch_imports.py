@@ -25,6 +25,7 @@ import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules
                if sys.modules[k] is not None)
 print(len(names))
+print(" ".join(names))
 """
 
 
@@ -33,7 +34,11 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    count, names = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 20
+    # the training slice's modules load on their own as well
+    assert {"repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.core.orchestrator"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

@@ -480,3 +480,145 @@ def test_reduced_zamba2_serves_the_same_tokens_on_card_and_cpu(card):
     assert kss.LAUNCHES - ss == cfg.n_layers * -(-40 // cfg.ssm_chunk)
     want = Server(cfg, params, max_len=64, device="cpu").generate({"tokens": toks}, 12)
     assert torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the LSTM stack's backward (training) and the wrappers without a backward
+# --------------------------------------------------------------------------
+
+GRAD_TOL = 1e-5   # of each gradient leaf's largest magnitude
+
+
+def _grad_case(gen, G, B, T, I, H, L, device):
+    """Seeded float32 inputs that require grad (xs too) and an upstream dh."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+    xs = rnd(G, B, T, I).requires_grad_(True)
+    layers = [{"w_ih": rnd(G, I if n == 0 else H, 4 * H,
+                           scale=(I if n == 0 else H) ** -0.5).requires_grad_(True),
+               "w_hh": rnd(G, H, 4 * H, scale=H ** -0.5).requires_grad_(True),
+               "b": rnd(G, 4 * H, scale=0.1).requires_grad_(True)}
+              for n in range(L)]
+    return xs, layers, rnd(G, B, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,I,H,L", [
+    (1, 256, 59, 6, 32, 3),          # RevPred's training batch
+    (1, 256, 60, 7, 32, 3),          # Tributary's
+    (1, 1, 59, 6, 32, 3), (1, 7, 60, 7, 32, 3), (2, 7, 59, 6, 16, 3),
+    (1, 7, 59, 6, 32, 1), (1, 7, 59, 6, 32, 2), (1, 5, 20, 6, 64, 3),
+])
+def test_lstm_stack_backward_kernel_matches_autograd_of_ref(G, B, T, I, H, L, card):
+    xs, layers, dh = _grad_case(torch.Generator().manual_seed(B + H + L), G, B,
+                                T, I, H, L, card)
+    flat = [xs] + [lp[k] for lp in layers for k in ("w_ih", "w_hh", "b")]
+    before = klc.TRAIN_LAUNCHES, klc.BWD_LAUNCHES, klc.STACK_LAUNCHES
+    h = ops.lstm_stack(xs, layers)
+    got = torch.autograd.grad(h, flat, dh)
+    assert (klc.TRAIN_LAUNCHES, klc.BWD_LAUNCHES, klc.STACK_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    h_ref = ref.lstm_stack_ref(xs, layers)
+    want = torch.autograd.grad(h_ref, flat, dh)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= GRAD_TOL * scale
+
+
+@pytest.mark.cuda
+def test_lstm_stack_training_kernels_match_their_plain_versions(card):
+    xs, layers, dh = _grad_case(torch.Generator().manual_seed(3), 1, 9, 59, 6,
+                                32, 3, card)
+    with torch.no_grad():
+        saved = klc.lstm_stack_fwd_train_cuda(xs, layers)
+        want = ref.lstm_stack_fwd_train_ref(xs, layers)
+        for a, b in zip(saved, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        dg = klc.lstm_stack_bwd_cuda(dh, want[1], want[2], layers)
+        dg_ref = ref.lstm_stack_bwd_ref(dh, want[1], want[2], layers)
+    torch.testing.assert_close(dg, dg_ref, rtol=1e-5, atol=1e-5 * dg_ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_lstm_stack_bf16_with_grad_raises(card):
+    xs, layers, _ = _grad_case(torch.Generator().manual_seed(0), 1, 2, 10, 6,
+                               16, 3, card)
+    layers = [{k: v.detach().bfloat16().requires_grad_(True) for k, v in lp.items()}
+              for lp in layers]
+    with pytest.raises(TypeError, match="float32"):
+        ops.lstm_stack(xs.detach().bfloat16(), layers)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(card):
+    gen = torch.Generator().manual_seed(0)
+    x = _inputs(gen, 1, 2, 6, 32, torch.float32, card)
+    xs, layers, _ = _grad_case(gen, 1, 2, 10, 6, 16, 3, card)
+    q = _randn(gen, 1, 8, 2, 64, device=card).requires_grad_(True)
+    ssd = [t.requires_grad_(True) if t.is_floating_point() else t
+           for t in _ssd_inputs(gen, 1, 16, 1, 4, 4, card)]
+    obs = torch.rand(4, 3, dtype=torch.float64, device=card, requires_grad=True)
+    fold = (obs, torch.full((4,), 3, device=card), torch.rand(
+        4, dtype=torch.float64, device=card), torch.zeros(4, dtype=torch.bool,
+                                                         device=card),
+        torch.full((4,), 0.5, dtype=torch.float64, device=card))
+    calls = [lambda: klc.lstm_cell_cuda(x[0].requires_grad_(True), *x[1:]),
+             lambda: klc.lstm_stack_cuda(xs, layers),
+             lambda: kfa.flash_attention_cuda(q, q, q),
+             lambda: kss.ssd_chunk_cuda(*ssd),
+             lambda: ksc.ewma_fold_cuda(*fold),
+             lambda: ksc.soa_step_fused_cuda(*fold, torch.zeros(
+                 4, dtype=torch.int64, device=card), torch.zeros(
+                 4, dtype=torch.int64, device=card), 1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward yet .ROADMAP A10"):
+            call()
+    with torch.no_grad():
+        kfa.flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H", [(2, 256, 256, 32), (1, 200, 237, 4),
+                                       (2, 1, 38, 4), (1, 333, 333, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_head_dim_96(B, Sq, Sk, H, dtype, causal, card):
+    """phi3-mini's head dim (3072 / 32): both routes, at its own scale."""
+    gen = torch.Generator().manual_seed(Sq + H)
+    q = _randn(gen, B, Sq, H, 96, dtype=dtype, device=card)
+    k, v = (_randn(gen, B, Sk, H, 96, dtype=dtype, device=card) for _ in range(2))
+    before = kfa.LAUNCHES
+    o = ops.flash_attention(q, k, v, causal)
+    assert kfa.LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert o.shape == (B, Sq, H, 96) and o.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_train_model_on_the_card_matches_the_cpu(card):
+    """One market's revpred, a few steps: per-step losses and the final
+    parameters of the card run (the kernels) against the CPU run (autograd
+    of the plain versions), from the same initialisation."""
+    from repro_torch.core.market import SpotMarket
+    m = SpotMarket(days=3, seed=3)
+    inst = m.pool[1]
+    data = rp.build_dataset(m.traces[inst.name], inst.od_price, 0, 2 * 1440,
+                            "algo2", np.random.default_rng(0), stride=4)
+    init = rp.init_revpred(torch.Generator().manual_seed(5), device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        losses = []
+        params, pf = rp.train_model(rp.revpred_logits, init, data, epochs=2,
+                                    seed=1, device=dev,
+                                    on_step=lambda l: losses.append(l.item()))
+        runs[dev] = (rp.params_to_numpy(params), losses)
+    (pc, lc), (pp, lp) = runs["cuda"], runs["cpu"]
+    assert len(lc) == len(lp) >= 2
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    for a, b in zip(rp.tree_leaves(pc), rp.tree_leaves(pp)):
+        np.testing.assert_allclose(a, b, atol=1e-3)

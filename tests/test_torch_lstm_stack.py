@@ -156,3 +156,110 @@ def test_smem_budget_waves_and_rows():
     # output buffer per layer of the wave
     assert klc.lstm_stack_smem_bytes(6, 32, 59, 1, 3, 3) == 4 * (
         (32 + 32 + 2 * 64) * 144 + 3 * 128 + 59 * 6 + 3 * 59 * 32)
+
+
+# --------------------------------------------------------------------------
+# the backward: the plain versions of the training kernels
+# --------------------------------------------------------------------------
+
+GRAD_TOL = 1e-5   # of each gradient leaf's largest magnitude
+
+
+@pytest.mark.parametrize("B,T,I,H,L", [(4, 59, 6, 32, 3), (3, 60, 7, 16, 3),
+                                       (1, 9, 6, 8, 1), (5, 11, 6, 8, 2)])
+def test_stack_backward_plain_versions_match_jax_and_autograd(B, T, I, H, L):
+    """What the kernels compute (the training forward's saved state, the
+    backward's dgates, then ``stack_weight_grads``' products) equals
+    ``jax.grad`` of the JAX package's ``_run_lstm_stack`` and autograd of
+    ``ref.lstm_stack_ref``, leaf by leaf within 1e-5 of its largest
+    magnitude (float32 sums taken in other orders)."""
+    rng = np.random.default_rng(B * 100 + H)
+    xs_np, layers_np = _stack(rng, 1, T, I, H, L)
+    xs_np = np.repeat(xs_np, B, axis=1) + rng.standard_normal(
+        (1, B, T, I)).astype(np.float32)
+    dh_np = rng.standard_normal((1, B, H)).astype(np.float32)
+    xs, layers = _torch(xs_np, layers_np)
+    dh = torch.from_numpy(dh_np)
+    with torch.no_grad():
+        h, gates, c, hs = ref.lstm_stack_fwd_train_ref(xs, layers)
+        dgates = ref.lstm_stack_bwd_ref(dh, gates, c, layers)
+        got = klc.stack_weight_grads(xs, hs, dgates, layers, [True] * (1 + 3 * L))
+
+    flat = [xs.requires_grad_(True)] + [lp[k].requires_grad_(True)
+                                        for lp in layers for k in ("w_ih", "w_hh", "b")]
+    want = torch.autograd.grad(ref.lstm_stack_ref(xs, layers), flat, dh)
+
+    jp = [{k: jnp.asarray(v[0]) for k, v in lp.items()} for lp in layers_np]
+    jseq = jnp.asarray(xs_np[0])
+    jdh = jnp.asarray(dh_np[0])
+    gp, gx = jax.grad(lambda p, s: jnp.sum(jr._run_lstm_stack(p, s) * jdh),
+                      argnums=(0, 1))(jp, jseq)
+    jax_flat = [np.asarray(gx)[None]] + [np.asarray(g[k])[None] for g in gp
+                                         for k in ("w_ih", "w_hh", "b")]
+    assert torch.equal(h, ref.lstm_stack_ref(xs.detach(), layers))
+    for a, b, j in zip(got, want, jax_flat):
+        scale = float(np.abs(j).max())
+        assert a.shape == b.shape == j.shape
+        assert float((a - b).abs().max()) <= GRAD_TOL * scale
+        assert float(np.abs(a.numpy() - j).max()) <= GRAD_TOL * scale
+
+
+def test_ops_lstm_stack_trains_by_autograd_on_cpu():
+    xs, layers = _torch(*_stack(np.random.default_rng(1), 2, 12, 6, 8))
+    for lp in layers:
+        for t in lp.values():
+            t.requires_grad_(True)
+    before = klc.TRAIN_LAUNCHES, klc.BWD_LAUNCHES
+    h = ops.lstm_stack(xs, layers)
+    h.sum().backward()
+    assert (klc.TRAIN_LAUNCHES, klc.BWD_LAUNCHES) == before
+    assert all(lp[k].grad is not None and torch.isfinite(lp[k].grad).all()
+               for lp in layers for k in lp)
+
+
+@pytest.mark.parametrize("H,T,L", [(16, 60, 3), (32, 59, 3), (32, 60, 3),
+                                   (64, 59, 3), (32, 59, 1)])
+def test_backward_smem_budget(H, T, L):
+    wave, rows, smem = klc.lstm_stack_bwd_plan(256, H, T, L)
+    assert smem <= klc.SMEM_LIMIT
+    assert wave * rows * H * klc.LANES <= klc.MAX_THREADS
+    assert wave in (1, L)
+    if H <= 32:
+        assert wave == L       # every layer at once: T + L - 1 dependent steps
+    assert klc.lstm_stack_bwd_smem_bytes(H, T, rows, L, wave) == smem
+    with pytest.raises(ValueError, match="shared memory"):
+        klc.lstm_stack_bwd_plan(1, 128, T, L)
+
+
+def test_kernels_without_a_backward_refuse_grad_before_anything_else():
+    """Every kernel wrapper but the stack's training path raises where a
+    gradient would be lost (grad mode on, an input requiring grad), before
+    it looks at the device; with grad off the same call fails on the
+    device instead."""
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import soa_step_cuda as ksc
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    w = torch.zeros(1, 4, 32, requires_grad=True)
+    cell = (torch.zeros(1, 1, 4), torch.zeros(1, 1, 8), torch.zeros(1, 1, 8),
+            w, torch.zeros(1, 8, 32), torch.zeros(1, 32))
+    xs, layers = _torch(*_stack(np.random.default_rng(0), 1, 5, 6, 8))
+    layers[0]["b"].requires_grad_(True)
+    q = torch.zeros(1, 4, 2, 16, requires_grad=True)
+    ssd = (q.new_zeros(1, 4, 1, 4, requires_grad=True), torch.zeros(1, 4, 1),
+           torch.zeros(1), torch.zeros(1, 4, 1, 4), torch.zeros(1, 4, 1, 4),
+           torch.zeros(1, 1, 4, 4))
+    obs = torch.zeros(2, 3, dtype=torch.float64, requires_grad=True)
+    fold = (obs, torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.float64),
+            torch.zeros(2, dtype=torch.bool), torch.zeros(2, dtype=torch.float64))
+    seg = (torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int64), 1)
+    calls = [lambda: klc.lstm_cell_cuda(*cell),
+             lambda: klc.lstm_stack_cuda(xs, layers),
+             lambda: kfa.flash_attention_cuda(q, q, q),
+             lambda: kss.ssd_chunk_cuda(*ssd),
+             lambda: ksc.ewma_fold_cuda(*fold),
+             lambda: ksc.soa_step_fused_cuda(*fold, *seg)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward yet .ROADMAP A10"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError):
+            call()

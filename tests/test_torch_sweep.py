@@ -151,11 +151,12 @@ def test_unported_paths_raise():
     from repro_torch.backends import make_backend
     from repro_torch.core.market import SpotMarket
     spec = ts.ScenarioSpec(workload="LoR", market_seed=1, revpred="revpred")
-    with pytest.raises(NotImplementedError, match="RevPred.train"):
-        ts.build_revpred(spec, SpotMarket(days=2, seed=1))
     with pytest.raises(NotImplementedError, match="A11"):
         make_backend("training")
     import torch
     if not torch.cuda.is_available():
+        # the learned kinds train on the card by default (RevPred.train)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ts.build_revpred(spec, SpotMarket(days=2, seed=1))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ts.SweepRunner()
