@@ -30,7 +30,12 @@ drives the port's two paths through them:
   logreg on the card, their held-out accuracy and F1 and the integrated
   ``build_spottune`` runs, each row held to a band around the JAX
   package's (BENCH_simcore.json), one market's training on the card
-  against the CPU, and the training's profile and timing beside cuDNN;
+  against the CPU, and the training's profile and timing beside cuDNN:
+  each training kernel's plan (rows a block, blocks, waves over the SMs,
+  shared memory; more than one wave at the training batch fails), its card
+  time per call and per dependent diagonal, its bound, and forward +
+  backward through autograd broken down into the two kernels, the weight
+  gradients' GEMMs and the rest;
 * phi3-mini-3.8b at full width (random bf16 weights from a seed): its
   prefill runs flash attention at head dim 96, through the kernels and the
   plain versions, bf16 and float32.
@@ -1188,9 +1193,12 @@ def serve_phases(torch) -> tuple:
 # ------------------------------------------------------------------------
 
 # (G, B, T, I, H, layers): RevPred's and Tributary's training batches (the
-# batch of train_model is always full), then B in (1, 7), H = 16, one and
-# two layers
+# batch of train_model is always full), B = 255 and 257 (not a multiple of
+# the plan's 2 rows a block), two groups at the training batch (4 rows a
+# block), then B in (1, 7), H = 16, one and two layers
 BWD_CASES = [(1, 256, 59, 6, 32, 3), (1, 256, 60, 7, 32, 3),
+             (1, 255, 59, 6, 32, 3), (1, 257, 60, 7, 32, 3),
+             (2, 256, 59, 6, 32, 3),
              (1, 1, 59, 6, 32, 3), (1, 7, 60, 7, 32, 3), (1, 7, 59, 6, 16, 3),
              (1, 7, 59, 6, 32, 1), (1, 7, 59, 6, 32, 2)]
 GRAD_TOL = 1e-5     # of each gradient leaf's largest magnitude (float32)
@@ -1249,21 +1257,25 @@ def grad_case(G, B, T, I, H, L, seed=0):
 
 
 def lstm_train_bound_ms(G, B, T, I, H, L):
-    """Least times of the training kernels' work, float32: (backward bound,
-    its limit, forward + backward bound, its limit).  The backward kernel
-    reads every layer's saved gates and c and the weights and writes
-    dgates; it computes dh_{t-1} = dgates . W_hh^T (t > 0) and, above layer
-    0, dx_t = dgates . W_ih^T, and ~20 H elementwise operations per (layer,
-    step, row).  The whole training call takes xs, the weights and dh in
-    and gives h and every gradient out; it adds the forward's products and
-    ~14 H elementwise operations, and the weight gradients' products."""
+    """Least times of the training kernels' work, float32: (forward with
+    save bound, its limit, backward bound, its limit, forward + backward
+    bound, its limit).  The forward reads xs and the weights and writes the
+    top layer's last h and every layer's saved gates, c and h; it computes
+    both products and ~14 H elementwise operations per (layer, step, row).
+    The backward reads every layer's saved gates and c and the weights and
+    writes dgates; it computes dh_{t-1} = dgates . W_hh^T (t > 0) and,
+    above layer 0, dx_t = dgates . W_ih^T, and ~20 H elementwise operations
+    per (layer, step, row).  The whole training call takes xs, the weights
+    and dh in and gives h and every gradient out; it adds the weight
+    gradients' products."""
     n = G * B * T
     ins = [I] + [H] * (L - 1)
     w_floats = G * sum((i + H + 1) * 4 * H for i in ins)
     rec = 2 * 4 * H * H
+    fwd_bytes = 4 * (n * I + w_floats + G * B * H + L * n * 6 * H)
+    fwd_ops = sum(n * (2 * (i + H) * 4 * H + 14 * H) for i in ins)
     bwd_bytes = 4 * (L * n * 5 * H + L * n * 4 * H + w_floats + G * B * H)
     bwd_ops = L * n * 20 * H + L * G * B * (T - 1) * rec + (L - 1) * n * rec
-    fwd_ops = sum(n * (2 * (i + H) * 4 * H + 14 * H) for i in ins)
     wgrad_ops = sum(n * 2 * (i + H) * 4 * H + n * 4 * H for i in ins)
     pair_bytes = 4 * (n * I + 2 * w_floats + 2 * G * B * H)
     pair_ops = fwd_ops + bwd_ops + wgrad_ops
@@ -1273,7 +1285,8 @@ def lstm_train_bound_ms(G, B, T, I, H, L):
         t_ops = ops / H100_F32_FLOPS * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    return bound(bwd_bytes, bwd_ops) + bound(pair_bytes, pair_ops)
+    return bound(fwd_bytes, fwd_ops) + bound(bwd_bytes, bwd_ops) + \
+        bound(pair_bytes, pair_ops)
 
 
 def fig10_steps(market, train_minutes, epochs, stride, bs=TRAIN_BS):
@@ -1331,11 +1344,39 @@ def fig10_run(device):
     return rows, preds, walls, market
 
 
-def train_phases(torch) -> dict:
+def train_kernel_kind(name: str) -> str:
+    """The part of a training step a card kernel belongs to, by its name."""
+    low = name.lower()
+    return ("lstm_stack_bwd" if "lstm_stack_bwd_kernel" in name
+            else "lstm_stack_fwd_train" if "lstm_stack_fwd_train_kernel" in name
+            else "lstm_stack" if "lstm_stack_kernel" in name
+            else "gemm" if "gemm" in low or "sm90" in low or "cutlass" in low
+            else "other")
+
+
+def launch_card_us(fn, kind: str, iters: int = 50, warmup: int = 20):
+    """(mean card time of one launch of the training kernel ``kind``, the
+    launches of it the profiler saw) over ``iters`` calls of ``fn``: the
+    mean is taken over the launches seen, not over the calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e - s for s, e, nm in device_intervals(prof)
+             if train_kernel_kind(nm) == kind]
+    return (sum(spans) / len(spans) if spans else None), len(spans)
+
+
+def train_phases(torch) -> tuple:
     """The training slice: the stack's backward against autograd of its
     plain version, fig10 on the card (the slice's main path), one market's
     training on the card against the CPU, the profile and the timing.
-    Returns the backward kernel's JSON row."""
+    Returns the two training kernels' JSON rows."""
     import numpy as np
     from repro_torch.core import revpred as rp
     from repro_torch.kernels import lstm_cell as klc
@@ -1461,11 +1502,7 @@ def train_phases(torch) -> dict:
     busy = busy_us(iv) / 1e6
     by = {}
     for s0, s1, nm in iv:
-        key = ("lstm_stack_bwd" if "lstm_stack_bwd_kernel" in nm
-               else "lstm_stack_fwd_train" if "lstm_stack_kernel" in nm
-               and "true" in nm.lower() else "lstm_stack" if "lstm_stack_kernel"
-               in nm else "gemm" if "gemm" in nm.lower() or "sm90" in nm.lower()
-               else "other")
+        key = train_kernel_kind(nm)
         n, tsum = by.get(key, (0, 0.0))
         by[key] = (n + 1, tsum + (s1 - s0) / 1e6)
     print(f"wall {prof_wall:.3f} s (profiler on; {walls['revpred']:.3f} s "
@@ -1477,7 +1514,7 @@ def train_phases(torch) -> dict:
 
     # -------------------------------------------------------------- timing
     phase("lstm_stack training kernels at RevPred's training batch (CUDA "
-          "events)")
+          "events, torch.profiler)")
     G, B, T, I, H, L = BWD_CASES[0]
     xs, layers, dh = grad_case(G, B, T, I, H, L, seed=1)
     xs = xs.detach()
@@ -1494,6 +1531,10 @@ def train_phases(torch) -> dict:
     def fwd_train():
         with torch.no_grad():
             return klc.lstm_stack_fwd_train_cuda(xs, layers)
+
+    def fwd_train_plain():
+        with torch.no_grad():
+            return ref.lstm_stack_fwd_train_ref(xs, layers)
 
     def bwd():
         with torch.no_grad():
@@ -1517,6 +1558,10 @@ def train_phases(torch) -> dict:
     def cudnn_pair():
         return torch.autograd.grad(lstm(xs[0])[1][0][-1], lib_params, dh[0])
 
+    def cudnn_fwd():
+        with torch.no_grad():
+            return lstm(xs[0])
+
     lib_g = cudnn_pair()
     ker_g = pair()
     lib_err = (lib_g[0] - ker_g[0][0].t()).abs().max().item() / \
@@ -1525,29 +1570,72 @@ def train_phases(torch) -> dict:
     t["fwd_train_ms"] = cuda_ms(fwd_train, iters=200)
     t["bwd_ms"] = cuda_ms(bwd, iters=200)
     t["pair_ms"] = cuda_ms(pair, iters=100)
+    t["fwd_train_plain_ms"] = cuda_ms(fwd_train_plain, iters=3, warmup=1)
     t["pair_plain_ms"] = cuda_ms(pair_plain, iters=3, warmup=1)
     t["bwd_plain_ms"] = cuda_ms(bwd_plain, iters=3, warmup=1)
+    t["fwd_library_ms"] = cuda_ms(cudnn_fwd, iters=100)
     t["pair_library_ms"] = cuda_ms(cudnn_pair, iters=100)
+    t["fwd_train_ms_b"] = cuda_ms(fwd_train, iters=200)
     t["bwd_ms_b"] = cuda_ms(bwd, iters=200)
     t["pair_ms_b"] = cuda_ms(pair, iters=100)
     t["fwd_train_device_us"] = device_us_per_call(fwd_train, iters=50)
     t["bwd_device_us"] = device_us_per_call(bwd, iters=50)
+    t["fwd_train_launch_us"], t["fwd_train_launches_seen"] = launch_card_us(
+        fwd_train, "lstm_stack_fwd_train")
+    t["bwd_launch_us"], t["bwd_launches_seen"] = launch_card_us(bwd, "lstm_stack_bwd")
     t["pair_device_us"] = device_us_per_call(pair, iters=50)
     t["pair_plain_device_us"] = device_us_per_call(pair_plain, iters=2, warmup=1)
+    t["fwd_library_device_us"] = device_us_per_call(cudnn_fwd, iters=50)
     t["pair_library_device_us"] = device_us_per_call(cudnn_pair, iters=50)
-    bwd_bound, bwd_by, pair_bound, pair_by = lstm_train_bound_ms(G, B, T, I, H, L)
-    wave, rows_, smem = klc.lstm_stack_bwd_plan(B, H, T, L)
-    diag = T + L - 1 if wave == L else L * T
-    print(f"G={G} B={B} T={T} I={I} H={H} {L} layers f32 ({wave} layers a wave, "
-          f"{rows_} row a block, {smem} bytes of shared memory, {diag} "
-          f"dependent diagonals):")
-    print(f"  forward with save {t['fwd_train_ms']:.5f} ms, "
-          f"{t['fwd_train_device_us']} us of card time")
-    print(f"  backward kernel {t['bwd_ms']:.5f} / {t['bwd_ms_b']:.5f} ms, "
-          f"{t['bwd_device_us']} us of card time; its plain version "
-          f"(ref.lstm_stack_bwd_ref) {t['bwd_plain_ms']:.4f} ms; bound "
-          f"{bwd_bound:.4g} ms ({bwd_by}); {t['bwd_ms'] / diag * 1e3:.4f} us "
-          f"a diagonal")
+    # forward + backward through autograd, its card time by part
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        pair()
+    torch.cuda.synchronize()
+    n_pair = 50
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_pair):
+            pair()
+        torch.cuda.synchronize()
+    parts = {}
+    for s0, s1, nm in device_intervals(prof):
+        key = train_kernel_kind(nm)
+        parts[key] = parts.get(key, 0.0) + (s1 - s0) / n_pair
+    t["pair_parts_device_us"] = parts
+    fwd_bound, fwd_by, bwd_bound, bwd_by, pair_bound, pair_by = \
+        lstm_train_bound_ms(G, B, T, I, H, L)
+    sms = klc.n_sms(xs.device)
+    plans = {"lstm_stack_fwd_train": klc.lstm_stack_train_plan(B, I, H, T, L, sms, G),
+             "lstm_stack_bwd": klc.lstm_stack_bwd_plan(B, H, T, L, sms, G)}
+    print(f"G={G} B={B} T={T} I={I} H={H} {L} layers f32 on {sms} SMs:")
+    diags = {}
+    for name, (wave, rows_, blocks, smem) in plans.items():
+        diags[name] = T + L - 1 if wave == L else L * T
+        print(f"  {name} plan: {wave} layers a wave, {rows_} rows a block, "
+              f"{blocks} blocks = {-(-blocks // sms)} wave(s) over the SMs, "
+              f"{smem} bytes of shared memory, {diags[name]} dependent "
+              f"diagonals")
+        if blocks > sms:
+            fail(f"{name} at the training batch runs {blocks} blocks on {sms} "
+                 "SMs: more than one wave")
+    per_diag = {k: (t[f"{k}_launch_us"] / diags[n] if t[f"{k}_launch_us"] else None)
+                for k, n in (("fwd_train", "lstm_stack_fwd_train"),
+                             ("bwd", "lstm_stack_bwd"))}
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    print(f"  forward with save {t['fwd_train_ms']:.5f} / {t['fwd_train_ms_b']:.5f} "
+          f"ms, {fmt(t['fwd_train_launch_us'])} us of card time a launch "
+          f"({t['fwd_train_launches_seen']} launches seen in 50 calls; "
+          f"{t['fwd_train_device_us']} us a call), "
+          f"{fmt(per_diag['fwd_train'])} us a diagonal; its plain version "
+          f"(ref.lstm_stack_fwd_train_ref) {t['fwd_train_plain_ms']:.4f} ms; "
+          f"bound {fwd_bound:.4g} ms ({fwd_by}); cuDNN nn.LSTM forward "
+          f"{t['fwd_library_ms']:.5f} ms, {t['fwd_library_device_us']} us")
+    print(f"  backward {t['bwd_ms']:.5f} / {t['bwd_ms_b']:.5f} ms, "
+          f"{fmt(t['bwd_launch_us'])} us of card time a launch "
+          f"({t['bwd_launches_seen']} launches seen in 50 calls; "
+          f"{t['bwd_device_us']} us a call), {fmt(per_diag['bwd'])} us a "
+          f"diagonal; its plain version (ref.lstm_stack_bwd_ref) "
+          f"{t['bwd_plain_ms']:.4f} ms; bound {bwd_bound:.4g} ms ({bwd_by})")
     print(f"  forward + backward through the kernels (LstmStack, weight "
           f"gradients by torch.bmm) {t['pair_ms']:.5f} / {t['pair_ms_b']:.5f} "
           f"ms, {t['pair_device_us']} us of card time; autograd of the plain "
@@ -1556,16 +1644,38 @@ def train_phases(torch) -> dict:
           f"ms, {t['pair_library_device_us']} us (its dW_ih of layer 0 agrees "
           f"with the kernels' to {lib_err:.3g} of the largest); bound "
           f"{pair_bound:.4g} ms ({pair_by})")
+    print("  its card time by part (us a call): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
     print(f"  launches per training step: 1 lstm_stack_fwd_train + 1 "
           f"lstm_stack_bwd (revpred, tributary); per fig10 run: "
-          f"{launches['lstm_stack_bwd']} of each")
-    return {
-        "name": "lstm_stack_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
-        "replaces": "src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas, "
-                    "differentiated through its lax.scan by jax.value_and_grad "
-                    "at src/repro/core/revpred.py:289-297; no Pallas backward)",
-        "launches": launches["lstm_stack_bwd"],
+          f"{launches['lstm_stack_fwd_train']} + {launches['lstm_stack_bwd']}")
+    source = "src/repro_torch/kernels/csrc/lstm_cell.cu"
+    replaces = ("src/repro/kernels/lstm_cell.py:50 (lstm_cell_pallas, "
+                "differentiated through its lax.scan by jax.value_and_grad "
+                "at src/repro/core/revpred.py:289-297; no Pallas backward)")
+    shape = {"G": G, "B": B, "T": T, "I": I, "H": H, "layers": L,
+             "dtype": "float32", "n_sms": sms}
+    fwd_row = {
+        "name": "lstm_stack_fwd_train", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["lstm_stack_fwd_train"],
+        "max_abs_err": saved_err, "err_is": "of the saved gates, c and h",
+        "ms": t["fwd_train_ms"], "ms_b": t["fwd_train_ms_b"],
+        "plain_ms": t["fwd_train_plain_ms"],
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+        "library_ms": None,
+        "library": "none computes the forward with its saved state; cuDNN's "
+                   "forward alone is fwd_library_ms",
+        "fwd_library_ms": t["fwd_library_ms"],
+        "fwd_library_device_us": t["fwd_library_device_us"],
+        "device_us": t["fwd_train_launch_us"],
+        "us_per_diagonal": per_diag["fwd_train"],
+        "plan": dict(zip(("wave", "rows", "blocks", "smem_bytes"),
+                         plans["lstm_stack_fwd_train"])),
+        "shape": shape,
+    }
+    bwd_row = {
+        "name": "lstm_stack_bwd", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["lstm_stack_bwd"],
         "fwd_train_launches": launches["lstm_stack_fwd_train"],
         "max_abs_err": bwd_err, "err_is": "of each gradient leaf's largest",
         "saved_state_err": saved_err,
@@ -1576,8 +1686,10 @@ def train_phases(torch) -> dict:
                    "backward is pair_library_ms, to be read against pair_ms",
         "pair_library": "torch.nn.LSTM (cuDNN, TF32 off) forward + backward",
         "pair_bound_ms": pair_bound, "pair_bound_by": pair_by,
-        "shape": {"G": G, "B": B, "T": T, "I": I, "H": H, "layers": L,
-                  "dtype": "float32", "wave": wave, "rows": rows_},
+        "us_per_diagonal": per_diag["bwd"],
+        "plan": dict(zip(("wave", "rows", "blocks", "smem_bytes"),
+                         plans["lstm_stack_bwd"])),
+        "shape": shape,
         **t, "fig10": {"rows": rows, "wall_s": fig10_wall,
                        "train_wall_s": walls, "steps_per_kind": steps,
                        "launches": launches, "card_busy_s": busy,
@@ -1586,6 +1698,7 @@ def train_phases(torch) -> dict:
                                        "param_abs": param_err,
                                        "card_s": wc, "cpu_s": wp}},
     }
+    return fwd_row, bwd_row
 
 
 # ------------------------------------------------------------------------
@@ -1970,7 +2083,7 @@ def main() -> None:
         "launches": cell_launches,
         "paths": "none since the stack kernel: held against its plain "
                  "version only (training runs the stack's own training "
-                 "kernels, row lstm_stack_bwd)",
+                 "kernels, rows lstm_stack_fwd_train and lstm_stack_bwd)",
         "max_abs_err": max(err.values()),
         "max_err_f32": err[torch.float32], "max_err_bf16": err[torch.bfloat16],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -2053,13 +2166,13 @@ def main() -> None:
     flash_row, ssd_row = serve_phases(torch)
     # the training slice and phi3 run last, so the earlier paths run as
     # they did before them
-    bwd_row = train_phases(torch)
+    fwd_train_row, bwd_row = train_phases(torch)
     stack_row["fig10_launches"] = bwd_row["fig10"]["launches"][
         "lstm_stack (inference)"]
     flash_row.update(phi3_phase(torch))
     print(smi)
-    print(json.dumps({"kernels": [lstm_row, stack_row, bwd_row, soa_row,
-                                  flash_row, ssd_row]}))
+    print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
+                                  soa_row, flash_row, ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

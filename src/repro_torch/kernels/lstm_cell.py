@@ -6,9 +6,12 @@ design) with two entries: ``lstm_cell_fwd``, one grouped cell step (the
 direct counterpart of the Pallas kernel), and ``lstm_stack_fwd``, a whole
 stack of layers over a sequence in one launch (RevPred's and Tributary's
 forwards).  Training goes through ``LstmStack``, a ``torch.autograd.Function``
-over two more entries: ``lstm_stack_fwd_train`` (the stack kernel, also
-saving every step's gates, c and h) and ``lstm_stack_bwd`` (the backward's
-recurrence, a reverse wavefront over the layers); the weight gradients,
+over two more entries: ``lstm_stack_fwd_train`` (what the stack computes,
+also saving every step's gates, c and h) and ``lstm_stack_bwd`` (the
+backward's recurrence, a reverse wavefront over the layers), kernels of
+their own that tile 1, 2 or 4 batch rows a block so that the grid runs in
+one wave over the SMs (``lstm_stack_train_plan``,
+``lstm_stack_bwd_plan``); the weight gradients,
 which have no recurrence, are one ``torch.bmm`` per weight over the
 kernel's dgates.  They are compiled by ``build.py`` at first use and called
 through ``ctypes`` on PyTorch's current stream.
@@ -127,14 +130,20 @@ def lstm_stack_smem_bytes(I: int, H: int, T: int, rows: int, n_layers: int = 3,
                 + n_buf * T * rows * H)
 
 
-def _plan(what: str, B: int, H: int, n_layers: int, smem) -> tuple:
-    """-> (layers per wave, rows per block, shared-memory bytes) under a
-    block's limits: 8H threads a layer and row (1024 a block) and
-    ``smem(rows, wave)`` bytes (``SMEM_LIMIT``).  Every layer at once where
-    that fits, else one at a time; then as many batch rows per block as
-    fit.  Raises ValueError where one layer of one row does not fit."""
+def lstm_stack_plan(B: int, I: int, H: int, T: int, n_layers: int = 3):
+    """-> (layers per wave, rows per block, shared-memory bytes) of the
+    stack kernel under a block's limits: 8H threads a layer and row (1024 a
+    block) and ``lstm_stack_smem_bytes`` (``SMEM_LIMIT``).  Every layer at
+    once where that fits, else one at a time; then as many batch rows per
+    block as fit.  Raises ValueError where one layer of one row does not
+    fit: H = 128, whose weights alone are over 512 KiB and which would need
+    1024 threads."""
+    what = f"lstm_stack_cuda: I={I} H={H} T={T}"
     if H % 4:
         raise ValueError(f"{what}: hidden size {H} is not a multiple of 4")
+
+    def smem(rows, wave):
+        return lstm_stack_smem_bytes(I, H, T, rows, n_layers, wave)
 
     def fits(wave, rows):
         return (wave * rows * H * LANES <= MAX_THREADS and
@@ -150,15 +159,6 @@ def _plan(what: str, B: int, H: int, n_layers: int, smem) -> tuple:
     while rows < B and fits(wave, rows + 1):
         rows += 1
     return wave, rows, smem(rows, wave)
-
-
-def lstm_stack_plan(B: int, I: int, H: int, T: int, n_layers: int = 3):
-    """-> (layers per wave, rows per block, shared-memory bytes) of the
-    stack kernel (``_plan``).  H = 128 raises: one layer's weights alone
-    are over 512 KiB, and it would need 1024 threads."""
-    return _plan(f"lstm_stack_cuda: I={I} H={H} T={T}", B, H, n_layers,
-                 lambda rows, wave: lstm_stack_smem_bytes(I, H, T, rows,
-                                                          n_layers, wave))
 
 
 def _check_stack(xs, layers):
@@ -238,11 +238,17 @@ def lstm_stack_cuda(xs, layers):
 TRAIN_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-#: weight rows of the backward padded by 4 floats (8 rows x 4 parts of a
-#: warp fall on 32 different banks)
-_BWD_WPAD = 4
+#: batch rows a training block may own (the kernels' template argument R)
+TRAIN_ROWS = (1, 2, 4)
+#: threads a training block may have, by the registers its threads give
+#: weights (``train_max_threads``): the smallest of 16, 32, 64 that holds
+#: max(I, H) (forward) or H (backward)
+TRAIN_MAX_THREADS = {16: 512, 32: 384, 64: 256}
+#: the backward's cp.async ring: steps in flight, floats per (row, unit)
+_BWD_DEPTH, _BWD_PREF = 3, 5
 _TRAIN_FN = None
 _BWD_FN = None
+_N_SMS = {}
 
 
 def _train_fn():
@@ -268,26 +274,108 @@ def _bwd_fn():
     return _BWD_FN
 
 
+def n_sms(device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _N_SMS:
+        _N_SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _N_SMS[index]
+
+
+def _train_cap(what: str, width: int) -> int:
+    """The registers a training thread gives a weight column (``train_cap``):
+    the smallest of 16, 32, 64 that holds ``width``."""
+    cap = next((c for c in sorted(TRAIN_MAX_THREADS) if width <= c), None)
+    if cap is None:
+        raise ValueError(
+            f"{what}: a thread holds weights for max(I, H) = {width} inputs "
+            f"in registers, at most {max(TRAIN_MAX_THREADS)}")
+    return cap
+
+
+def lstm_stack_train_smem_bytes(I: int, H: int, T: int, rows: int,
+                                n_layers: int = 3, wave: int = 1) -> int:
+    """Shared memory of one training-forward block: the wave's input
+    sequence (T, rows) and per layer of the wave a two-step ring of h (2,
+    rows), each row split over 4 k-lanes in segments of C / 4 floats
+    padded by 4 (C the register capacity for max(I, H)), float32
+    (``train_smem_floats`` in ``csrc/lstm_cell.cu``).  The weights live in
+    registers."""
+    cap = _train_cap("lstm_stack_fwd_train", max(I, H))
+    return 4 * (T + 2 * wave) * rows * 4 * (cap // 4 + 4)
+
+
 def lstm_stack_bwd_smem_bytes(H: int, T: int, rows: int, n_layers: int = 3,
                               wave: int = 1) -> int:
     """Shared memory of one backward block with ``wave`` layers resident:
-    each layer's W_hh and W_ih (2H rows of 4H, padded by 4 floats), its
-    dgates (rows, 4H) and recurrent dh (rows, H), and the dx sequences
-    handed down the layers ((T, rows, H) each: one per receiving layer when
-    the wave is the whole stack, two in turn otherwise), all float32
+    per layer and row its dgates (4H over 8 k-lanes in segments of C / 2
+    floats padded by 4) and recurrent dh (H); the dx handed down (a
+    two-step ring per handing layer when the wave is the whole stack, else
+    two (T, rows, H) sequences); and the cp.async ring of the saved gates
+    and c (3 steps of 5 floats per (layer, row, unit)), all float32
     (``bwd_smem_floats`` in ``csrc/lstm_cell.cu``)."""
-    H4 = 4 * H
-    n_dx = (max(n_layers - 1, 1) if wave >= n_layers else 2)
-    return 4 * (wave * 2 * H * (H4 + _BWD_WPAD) + wave * rows * (H4 + H)
-                + n_dx * T * rows * H)
+    cap = _train_cap("lstm_stack_bwd", H)
+    pairs = wave * rows * H
+    dx = (wave - 1) * 2 * rows * H if wave >= n_layers else 2 * T * rows * H
+    return 4 * (wave * rows * 8 * (cap // 2 + 4) + pairs + dx
+                + _BWD_DEPTH * _BWD_PREF * pairs)
 
 
-def lstm_stack_bwd_plan(B: int, H: int, T: int, n_layers: int = 3):
-    """-> (layers per wave, rows per block, shared-memory bytes) of the
-    backward kernel, under the forward's limits (``_plan``)."""
-    return _plan(f"lstm_stack_bwd: H={H} T={T}", B, H, n_layers,
-                 lambda rows, wave: lstm_stack_bwd_smem_bytes(H, T, rows,
-                                                              n_layers, wave))
+def _train_plan(what: str, B: int, width: int, H: int, n_layers: int,
+                n_sms: int, G: int, smem) -> tuple:
+    """-> (layers per wave, rows per block, blocks, shared-memory bytes) of
+    a training kernel: every layer at once where its 4H threads a layer fit
+    the capacity's thread limit and ``smem(rows, wave)`` fits, else one at
+    a time; then the fewest rows of ``TRAIN_ROWS`` that bring the G *
+    ceil(B / rows) blocks within ``n_sms``, so that they run in one wave
+    over the SMs (where none does, the most rows that fit).
+    Raises ValueError for H not a multiple of 4, ``width`` over 64 or a
+    block that does not fit."""
+    if H % 4:
+        raise ValueError(f"{what}: hidden size {H} is not a multiple of 4")
+    cap = _train_cap(what, width)
+
+    def threads(wave):
+        return -(-wave * 4 * H // 32) * 32
+
+    def fits(rows, wave):
+        return (threads(wave) <= TRAIN_MAX_THREADS[cap]
+                and smem(rows, wave) <= SMEM_LIMIT)
+
+    if not fits(1, 1):
+        raise ValueError(f"{what} needs {smem(1, 1)} bytes of shared memory "
+                         f"for one layer of one batch row; a block has "
+                         f"{SMEM_LIMIT}")
+    wave = n_layers if fits(1, n_layers) else 1
+    rows = 1
+    while (rows < min(B, TRAIN_ROWS[-1]) and G * -(-B // rows) > n_sms
+           and fits(2 * rows, wave)):
+        rows *= 2
+    return wave, rows, G * -(-B // rows), smem(rows, wave)
+
+
+def lstm_stack_train_plan(B: int, I: int, H: int, T: int, n_layers: int,
+                          n_sms: int, G: int = 1):
+    """-> (layers per wave, rows per block, blocks, shared-memory bytes) of
+    the training forward (``_train_plan``): at RevPred's training batch
+    (B = 256, I = 6, H = 32, T = 59, 3 layers) on 132 SMs, 3 layers a
+    wave, 2 rows a block, 128 blocks."""
+    return _train_plan(f"lstm_stack_fwd_train: I={I} H={H} T={T}", B,
+                       max(I, H), H, n_layers, n_sms, G,
+                       lambda rows, wave: lstm_stack_train_smem_bytes(
+                           I, H, T, rows, n_layers, wave))
+
+
+def lstm_stack_bwd_plan(B: int, H: int, T: int, n_layers: int, n_sms: int,
+                        G: int = 1):
+    """-> (layers per wave, rows per block, blocks, shared-memory bytes) of
+    the backward kernel (``_train_plan``)."""
+    return _train_plan(f"lstm_stack_bwd: H={H} T={T}", B, H, H, n_layers,
+                       n_sms, G,
+                       lambda rows, wave: lstm_stack_bwd_smem_bytes(
+                           H, T, rows, n_layers, wave))
 
 
 def lstm_stack_fwd_train_cuda(xs, layers):
@@ -299,10 +387,10 @@ def lstm_stack_fwd_train_cuda(xs, layers):
         raise TypeError(f"lstm_stack training takes float32, got {xs.dtype} "
                         "(the reference trains in float32)")
     n = len(layers)
-    wave, rows, _ = lstm_stack_plan(B, I, H, T, n)
+    dev = xs.device
+    wave, rows, _, _ = lstm_stack_train_plan(B, I, H, T, n, n_sms(dev), G)
     ptrs = [(ctypes.c_void_p * n)(*[lp[k].data_ptr() for lp in layers])
             for k in ("w_ih", "w_hh", "b")]
-    dev = xs.device
     h_out = torch.empty(G, B, H, dtype=torch.float32, device=dev)
     gates = torch.empty(n, G, B, T, 4 * H, dtype=torch.float32, device=dev)
     c = torch.empty(n, G, B, T, H, dtype=torch.float32, device=dev)
@@ -335,11 +423,11 @@ def lstm_stack_bwd_cuda(dh_top, gates, c, layers):
                 not t.is_contiguous():
             raise ValueError("lstm_stack_bwd takes contiguous float32 tensors "
                              f"on one device, got {t.dtype} on {t.device}")
-    wave, rows, _ = lstm_stack_bwd_plan(B, H, T, L)
+    dev = gates.device
+    wave, rows, _, _ = lstm_stack_bwd_plan(B, H, T, L, n_sms(dev), G)
     ptrs = [(ctypes.c_void_p * L)(*[lp[k].data_ptr() for lp in layers])
             for k in ("w_ih", "w_hh")]
     dgates = torch.empty_like(gates)
-    dev = gates.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_fn()(dh_top.data_ptr(), gates.data_ptr(), c.data_ptr(), *ptrs,
                     L, dgates.data_ptr(), G, B, T, H, rows, wave, dev.index,

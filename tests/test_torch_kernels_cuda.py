@@ -502,13 +502,21 @@ def _grad_case(gen, G, B, T, I, H, L, device):
     return xs, layers, rnd(G, B, H)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,B,T,I,H,L", [
+# (G, B, T, I, H, layers) of the training kernels' card cases: B not a
+# multiple of the plan's rows a block (255, 257: 2 rows, a last block of
+# one), two groups at the training batch (4 rows a block), H = 64 (one
+# layer a wave)
+TRAIN_CASES = [
     (1, 256, 59, 6, 32, 3),          # RevPred's training batch
     (1, 256, 60, 7, 32, 3),          # Tributary's
+    (1, 255, 59, 6, 32, 3), (1, 257, 60, 7, 32, 3), (2, 256, 59, 6, 32, 3),
     (1, 1, 59, 6, 32, 3), (1, 7, 60, 7, 32, 3), (2, 7, 59, 6, 16, 3),
     (1, 7, 59, 6, 32, 1), (1, 7, 59, 6, 32, 2), (1, 5, 20, 6, 64, 3),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,I,H,L", TRAIN_CASES)
 def test_lstm_stack_backward_kernel_matches_autograd_of_ref(G, B, T, I, H, L, card):
     xs, layers, dh = _grad_case(torch.Generator().manual_seed(B + H + L), G, B,
                                 T, I, H, L, card)
@@ -528,9 +536,11 @@ def test_lstm_stack_backward_kernel_matches_autograd_of_ref(G, B, T, I, H, L, ca
 
 
 @pytest.mark.cuda
-def test_lstm_stack_training_kernels_match_their_plain_versions(card):
-    xs, layers, dh = _grad_case(torch.Generator().manual_seed(3), 1, 9, 59, 6,
-                                32, 3, card)
+@pytest.mark.parametrize("G,B,T,I,H,L", [(1, 9, 59, 6, 32, 3), (1, 255, 59, 6, 32, 3),
+                                         (1, 257, 60, 7, 32, 3), (2, 256, 59, 6, 32, 3)])
+def test_lstm_stack_training_kernels_match_their_plain_versions(G, B, T, I, H, L, card):
+    xs, layers, dh = _grad_case(torch.Generator().manual_seed(3), G, B, T, I,
+                                H, L, card)
     with torch.no_grad():
         saved = klc.lstm_stack_fwd_train_cuda(xs, layers)
         want = ref.lstm_stack_fwd_train_ref(xs, layers)
@@ -539,6 +549,17 @@ def test_lstm_stack_training_kernels_match_their_plain_versions(card):
         dg = klc.lstm_stack_bwd_cuda(dh, want[1], want[2], layers)
         dg_ref = ref.lstm_stack_bwd_ref(dh, want[1], want[2], layers)
     torch.testing.assert_close(dg, dg_ref, rtol=1e-5, atol=1e-5 * dg_ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_lstm_stack_training_batch_runs_in_one_wave(card):
+    """At RevPred's training batch both training kernels' grids fit the
+    card's SMs at once (2 rows a block on an H100's 132)."""
+    sms = klc.n_sms(card)
+    for plan in (klc.lstm_stack_train_plan(256, 6, 32, 59, 3, sms),
+                 klc.lstm_stack_bwd_plan(256, 32, 59, 3, sms)):
+        wave, rows, blocks, _ = plan
+        assert wave == 3 and blocks == -(-256 // rows) <= sms
 
 
 @pytest.mark.cuda

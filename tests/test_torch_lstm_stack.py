@@ -217,18 +217,79 @@ def test_ops_lstm_stack_trains_by_autograd_on_cpu():
                for lp in layers for k in lp)
 
 
+def _threads(H, wave):
+    """A training block's threads: 4H a layer of the wave, whole warps."""
+    return -(-wave * 4 * H // 32) * 32
+
+
 @pytest.mark.parametrize("H,T,L", [(16, 60, 3), (32, 59, 3), (32, 60, 3),
                                    (64, 59, 3), (32, 59, 1)])
 def test_backward_smem_budget(H, T, L):
-    wave, rows, smem = klc.lstm_stack_bwd_plan(256, H, T, L)
-    assert smem <= klc.SMEM_LIMIT
-    assert wave * rows * H * klc.LANES <= klc.MAX_THREADS
-    assert wave in (1, L)
+    """The backward's plan at the training batch on an H100's 132 SMs: one
+    wave of blocks, within a block's threads and shared memory."""
+    wave, rows, blocks, smem = klc.lstm_stack_bwd_plan(256, H, T, L, 132)
+    assert smem == klc.lstm_stack_bwd_smem_bytes(H, T, rows, L, wave) <= klc.SMEM_LIMIT
+    assert _threads(H, wave) <= klc.TRAIN_MAX_THREADS[max(H, 16)] <= klc.MAX_THREADS
+    assert wave in (1, L) and rows in klc.TRAIN_ROWS
+    assert blocks == -(-256 // rows) <= 132
     if H <= 32:
         assert wave == L       # every layer at once: T + L - 1 dependent steps
-    assert klc.lstm_stack_bwd_smem_bytes(H, T, rows, L, wave) == smem
-    with pytest.raises(ValueError, match="shared memory"):
-        klc.lstm_stack_bwd_plan(1, 128, T, L)
+    with pytest.raises(ValueError, match="registers"):
+        klc.lstm_stack_bwd_plan(1, 128, T, L, 132)
+
+
+@pytest.mark.parametrize("B", [1, 7, 255, 256, 257])
+def test_training_plans_run_in_one_wave(B):
+    """Both training plans at RevPred's widths put every block on an SM of
+    its own (132 on an H100), with the fewest rows a block that do."""
+    plans = [(klc.lstm_stack_train_plan(B, 6, 32, 59, 3, 132),
+              lambda rows, wave: klc.lstm_stack_train_smem_bytes(6, 32, 59, rows, 3, wave)),
+             (klc.lstm_stack_bwd_plan(B, 32, 59, 3, 132),
+              lambda rows, wave: klc.lstm_stack_bwd_smem_bytes(32, 59, rows, 3, wave))]
+    for (wave, rows, blocks, smem), smem_of in plans:
+        assert wave == 3 and blocks == -(-B // rows) <= 132
+        assert rows == 1 or -(-B // (rows // 2)) > 132
+        assert _threads(32, wave) == 384 <= klc.MAX_THREADS
+        assert smem == smem_of(rows, wave) <= klc.SMEM_LIMIT
+
+
+def test_training_plans_at_revpred_training_batch():
+    """RevPred's training batch (B = 256, T = 59, I = 6, H = 32, 3 layers):
+    2 rows a block, 128 blocks, and the kernels' shared-memory layouts to
+    the byte (the weights are in registers)."""
+    assert klc.lstm_stack_train_plan(256, 6, 32, 59, 3, 132) == (3, 2, 128, 24960)
+    # x over 59 steps and a two-step ring of h per layer, 2 rows each; a
+    # row split over 4 k-lanes in segments of 32 / 4 floats, each padded by 4
+    assert 24960 == 4 * (59 + 3 * 2) * 2 * 4 * (8 + 4)
+    assert klc.lstm_stack_bwd_plan(256, 32, 59, 3, 132) == (3, 2, 128, 17152)
+    # dgates (4H over 8 k-lanes: segments of 32 / 2 floats, padded by 4),
+    # the recurrent dh, the two-step dx rings of the two handing layers, the
+    # cp.async ring (3 steps x 5 floats a layer, row and unit)
+    assert 17152 == 4 * (3 * 2 * 8 * (16 + 4) + 3 * 2 * 32 + 2 * 2 * 2 * 32
+                         + 3 * 5 * 3 * 2 * 32)
+    # Tributary's (T = 60, I = 7) and two groups (4 rows a block)
+    assert klc.lstm_stack_train_plan(256, 7, 32, 60, 3, 132)[:3] == (3, 2, 128)
+    assert klc.lstm_stack_train_plan(256, 6, 32, 59, 3, 132, G=2)[:3] == (3, 4, 128)
+    assert klc.lstm_stack_bwd_plan(256, 32, 59, 3, 132, G=2)[:3] == (3, 4, 128)
+
+
+def test_training_plans_beyond_one_wave_and_their_limits():
+    """Rows a block are 1, 2 or 4 (the kernels' template argument); where 4
+    cannot bring the grid within the SMs the plan takes 4 (the fewest
+    waves); H = 64 runs a layer at a time (256 threads of 128 weight
+    registers each); widths over 64 and H not a multiple of 4 raise."""
+    assert klc.lstm_stack_train_plan(300, 6, 32, 59, 3, 132)[1:3] == (4, 75)
+    assert klc.lstm_stack_train_plan(1000, 6, 32, 59, 3, 132)[1:3] == (4, 250)
+    assert klc.lstm_stack_bwd_plan(256, 32, 59, 3, 16)[1:3] == (4, 64)
+    wave, rows, blocks, smem = klc.lstm_stack_train_plan(256, 6, 64, 59, 3, 132)
+    assert (wave, rows, blocks) == (1, 2, 128)
+    # segments of 64 / 4 floats for x, the layer below's h and the ring
+    assert smem == 4 * (59 + 1 * 2) * 2 * 4 * (16 + 4)
+    assert klc.lstm_stack_bwd_plan(256, 64, 59, 3, 132)[:3] == (1, 2, 128)
+    with pytest.raises(ValueError, match="registers"):
+        klc.lstm_stack_train_plan(256, 100, 32, 59, 3, 132)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        klc.lstm_stack_bwd_plan(256, 30, 59, 3, 132)
 
 
 def test_kernels_without_a_backward_refuse_grad_before_anything_else():
