@@ -18,8 +18,9 @@ drives the port's two paths through them:
 * the model server: zamba2-1.2b at full width (random weights from a seed)
   through ``Server(device="cuda")``, 4 prompts of 512 tokens and 32 greedy
   tokens each, whose prefill runs the ``flash_attention`` kernel (the
-  shared attention block, 7 times, on its bf16 tensor-core route; the
-  float32 run takes its FFMA route) and the ``ssd_chunk`` kernel (every
+  shared attention block, 7 times, on its bf16 ``wgmma`` route; the
+  float32 run takes its 3xTF32 ``wgmma`` route, and fails unless every
+  launch does) and the ``ssd_chunk`` kernel (every
   Mamba layer, 38 x 2 chunks, 3xTF32 on the tensor cores, B and C handed
   over with head stride 0), repeated on the card through the plain
   versions (bf16 and float32) and compared, and the reduced zamba2 on the
@@ -38,12 +39,15 @@ drives the port's two paths through them:
   gradients' GEMMs and the rest;
 * phi3-mini-3.8b at full width (random bf16 weights from a seed): its
   prefill runs flash attention at head dim 96, through the kernels and the
-  plain versions, bf16 and float32.
+  plain versions, bf16 and float32 (every float32 launch on the 3xTF32
+  route).
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
-exists; soa_step also beside its floor, one row of the recorded round's
-longest window folded alone.  Every phase is fatal on failure.  The last line of standard output
+exists (card times from the launches the profiler saw, each printed beside
+the launches the calls issued); soa_step also beside its floor, one row of
+the recorded round's longest window folded alone; both flash routes at
+zamba2's and phi3's prefill shapes beside ``scaled_dot_product_attention``.  Every phase is fatal on failure.  The last line of standard output
 is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -100,11 +104,15 @@ def cuda_ms(fn, iters: int = 2000, warmup: int = 50) -> float:
 
 
 def device_intervals(prof):
-    """(start_us, end_us, name) of every kernel the profiler saw on the card."""
+    """(start_us, end_us, name) of every kernel the profiler saw on the card.
+    The spans of a traced step (``ProfilerStep#n``) that the profiler draws
+    on the card's timeline are no kernels and are left out."""
     import torch
     out = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("ProfilerStep")):
             out.append((e.time_range.start, e.time_range.end, e.name))
     return out
 
@@ -124,23 +132,52 @@ def busy_us(intervals) -> float:
     return total
 
 
-def device_us_per_call(fn, iters: int = 200, warmup: int = 20):
-    """Mean microseconds of card time per call (kernels only, launch gaps
-    excluded), from a torch.profiler trace; None if the trace has no device
-    events."""
+def card_launches(fn, iters: int, warmup: int = 20):
+    """{kernel name: (launches seen, card us summed)} over ``iters`` calls
+    of ``fn`` traced by torch.profiler.  The trace opens with a step of
+    ``iters`` calls whose events the profiler discards: in its first
+    moments it misses launches (one trace saw 31 of 50)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    iv = device_intervals(prof)
-    if not iv:
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by = {}
+    for s, e, nm in seen:
+        n, t = by.get(nm, (0, 0.0))
+        by[nm] = (n + 1, t + e - s)
+    return by
+
+
+def device_us_per_call(fn, iters: int = 200, warmup: int = 20, what: str = ""):
+    """Mean microseconds of card time per call (kernels only, launch gaps
+    excluded), from a torch.profiler trace; None if the trace has no device
+    events.  Built from the launches the profiler saw, never from a sum
+    over the calls issued: per kernel name the mean time of a launch seen,
+    times the name's launches per call (those seen over the calls issued,
+    rounded, at least 1).  Prints each name's launches seen beside the
+    launches the calls issued."""
+    by = card_launches(fn, iters, warmup)
+    if not by:
         return None
-    return sum(e - s for s, e, _ in iv) / iters
+    total, parts = 0.0, []
+    for nm, (n, t) in sorted(by.items(), key=lambda kv: -kv[1][1]):
+        per_call = max(1, round(n / iters))
+        total += t / n * per_call
+        parts.append(f"{nm[:48]} {n} of {per_call * iters}")
+    print(f"  card time {what or 'per call'}: {total:.2f} us from the launches "
+          f"seen over {iters} calls: " + "; ".join(parts[:4])
+          + (f"; {len(parts) - 4} more names" if len(parts) > 4 else ""))
+    return total
 
 
 def cell_inputs(G, B, I, H, dtype, device, seed=0):
@@ -712,28 +749,31 @@ SERVE_REL_TOL = 5e-2    # of the largest |value|: prefill logits, SSD states
 # (tests/test_torch_models.py)
 PHI3_F32_LOGIT_TOL = 1e-4
 H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores, data sheet
+H100_TF32_FLOPS = 495e12         # dense TF32 on the tensor cores, data sheet
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = (
     "zamba2-1.2b", 4, 512, 32, 1024)
 
 
-def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes):
+def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False):
     """Least time for one attention call: q, k, v read once and o written
     once over the HBM rate, against the two products' multiply-adds over the
-    peak of the input type (bf16 tensor cores, or float32 outside them),
-    counting only the (query, key) pairs the mask keeps."""
+    peak of the kernel's arithmetic, counting only the (query, key) pairs
+    the mask keeps: bf16 on the tensor cores, float32 at the 3xTF32 rate
+    (three TF32 products per float32 product, 495 / 3 TFLOP/s), or with
+    ``ffma`` at the float32 rate outside the tensor cores, the bound of the
+    float32 FFMA kernel the 3xTF32 one replaced."""
     n_bytes = elem_bytes * B * H * D * (2 * Sq + 2 * Sk)
     if causal:
         pairs = sum(min(i + 1, Sk) for i in range(Sq))
     else:
         pairs = Sq * Sk
     flops = 4.0 * B * H * pairs * D
-    peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS
+    peak = (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS if ffma
+            else H100_TF32_FLOPS / 3)
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-
-H100_TF32_FLOPS = 495e12         # dense TF32 on the tensor cores, data sheet
 
 
 def ssd_bound_ms(B, Q, H, P, N, groups=None):
@@ -757,12 +797,69 @@ def ssd_bound_ms(B, Q, H, P, N, groups=None):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_timing(torch, q, k, v, what: str, plain_card=False) -> dict:
+    """The flash kernel (causal) on (q, k, v) beside its plain version and
+    ``scaled_dot_product_attention`` on the same inputs: CUDA-events ms per
+    call (kernel and plain twice, in turns), card time per call of the
+    kernel and of SDPA (and of the plain version with ``plain_card``) from
+    the launches the profiler saw, the kernel's max abs error against the
+    plain version and SDPA's against the kernel, and the kernel's bound
+    (float32 also at the FFMA rate of the kernel it replaced)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+
+    B, S, H, D = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kern():
+        return kfa.flash_attention_cuda(q, k, v, True)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    r = {"ms": cuda_ms(kern, iters=200), "plain_ms": cuda_ms(plain, iters=50)}
+    r["ms_b"], r["plain_ms_b"] = cuda_ms(kern, iters=200), cuda_ms(plain, iters=50)
+    r["library_ms"] = cuda_ms(sdpa, iters=200)
+    r["device_us"] = device_us_per_call(kern, iters=50, what=f"of the kernel, {what}")
+    r["library_device_us"] = device_us_per_call(
+        sdpa, iters=50, what=f"of scaled_dot_product_attention, {what}")
+    r["plain_device_us"] = (device_us_per_call(plain, iters=10, warmup=2,
+                                               what=f"of the plain version, {what}")
+                            if plain_card else None)
+    o = kern()
+    r["err"] = (o.float() - plain().float()).abs().max().item()
+    r["library_err"] = (sdpa().transpose(1, 2).float() - o.float()).abs().max().item()
+    r["bound_ms"], r["bound_by"] = flash_bound_ms(B, S, S, H, D, True, q.element_size())
+    ffma = ""
+    if q.dtype == torch.float32:
+        r["bound_ms_ffma"], r["bound_by_ffma"] = flash_bound_ms(
+            B, S, S, H, D, True, 4, ffma=True)
+        ffma = (f", at the FFMA rate of the float32 kernel it replaced "
+                f"{r['bound_ms_ffma']:.4g} ms "
+                f"({r['bound_by_ffma']})")
+    print(f"flash_attention {what} (B,S,H,D) = {(B, S, H, D)} causal: kernel "
+          f"{r['ms']:.4f} / {r['ms_b']:.4f} ms, plain {r['plain_ms']:.4f} / "
+          f"{r['plain_ms_b']:.4f} ms, scaled_dot_product_attention "
+          f"{r['library_ms']:.4f} ms (CUDA events); card time per call: kernel "
+          f"{r['device_us']} us, scaled_dot_product_attention "
+          f"{r['library_device_us']} us, plain {r['plain_device_us']} us; bound "
+          f"{r['bound_ms']:.4g} ms ({r['bound_by']}){ffma}; max abs err "
+          f"{r['err']:.3g} against the plain version, SDPA {r['library_err']:.3g} "
+          f"from the kernel")
+    return r
+
+
 def serve_phases(torch) -> tuple:
     """The model-server slice: both kernels against their plain versions,
     zamba2-1.2b served at full width on the card through the kernels and
     through the plain versions (bf16, then float32), the reduced zamba2 on
     the card against the CPU, the profile and the kernels' timing.  Returns
-    the two kernels' JSON rows."""
+    the JSON rows of flash attention's two routes (bf16, float32) and of
+    ssd_chunk."""
     import dataclasses
 
     import numpy as np
@@ -786,18 +883,19 @@ def serve_phases(torch) -> tuple:
     cfg = get_config(SERVE_ARCH)
     B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
     # (B, Sq, Sk, H, D, dtype, causal): zamba2's prefill and phi3's (head
-    # dim 96) in both types; the bf16 wgmma kernel at every head dim, S in
-    # (1, 200, 333, 512) with Sk = Sq and Sk = Sq + 37; the float32 FFMA
-    # kernel at S in (1, 200, 333), Sk = Sq and Sq + 37, D in (96, 128)
+    # dim 96) in both types; the bf16 kernel at every head dim, S in
+    # (1, 200, 333, 512) with Sk = Sq and Sk = Sq + 37; the float32 3xTF32
+    # kernel at every head dim, S in (1, 200, 333), Sk = Sq and Sq + 37
     p3 = get_config(PHI3_ARCH)
-    cases = [(B, S, S, H, D, torch.bfloat16, c) for c in (True, False)]
+    cases = [(B, S, S, H, D, dt, c) for dt in (torch.bfloat16, torch.float32)
+             for c in (True, False)]
     cases += [(PHI3_BATCH, PHI3_PROMPT, PHI3_PROMPT, p3.n_heads,
                p3.d_model // p3.n_heads, dt, c)
               for dt in (torch.bfloat16, torch.float32) for c in (True, False)]
     cases += [(2, s, sk, 4, d, torch.bfloat16, c)
               for d in (16, 32, 64, 96, 128) for s in (1, 200, 333, 512)
               for sk in (s, s + 37) for c in (True, False)]
-    cases += [(2, s, sk, 4, d, torch.float32, c) for d in (96, 128)
+    cases += [(2, s, sk, 4, d, torch.float32, c) for d in kfa.HEAD_DIMS
               for s in (1, 200, 333) for sk in (s, s + 37)
               for c in (True, False)]
     flash_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -813,7 +911,7 @@ def serve_phases(torch) -> tuple:
                  f"max abs err {e:.3g} > {tol}")
         flash_err[names[q.dtype]] = max(flash_err[names[q.dtype]], e)
 
-    wg0 = kfa.WGMMA_LAUNCHES
+    wg0, tf0 = kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES
     for b_, s_, sk_, h_, d_, dt, causal in cases:
         q = randn(b_, s_, h_, d_, dtype=dt)
         k, v = (randn(b_, sk_, h_, d_, dtype=dt) for _ in range(2))
@@ -830,20 +928,23 @@ def serve_phases(torch) -> tuple:
         qkv = randn(2, 100, 3 * 4 * 64, dtype=dt).view(2, 100, 3, 4, 64)
         check_flash(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
                     "q, k, v slices of one (B, S, 3, H, D) tensor")
-    n_wg = kfa.WGMMA_LAUNCHES - wg0
+    n_wg, n_tf = kfa.WGMMA_LAUNCHES - wg0, kfa.TF32_LAUNCHES - tf0
     n_bf16 = sum(1 for c in cases if c[5] == torch.bfloat16) + 3
-    if n_wg != n_bf16:
-        fail(f"the bf16 cases launched the wgmma kernel {n_wg} times, want "
-             f"{n_bf16}")
+    n_f32 = len(cases) + 6 - n_bf16
+    if (n_wg, n_tf) != (n_bf16, n_f32):
+        fail(f"the bf16 cases launched the bf16 kernel {n_wg} times (want "
+             f"{n_bf16}), the float32 cases the 3xTF32 kernel {n_tf} times "
+             f"(want {n_f32})")
     print(f"{len(cases) + 6} cases (zamba2's prefill B={B} S={S} H={H} D={D} "
-          f"bf16 causal and not; {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} "
-          f"H={p3.n_heads} D={p3.d_model // p3.n_heads} in both types; bf16 at "
-          f"D in (16, 32, 64, 96, 128), S in (1, 200, 333, 512), Sk = S and "
-          f"S + 37; f32 at D in (96, 128), S in (1, 200, 333), Sk = S and "
-          f"S + 37; strided views in both types): max abs err f32 "
-          f"{flash_err['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
-          f"{flash_err['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']}); every "
-          f"bf16 case ran the wgmma kernel ({n_wg} launches)")
+          f"and {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} H={p3.n_heads} "
+          f"D={p3.d_model // p3.n_heads} in both types, causal and not; at D "
+          f"in {kfa.HEAD_DIMS} bf16 with S in (1, 200, 333, 512) and f32 with "
+          f"S in (1, 200, 333), Sk = S and S + 37; strided views in both "
+          f"types): max abs err f32 {flash_err['float32']:.3g} (tol "
+          f"{FLASH_TOL['float32']}), bf16 {flash_err['bfloat16']:.3g} (tol "
+          f"{FLASH_TOL['bfloat16']}); every bf16 case ran the bf16 wgmma "
+          f"kernel ({n_wg} launches), every f32 case the 3xTF32 wgmma kernel "
+          f"({n_tf} launches)")
 
     # ----------------------------------------- ssd kernel against plain
     phase("ssd_chunk kernel against its plain version")
@@ -1008,23 +1109,31 @@ def serve_phases(torch) -> tuple:
     s32 = Server(cfg32, p32, max_len=SERVE_MAX_LEN, device="cuda")
     s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"),
                    max_len=SERVE_MAX_LEN, device="cuda")
-    kfa.LAUNCHES = kss.LAUNCHES = 0
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kss.LAUNCHES = 0
     out32 = s32.generate({"tokens": toks}, SERVE_NEW)
     torch.cuda.synchronize()
     l32 = (kfa.LAUNCHES, kss.LAUNCHES)
+    tf32_launches = kfa.TF32_LAUNCHES
     out32_r = s32_r.generate({"tokens": toks}, SERVE_NEW)
     with torch.inference_mode():
         lg32_k = s32.prefill(dev_tok)[0].float()[:, -1]
         lg32_r = s32_r.prefill(dev_tok)[0].float()[:, -1]
+        pre32_ms, pre32_plain_ms = prefill_ms(s32), prefill_ms(s32_r)
     torch.cuda.synchronize()
     same32 = int((out32 == out32_r).sum())
     lg32_err = (lg32_k - lg32_r).abs().max().item()
     bf16_dev = (lg_r - lg32_r).abs().max().item()
     print(f"full depth ({cfg.n_layers} layers), float32 weights cast from the "
-          f"bf16 ones; launches {l32}; {same32} of {out32.numel()} tokens equal; "
-          f"prefill logits kernels against plain: max abs diff {lg32_err:.4g}")
+          f"bf16 ones; launches (flash_attention, ssd_chunk) {l32}, flash on "
+          f"the 3xTF32 route {tf32_launches} (want {want_fa}); {same32} of "
+          f"{out32.numel()} tokens equal; prefill logits kernels against "
+          f"plain: max abs diff {lg32_err:.4g}; prefill {pre32_ms:.2f} ms "
+          f"through the kernels, {pre32_plain_ms:.2f} ms plain")
     print(f"bf16 rounding alone: the plain bf16 run's prefill logits are "
           f"{bf16_dev:.4g} (max abs) from the plain float32 run's")
+    if not l32[0] == tf32_launches == want_fa:
+        fail(f"the float32 prefill launched flash {l32[0]} times, "
+             f"{tf32_launches} of them on the 3xTF32 route (want {want_fa})")
     if same32 != out32.numel():
         fail("float32 serving through the kernels and the plain versions "
              "generated different tokens")
@@ -1091,34 +1200,16 @@ def serve_phases(torch) -> tuple:
 
     # -------------------------------------------------------------- timing
     phase("flash_attention and ssd_chunk timing at zamba2's shapes "
-          "(CUDA events)")
-    import torch.nn.functional as F
-    q, k, v = (randn(B, S, H, D, dtype=torch.bfloat16) for _ in range(3))
-    fa_ms = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
-    fa_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
-    fa_ms_b = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
-    fa_plain_b = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    lib_err = (sdpa().transpose(1, 2).float()
-               - kfa.flash_attention_cuda(q, k, v, True).float()).abs().max().item()
-    fa_lib = cuda_ms(sdpa, iters=200)
-    fa_lib_dev = device_us_per_call(sdpa, iters=50)
-    fa_dev = device_us_per_call(lambda: kfa.flash_attention_cuda(q, k, v, True),
-                                iters=50)
-    fa_plain_dev = device_us_per_call(
-        lambda: ref.flash_attention_ref(q, k, v, True), iters=10, warmup=2)
-    fa_bound, fa_by = flash_bound_ms(B, S, S, H, D, True, 2)
-    print(f"flash_attention (B,S,H,D) = {(B, S, H, D)} bf16 causal: kernel "
-          f"{fa_ms:.4f} / {fa_ms_b:.4f} ms, plain {fa_plain:.4f} / "
-          f"{fa_plain_b:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms "
-          f"(agrees with the kernel to {lib_err:.3g}); bound {fa_bound:.4g} ms "
-          f"({fa_by}); card time per call (profiler): kernel {fa_dev} us, "
-          f"plain {fa_plain_dev} us, scaled_dot_product_attention "
-          f"{fa_lib_dev} us")
+          "(CUDA events, card time)")
+    fa = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (randn(B, S, H, D, dtype=dt) for _ in range(3))
+        fa[name] = flash_timing(torch, q, k, v, f"{name}, {SERVE_ARCH}'s prefill",
+                                plain_card=True)
+        if not fa[name]["err"] <= FLASH_TOL[names[dt]]:
+            fail(f"flash_attention {name} at {SERVE_ARCH}'s prefill shape: max abs "
+                 f"err {fa[name]['err']:.3g} > {FLASH_TOL[names[dt]]}")
+        del q, k, v
     # as the prefill hands them over: B and C of head stride 0 (one group)
     args = stride0(ssd_inputs(B, Q, SH, SP, SN))
     per_head = args[:3] + tuple(t.contiguous() for t in args[3:5]) + args[5:]
@@ -1152,24 +1243,45 @@ def serve_phases(torch) -> tuple:
              "decode_wall_ms": spans["decode"][0] * 1e3,
              "bf16_logit_err": lg_err, "bf16_state_err": st_err,
              "f32_logit_err": lg32_err, "bf16_plain_vs_f32_logit_dev": bf16_dev,
-             "bf16_tokens_equal": same, "f32_tokens_equal": same32}
+             "bf16_tokens_equal": same, "f32_tokens_equal": same32,
+             "f32_prefill_ms": pre32_ms, "f32_prefill_plain_ms": pre32_plain_ms}
     flash_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77 "
                     "(flash_attention_pallas)",
+        "kernel": "flash_attention_wgmma_kernel (bf16 wgmma, TMA)",
         "launches": fa_launches, "wgmma_launches": fa_wgmma,
-        "max_abs_err": max(flash_err.values()),
-        "max_err_f32": flash_err["float32"], "max_err_bf16": flash_err["bfloat16"],
-        "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
-        "bound_by": fa_by, "library_ms": fa_lib,
+        "max_abs_err": flash_err["bfloat16"],
+        "ms": fa["bf16"]["ms"], "plain_ms": fa["bf16"]["plain_ms"],
+        "bound_ms": fa["bf16"]["bound_ms"], "bound_by": fa["bf16"]["bound_by"],
+        "library_ms": fa["bf16"]["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
-        "library_device_us": fa_lib_dev,
+        "library_device_us": fa["bf16"]["library_device_us"],
         "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": "bfloat16",
                   "causal": True},
-        "device_us": fa_dev, "plain_device_us": fa_plain_dev,
+        "device_us": fa["bf16"]["device_us"],
+        "plain_device_us": fa["bf16"]["plain_device_us"],
         "prefill_device_us": kern_us.get("flash_attention kernel"),
         "serve": serve,
+    }
+    # the float32 route, a kernel of its own: its launches are the float32
+    # prefill's (the counts set to 0 before it)
+    f32 = fa["f32"]
+    flash_f32_row = {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77 "
+                    "(flash_attention_pallas, float32)",
+        "kernel": "flash_attention_tf32_kernel (3xTF32 wgmma)",
+        "launches": tf32_launches, "max_abs_err": flash_err["float32"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": "float32",
+                  "causal": True},
+        **{k: v for k, v in f32.items()
+           if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
     ssd_row = {
         "name": "ssd_chunk", "route": "cuda", "cuda_route": "wgmma-3xtf32",
@@ -1185,7 +1297,7 @@ def serve_phases(torch) -> tuple:
         "device_us_bc_per_head": ss_dev_ph, "plain_device_us": ss_plain_dev,
         "prefill_device_us": kern_us.get("ssd_chunk kernel"),
     }
-    return flash_row, ssd_row
+    return flash_row, flash_f32_row, ssd_row
 
 
 # ------------------------------------------------------------------------
@@ -1358,18 +1470,10 @@ def launch_card_us(fn, kind: str, iters: int = 50, warmup: int = 20):
     """(mean card time of one launch of the training kernel ``kind``, the
     launches of it the profiler saw) over ``iters`` calls of ``fn``: the
     mean is taken over the launches seen, not over the calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e - s for s, e, nm in device_intervals(prof)
-             if train_kernel_kind(nm) == kind]
-    return (sum(spans) / len(spans) if spans else None), len(spans)
+    by = card_launches(fn, iters, warmup)
+    hits = [(n, t) for nm, (n, t) in by.items() if train_kernel_kind(nm) == kind]
+    n = sum(h[0] for h in hits)
+    return (sum(h[1] for h in hits) / n if n else None), n
 
 
 def train_phases(torch) -> tuple:
@@ -1717,10 +1821,8 @@ def phi3_phase(torch) -> dict:
     import dataclasses
 
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention_cuda as kfa
-    from repro_torch.kernels import ref
     from repro_torch.launch.serve import Server
     from repro_torch.models.context import ModelCtx
     from repro_torch.models.model import Model, tree_leaves, tree_map
@@ -1787,10 +1889,10 @@ def phi3_phase(torch) -> dict:
     s32 = Server(cfg32, p32, max_len=max_len, device="cuda")
     s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"), max_len=max_len,
                    device="cuda")
-    kfa.LAUNCHES = 0
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = 0
     out32 = s32.generate({"tokens": toks}, PHI3_NEW)
     torch.cuda.synchronize()
-    fa32 = kfa.LAUNCHES
+    fa32, fa32_tf = kfa.LAUNCHES, kfa.TF32_LAUNCHES
     out32_r = s32_r.generate({"tokens": toks}, PHI3_NEW)
     lg32_k = s32.prefill(dev_tok)[0].float()[:, -1]
     lg32_r = s32_r.prefill(dev_tok)[0].float()[:, -1]
@@ -1798,15 +1900,17 @@ def phi3_phase(torch) -> dict:
     same32 = int((out32 == out32_r).sum())
     lg32_err = (lg32_k - lg32_r).abs().max().item()
     pre32_ms, pre32_plain_ms = prefill_ms(s32, 3), prefill_ms(s32_r, 3)
-    print(f"float32: flash launches {fa32} (prefill, want {cfg.n_layers}); "
+    print(f"float32: flash launches {fa32}, on the 3xTF32 route {fa32_tf} "
+          f"(prefill, want {cfg.n_layers}); "
           f"{same32} of {out32.numel()} tokens equal; prefill logits kernels "
           f"against plain max abs diff {lg32_err:.4g} (tol {PHI3_F32_LOGIT_TOL}); "
           f"prefill {pre32_ms:.2f} ms "
           f"through the kernels, {pre32_plain_ms:.2f} ms plain")
-    if (fa32 != cfg.n_layers or same32 != out32.numel()
+    if (not fa32 == fa32_tf == cfg.n_layers or same32 != out32.numel()
             or not lg32_err <= PHI3_F32_LOGIT_TOL):
         fail(f"{PHI3_ARCH} float32 through the kernels and the plain versions: "
-             f"{same32} of {out32.numel()} tokens equal, {fa32} flash launches, "
+             f"{same32} of {out32.numel()} tokens equal, {fa32} flash launches "
+             f"({fa32_tf} 3xTF32), "
              f"prefill logits {lg32_err:.4g} apart (tol {PHI3_F32_LOGIT_TOL})")
     del s32, s32_r, p32
     torch.cuda.empty_cache()
@@ -1815,6 +1919,7 @@ def phi3_phase(torch) -> dict:
     gen = torch.Generator().manual_seed(12)
     B, S, H = PHI3_BATCH, PHI3_PROMPT, cfg.n_heads
     out = {"d96_shape": {"B": B, "S": S, "H": H, "D": D, "causal": True},
+           "d96_f32_shape": {"B": B, "S": S, "H": H, "D": D, "causal": True},
            "d96_prefill_launches": fa, "d96_prefill_ms": pre_ms,
            "d96_prefill_plain_ms": pre_plain_ms, "d96_bf16_logit_err": lg_err,
            "d96_f32_tokens_equal": same32}
@@ -1822,32 +1927,13 @@ def phi3_phase(torch) -> dict:
                              (torch.float32, "f32", FLASH_TOL["float32"])):
         q, k, v = ((torch.randn(B, S, H, D, generator=gen)).to("cuda", dtype)
                    for _ in range(3))
-        ms = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), iters=50)
-        ms_b = cuda_ms(lambda: kfa.flash_attention_cuda(q, k, v, True), iters=200)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=200)
-        dev_us = device_us_per_call(
-            lambda: kfa.flash_attention_cuda(q, k, v, True), iters=50)
-        lib_us = device_us_per_call(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=50)
-        err = (kfa.flash_attention_cuda(q, k, v, True).float()
-               - ref.flash_attention_ref(q, k, v, True).float()).abs().max().item()
-        bound, by = flash_bound_ms(B, S, S, H, D, True, q.element_size())
-        print(f"{name} (B,S,H,D) = {(B, S, H, D)} causal: kernel {ms:.4f} / "
-              f"{ms_b:.4f} ms, {dev_us} us of card time; plain {plain_ms:.4f} "
-              f"ms; scaled_dot_product_attention {lib_ms:.4f} ms, {lib_us} us; "
-              f"bound {bound:.4g} ms ({by}); max abs err {err:.3g} (tol {tol})")
-        if not err <= tol:
+        r = flash_timing(torch, q, k, v, f"{name}, {PHI3_ARCH}'s prefill")
+        if not r["err"] <= tol:
             fail(f"flash_attention {name} at {PHI3_ARCH}'s shape: max abs err "
-                 f"{err:.3g} > {tol}")
-        out.update({f"d96_{name}_ms": ms, f"d96_{name}_device_us": dev_us,
-                    f"d96_{name}_plain_ms": plain_ms,
-                    f"d96_{name}_library_ms": lib_ms,
-                    f"d96_{name}_library_device_us": lib_us,
-                    f"d96_{name}_bound_ms": bound, f"d96_{name}_bound_by": by,
-                    f"d96_{name}_err": err})
+                 f"{r['err']:.3g} > {tol}")
+        out.update({f"d96_{name}_{key}": val for key, val in r.items()})
+    out.update({"d96_f32_prefill_launches": fa32_tf, "d96_f32_prefill_ms": pre32_ms,
+                "d96_f32_prefill_plain_ms": pre32_plain_ms})
     return out
 
 
@@ -2163,16 +2249,17 @@ def main() -> None:
     sweep = soa_row["revpred_sweep"]
     stack_row["revpred_sweep_launches"] = sweep["lstm_stack_launches"]
     stack_row["revpred_sweep_forwards"] = sweep["forwards"]
-    flash_row, ssd_row = serve_phases(torch)
+    flash_row, flash_f32_row, ssd_row = serve_phases(torch)
     # the training slice and phi3 run last, so the earlier paths run as
     # they did before them
     fwd_train_row, bwd_row = train_phases(torch)
     stack_row["fig10_launches"] = bwd_row["fig10"]["launches"][
         "lstm_stack (inference)"]
-    flash_row.update(phi3_phase(torch))
+    for key, val in phi3_phase(torch).items():
+        (flash_f32_row if "_f32_" in key else flash_row)[key] = val
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
-                                  soa_row, flash_row, ssd_row]}))
+                                  soa_row, flash_row, flash_f32_row, ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

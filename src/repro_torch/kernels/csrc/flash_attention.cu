@@ -11,12 +11,12 @@
 // scores are -1e30 and the row sum is floored at 1e-30 before the
 // division, as in the TPU kernel.  D is 16, 32, 64, 96 or 128 (a template
 // parameter: zamba2 and the dense configs have 64 or 128, phi3-mini 96,
-// the reduced test configs 16).  Both kernels keep D in whole 64-column
-// blocks: D < 64 takes one, D = 96 two, the columns past D zero (the
-// products over them add nothing) and never stored.  q, k and v are read through their batch, sequence and
-// head strides (the last dimension must be contiguous).  Rows past Sq and
-// keys past Sk are masked (the TPU kernel asserts S % block == 0).  Two
-// kernels, chosen by the input type in flash_attention_fwd:
+// the reduced test configs 16); the columns a kernel pads D with are zero
+// (the products over them add nothing) and never stored.  q, k and v are
+// read through their batch, sequence and head strides (the last dimension
+// must be contiguous).  Rows past Sq and keys past Sk are masked (the TPU
+// kernel asserts S % block == 0).  Two kernels on the tensor cores, chosen
+// by the input type in flash_attention_fwd:
 //
 // bfloat16: flash_attention_wgmma_kernel, on the tensor cores.
 //   What bounds it: at zamba2-1.2b's prefill (B=4, S=512, H=32, D=64,
@@ -53,16 +53,65 @@
 //   Q tile's shared memory in the same swizzled layout and stores it by TMA,
 //   which clips rows past Sq and columns past D.
 //
-// float32: flash_attention_kernel, float32 FFMA (no tensor cores): its
-//   contract is 3e-5 against the plain version, which neither TF32 nor bf16
-//   products can meet.  One block of 256 threads per (64-row q tile, head,
-//   batch); the q tile is loaded once, transposed and pre-scaled, into
-//   shared memory; the block walks 64-row K/V tiles staged in shared memory
-//   and stops at the diagonal when causal.  Each thread owns a 4 x 4 patch
-//   of the 64 x 64 score tile and 4 rows x 4 columns of each 64-column block
-//   of the output accumulator (D < 64 is padded to one block with zeros);
-//   the row max and row sum are reduced across the 16 threads that share a
-//   row with warp shuffles.  Its ceiling is the FFMA rate (67 TFLOP/s).
+// float32: flash_attention_tf32_kernel, at float32 accuracy (3xTF32).
+//   Its contract is 3e-5 against the plain version.  One TF32 product
+//   keeps 10 mantissa bits of each operand and misses it, so each float32
+//   operand x is split into hi = tf32(x) and lo = tf32(x - hi), both
+//   rounded to nearest, and every product is lo.hi + hi.lo + hi.hi
+//   accumulated in float32 by wgmma (tf32, k = 8; hopper.cuh).
+//   tests/test_torch_flash_tf32.py repeats the kernel's arithmetic on the
+//   CPU: 3xTF32 holds 3e-5, 1xTF32 does not.
+//   What bounds it: at phi3-mini's prefill (B=2, S=256, H=32, D=96,
+//   causal) one call moves 25.2 MB (7.5 us at 3.35 TB/s) and needs 0.81
+//   GFLOP of products, 4.9 us at the 3xTF32 rate (495 / 3 TFLOP/s): bytes.
+//   At zamba2-1.2b's (B=4, S=512, H=32, D=64) 67.1 MB (20.0 us) and 4.30
+//   GFLOP (26.1 us): operations.  The FFMA kernel it replaces could not
+//   come under 12.1 and 64.2 us (67 TFLOP/s).
+//   Design: one block per (q tile, head, batch), the q tiles walked from
+//   the last to the first as in the bf16 kernel, of one or two consumer
+//   warpgroups (64 q rows each, sharing the K and V tiles: two at
+//   D <= 64, one above, where two measured slower) and two producer warp
+//   pairs.  The producers read with 16-byte loads (the wrapper copies a
+//   view that cannot be read so), split every element into hi and lo on
+//   the way and store both into 128-byte-swizzled K-major shared memory,
+//   the layout tf32 wgmma reads: both pairs the Q tiles once; then the
+//   first pair the K tiles, [key][d], which is K-major for the B operand of
+//   Q.K^T as it lies, and the second the V tiles transposed to [d][key],
+//   since tf32 wgmma takes B only K-major.  K and V^T have a ring each,
+//   guarded by mbarriers: a full barrier a stage, an empty barrier a stage
+//   and consumer warpgroup (one whose causal rows end a tile early never
+//   takes that tile and gives nothing back), so a K slot is refilled as
+//   soon as S of its tile is in.  A producer issues all of a tile's loads
+//   before it waits for a free slot.  Every element passes through
+//   registers for its split anyway, so neither TMA nor cp.async would save
+//   that trip: they would land raw floats that a second pass over shared
+//   memory splits and, for V, transposes.  The split rounds with integer
+//   operations (hopper.cuh's Round::bits), faster here than the conversion
+//   instruction.
+//   S = Q.K^T is wgmma m64n64k8 from shared memory (D/8 k steps of three
+//   products), scaled by scale * log2(e) after the product and masked; the
+//   online softmax runs with exp2 in the accumulator layout, the row max
+//   and sum taken across the four threads of a row, as in the bf16 kernel.
+//   P stays in registers: the S accumulator holds columns 2t, 2t+1 of each
+//   8 and the tf32 A fragment wants t and t+4, so the key index is permuted
+//   inside each 8-wide k step (A slot t takes key 2t, slot t+4 key 2t+1),
+//   V^T's keys are staged in the same order, and P is split in registers
+//   into the A operand of O += P.V (wgmma m64nNk8, N = max(D, 64), A in
+//   registers).  S of tile t is issued with P.V of tile t-1, and the
+//   softmax of tile t runs while P.V finishes.  The epilogue divides by
+//   max(l, 1e-30) and stores O from the accumulators, two floats a store.
+//   Shared memory (Cfg<D>::SMEM; hi and lo double every tile; Q and K keep
+//   D rounded up to 32 columns, V^T max(D, 64) rows; + 1 KiB of alignment;
+//   one block a SM):
+//     D        Q tiles      K stage x depth   V^T stage x depth   total
+//     16, 32   2 x 16 KiB   16 KiB x 2        32 KiB x 2          129 KiB
+//     64       2 x 32       32 x 2            32 x 2              193
+//     96       1 x 48       48 x 1            48 x 2              193
+//     128      1 x 64       64 x 1            64 x 1              193
+//   With one K stage the producers store K of tile t+1 while the consumer
+//   is still in the softmax and P.V of tile t; D = 128 also waits for V.
+//   Card times, the variants measured and what bounds them: PERF.md
+//   (tools/flash_f32_timing.py).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -75,196 +124,362 @@
 
 namespace {
 
-
-constexpr int BM = 64;          // q rows per block
-constexpr int BN = 64;          // k/v rows per tile
-constexpr int LDT = BM + 4;     // row length of the transposed tiles (floats)
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   int64_t b, s, h;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+// ------------------------------------------------------------------------
+// float32: 3xTF32 wgmma kernel
+// ------------------------------------------------------------------------
 
+namespace tf32 {
 
-// the output patch's width: D rounded up to whole 64-column blocks
+constexpr int WG_Q = 64;                // q rows of a consumer warpgroup
+constexpr int BN = 64;                  // keys per K / V tile
+constexpr int MAX_WG = 2;
+constexpr int MAX_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int D>
-__host__ __device__ constexpr int padded_d() { return (D + 63) / 64 * 64; }
+struct Cfg {
+  static constexpr int DK = (D + 31) / 32 * 32;   // Q and K columns in shared memory
+  static constexpr int DN = D < 64 ? 64 : D;      // V^T rows = O columns (n of P.V)
+  static constexpr int KS = D / 8;                // k steps of Q.K^T
+  static constexpr int OREG = DN / 2;             // O accumulator floats a thread
+  static constexpr int QT = WG_Q * DK * 4;        // bytes of a Q or K tile, hi or lo
+  static constexpr int VT = DN * BN * 4;          // bytes of a V^T tile, hi or lo
+  // consumer warpgroups, each 64 q rows of the block, sharing the K and
+  // V^T tiles (at D = 96 two fit only with one V stage, and measured
+  // slower than one)
+  static constexpr int WG = D <= 64 ? 2 : 1;
+  static constexpr int BM = WG * WG_Q;            // q rows per block
+  static constexpr int CONSUMERS = 128 * WG;
+  // producer threads of each ring
+  static constexpr int PROD = 64;
+  static constexpr int THREADS = CONSUMERS + 2 * PROD;
+  static constexpr int KST = D <= 64 ? 2 : 1;     // depth of the K ring
+  static constexpr int VST = D <= 96 ? 2 : 1;     // depth of the V ring
+  // + 1 KiB to align the tiles to the swizzle's 1024-byte period
+  static constexpr size_t SMEM =
+      1024 + (size_t)2 * QT * (WG + KST) + (size_t)2 * VT * VST;
+};
 
-template <int D>
-constexpr size_t smem_floats() {
-  // q^T, k^T: D x LDT; v: BN x (padded D + 4); p^T: BN x LDT
-  return (size_t)2 * D * LDT + (size_t)BN * (padded_d<D>() + 4) + (size_t)BN * LDT;
+// d += P . V^T over the tile's 8 k steps, P split in registers (pl, ph)
+// and V^T split in shared memory (v_hi, v_lo): lo.hi, hi.lo, hi.hi
+template <int DN, int N>
+__device__ __forceinline__ void mma3_pv(float (&d)[N], const uint32_t* ph, const uint32_t* pl,
+                                        uint32_t v_hi, uint32_t v_lo) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    const uint64_t dh = desc_k(v_hi, kk, DN), dl = desc_k(v_lo, kk, DN);
+    if constexpr (DN == 128) {
+      wgmma_tf32_rs_n128(d, pl + 4 * kk, dh);
+      wgmma_tf32_rs_n128(d, ph + 4 * kk, dl);
+      wgmma_tf32_rs_n128(d, ph + 4 * kk, dh);
+    } else if constexpr (DN == 96) {
+      wgmma_tf32_rs_n96(d, pl + 4 * kk, dh);
+      wgmma_tf32_rs_n96(d, ph + 4 * kk, dl);
+      wgmma_tf32_rs_n96(d, ph + 4 * kk, dh);
+    } else {
+      wgmma_tf32_rs_n64(d, pl + 4 * kk, dh);
+      wgmma_tf32_rs_n64(d, ph + 4 * kk, dl);
+      wgmma_tf32_rs_n64(d, ph + 4 * kk, dh);
+    }
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                       Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                       int causal) {
-  constexpr int DW = padded_d<D>();
-  constexpr int LDV = DW + 4;
-  constexpr int NB = DW / 64;   // 64-column blocks of the output
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q tile^T * scale
-  float* Kt = Qt + D * LDT;                      // [D][LDT]  k tile^T
-  float* Vs = Kt + D * LDT;                      // [BN][LDV] v tile
-  float* Pt = Vs + BN * LDV;                     // [BN][LDT] probabilities^T
+// K tiles a causal block of q rows [q0, q0 + rows) needs: up to its last
+// row's diagonal
+__device__ __forceinline__ int tiles_for(int q0, int rows, int Sq, int Sk, int causal) {
+  const int n = (Sk + BN - 1) / BN;
+  return causal ? min(n, (min(q0 + rows, Sq) - 1) / BN + 1) : n;
+}
 
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int Sq,
+                            int Sk, int H, int n_qt, Strides sq, Strides sk, Strides sv,
+                            Strides so, float scale_log2, int causal) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // q_full; k_full[s], v_full[s]; k_empty[s][w], v_empty[s][w]: an empty
+  // barrier a consumer warpgroup, so that one whose causal rows end a tile
+  // early gives back nothing it never took
+  __shared__ __align__(8) uint64_t bars[1 + 2 * MAX_STAGES + 2 * MAX_STAGES * MAX_WG];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = base;                           // warpgroup w: hi, then lo
+  uint8_t* sK = sQ + 2 * C::QT * C::WG;         // stage s: hi, then lo
+  uint8_t* sV = sK + 2 * C::QT * C::KST;        // stage s: hi, then lo
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + MAX_STAGES;
+  uint64_t* k_empty = bars + 1 + 2 * MAX_STAGES;                       // [s * MAX_WG + w]
+  uint64_t* v_empty = bars + 1 + 2 * MAX_STAGES + MAX_STAGES * MAX_WG;  // [s * MAX_WG + w]
+
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * C::BM;    // most K tiles first
+  const int n_kt = tiles_for(q0, C::BM, Sq, Sk, causal);
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
 
-  for (int e = tid; e < BM * D; e += THREADS) {
-    const int i = e / D, d = e % D;
-    Qt[d * LDT + i] = (q0 + i < Sq) ? to_f(qb[(int64_t)(q0 + i) * sq.s + d]) * scale : 0.f;
+  if (tid == 0) {
+    mbar_init(q_full, 2 * C::PROD);
+    for (int s = 0; s < MAX_STAGES; ++s) {
+      mbar_init(&k_full[s], C::PROD);
+      mbar_init(&v_full[s], C::PROD);
+      for (int w = 0; w < MAX_WG; ++w) {
+        mbar_init(&k_empty[s * MAX_WG + w], 128);
+        mbar_init(&v_empty[s * MAX_WG + w], 128);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float m[4], l[4], acc[4][4 * NB];
+  if (tid >= C::CONSUMERS) {
+    // ------------------------------------------------------ producers
+    // all of them split the Q tiles, then one half streams the K tiles and
+    // the other the V^T tiles, each through its own ring; a slot is
+    // refilled once every warpgroup that reads its tile has given it back
+    const int ptid = tid - C::CONSUMERS;
+    for (int w = 0; w < C::WG; ++w) {
+      const int qw = q0 + w * WG_Q;
+      if (qw >= Sq) break;
+      Rows<C::DK, 2 * C::PROD, Round::bits> qt;
+      qt.load(q + b * sq.b + h * sq.h + (int64_t)qw * sq.s, sq.s, min(WG_Q, Sq - qw), D, true,
+              ptid);
+      qt.store(sQ + w * 2 * C::QT, sQ + w * 2 * C::QT + C::QT, ptid);
+    }
+    fence_async_shared();
+    mbar_arrive(q_full);
+    int n_kw[C::WG];   // K tiles each warpgroup reads
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+    for (int w = 0; w < C::WG; ++w)
+      n_kw[w] = q0 + w * WG_Q < Sq ? tiles_for(q0 + w * WG_Q, WG_Q, Sq, Sk, causal) : 0;
+    auto wait_empty = [&](uint64_t* empty, int t, int st) {
 #pragma unroll
-    for (int c = 0; c < 4 * NB; ++c) acc[r][c] = 0.f;
+      for (int w = 0; w < C::WG; ++w)
+        if (t - st >= 0 && t - st < n_kw[w])
+          mbar_wait(&empty[(t % st) * MAX_WG + w], ((t / st) & 1) ^ 1);
+    };
+    if (ptid < C::PROD) {
+      const float* kb = k + b * sk.b + h * sk.h;
+      Rows<C::DK, C::PROD, Round::bits> kt;
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % C::KST;
+        kt.load(kb + (int64_t)t * BN * sk.s, sk.s, min(BN, Sk - t * BN), D, true, ptid);
+        wait_empty(k_empty, t, C::KST);
+        uint8_t* slot = sK + s * 2 * C::QT;
+        kt.store(slot, slot + C::QT, ptid);
+        fence_async_shared();
+        mbar_arrive(&k_full[s]);
+      }
+    } else {
+      const int vtid = ptid - C::PROD;
+      const float* vb = v + b * sv.b + h * sv.h;
+      auto unit = [](int, bool, float& s1, float& s2) { s1 = s2 = 1.f; };
+      Cols<C::DN, C::PROD, Round::bits> vt;
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % C::VST;
+        vt.load(vb + (int64_t)t * BN * sv.s, sv.s, min(BN, Sk - t * BN), D, true, unit, vtid);
+        wait_empty(v_empty, t, C::VST);
+        uint8_t* slot = sV + s * 2 * C::VT;
+        vt.store(slot, slot + C::VT, vtid);
+        fence_async_shared();
+        mbar_arrive(&v_full[s]);
+      }
+    }
+    return;
   }
 
-  int n_tiles = (Sk + BN - 1) / BN;
-  if (causal) {
-    const int last_row = min(q0 + BM, Sq) - 1;
-    n_tiles = min(n_tiles, last_row / BN + 1);
-  }
-  for (int t = 0; t < n_tiles; ++t) {
+  // ------------------------------------------------ consumer warpgroups
+  // Each warpgroup owns 64 q rows.  As in the bf16 kernel: S of tile t is
+  // issued with P.V of tile t-1, and the softmax of tile t runs while the
+  // tensor cores finish P.V; the other warpgroup's products fill the gaps.
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw = q0 + wg * WG_Q;
+  if (qw >= Sq) return;                    // the last block's rows may end early
+  const int n_t = tiles_for(qw, WG_Q, Sq, Sk, causal);
+  const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int cq = (lane % 4) * 2;           // its first column in each 8-column group
+  float oacc[C::OREG];
+  zero(oacc);
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float sc[32];
+  uint32_t ph[32], pl[32];
+  const uint32_t q_hi = smem_u32(sQ + wg * 2 * C::QT), q_lo = q_hi + C::QT;
+
+  // S = Q.K^T of tile t into sc, issued and committed (not waited for)
+  auto issue_qk = [&](int t) {
+    const int s = t % C::KST;
+    zero(sc);
+    mbar_wait(&k_full[s], (t / C::KST) & 1);
+    const uint32_t k_hi = smem_u32(sK + s * 2 * C::QT);
+    wg_fence();
+    mma3_ss_n64(sc, q_hi, q_lo, k_hi, k_hi + C::QT, C::KS, BN);
+    wg_commit();
+  };
+  // O += P.V of tile t (P in ph, pl), issued and committed
+  auto issue_pv = [&](int t) {
+    const int s = t % C::VST;
+    mbar_wait(&v_full[s], (t / C::VST) & 1);
+    const uint32_t v_hi = smem_u32(sV + s * 2 * C::VT);
+    wg_fence();
+    mma3_pv<C::DN>(oacc, ph, pl, v_hi, v_hi + C::VT);
+    wg_commit();
+  };
+  // the online softmax of tile t's scores: sc becomes P, the running max
+  // and partial sums advance, and the factors O must be rescaled by come
+  // back in a0, a1
+  float a0 = 1.f, a1 = 1.f;
+  auto softmax = [&](int t) {
     const int k0 = t * BN;
-    __syncthreads();   // the previous tile's Kt, Vs and Pt are consumed
-    for (int e = tid; e < BN * D; e += THREADS) {
-      const int j = e / D, d = e % D;
-      Kt[d * LDT + j] = k0 + j < Sk ? to_f(kb[(int64_t)(k0 + j) * sk.s + d]) : 0.f;
-    }
-    for (int e = tid; e < BN * DW; e += THREADS) {
-      const int j = e / DW, d = e % DW;
-      Vs[j * LDV + d] = (k0 + j < Sk && d < D) ? to_f(vb[(int64_t)(k0 + j) * sv.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+    const bool edge = k0 + BN > Sk || qw + WG_Q > Sq || (causal && k0 + BN - 1 > qw);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * LDT + ty * 4);
-      const float4 bk = *reinterpret_cast<const float4*>(Kt + d * LDT + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty * 4 + r;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx * 4 + c;
-        if (j >= Sk || (causal && j > i)) s[r][c] = NEG_INF;
-        mx = fmaxf(mx, s[r][c]);
+    for (int r = 0; r < 32; ++r) {
+      float x = sc[r] * scale_log2;
+      if (edge) {
+        const int j = k0 + (r / 4) * 8 + cq + (r % 2);
+        const int i = qw + row0 + ((r % 4) >= 2 ? 8 : 0);
+        if (j >= Sk || i >= Sq || (causal && j > i)) x = NEG_INF;
       }
-      // the 16 threads of a row are the 16-lane half of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        sum += p;
-        Pt[(tx * 4 + c) * LDT + ty * 4 + r] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NB; ++c) acc[r][c] *= alpha;
+      sc[r] = x;
+      if ((r % 4) < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      const float4 a = *reinterpret_cast<const float4*>(Pt + j * LDT + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const float4 bv4 = *reinterpret_cast<const float4*>(Vs + j * LDV + nb * 64 + tx * 4);
-        const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    a0 = exp2f(m0 - mn0);
+    a1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[r][nb * 4 + c] = fmaf(av[r], bv[c], acc[r][nb * 4 + c]);
+    for (int r = 0; r < 32; ++r) {
+      if ((r % 4) < 2) {
+        sc[r] = exp2f(sc[r] - mn0);
+        rs0 += sc[r];
+      } else {
+        sc[r] = exp2f(sc[r] - mn1);
+        rs1 += sc[r];
       }
     }
+    l0 = l0 * a0 + rs0;   // this thread's columns; the row's four join at the end
+    l1 = l1 * a1 + rs1;
+  };
+  // P split into tf32 A fragments, with the keys permuted inside each
+  // 8-wide k step (V^T is staged in the same order): a thread holds S's
+  // columns 2t, 2t+1 of each 8, and A slot t takes column 2t, slot t + 4
+  // column 2t + 1.  Fragment order: (row, slot t), (row + 8, t),
+  // (row, t + 4), (row + 8, t + 4).
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split<Round::bits>(sc[4 * kk + 0], ph[4 * kk + 0], pl[4 * kk + 0]);
+      split<Round::bits>(sc[4 * kk + 2], ph[4 * kk + 1], pl[4 * kk + 1]);
+      split<Round::bits>(sc[4 * kk + 1], ph[4 * kk + 2], pl[4 * kk + 2]);
+      split<Round::bits>(sc[4 * kk + 3], ph[4 * kk + 3], pl[4 * kk + 3]);
+    }
+  };
+  uint64_t* my_k_empty = k_empty + wg;
+  uint64_t* my_v_empty = v_empty + wg;
+
+  mbar_wait(q_full, 0);
+  issue_qk(0);
+  wg_wait_all();
+  fence_regs(sc);
+  mbar_arrive(&my_k_empty[0]);
+  softmax(0);
+  pack_p();
+  for (int t = 1; t < n_t; ++t) {
+    issue_qk(t);
+    issue_pv(t - 1);
+    wg_wait_one();   // S of tile t is in; P_{t-1}.V_{t-1} may still run
+    fence_regs(sc);
+    mbar_arrive(&my_k_empty[(t % C::KST) * MAX_WG]);
+    softmax(t);
+    wg_wait_all();
+    fence_regs(oacc);
+    mbar_arrive(&my_v_empty[((t - 1) % C::VST) * MAX_WG]);
+#pragma unroll
+    for (int r = 0; r < C::OREG; ++r) oacc[r] *= (r % 4) < 2 ? a0 : a1;
+    pack_p();
   }
+  issue_pv(n_t - 1);
+  wg_wait_all();
+  fence_regs(oacc);
+  mbar_arrive(&my_v_empty[((n_t - 1) % C::VST) * MAX_WG]);
 
+  // ----------------------------------------------------------- epilogue
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty * 4 + r;
-    if (i >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = ob + (int64_t)i * so.s;
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = nb * 64 + tx * 4 + c;
-        if (DW == D || d < D) put(orow + d, acc[r][nb * 4 + c] / denom);
-      }
+  for (int r = 0; r < C::OREG; r += 2) {
+    const int i = qw + row0 + ((r % 4) >= 2 ? 8 : 0);
+    const int col = (r / 4) * 8 + cq;
+    const float inv = (r % 4) >= 2 ? inv1 : inv0;
+    if (i < Sq && col < D)
+      *reinterpret_cast<float2*>(ob + (int64_t)i * so.s + col) =
+          make_float2(oacc[r] * inv, oacc[r + 1] * inv);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-           int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, int causal, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, D>;
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((Sq + BM - 1) / BM), (unsigned)H, (unsigned)B);
-  kern<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                        (int)Sq, (int)Sk, sq, sk, sv, so, scale, causal);
+           int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so, float scale,
+           int causal, int device, cudaStream_t stream) {
+  // 16-byte loads: 16-byte-aligned bases and strides of whole float4s
+  const void* ptrs[] = {q, k, v, o};
+  const Strides strides[] = {sq, sk, sv, so};
+  for (int i = 0; i < 4; ++i)
+    if ((uintptr_t)ptrs[i] % 16 || strides[i].b % 4 || strides[i].s % 4 || strides[i].h % 4)
+      return -3;
+  auto kern = flash_attention_tf32_kernel<D>;
+  const size_t smem = Cfg<D>::SMEM;
+  static bool smem_set[64] = {};   // per device; setting it twice is harmless
+  if (device < 0 || device >= 64 || !smem_set[device]) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device >= 0 && device < 64) smem_set[device] = true;
+  }
+  const int64_t n_qt = (Sq + Cfg<D>::BM - 1) / Cfg<D>::BM;
+  if (B * H > 0x7fffffff || n_qt > 65535) return -1;
+  const dim3 grid((unsigned)(B * H), (unsigned)n_qt);
+  kern<<<grid, Cfg<D>::THREADS, smem, stream>>>((const float*)q, (const float*)k,
+                                                (const float*)v, (float*)o, (int)Sq, (int)Sk,
+                                                (int)H, (int)n_qt, sq, sk, sv, so,
+                                                scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, int64_t B,
-                 int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk,
-                 Strides sv, Strides so, float scale, int causal, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
+             int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv, Strides so,
+             float scale, int causal, int dev, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
-    case 32: return launch<float, 32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
-    case 64: return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
-    case 96: return launch<float, 96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
-    case 128: return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, st);
+    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 96: return launch<96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 128:
+      return launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     default: return -1;
   }
 }
+
+}  // namespace tf32
 
 // ------------------------------------------------------------------------
 // bfloat16: TMA-fed wgmma kernel
@@ -315,10 +530,6 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
-}
-
-__device__ __forceinline__ void wg_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // the consumer warpgroup's own barrier (id 1; 0 is __syncthreads)
@@ -753,10 +964,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, in
 // Returns the CUDA error of the launch (0 on success); -1 for a shape the
 // kernel does not take (D not 16, 32, 64, 96 or 128, an empty or oversized
 // grid), -2 for a dtype code other than 0 (float32) or 1 (bfloat16), -3
-// when a bfloat16 tensor map cannot be made (a base not 16-byte aligned, a
-// stride not a multiple of 16 bytes: the wrapper copies such tensors
-// first).  Strides are in elements: (batch, sequence, head) for each of q,
-// k, v and o.  float32 runs the FFMA kernel, bfloat16 the wgmma kernel.
+// when a tensor cannot be read as it is (a base not 16-byte aligned, a
+// stride not a multiple of 16 bytes: no bfloat16 tensor map, no float32
+// 16-byte loads; the wrapper copies such tensors first).  Strides are in
+// elements: (batch, sequence, head) for each of q, k, v and o.  float32
+// runs the 3xTF32 kernel, bfloat16 the bf16 one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t D,
                                    int64_t qb, int64_t qs, int64_t qh, int64_t kb,
@@ -771,7 +983,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   const Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_f32(q, k, v, o, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, st);
+  if (dtype == 0)
+    return tf32::dispatch(q, k, v, o, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
   if (dtype == 1)
     return tc::dispatch(q, k, v, o, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
   return -2;

@@ -2,14 +2,17 @@
 
 ``csrc/flash_attention.cu`` replaces the Pallas kernel
 ``src/repro/kernels/flash_attention.py:flash_attention_pallas`` (see its
-header for the design): bfloat16 inputs run the TMA-fed ``wgmma`` kernel on
-the tensor cores, float32 inputs the float32 FFMA kernel.  It is compiled
-by ``build.py`` at first use and called through ``ctypes`` on PyTorch's
+header for the design).  Both routes run on the tensor cores by ``wgmma``:
+bfloat16 inputs the TMA-fed bf16 kernel, float32 inputs the 3xTF32 kernel
+(each float32 operand split into two TF32 halves, three products summed in
+float32, fed by 16-byte loads that split on the way).  It is compiled by
+``build.py`` at first use and called through ``ctypes`` on PyTorch's
 current stream.  q, k and v are read through their strides; a tensor whose
 last dimension is not contiguous is copied first (``.contiguous()``), and
-so is a bfloat16 tensor whose base is not 16-byte aligned or whose batch,
-sequence or head stride is not a multiple of 16 bytes (what a TMA tensor
-map takes).  A copy, not a change of route.
+a tensor whose base is not 16-byte aligned or whose batch, sequence or
+head stride is not a multiple of 16 bytes (what a TMA tensor map and a
+16-byte load take) is copied into a new contiguous tensor.  A copy, not a
+change of route.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernels since the count was last set to 0 (both routes)
 LAUNCHES = 0
-#: of those, launches of the bfloat16 tensor-core (wgmma) kernel
+#: of those, launches of the bfloat16 kernel (bf16 ``wgmma``)
 WGMMA_LAUNCHES = 0
+#: of those, launches of the float32 kernel (3xTF32 ``wgmma``)
+TF32_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are built for (96: phi3-mini's 3072 / 32)
@@ -70,27 +75,42 @@ def _check(q, k, v):
 
 
 def tma_strides(t):
-    """(batch, sequence, head) element strides of a bfloat16 (B, S, H, D)
-    tensor as its TMA map takes them, or None where the map cannot take
-    the tensor as it is (a base not 16-byte aligned, a stride of a dimension
-    longer than 1 not a multiple of 16 bytes).  A dimension of length 1 is
-    never stepped, so its stride is replaced by a valid one."""
+    """(batch, sequence, head) element strides of a (B, S, H, D) tensor as
+    the kernels read it (a bfloat16 TMA map, float32 16-byte loads), or
+    None where they cannot take the tensor as it is (a base not 16-byte
+    aligned, a stride of a dimension longer than 1 not a multiple of 16
+    bytes).  A dimension of length 1 is never stepped, so its stride is
+    replaced by a valid one."""
     if t.data_ptr() % 16:
         return None
+    shape, stride, size = t.shape, t.stride(), t.element_size()
     out = []
-    for n, st in zip(t.shape[:3], t.stride()[:3]):
-        if n == 1:
-            st = t.shape[3]
-        elif st <= 0 or (st * t.element_size()) % 16:
+    for i in range(3):
+        st = stride[i]
+        if shape[i] == 1:
+            st = shape[3]
+        elif st <= 0 or (st * size) % 16:
             return None
         out.append(st)
     return out
 
 
+def _readable(t):
+    """(t, its strides as ``tma_strides`` gives them), or a new contiguous
+    copy of t and its strides where the kernels cannot read t as it is.  A
+    fresh copy is aligned; ``.contiguous()`` would keep a contiguous view at
+    an odd offset as it is."""
+    st = tma_strides(t)
+    if st is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        st = tma_strides(t)
+    return t, st
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     """The kernel on CUDA tensors; the arguments of
     ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type."""
-    global LAUNCHES, WGMMA_LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES, TF32_LAUNCHES
     check_no_grad("flash_attention_cuda", q, k, v)
     B, Sq, Sk, H, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
@@ -98,12 +118,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     if B == 0 or Sq == 0 or H == 0:
         return o
     scale = float(scale if scale is not None else D ** -0.5)
-    if q.dtype == torch.bfloat16:     # o is new and contiguous: it passes
-        q, k, v = (t if tma_strides(t) is not None else t.contiguous()
-                   for t in (q, k, v))
-        strides = [s for t in (q, k, v, o) for s in tma_strides(t)]
-    else:
-        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    (q, sq), (k, sk), (v, sv) = (_readable(t) for t in (q, k, v))
+    strides = [*sq, *sk, *sv, *tma_strides(o)]      # o is new and contiguous
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B, Sq, Sk, H, D, *strides, scale, int(bool(causal)),
@@ -113,4 +129,6 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     LAUNCHES += 1
     if q.dtype == torch.bfloat16:
         WGMMA_LAUNCHES += 1
+    else:
+        TF32_LAUNCHES += 1
     return o

@@ -129,3 +129,21 @@ def test_tma_strides_refuse_what_a_tensor_map_cannot_take():
     assert kfa.tma_strides(padded.contiguous()) == [8 * 2 * 16, 2 * 16, 16]
     expanded = torch.zeros(2, 1, 2, 16, dtype=torch.bfloat16).expand(2, 8, 2, 16)
     assert kfa.tma_strides(expanded) is None
+
+
+def test_readable_copies_what_the_kernels_cannot_read():
+    """A view the kernels take passes as it is; a contiguous view at an odd
+    offset (which ``.contiguous()`` would return as it is) and a view with
+    strides off 16 bytes come back as aligned contiguous copies with their
+    strides.  Both dtypes follow the same rule."""
+    for dt in (torch.float32, torch.bfloat16):
+        wide = torch.randn(2, 96, 8, 64).to(dt)
+        view = wide[:, 10:50, :4]
+        assert kfa._readable(view)[0] is view
+        flat = torch.randn(1 + 2 * 8 * 2 * 16).to(dt)
+        for bad in (flat[1:].view(2, 8, 2, 16),
+                    torch.randn(2, 8, 2, 17).to(dt)[..., 1:]):
+            got, strides = kfa._readable(bad)
+            assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+            assert strides == [8 * 2 * 16, 2 * 16, 16]
+            assert torch.equal(got, bad)

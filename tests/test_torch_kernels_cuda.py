@@ -212,16 +212,92 @@ def _randn(gen, *shape, dtype=torch.float32, device="cuda", scale=1.0):
 def test_flash_attention_kernel_matches_ref(B, S, H, D, dtype, causal, card):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (_randn(gen, B, S, H, D, dtype=dtype, device=card) for _ in range(3))
-    before = kfa.LAUNCHES, kfa.WGMMA_LAUNCHES
+    before = kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES
     o = ops.flash_attention(q, k, v, causal)
-    # bfloat16 runs the tensor-core (wgmma) kernel, float32 the FFMA kernel
-    wgmma = int(dtype == torch.bfloat16)
-    assert (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES) == (before[0] + 1, before[1] + wgmma)
+    # both routes are on the tensor cores: bfloat16 the bf16 wgmma kernel,
+    # float32 the 3xTF32 wgmma kernel
+    bf16 = int(dtype == torch.bfloat16)
+    assert (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES) == (
+        before[0] + 1, before[1] + bf16, before[2] + 1 - bf16)
     want = ref.flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o.shape == (B, S, H, D)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (37, 37), (200, 200), (333, 333),
+                                   (1, 38), (200, 237), (237, 200), (333, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_kernel_head_dims_and_sq_ne_sk(D, Sq, Sk, causal, card):
+    """The 3xTF32 route at every head dim, ragged lengths and Sq != Sk both
+    ways, within the float32 contract of the plain version."""
+    gen = torch.Generator().manual_seed(D + Sq + Sk)
+    q = _randn(gen, 2, Sq, 4, D, device=card)
+    k, v = (_randn(gen, 2, Sk, 4, D, device=card) for _ in range(2))
+    before = kfa.TF32_LAUNCHES
+    o = kfa.flash_attention_cuda(q, k, v, causal)
+    assert kfa.TF32_LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(o, want, rtol=3e-5, atol=3e-5)
+
+
+def _attention_f64(q, k, v, causal):
+    """``ref.flash_attention_ref``'s formula in float64."""
+    q, k, v = q.double(), k.double(), v.double()
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(keep, s, torch.full((), -1e30, dtype=s.dtype, device=s.device))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_kernel_large_scores(D, causal, card):
+    """q scaled by 8: scores of order 8, the running max moving from tile to
+    tile by tens and the rescale factors far below 1.  Large scores carry
+    float32 rounding into the output (tests/test_torch_flash_tf32.py), so the
+    kernel is held to the exact result, the plain formula in float64, at the
+    float32 contract's 3e-5.  At q x 30 no float32 computation holds it, the
+    float32 plain version included (``tools/flash_f32_timing.py --scores``)."""
+    gen = torch.Generator().manual_seed(30 + D)
+    q = _randn(gen, 2, 333, 4, D, device=card, scale=8.0)
+    k, v = (_randn(gen, 2, 333, 4, D, device=card) for _ in range(2))
+    o = kfa.flash_attention_cuda(q, k, v, causal)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o.double(), _attention_f64(q, k, v, causal),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_kernel_copies_what_it_cannot_read(card):
+    """Views the 16-byte loads take as they are (a slice of a wider tensor
+    in S and H, a (B, H, S, D) tensor transposed) and views they cannot (a
+    base off 16 bytes, a row stride off 16 bytes): the latter are copied
+    and every call runs the 3xTF32 kernel, within 3e-5 of the plain
+    version."""
+    gen = torch.Generator().manual_seed(5)
+    wide = _randn(gen, 2, 96, 8, 64, device=card)
+    sliced = wide[:, 10:50, :4]
+    bhsd = _randn(gen, 2, 4, 40, 64, device=card).transpose(1, 2)
+    flat = _randn(gen, 1 + 2 * 40 * 4 * 64, device=card)
+    offset = flat[1:].view(2, 40, 4, 64)                 # contiguous, base off 16 bytes
+    odd = _randn(gen, 2, 40, 4, 65, device=card)[..., 1:]  # strides of 65 floats
+    assert kfa.tma_strides(sliced) is not None and kfa.tma_strides(bhsd) is not None
+    assert kfa.tma_strides(offset) is None and kfa.tma_strides(odd) is None
+    for q, k, v in ((sliced, bhsd, bhsd), (offset, odd, sliced), (odd, offset, offset)):
+        for causal in (True, False):
+            before = kfa.TF32_LAUNCHES
+            o = kfa.flash_attention_cuda(q, k, v, causal, scale=0.2)
+            assert kfa.TF32_LAUNCHES == before + 1
+            want = ref.flash_attention_ref(q, k, v, causal, scale=0.2)
+            torch.testing.assert_close(o, want, rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.cuda

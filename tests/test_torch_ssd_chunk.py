@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 import _torch_port  # noqa: F401  (one intra-op thread)
+from _tf32 import mm as _mm, tf32 as _tf32
 
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_chunk_pallas
@@ -204,24 +205,8 @@ def test_smem_budget_fits_the_configs_chunks():
 # The kernel computes its four products on the tensor cores in TF32 with
 # each float32 operand split as hi = tf32(x), lo = tf32(x - hi), and sums
 # hi.hi + hi.lo + lo.hi in float32 (3xTF32).  The emulation below repeats
-# that arithmetic in plain torch: TF32 rounding is cvt.rna's, round to
-# nearest with ties away from zero, onto 10 mantissa bits (bit masking).
-# It is a test of the precision argument, on no path of the port.
-
-def _tf32(t):
-    u = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = (u + 0x1000) & 0xFFFFE000               # the magnitude, half up
-    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
-    return u.view(torch.float32)
-
-
-def _mm(eq, a, b, terms):
-    ah, bh = _tf32(a), _tf32(b)
-    out = torch.einsum(eq, ah, bh)
-    if terms == 3:
-        al, bl = _tf32(a - ah), _tf32(b - bh)
-        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
-    return out
+# that arithmetic in plain torch (``tests/_tf32.py``).  It is a test of the
+# precision argument, on no path of the port.
 
 
 def _ssd_chunk_tf32(x, dt, A, B_in, C_in, state, terms):
