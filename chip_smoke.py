@@ -15,6 +15,17 @@ drives the port's two paths through them:
   per-replica boundary min), repeated on the CPU and compared replica by
   replica, and a 20-replica sweep with RevPreds that reaches lstm_stack
   and soa_step;
+* the multi-tenant tuning service: three tenants' fig9-shaped studies (300
+  replicas, each with its own 12-day market) under demand contention and
+  max-min fairness through ``TuningService(device="cuda")``, whose studies'
+  SoA rounds run soa_step, repeated on the CPU and compared (logs, demand
+  impulses, records, billing, every replica), beside ``SweepRunner`` on the
+  same specs and under the profiler; a learned-RevPred study whose
+  predictors the service trains on the card (lstm_stack's training kernels)
+  and infers through lstm_stack, its CPU run on the same weights; the
+  equivalence harness (``compare_service_modes`` for five policies,
+  ``compare_sweep_modes``, ``compare_ledger_modes``, ``compare_runs``) on
+  the card; SLAQ and EarlyCurve on Fig. 11's curves, card against CPU;
 * the model server: zamba2-1.2b at full width (random weights from a seed)
   through ``Server(device="cuda")``, 4 prompts of 512 tokens and 32 greedy
   tokens each, whose prefill runs the ``flash_attention`` kernel (the
@@ -733,6 +744,393 @@ def soa_phases(torch) -> dict:
                   "h2d_bytes": h2d, "d2h_bytes": d2h,
                   "card_busy_s": busy, "profiled_wall_s": prof_wall},
     }
+
+
+# ---------------------------------------------------------------------------
+# the tuning service (slice 9)
+# ---------------------------------------------------------------------------
+
+SERVICE_TENANTS = ("alice", "bob", "carol")
+SERVICE_MARKET_SEEDS = 25        # a tenant's market seeds, as fig9's grid
+# fig9 runs 10 engine seeds: the contended service costs markets x impulses
+# x window (every market replays every tenant's demand impulses): about a
+# minute a run at one seed (300 replicas) on the H100 machine's host, and
+# 2 or 3 seeds (600, 900) would take several minutes a run (PERF.md §4)
+SERVICE_ENGINE_SEEDS = 1
+SERVICE_IMPACT = 0.04
+SERVICE_POLICY = ("maxmin", {"max_active": 2})
+SLAQ_RTOL = 1e-4   # the port's EarlyCurve against the JAX package's
+#                    (tests/test_torch_earlycurve.py RTOL)
+
+
+def service_studies():
+    """Each tenant's fig9-shaped study: 4 workloads x 25 market seeds of its
+    own (alice 100-124, bob 125-149, carol 150-174) x the engine seeds,
+    oracle RevPred, theta=0.7, 12-day markets."""
+    from repro_torch.core.trial import WORKLOADS
+    from repro_torch.sweep import scenario_grid
+    names = [w.name for w in WORKLOADS][:4]
+    out = []
+    for k, tenant in enumerate(SERVICE_TENANTS):
+        lo = 100 + k * SERVICE_MARKET_SEEDS
+        out.append((tenant, scenario_grid(
+            names, range(lo, lo + SERVICE_MARKET_SEEDS), revpred="oracle",
+            theta=0.7, engine_seed=range(SERVICE_ENGINE_SEEDS))))
+    return out
+
+
+def run_service(device, studies, contention=True, policy=SERVICE_POLICY):
+    """Submit the studies to a fresh ``TuningService`` on ``device`` (cold
+    caches) and pump it to the end.  -> (service, study ids, wall s)."""
+    import torch
+    from repro_torch.service import StudySpec, TuningService
+    from repro_torch.sweep import clear_shared_caches
+    clear_shared_caches()
+    svc = TuningService(policy=policy[0], policy_params=dict(policy[1]),
+                        contention=contention, impact=SERVICE_IMPACT,
+                        device=device)
+    ids = [svc.submit(StudySpec(tenant=t, specs=tuple(specs)))
+           for t, specs in studies]
+    t0 = time.perf_counter()
+    svc.run_until_complete()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return svc, ids, time.perf_counter() - t0
+
+
+def service_view(svc, ids):
+    """What a card run and a CPU run of the service must agree on: the
+    interleaving, the admissions, the demand impulses, and per study its
+    status, streamed records (no wall fields), each market's billing and
+    refunds, each replica's ``replica_view`` and engine events."""
+    studies = []
+    for sid in ids:
+        rec = svc.registry.get(sid)
+        studies.append((
+            rec.status.name, rec.records,
+            [(m.billed, m.refunded) for m in rec.markets],
+            [replica_view(rr) for rr in rec.result.replicas]
+            if rec.result is not None else None,
+            [t.engine.events for t in rec.tuners]))
+    return (svc.step_log, svc.admission_log,
+            None if svc.env is None else svc.env.events, studies)
+
+
+def service_differences(a, b) -> list:
+    names = ("step_log", "admission_log", "env.events")
+    out = [n for n, x, y in zip(names, a[:3], b[:3]) if x != y]
+    for k, (sa, sb) in enumerate(zip(a[3], b[3])):
+        for n, x, y in zip(("status", "records", "billing", "replica_view",
+                            "engine events"), sa, sb):
+            if x != y:
+                out.append(f"study {k}: {n}")
+    return out
+
+
+class RevPredWeights:
+    """Makes the learned-RevPred study's card run and CPU run use the same
+    weights: wraps the runner's ``build_revpred`` so the card run trains
+    each (market seed, engine seed)'s predictor as the runner would (on the
+    card, through the LSTM stack's training kernels) and keeps it, and the
+    CPU run gets the kept weights moved to the CPU instead of training."""
+
+    def __init__(self):
+        self.kept = {}
+
+    def __enter__(self):
+        from repro_torch.core import revpred as rp
+        from repro_torch.sweep import runner as runner_mod
+        self.mod, self.saved = runner_mod, runner_mod.build_revpred
+        build, kept = self.saved, self.kept
+
+        def build_kept(spec, market, **kw):
+            key = (spec.market_seed, spec.engine_seed)
+            src = kept.get(key)
+            if src is None:
+                kept[key] = build(spec, market, **kw)
+                return kept[key]
+            dev = kw["device"]
+            return rp.RevPred(market, {
+                n: rp.TrainedPredictor(
+                    p.logit_fn, rp.tree_map(lambda t: t.detach().cpu(),
+                                            p.params),
+                    p.pos_frac, p.use_eq3, device=dev)
+                for n, p in src.predictors.items()}, device=dev)
+
+        runner_mod.build_revpred = build_kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_revpred = self.saved
+        return False
+
+
+def fig11_curves():
+    """Fig. 11's recipe (benchmarks/fig11_earlycurve.py): every trial's
+    simulated curve cut at theta = 0.7, the final as the target; the first
+    four workloads and Fig. 11(b)'s ResNet analogue.  -> [(steps, vals,
+    target, true final)]."""
+    import numpy as np
+    from repro_torch.core.market import DEFAULT_POOL
+    from repro_torch.core.trial import WORKLOADS, SimTrialBackend, make_trials
+    be = SimTrialBackend(DEFAULT_POOL)
+    out = []
+    for w in WORKLOADS[:4] + WORKLOADS[5:6]:
+        steps = np.arange(w.val_every, w.max_trial_steps + 1, w.val_every)
+        for tr in make_trials(w):
+            curve = be.curve(tr)
+            cut = int(0.7 * len(curve))
+            out.append((steps[:cut], curve[:cut], w.max_trial_steps,
+                        float(curve[-1])))
+    return out
+
+
+def service_phases(torch) -> dict:
+    """The service slice: the three-tenant contended service on the card
+    (under the profiler) and on the CPU, beside the plain sweep of the same
+    specs; a learned-RevPred study; the equivalence harness on the card;
+    SLAQ and EarlyCurve on the card against the CPU.  Returns the launch
+    counts and numbers for the kernels' JSON rows."""
+    import collections
+
+    import numpy as np
+    from repro_torch.core.earlycurve import EarlyCurve, SLAQPredictor
+    from repro_torch.core.trial import WORKLOADS
+    from repro_torch.kernels import lstm_cell as klc
+    from repro_torch.kernels import soa_step_cuda as ksc
+    from repro_torch.sweep import SweepRunner, clear_shared_caches, scenario_grid
+    from repro_torch.tuner import equivalence as eq
+
+    out = {}
+    studies = service_studies()
+    n_rep = sum(len(s) for _, s in studies)
+
+    # ------------------------------------ the contended service, card
+    phase(f"main path: the tuning service on the card ({len(studies)} "
+          f"tenants, {n_rep} replicas, contended, impact {SERVICE_IMPACT}, "
+          f"{SERVICE_POLICY[0]} max_active "
+          f"{SERVICE_POLICY[1]['max_active']})")
+    print(f"each tenant: 4 workloads x {SERVICE_MARKET_SEEDS} market seeds x "
+          f"{SERVICE_ENGINE_SEEDS} engine seed(s), oracle RevPred, theta 0.7, "
+          "12-day markets (fig9's 10 engine seeds cut to 1, PERF.md §4)")
+    print("under torch.profiler (CUDA activity only: the run is host-bound, "
+          "and a second contended run would cost the script another minute)")
+    from torch.profiler import ProfilerActivity, profile
+    klc.LAUNCHES = klc.STACK_LAUNCHES = 0
+    ksc.LAUNCHES = ksc.FOLD_LAUNCHES = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        card, ids, card_wall = run_service("cuda", studies)
+    launches, fold_launches = ksc.LAUNCHES, ksc.FOLD_LAUNCHES
+    fused = launches - fold_launches
+    applied = sum(m._cursor for sid in ids
+                  for m in card.registry.get(sid).markets)
+    done = [card.registry.get(sid).status.name for sid in ids]
+    print(f"{n_rep} replicas in {card_wall:.3f} s = "
+          f"{n_rep / card_wall:.2f} replicas/s; {len(card.step_log)} pumps, "
+          f"{len(card.admission_log)} admissions; demand impulses recorded "
+          f"{len(card.env.events)}, applied {applied} (impulse x market); "
+          f"studies {done}")
+    print(f"soa_step launches {launches}: fused {fused}, fold-only "
+          f"{fold_launches}; lstm_stack {klc.STACK_LAUNCHES}, lstm_cell "
+          f"{klc.LAUNCHES}")
+    iv = device_intervals(prof)
+    busy = busy_us(iv) / 1e6
+    by_kind = collections.defaultdict(float)
+    for s0, s1, nm in iv:
+        kind = ("soa_step kernel" if "soa_step_kernel" in nm
+                else "copies" if "memcpy" in nm.lower()
+                else "other kernels (EarlyCurve LM fits, fills)")
+        by_kind[kind] += (s1 - s0) / 1e6
+    print(f"{len(iv)} device events; card busy {busy:.4f} s = "
+          f"{100 * busy / card_wall:.2f}% of the wall, idle "
+          f"{100 * (1 - busy / card_wall):.2f}%")
+    for kind, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {v * 1e3:10.3f} ms  {100 * v / max(busy, 1e-12):6.2f}% of "
+              f"busy  {kind}")
+    if fused <= 0 or any(d != "DONE" for d in done):
+        fail("the service did not finish every study or launched the fused "
+             "soa_step kernel no time")
+    if not all(math.isfinite(rr.result.cost) and rr.result.cost > 0
+               for sid in ids
+               for rr in card.registry.get(sid).result.replicas):
+        fail("service on the card: a replica has a non-finite cost")
+    out["service"] = {"replicas": n_rep, "wall_s": card_wall,
+                      "replicas_per_s": n_rep / card_wall,
+                      "pumps": len(card.step_log),
+                      "impulses": len(card.env.events),
+                      "impulses_applied": applied,
+                      "soa_step_fused_launches": fused,
+                      "soa_step_fold_launches": fold_launches,
+                      "card_busy_s": busy, "idle_share": 1 - busy / card_wall}
+    card_view = service_view(card, ids)
+    del card
+
+    # ----------------------------------------------- the same, on CPU
+    phase("the same service on the CPU (plain path)")
+    cpu, cpu_ids, cpu_wall = run_service("cpu", studies)
+    diff = service_differences(card_view, service_view(cpu, cpu_ids))
+    print(f"cpu wall {cpu_wall:.3f} s ({n_rep / cpu_wall:.2f} replicas/s); "
+          f"card and CPU equal on step_log, admission_log, env.events and, "
+          f"per study, status, streamed records, each market's billed and "
+          f"refunded, each replica's replica_view and engine events: "
+          f"{not diff}")
+    for d in diff[:10]:
+        print(f"  differs: {d}")
+    if diff:
+        fail(f"the service differs between the card and the CPU: {diff[:5]}")
+    out["service"]["cpu_wall_s"] = cpu_wall
+    del cpu, card_view
+
+    # ------------------------------ the multiplexing's cost, on the card
+    phase("the same specs on the card without the service: "
+          "SweepRunner(device='cuda'), and the service uncontended")
+    specs = [s for _, grid in studies for s in grid]
+    clear_shared_caches()
+    t0 = time.perf_counter()
+    plain_sweep = SweepRunner(device="cuda").run(specs, mode="soa")
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    off, off_ids, off_wall = run_service("cuda", studies, contention=False)
+    # uncontended, every replica's outcome is the plain sweep's
+    by_spec = {id(s): rr for rr, s in zip(plain_sweep.replicas, specs)}
+    off_diff = sum(
+        replica_view(rr) != replica_view(by_spec[id(s)])
+        for sid in off_ids
+        for rr, s in zip(off.registry.get(sid).result.replicas,
+                         off.registry.get(sid).specs))
+    print(f"SweepRunner: {len(specs)} replicas in {sweep_wall:.3f} s = "
+          f"{len(specs) / sweep_wall:.2f} replicas/s (mode "
+          f"{plain_sweep.mode}); the service uncontended {off_wall:.3f} s "
+          f"({len(off.step_log)} pumps), contended {card_wall:.3f} s: "
+          f"{off_wall / sweep_wall:.3f}x and {card_wall / sweep_wall:.3f}x "
+          f"the sweep's wall")
+    print(f"uncontended service replicas differing from the sweep's: "
+          f"{off_diff} of {len(specs)}")
+    if plain_sweep.mode != "soa" or off_diff:
+        fail("the uncontended service differs from the plain sweep")
+    out["service"].update(sweep_wall_s=sweep_wall,
+                          uncontended_wall_s=off_wall)
+    del off, plain_sweep
+
+    # -------------------------------------- a learned-RevPred study
+    phase("main path: a learned-RevPred study through the service "
+          "(RevPred trained on the card; the CPU run takes its weights)")
+    learned = [("dave", scenario_grid(["LoR"], (100, 101), revpred="revpred",
+                                      theta=0.7, engine_seed=range(2)))]
+    klc.LAUNCHES = klc.STACK_LAUNCHES = 0
+    klc.TRAIN_LAUNCHES = klc.BWD_LAUNCHES = 0
+    ksc.LAUNCHES = ksc.FOLD_LAUNCHES = 0
+    with RevPredWeights() as weights, ForwardCounter() as fwd:
+        l_card, l_ids, l_wall = run_service("cuda", learned)
+        n_fwd = fwd.n
+        l_launches = {"lstm_stack": klc.STACK_LAUNCHES,
+                      "lstm_cell": klc.LAUNCHES,
+                      "lstm_stack_fwd_train": klc.TRAIN_LAUNCHES,
+                      "lstm_stack_bwd": klc.BWD_LAUNCHES,
+                      "soa_step": ksc.LAUNCHES,
+                      "soa_step_fold_only": ksc.FOLD_LAUNCHES}
+        l_cpu, l_cpu_ids, l_cpu_wall = run_service("cpu", learned)
+    print(f"{len(learned[0][1])} replicas (LoR x market seeds 100-101 x 2 "
+          f"engine seeds, revpred='revpred', contended) in {l_wall:.3f} s on "
+          f"the card, {len(weights.kept)} RevPreds trained there; launches "
+          f"{l_launches} for {n_fwd} RevPred forwards (training included)")
+    if (l_launches["lstm_stack_fwd_train"] <= 0
+            or l_launches["lstm_stack_bwd"] <= 0
+            or l_launches["lstm_stack"] <= 0 or l_launches["lstm_cell"] != 0
+            or l_launches["soa_step"] <= 0):
+        fail("the learned-RevPred study did not launch lstm_stack, its "
+             "training kernels and soa_step (or launched lstm_cell)")
+    p_err, n_common = 0.0, 0
+    for sid, cid in zip(l_ids, l_cpu_ids):
+        for ta, tb in zip(l_card.registry.get(sid).tuners,
+                          l_cpu.registry.get(cid).tuners):
+            pa = ta.engine.prov.revpred._p_cache
+            pb = tb.engine.prov.revpred._p_cache
+            for k, p in pa.items():
+                if k in pb:
+                    n_common += 1
+                    p_err = max(p_err, abs(p - pb[k]))
+    l_diff = service_differences(service_view(l_card, l_ids),
+                                 service_view(l_cpu, l_cpu_ids))
+    print(f"cpu wall {l_cpu_wall:.3f} s with the card's weights; {n_common} "
+          f"common RevPred queries, max abs diff {p_err:.3g} (tol "
+          f"{P_CACHE_TOL}); card and CPU runs equal (logs, impulses, "
+          f"records, billing, replica views, events): {not l_diff}")
+    if not n_common or not p_err <= P_CACHE_TOL or l_diff:
+        fail(f"the learned-RevPred study differs between the card and the "
+             f"CPU: {l_diff[:5]}")
+    out["learned"] = dict(l_launches, forwards=n_fwd, wall_s=l_wall,
+                          cpu_wall_s=l_cpu_wall, max_p_diff=p_err,
+                          replicas=len(learned[0][1]))
+    del l_card, l_cpu
+
+    # ------------------------------------ equivalence harness, card
+    phase("the equivalence harness on the card (device='cuda')")
+    names = [w.name for w in WORKLOADS][:4]
+    sub = dict(revpred="oracle", theta=0.7, engine_seed=range(2))
+    checks = []
+    for pol in ("spottune", "asha", "hyperband", "pbt", "adaptive"):
+        grid = scenario_grid(names, range(100, 105), scheduler=pol, **sub)
+        checks.append((f"compare_service_modes {pol} ({len(grid)} replicas)",
+                       lambda g=grid: eq.compare_service_modes(
+                           g, device="cuda")))
+    grid = scenario_grid(names, range(100, 105), **sub)
+    for tables in (True, False):
+        checks.append((f"compare_sweep_modes use_tables={tables} "
+                       f"({len(grid)} replicas)",
+                       lambda t=tables: eq.compare_sweep_modes(
+                           grid, use_tables=t, device="cuda")))
+    checks.append((f"compare_ledger_modes ({len(grid)} replicas)",
+                   lambda: eq.compare_ledger_modes(grid, device="cuda")))
+    checks.append(("compare_runs LoR, 8-day market seed 3, 6 trials",
+                   lambda: eq.compare_runs(WORKLOADS[0], market_seed=3,
+                                           days=8.0, n_trials=6,
+                                           device="cuda")))
+    ksc.LAUNCHES = 0
+    eq_bad = []
+    for what, fn in checks:
+        t0 = time.perf_counter()
+        diffs = fn()
+        print(f"{what}: {diffs[:3]}{' ...' if len(diffs) > 3 else ''} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if diffs:
+            eq_bad.append(what)
+    print(f"soa_step launches over the harness: {ksc.LAUNCHES}")
+    if eq_bad or ksc.LAUNCHES <= 0:
+        fail(f"the equivalence harness found differences on the card: "
+             f"{eq_bad}")
+    out["equivalence_checks"] = len(checks)
+
+    # ------------------------------------------- SLAQ and EarlyCurve
+    phase("SLAQ and EarlyCurve on Fig. 11's curves, card against CPU")
+    curves = fig11_curves()
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        for name, pred in (("earlycurve", EarlyCurve(device=dev)),
+                           ("slaq", SLAQPredictor(device=dev))):
+            t0 = time.perf_counter()
+            preds[name, dev] = np.array([pred.predict_final(s, v, tgt)
+                                         for s, v, tgt, _ in curves])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            print(f"{name} on {dev}: {len(curves)} curves in "
+                  f"{time.perf_counter() - t0:.3f} s")
+    truth = np.array([c[3] for c in curves])
+    slaq_rel = 0.0
+    for name in ("earlycurve", "slaq"):
+        a, b = preds[name, "cuda"], preds[name, "cpu"]
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        err = np.abs(a - truth) / truth
+        print(f"{name}: card against CPU max rel diff {rel:.3g} (tol "
+              f"{SLAQ_RTOL}); error against the true final mean "
+              f"{err.mean():.4f}, max {err.max():.4f}")
+        if not (np.all(np.isfinite(a)) and rel <= SLAQ_RTOL):
+            fail(f"{name} on the card differs from the CPU by {rel:.3g}")
+        if name == "slaq":
+            slaq_rel = rel
+        out[f"{name}_err_mean"] = float(err.mean())
+    out["slaq_card_cpu_rel"] = slaq_rel
+    return out
 
 
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 4e-2}   # tests/test_kernels.py:53
@@ -2249,10 +2647,22 @@ def main() -> None:
     sweep = soa_row["revpred_sweep"]
     stack_row["revpred_sweep_launches"] = sweep["lstm_stack_launches"]
     stack_row["revpred_sweep_forwards"] = sweep["forwards"]
+    # the service after the sweep, before the training and phi3 phases
+    svc = service_phases(torch)
+    learned = svc["learned"]
+    soa_row["service"] = svc["service"]
+    soa_row["service_launches"] = {
+        "fused": svc["service"]["soa_step_fused_launches"],
+        "fold_only": svc["service"]["soa_step_fold_launches"],
+        "learned_revpred_study": learned["soa_step"]}
+    stack_row["service_launches"] = learned["lstm_stack"]
+    stack_row["service_forwards"] = learned["forwards"]
     flash_row, flash_f32_row, ssd_row = serve_phases(torch)
     # the training slice and phi3 run last, so the earlier paths run as
     # they did before them
     fwd_train_row, bwd_row = train_phases(torch)
+    fwd_train_row["service_launches"] = learned["lstm_stack_fwd_train"]
+    bwd_row["service_launches"] = learned["lstm_stack_bwd"]
     stack_row["fig10_launches"] = bwd_row["fig10"]["launches"][
         "lstm_stack (inference)"]
     for key, val in phi3_phase(torch).items():

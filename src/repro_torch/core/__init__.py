@@ -6,7 +6,8 @@ trial         HP grids + simulated workload suite (paper Table II)
 provisioner   Eq. 1-2 expected step cost, argmin instance selection
 revpred       LSTM revocation-probability predictor: inference and
               training (the LSTM stack runs as CUDA kernels on the card)
-earlycurve    staged training-trend prediction
+earlycurve    staged training-trend prediction, and the single-stage SLAQ
+              baseline of Fig. 11
 orchestrator  the legacy Orchestrator / build_spottune layer over the tuner
 
 Drive it through ``repro_torch.tuner``::
@@ -16,7 +17,7 @@ Drive it through ``repro_torch.tuner``::
                    GridSearcher(workload)).run()
 """
 
-from repro_torch.core.earlycurve import EarlyCurve  # noqa: F401
+from repro_torch.core.earlycurve import EarlyCurve, SLAQPredictor  # noqa: F401
 from repro_torch.core.market import DEFAULT_POOL, InstanceType, SpotMarket  # noqa: F401
 from repro_torch.core.provisioner import PerfModel, Provisioner, ZeroRevPred  # noqa: F401
 from repro_torch.core.revpred import OracleRevPred, RevPred, TrainedPredictor  # noqa: F401

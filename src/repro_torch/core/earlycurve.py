@@ -383,3 +383,22 @@ def predict_final_grouped(requests: Sequence[Tuple["EarlyCurve", Sequence[Tuple]
             pos += n
     return out
 
+
+@dataclasses.dataclass
+class SLAQPredictor:
+    """Single-stage baseline (paper §VI-D / Fig. 11): same curve family,
+    fit over the whole trajectory, blind to LR-decay stages.  The fit runs
+    on ``device``."""
+
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = str(resolve_device(self.device))
+
+    def predict_final(self, steps: Sequence[int], vals: Sequence[float],
+                      target_step: int, seed: int = 0) -> float:
+        steps = np.asarray(steps)
+        vals = np.asarray(vals, np.float64)
+        fit = fit_stage(steps - steps[0] + 1, vals, seed=seed,
+                        device=self.device)
+        return predict_from_fit(fit, float(target_step - steps[0] + 1))

@@ -115,12 +115,46 @@ def test_predict_final_grouped_equals_per_caller():
         assert got == e.predict_final_batch(tj, seed=seed)
 
 
+def _fig11_curves():
+    """Fig. 11's recipe (benchmarks/fig11_earlycurve.py): every trial's
+    simulated curve, cut at theta = 0.7, its final as the target; over the
+    first four workloads and Fig. 11(b)'s ResNet analogue."""
+    be = SimTrialBackend(DEFAULT_POOL)
+    out = []
+    for w in WORKLOADS[:4] + WORKLOADS[5:6]:
+        steps = np.arange(w.val_every, w.max_trial_steps + 1, w.val_every)
+        for tr in make_trials(w):
+            curve = be.curve(tr)
+            cut = int(0.7 * len(curve))
+            out.append((steps[:cut], curve[:cut], w.max_trial_steps))
+    return out
+
+
+def test_slaq_predict_final_within_rtol():
+    curves = _fig11_curves()
+    assert len(curves) == 80
+    slaq_j, slaq_t = je.SLAQPredictor(), te.SLAQPredictor(device="cpu")
+    for i, (steps, vals, target) in enumerate(curves):
+        want = slaq_j.predict_final(steps, vals, target, seed=i % 3)
+        got = slaq_t.predict_final(steps, vals, target, seed=i % 3)
+        assert got == pytest.approx(want, rel=RTOL), i
+    # the single-stage fit is what the staged predictor is not: on the
+    # multi-stage curves the two differ
+    ec = te.EarlyCurve(device="cpu")
+    staged = [c for c in curves if len(ec.stages(c[1])) > 1]
+    assert staged
+    assert any(slaq_t.predict_final(*c) != ec.predict_final(*c)
+               for c in staged)
+
+
 def test_earlycurve_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     from repro_torch.tuner import SpotTuneScheduler
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         te.EarlyCurve()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        te.SLAQPredictor()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SpotTuneScheduler(theta=0.7)
     assert SpotTuneScheduler(theta=0.7, device="cpu").ec.device == "cpu"

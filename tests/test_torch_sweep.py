@@ -3,7 +3,8 @@ package's, replica for replica, on the CPU.
 
 Grid: the first four Table-II workloads x market seeds 3 and 11, 8-day
 markets, the oracle predictor, theta=0.7, for each of the five policies of
-the equivalence cube.  Billing, refunds, engine clocks, every trial's state
+the equivalence cube; the SoA stepper also over the cube's other seeds (1,
+7, 23), one seed a case.  Billing, refunds, engine clocks, every trial's state
 and metric history, the event logs, the rankings and the JCTs must be equal:
 the SoA stepper, the round-robin ``"batched"`` mode, a 600 s deploy window,
 and the fused-round branch (the fold parked into the round-end
@@ -28,10 +29,10 @@ POLICIES = ("spottune", "asha", "hyperband", "pbt", "adaptive")
 NAMES = [w.name for w in jt.WORKLOADS][:4]
 
 
-def _grids(**axes):
+def _grids(seeds=(3, 11), **axes):
     kw = dict(revpred="oracle", theta=0.7, days=8.0, **axes)
-    return (js.scenario_grid(NAMES, (3, 11), **kw),
-            ts.scenario_grid(NAMES, (3, 11), **kw))
+    return (js.scenario_grid(NAMES, seeds, **kw),
+            ts.scenario_grid(NAMES, seeds, **kw))
 
 
 def _soa_pair(scheduler, fuse_rounds=None, **axes):
@@ -51,6 +52,20 @@ def _soa_pair(scheduler, fuse_rounds=None, **axes):
 def test_soa_sweep_equals_reference(scheduler):
     ja, tb = _soa_pair(scheduler)
     assert len(ja) == len(tb) == 8
+    for a, b in zip(ja, tb):
+        assert run_outcome(a.engine, a.result) == run_outcome(b.engine, b.result)
+
+
+# the rest of the reference's equivalence cube (market seeds 1, 3, 7, 11,
+# 23): the test above holds seeds 3 and 11
+CUBE_SEEDS = (1, 7, 23)
+
+
+@pytest.mark.parametrize("seed", CUBE_SEEDS)
+@pytest.mark.parametrize("scheduler", POLICIES)
+def test_soa_sweep_cube_equals_reference(scheduler, seed):
+    ja, tb = _soa_pair(scheduler, seeds=(seed,))
+    assert len(ja) == len(tb) == 4
     for a, b in zip(ja, tb):
         assert run_outcome(a.engine, a.result) == run_outcome(b.engine, b.result)
 
