@@ -52,6 +52,20 @@ drives the port's two paths through them:
   prefill runs flash attention at head dim 96, through the kernels and the
   plain versions, bf16 and float32 (every float32 launch on the 3xTF32
   route).
+* the model's training path, last: flash attention's log-sum-exp (both
+  routes) against the plain one and the kernels' autograd Functions
+  (``FlashAttention``, ``SsdChunk``: kernel forwards, plain backwards)
+  against autograd of the plain forwards; float32 zamba2-1.2b at full width
+  (B = 2, S = 512), one ``Model.loss`` and its gradients through the
+  kernels (7 flash and 76 ssd_chunk launches) and through the plain
+  versions, every leaf compared; the config's bf16 with a float32 master,
+  5 steps of ``make_train_step`` with ``adamw`` (ms a step, peak memory,
+  launches a step, the card's idle share and the backward's share of its
+  busy time under the profiler); the plain backwards timed at the training
+  shapes beside SDPA's backward and their bounds; ``Trainer`` on the card
+  against the CPU on the reduced zamba2 and qwen1.5-0.5b, a checkpoint
+  restart on the card, and the full-width state's checkpoint size against
+  fig12's store rates.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -2335,6 +2349,465 @@ def phi3_phase(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# the model's training path: Model.loss and make_train_step through the
+# flash and SSD kernels, Trainer card against CPU, checkpoint/restart
+# ------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "zamba2-1.2b", 2, 512
+# float32 at full width, kernels against the plain versions (set before the
+# first chip run): the loss relative, each gradient leaf of its largest
+# magnitude
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+# the kernel's log-sum-exp against the plain one, absolute (|lse| ~ 7 here)
+LSE_TOL = 1e-4
+# a Function's gradients against autograd of the plain forward, of each
+# leaf's largest magnitude: float32 / bf16 (flash's bf16 tolerance)
+FN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+TRAIN_STEPS, TRAIN_LR = 5, 1e-3
+# reduced configs in float32, 4 Trainer steps, card against CPU (relative)
+TRAINER_RTOL = 1e-4
+RESTART_RTOL = 1e-5          # tests/test_checkpoint.py:150
+FIG12_RATES = (("t2.micro", 62.83e6), ("m4.4xlarge", 134.22e6))  # bytes/s
+
+
+def leaf_names(tree, prefix=""):
+    """Names of a parameter tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def flash_bwd_bound_ms(B, S, H, D, elem_bytes):
+    """Least time for the flash backward (causal, Sq = Sk = S): q, k, v, o
+    and do read once, lse read once, dq, dk and dv written once; against
+    five products over the (query, key) pairs the mask keeps (S = QK^T
+    recomputed, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) at the
+    forward row's rate (bf16 on the tensor cores, float32 at the 3xTF32
+    rate)."""
+    n_bytes = elem_bytes * B * H * D * 8 * S + 4 * B * H * S
+    pairs = S * (S + 1) // 2
+    flops = 10.0 * B * H * pairs * D
+    peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_TF32_FLOPS / 3
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_bwd_bound_ms(B, Q, H, P, N, groups):
+    """Least time for the SSD chunk's backward (float32): the chunk's
+    inputs (B and C once per group) and the outputs' gradients read once,
+    the inputs' gradients written once; against the forward's products
+    recomputed and two gradient products for each, at the 3xTF32 rate."""
+    ins = B * Q * H * (P + 1) + H + 2 * B * Q * groups * N + B * H * P * N
+    outs = B * Q * H * P + B * H * P * N
+    n_bytes = 4 * (2 * ins + outs)
+    tri = Q * (Q + 1) // 2
+    flops = 3 * 2.0 * B * (groups * tri * N + H * tri * P + 2 * H * Q * P * N)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / (H100_TF32_FLOPS / 3) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def model_train_phases(torch) -> dict:
+    """The model's training path on the card: the kernels' log-sum-exp and
+    their Functions' gradients against the plain versions, float32
+    zamba2-1.2b at full width (one Model.loss and its gradients through the
+    kernels and through the plain versions), the config's own bf16 with a
+    float32 master through make_train_step (timed, profiled), Trainer on
+    the card against the CPU on two reduced configs, checkpoint/restart on
+    the card, and the full-width state's checkpoint size against fig12's
+    rates.  Returns the training fields of the flash and ssd JSON rows."""
+    import dataclasses
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+    from repro_torch.checkpoint import (CheckpointManager, LocalObjectStore,
+                                        ThrottledStore)
+    from repro_torch.checkpoint.checkpointer import tree_bytes
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.train import Trainer, batch_to, make_train_step
+    from repro_torch.models.context import null_ctx
+    from repro_torch.models.model import Model, tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_unflatten
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}, "ssd": {}}
+    gen = torch.Generator().manual_seed(20)
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    Q, SH, SP, SN = cfg.ssm_chunk, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    def leafwise(got, want):
+        return max(((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30)).item()
+                   for g, w in zip(got, want))
+
+    # ---------------------------------------- the kernels' training pieces
+    phase("flash_attention's log-sum-exp and the two Functions' gradients "
+          "against the plain versions")
+    lse_err, fn_err = 0.0, {}
+    lse_cases = [(B, S, S, H, D, True), (1, 200, 237, 4, 96, False),
+                 (2, 1, 38, 4, 16, True), (1, 333, 333, 2, 128, True),
+                 (2, 70, 70, 3, 32, False)]
+    for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for b_, sq, sk, h_, d_, causal in lse_cases:
+            q = randn(b_, sq, h_, d_, dtype=dt)
+            k, v = (randn(b_, sk, h_, d_, dtype=dt) for _ in range(2))
+            o, lse = kfa.flash_attention_lse_cuda(q, k, v, causal)
+            o2, lse2 = ref.flash_attention_fwd_lse(q, k, v, causal)
+            torch.cuda.synchronize()
+            e = (lse - lse2).abs().max().item()
+            eo = (o.float() - o2.float()).abs().max().item()
+            if not (lse.shape == (b_, h_, sq) and e <= LSE_TOL
+                    and eo <= FLASH_TOL[name]):
+                fail(f"flash_attention_lse_cuda {name} B={b_} Sq={sq} Sk={sk} "
+                     f"H={h_} D={d_} causal={causal}: lse max abs err {e:.3g} "
+                     f"(tol {LSE_TOL}), o {eo:.3g} (tol {FLASH_TOL[name]})")
+            lse_err = max(lse_err, e)
+        # the Function at the training shape against autograd of the plain
+        # forward (materialised scores)
+        q, k, v = (randn(B, S, H, D, dtype=dt).requires_grad_(True) for _ in range(3))
+        do = randn(B, S, H, D, dtype=dt)
+        got = torch.autograd.grad(ops.flash_attention(q, k, v, True, chunk=S),
+                                  (q, k, v), do)
+        want = torch.autograd.grad(ops.flash_attention(q, k, v, True, force="ref"),
+                                   (q, k, v), do)
+        fn_err[f"flash_{name}"] = leafwise(got, want)
+    x, dt_, A = randn(B, Q, SH, SP), (torch.rand(B, Q, SH, generator=gen) * 0.099
+                                      + 0.001).cuda(), -(torch.rand(SH, generator=gen)
+                                                         * 1.5 + 0.5).cuda()
+    Bg, Cg, st = randn(B, Q, 1, SN), randn(B, Q, 1, SN), randn(B, SH, SP, SN)
+    leaves = [t.requires_grad_(True) for t in (x, dt_, A, Bg, Cg, st)]
+    args = leaves[:3] + [t.expand(B, Q, SH, SN) for t in leaves[3:5]] + leaves[5:]
+    dy, dst = randn(B, Q, SH, SP), randn(B, SH, SP, SN)
+    y, ns = ops.ssd_chunk(*args)
+    got = torch.autograd.grad((y, ns), leaves, (dy, dst))
+    y2, ns2 = ops.ssd_chunk(*args, force="ref")
+    want = torch.autograd.grad((y2, ns2), leaves, (dy, dst))
+    fn_err["ssd_chunk"] = leafwise(got, want)
+    print(f"lse: {2 * len(lse_cases)} cases (both routes; {TRAIN_ARCH}'s "
+          f"training shape, D in (16, 32, 96, 128), Sq != Sk) max abs err "
+          f"{lse_err:.3g} (tol {LSE_TOL}); gradients against autograd of the "
+          f"plain forward at the training shapes, of each leaf's largest: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in fn_err.items())
+          + f" (tol f32 {FN_GRAD_TOL['float32']}, bf16 {FN_GRAD_TOL['bfloat16']})")
+    for key, err in fn_err.items():
+        if not err <= FN_GRAD_TOL["bfloat16" if key.endswith("bfloat16") else "float32"]:
+            fail(f"{key}: the Function's gradients are {err:.3g} of the largest "
+                 "from autograd of the plain forward")
+
+    # --------------------------- float32 zamba2 at full width: loss + grads
+    phase(f"main path: {TRAIN_ARCH} (float32) Model.loss and its gradients at "
+          f"full width, through the kernels and through the plain versions")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = Model(cfg32)
+    t0 = time.perf_counter()
+    params = model32.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    names = leaf_names(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = batch_to(SyntheticLMDataset(cfg32, B, S, seed=0).get_batch(0), "cuda")
+    print(f"{cfg32.name} float32: {n_params:,} parameters in {len(names)} leaves, "
+          f"{cfg.n_layers} layers, depth not cut; random weights from seed 0 "
+          f"(init {time.perf_counter() - t0:.2f} s); batch {B} x {S} tokens from "
+          f"SyntheticLMDataset(seed=0); remat none")
+
+    def loss_and_grads(ctx):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model32.loss(p, batch, ctx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = (kfa.TF32_LAUNCHES, kss.LAUNCHES)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        return (float(loss.detach()), [g.detach() for g in grads], counts,
+                (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kfa.WGMMA_LAUNCHES = kss.LAUNCHES = 0
+    loss_k, g_k, fwd_counts, fwd_ms, bwd_ms = loss_and_grads(
+        null_ctx(attn_chunk=min(512, S), remat="none"))
+    bwd_counts = (kfa.TF32_LAUNCHES, kss.LAUNCHES)
+    loss_r, g_r, _, fwd_ms_r, bwd_ms_r = loss_and_grads(
+        null_ctx(attn_chunk=min(512, S), remat="none", kernels="ref"))
+    want_fa = Model(cfg).n_shared_invocations
+    want_ss = cfg.n_layers * -(-S // Q)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    errs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(g_k, g_r)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    print(f"loss through the kernels {loss_k:.7f}, through the plain versions "
+          f"{loss_r:.7f}: relative diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL})")
+    print("gradient leaves, max abs diff of each leaf's largest magnitude: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs)))
+    print(f"worst leaf {names[worst]} {errs[worst]:.3g} (tol {TRAIN_GRAD_TOL}); "
+          f"every gradient finite: {finite}")
+    print(f"launches: forward flash {fwd_counts[0]} (3xTF32 route, want {want_fa}), "
+          f"ssd_chunk {fwd_counts[1]} (want {cfg.n_layers} x {-(-S // Q)} = "
+          f"{want_ss}); after the backward {bwd_counts} (the backwards are plain); "
+          f"wall: forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms through the "
+          f"kernels, {fwd_ms_r:.1f} / {bwd_ms_r:.1f} ms plain")
+    if fwd_counts != (want_fa, want_ss) or bwd_counts != fwd_counts:
+        fail(f"the float32 training forward launched (flash 3xTF32, ssd_chunk) "
+             f"{fwd_counts} (want {(want_fa, want_ss)}), {bwd_counts} after the "
+             f"backward")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL and finite):
+        fail(f"float32 {TRAIN_ARCH} training through the kernels: loss {loss_rel:.3g} "
+             f"relative, worst leaf {names[worst]} {errs[worst]:.3g}")
+    out["flash_f32"]["train"] = {
+        "arch": cfg32.name, "batch": B, "seq": S, "launches_per_forward": fwd_counts[0],
+        "loss_kernels": loss_k, "loss_plain": loss_r, "loss_rel": loss_rel,
+        "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_ms_r,
+        "bwd_plain_ms": bwd_ms_r}
+    out["ssd"]["train_f32_launches_per_forward"] = fwd_counts[1]
+    del params, g_k, g_r
+    torch.cuda.empty_cache()
+
+    # --------------------------- the config's bf16, float32 master: steps
+    phase(f"main path: {TRAIN_ARCH} ({cfg.dtype}, float32 master) "
+          f"{TRAIN_STEPS} train steps through the kernels (make_train_step, adamw)")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = adamw(TRAIN_LR, keep_master=(cfg.opt_precision == "fp32"))
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    ctx = null_ctx(attn_chunk=min(512, S), remat="none")
+    step_fn = make_train_step(model, opt, ctx)
+    batch = batch_to(SyntheticLMDataset(cfg, B, S, seed=0).get_batch(0), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kss.LAUNCHES = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fa_step, ss_step = kfa.WGMMA_LAUNCHES / TRAIN_STEPS, kss.LAUNCHES / TRAIN_STEPS
+    ms_step = sum(step_ms[-3:]) / 3
+    state_bytes = tree_bytes(state)
+    print(f"losses {[round(x, 5) for x in losses]} on the repeated batch (lr "
+          f"{TRAIN_LR}); step ms {[round(x, 1) for x in step_ms]}, "
+          f"{ms_step:.2f} ms a step over the last 3 ({B * S / ms_step * 1e3:.0f} "
+          f"tokens/s); peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)"
+          f"; train state {state_bytes / 1e9:.3f} GB")
+    print(f"launches a step: flash_attention {fa_step:g} (bf16 wgmma route, want "
+          f"{want_fa}), ssd_chunk {ss_step:g} (want {want_ss})")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"bf16 training: losses {losses}: not finite, or step "
+             f"{TRAIN_STEPS}'s not below step 1's")
+    if (fa_step, ss_step) != (want_fa, want_ss) or kfa.LAUNCHES != kfa.WGMMA_LAUNCHES:
+        fail(f"bf16 training launched flash {kfa.LAUNCHES} ({kfa.WGMMA_LAUNCHES} "
+             f"wgmma) and ssd_chunk {kss.LAUNCHES} times in {TRAIN_STEPS} steps")
+
+    phase(f"{TRAIN_ARCH} bf16 train step under torch.profiler")
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof.step()
+    busy = busy_us(seen) / 1e6
+    idle = 1 - busy / prof_wall
+
+    # one step in its three parts, each ended by a synchronise, to split
+    # the card's busy time between forward, backward and update
+    def parts(state):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
+        with record_function("train.forward"):
+            loss, _ = model.loss(p, batch, ctx)
+            torch.cuda.synchronize()
+        with record_function("train.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+        with record_function("train.update"):
+            new = opt.update(tree_unflatten(p, list(grads)), state["opt"],
+                             state["params"])
+            torch.cuda.synchronize()
+        return {"params": new[0], "opt": new[1]}
+
+    spans, kern = {}, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state = parts(state)
+    for e in prof.events():
+        if e.name.startswith("train.") and e.device_type == torch.autograd.DeviceType.CPU:
+            spans[e.name] = (e.time_range.start, e.time_range.end)
+    kern = device_intervals(prof)
+    part_busy = {n: busy_us([iv for iv in kern if lo <= iv[0] <= hi]) / 1e3
+                 for n, (lo, hi) in spans.items()}
+    total = sum(part_busy.values())
+    bwd_share = (part_busy["train.backward"] / total
+                 if total and "train.backward" in part_busy else None)
+    print(f"one step (profiler on): wall {prof_wall * 1e3:.2f} ms, {len(seen)} "
+          f"kernels, card busy {busy * 1e3:.2f} ms, idle {100 * idle:.2f}%")
+    print("the step in parts, card busy ms: "
+          + ", ".join(f"{n[6:]} {v:.2f}" for n, v in part_busy.items())
+          + (f"; the backward's share of busy {100 * bwd_share:.1f}%"
+             if bwd_share is not None else "; no share: the trace has no part "
+             "or no kernel"))
+    out["flash"]["train"] = {
+        "arch": cfg.name, "dtype": cfg.dtype, "master": "float32", "batch": B,
+        "seq": S, "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+        "ms_per_step": ms_step, "peak_memory_gb": peak_gb,
+        "state_bytes": state_bytes, "launches_per_step": fa_step,
+        "kernels_per_step_seen": len(seen), "busy_ms": busy * 1e3,
+        "wall_ms": prof_wall * 1e3, "idle_share": idle,
+        "busy_ms_by_part": part_busy, "backward_share_of_busy": bwd_share}
+    out["ssd"]["train_launches_per_step"] = ss_step
+
+    phase(f"the full-width train state against fig12's store rates "
+          f"(ThrottledStore; not written)")
+    deadline = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, rate in FIG12_RATES:
+            store = ThrottledStore(LocalObjectStore(tmp), bandwidth_bps=rate)
+            mgr = CheckpointManager(store, "fullwidth")
+            deadline[where] = (store.transfer_time(state_bytes),
+                               mgr.fits_deadline(state, 120.0))
+    print(f"tree_bytes {state_bytes:,} ({state_bytes / 1e9:.2f} GB: bf16 params, "
+          f"float32 master, m and v); "
+          + "; ".join(f"at {r / 1e6:.2f} MB/s ({w}) {deadline[w][0]:.1f} s, "
+                      f"fits the 120 s notice: {deadline[w][1]}"
+                      for w, r in FIG12_RATES))
+    out["flash"]["train"]["fits_deadline"] = deadline
+    del state, m
+    torch.cuda.empty_cache()
+
+    # ------------------------------- the backwards' card time (rows 4b, 5b)
+    phase("the plain backwards at the training shapes (CUDA events, card time)")
+    bwd = {}
+    for dt, name in ((torch.bfloat16, "flash"), (torch.float32, "flash_f32")):
+        q, k, v, do = (randn(B, S, H, D, dtype=dt) for _ in range(4))
+        o, lse = kfa.flash_attention_lse_cuda(q, k, v, True)
+
+        def fb():
+            return ref.flash_attention_bwd(q, k, v, o, lse, do, True, None, S)
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        got = fb()
+        lib = sdpa_bwd()
+        lib_err = max((a.float() - b.transpose(1, 2).float()).abs().max().item()
+                      for a, b in zip(got, lib))
+        bound, by = flash_bwd_bound_ms(B, S, H, D, q.element_size())
+        r = {"ms": cuda_ms(fb, iters=50, warmup=5),
+             "library_ms": cuda_ms(sdpa_bwd, iters=50, warmup=5),
+             "device_us": device_us_per_call(fb, iters=10, warmup=2,
+                                             what=f"of the flash backward, {name}"),
+             "library_device_us": device_us_per_call(
+                 sdpa_bwd, iters=10, warmup=2,
+                 what=f"of scaled_dot_product_attention's backward, {name}"),
+             "bound_ms": bound, "bound_by": by, "library_err": lib_err,
+             "launches_per_step": want_fa,
+             "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": str(dt)[6:],
+                       "causal": True, "chunk": S},
+             "library": "torch.autograd.grad of scaled_dot_product_attention"}
+        print(f"flash backward {str(dt)[6:]} (B,S,H,D) = {(B, S, H, D)}: "
+              f"{r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
+              f"SDPA's backward {r['library_ms']:.4f} ms, {r['library_device_us']} "
+              f"us (max abs diff from the plain backward {lib_err:.3g}); bound "
+              f"{bound:.4g} ms ({by}); {want_fa} a step")
+        bwd[name] = r
+        del q, k, v, do, o, lse, qt, kt, vt, ot, dot
+    ssd_args = [t.detach() for t in args]
+    dy, dst = dy.detach(), dst.detach()
+
+    def sb():
+        return ref.ssd_chunk_bwd(*ssd_args, dy, dst)
+
+    bound, by = ssd_bwd_bound_ms(B, Q, SH, SP, SN, cfg.ssm_groups)
+    r = {"ms": cuda_ms(sb, iters=30, warmup=3),
+         "device_us": device_us_per_call(sb, iters=10, warmup=2,
+                                         what="of the SSD chunk's backward"),
+         "bound_ms": bound, "bound_by": by, "library_ms": None,
+         "launches_per_step": want_ss,
+         "shape": {"B": B, "Q": Q, "H": SH, "P": SP, "N": SN, "dtype": "float32",
+                   "bc_head_stride": int(ssd_args[3].stride(2))}}
+    print(f"ssd_chunk backward (B,Q,H,P,N) = {(B, Q, SH, SP, SN)}, B/C head stride "
+          f"0: {r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
+          f"bound {bound:.4g} ms ({by}); {want_ss} a step; no PyTorch call "
+          f"computes it")
+    bwd["ssd"] = r
+    for key in ("flash", "flash_f32", "ssd"):
+        out[key]["backward"] = bwd[key]
+
+    # ------------------------------- Trainer: card against CPU, restart
+    phase("Trainer on the card against the CPU (reduced configs, float32), "
+          "checkpoint/restart on the card")
+    trainer = {}
+    for arch in ("zamba2-1.2b", "qwen1.5-0.5b"):
+        rcfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(rcfg, batch=2, seq=64, seed=0, val_every=1, device=dev)
+            before = (kfa.LAUNCHES, kss.LAUNCHES)
+            tr.run_steps(4)
+            runs[dev] = (tr.metrics_vals, (kfa.LAUNCHES - before[0],
+                                           kss.LAUNCHES - before[1]))
+        (lk, nk), (lc, _) = runs["cuda"], runs["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+        print(f"{rcfg.name}: card losses {[round(x, 6) for x in lk]}, CPU "
+              f"{[round(x, 6) for x in lc]}: max relative diff {rel:.3g} (tol "
+              f"{TRAINER_RTOL}); card launches (flash, ssd_chunk) {nk}")
+        if not rel <= TRAINER_RTOL or nk[0] == 0:
+            fail(f"Trainer {rcfg.name}: card and CPU losses {rel:.3g} apart, or the "
+                 "card run launched no flash kernel")
+        trainer[rcfg.name] = {"card": lk, "cpu": lc, "rel": rel, "launches": nk}
+    rcfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True), dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(LocalObjectStore(tmp), "trial", save_interval_steps=2)
+        direct = Trainer(rcfg, batch=2, seq=64, seed=0, val_every=1, ckpt=mgr)
+        direct.run_steps(4)
+        mgr.wait()
+        again = Trainer(rcfg, batch=2, seq=64, seed=0, val_every=1,
+                        ckpt=CheckpointManager(LocalObjectStore(tmp), "trial", 2))
+        got = again.restore(step=2)
+        on_card = all(t.is_cuda for t in tree_leaves(again.state["params"]))
+        again.run_steps(2)
+    rel = abs(again.metrics_vals[-1] - direct.metrics_vals[-1]) / abs(direct.metrics_vals[-1])
+    print(f"restart: restored step {got} onto the card ({on_card}), 2 more steps: "
+          f"step-4 loss {again.metrics_vals[-1]:.7f} against the direct run's "
+          f"{direct.metrics_vals[-1]:.7f}, relative diff {rel:.3g} (tol {RESTART_RTOL})")
+    if not (got == 2 and on_card and rel <= RESTART_RTOL
+            and again.metrics_vals[:2] == direct.metrics_vals[:2]):
+        fail(f"checkpoint/restart on the card: step {got}, step-4 loss {rel:.3g} "
+             "relative from the direct run")
+    trainer["restart_rel"] = rel
+    out["flash"]["train"]["trainer"] = trainer
+    wall = time.perf_counter() - t_all
+    print(f"the model's training phases: {wall:.1f} s of wall")
+    out["flash"]["train"]["phases_wall_s"] = wall
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2667,6 +3140,11 @@ def main() -> None:
         "lstm_stack (inference)"]
     for key, val in phi3_phase(torch).items():
         (flash_f32_row if "_f32_" in key else flash_row)[key] = val
+    # the model's training path last: it needs the card's memory to itself
+    train = model_train_phases(torch)
+    flash_row.update(train["flash"])
+    flash_f32_row.update(train["flash_f32"])
+    ssd_row.update(train["ssd"])
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

@@ -15,8 +15,14 @@
 // (the products over them add nothing) and never stored.  q, k and v are
 // read through their batch, sequence and head strides (the last dimension
 // must be contiguous).  Rows past Sq and keys past Sk are masked (the TPU
-// kernel asserts S % block == 0).  Two kernels on the tensor cores, chosen
-// by the input type in flash_attention_fwd:
+// kernel asserts S % block == 0).  With a non-null `lse` (float32,
+// (B, H, Sq) contiguous) the kernels also store each row's log-sum-exp in
+// natural units of s = scale * q.k, what the JAX package's flash forward
+// (models/attention.py:_chunked_fwd) returns for its backward: they keep
+// the row max m2 in log2 units of the scaled score and the row sum l of
+// the exp2 terms, so they store (m2 + log2(max(l, 1e-30))) * ln 2.  The
+// serving path passes null and stores nothing extra.  Two kernels on the
+// tensor cores, chosen by the input type in flash_attention_fwd:
 //
 // bfloat16: flash_attention_wgmma_kernel, on the tensor cores.
 //   What bounds it: at zamba2-1.2b's prefill (B=4, S=512, H=32, D=64,
@@ -125,10 +131,22 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   int64_t b, s, h;
 };
+
+// the epilogue's log-sum-exp of this thread's two rows i0 and i0 + 8 (the
+// row max in log2 units, the row sum of exp2 terms), stored by the first
+// of the row's four threads; lse is (B, H, Sq) and may be null
+__device__ __forceinline__ void store_lse(float* lse, int b, int h, int H, int Sq, int i0,
+                                          int lane, float m0, float l0, float m1, float l1) {
+  if (lse == nullptr || lane % 4 != 0) return;
+  float* row = lse + ((int64_t)b * H + h) * Sq;
+  if (i0 < Sq) row[i0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+  if (i0 + 8 < Sq) row[i0 + 8] = (m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+}
 
 // ------------------------------------------------------------------------
 // float32: 3xTF32 wgmma kernel
@@ -200,9 +218,10 @@ __device__ __forceinline__ int tiles_for(int q0, int rows, int Sq, int Sk, int c
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o, int Sq,
-                            int Sk, int H, int n_qt, Strides sq, Strides sk, Strides sv,
-                            Strides so, float scale_log2, int causal) {
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int Sq, int Sk, int H, int n_qt,
+                            Strides sq, Strides sk, Strides sv, Strides so, float scale_log2,
+                            int causal) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   // q_full; k_full[s], v_full[s]; k_empty[s][w], v_empty[s][w]: an empty
@@ -423,6 +442,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  store_lse(lse, b, h, H, Sq, qw + row0, lane, m0, l0, m1, l1);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   float* ob = o + b * so.b + h * so.h;
 #pragma unroll
@@ -437,9 +457,9 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-           int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-           int causal, int device, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
+           int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
+           float scale, int causal, int device, cudaStream_t stream) {
   // 16-byte loads: 16-byte-aligned bases and strides of whole float4s
   const void* ptrs[] = {q, k, v, o};
   const Strides strides[] = {sq, sk, sv, so};
@@ -459,22 +479,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int6
   if (B * H > 0x7fffffff || n_qt > 65535) return -1;
   const dim3 grid((unsigned)(B * H), (unsigned)n_qt);
   kern<<<grid, Cfg<D>::THREADS, smem, stream>>>((const float*)q, (const float*)k,
-                                                (const float*)v, (float*)o, (int)Sq, (int)Sk,
-                                                (int)H, (int)n_qt, sq, sk, sv, so,
+                                                (const float*)v, (float*)o, lse, (int)Sq,
+                                                (int)Sk, (int)H, (int)n_qt, sq, sk, sv, so,
                                                 scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-             int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv, Strides so,
-             float scale, int causal, int dev, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
+             int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
+             Strides so, float scale, int causal, int dev, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 96: return launch<96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 16:
+      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 32:
+      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 96:
+      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     case 128:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     default: return -1;
   }
 }
@@ -638,8 +662,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             const __grid_constant__ CUtensorMap to, int Sq, int Sk, int H,
-                             int n_qt, float scale_log2, int causal) {
+                             const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                             int Sq, int Sk, int H, int n_qt, float scale_log2, int causal) {
   using C = Cfg<D>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -815,6 +839,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  store_lse(lse, b, h, H, Sq, q0 + row0, lane, m0, l0, m1, l1);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   consumers_sync();   // every warp's products that read the Q tile are done
 #pragma unroll
@@ -917,9 +942,9 @@ int cached_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-           int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so, float scale,
-           int causal, int device, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
+           int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
+           float scale, int causal, int device, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   int rc;
   if ((rc = cached_map(&tq, q, B, Sq, H, D, sq)) != 0) return rc;
@@ -938,21 +963,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int6
   const int64_t n_qt = (Sq + BM - 1) / BM;
   if (B * H > 0x7fffffff || n_qt > 65535) return -1;
   const dim3 grid((unsigned)(B * H), (unsigned)n_qt);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, (int)Sq, (int)Sk, (int)H, (int)n_qt,
-                                        scale * LOG2E, causal);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, lse, (int)Sq, (int)Sk, (int)H,
+                                        (int)n_qt, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-             int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv, Strides so,
-             float scale, int causal, int dev, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
+             int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
+             Strides so, float scale, int causal, int dev, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
-    case 96: return launch<96>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 16:
+      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 32:
+      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+    case 96:
+      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     case 128:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
     default: return -1;
   }
 }
@@ -967,11 +996,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, in
 // when a tensor cannot be read as it is (a base not 16-byte aligned, a
 // stride not a multiple of 16 bytes: no bfloat16 tensor map, no float32
 // 16-byte loads; the wrapper copies such tensors first).  Strides are in
-// elements: (batch, sequence, head) for each of q, k, v and o.  float32
-// runs the 3xTF32 kernel, bfloat16 the bf16 one.
+// elements: (batch, sequence, head) for each of q, k, v and o.  `lse` is
+// null or a contiguous float32 (B, H, Sq) tensor that receives each row's
+// log-sum-exp.  float32 runs the 3xTF32 kernel, bfloat16 the bf16 one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t D,
-                                   int64_t qb, int64_t qs, int64_t qh, int64_t kb,
+                                   void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                                   int64_t D, int64_t qb, int64_t qs, int64_t qh, int64_t kb,
                                    int64_t ks, int64_t kh, int64_t vb, int64_t vs,
                                    int64_t vh, int64_t ob, int64_t os, int64_t oh,
                                    float scale, int causal, int dtype, int device,
@@ -983,9 +1013,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   const Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return tf32::dispatch(q, k, v, o, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
+    return tf32::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device,
+                          st);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
+    return tc::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
   return -2;
 }

@@ -13,6 +13,14 @@ a tensor whose base is not 16-byte aligned or whose batch, sequence or
 head stride is not a multiple of 16 bytes (what a TMA tensor map and a
 16-byte load take) is copied into a new contiguous tensor.  A copy, not a
 change of route.
+
+Training goes through ``FlashAttention``, a ``torch.autograd.Function``
+whose forward is the kernel with its log-sum-exp (``flash_attention_lse_cuda``)
+on the card and ``ref.flash_attention_fwd_lse`` on the CPU, and whose
+backward is the plain ``ref.flash_attention_bwd`` (the JAX package's
+backward is XLA code, ``models.attention._flash_bwd_rule``, not a Pallas
+kernel).  ``ops.flash_attention`` takes it when a gradient is needed; the
+raw wrappers refuse inputs that require one.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernels since the count was last set to 0 (both routes)
@@ -41,7 +49,7 @@ def _fn():
     global _FN
     if _FN is None:
         fn = build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 17
                        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -107,21 +115,22 @@ def _readable(t):
     return t, st
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
-    """The kernel on CUDA tensors; the arguments of
-    ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type."""
+def _launch(q, k, v, causal, scale, with_lse: bool):
+    """One launch -> (o, lse or None); lse (B,H,Sq) float32 when asked."""
     global LAUNCHES, WGMMA_LAUNCHES, TF32_LAUNCHES
-    check_no_grad("flash_attention_cuda", q, k, v)
     B, Sq, Sk, H, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B == 0 or Sq == 0 or H == 0:
-        return o
+        return o, lse
     scale = float(scale if scale is not None else D ** -0.5)
     (q, sq), (k, sk), (v, sv) = (_readable(t) for t in (q, k, v))
     strides = [*sq, *sk, *sv, *tma_strides(o)]      # o is new and contiguous
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if with_lse else None,
                 B, Sq, Sk, H, D, *strides, scale, int(bool(causal)),
                 _DTYPES[q.dtype], q.device.index, stream)
     if err != 0:
@@ -131,4 +140,48 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
         WGMMA_LAUNCHES += 1
     else:
         TF32_LAUNCHES += 1
-    return o
+    return o, lse
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
+    """The kernel on CUDA tensors; the arguments of
+    ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type.  It
+    has no gradient: inputs that require one go through ``FlashAttention``
+    (``ops.flash_attention`` sends them there)."""
+    check_no_grad("flash_attention_cuda", q, k, v, route="ops.flash_attention")
+    return _launch(q, k, v, causal, scale, False)[0]
+
+
+def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
+    """The kernel writing its log-sum-exp too: (o (B,Sq,H,D) in q's type,
+    lse (B,H,Sq) float32), what ``ref.flash_attention_fwd_lse`` returns.
+    The kernel keeps its row max m2 in log2 units of the scaled score and
+    stores (m2 + log2(max(l, 1e-30))) * ln 2."""
+    check_no_grad("flash_attention_lse_cuda", q, k, v,
+                  route="ops.flash_attention")
+    return _launch(q, k, v, causal, scale, True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward by device (with
+    ``use_kernel`` the kernel and its lse, else
+    ``ref.flash_attention_fwd_lse``), saving (q, k, v, o, lse); the
+    backward ``ref.flash_attention_bwd`` over key chunks of ``chunk`` (None:
+    one chunk).  No fallback: a kernel that cannot run raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, chunk, use_kernel):
+        if use_kernel:
+            o, lse = flash_attention_lse_cuda(q, k, v, causal, scale)
+        else:
+            o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.chunk = causal, scale, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                             ctx.scale, ctx.chunk)
+        return dq, dk, dv, None, None, None, None

@@ -3,7 +3,10 @@
 A tensor on the CPU takes the plain PyTorch version (``ref.py``); a CUDA
 tensor takes the kernel, which raises if it cannot run.  There is no
 fallback from the kernel to the plain version.  ``force="ref"`` runs the
-plain version on any device, for tests and ``chip_smoke.py``.
+plain version on any device, for tests and ``chip_smoke.py``; it trains by
+autograd of the plain version.  Otherwise inputs that need a gradient take
+the kernel's autograd Function (``LstmStack``, ``FlashAttention``,
+``SsdChunk``), whose forward is the kernel on the card.
 """
 
 from __future__ import annotations
@@ -11,11 +14,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention_cuda import flash_attention_cuda
+from repro_torch.kernels._grad import needs_grad
+from repro_torch.kernels.flash_attention_cuda import (FlashAttention,
+                                                      flash_attention_cuda)
 from repro_torch.kernels.lstm_cell import (lstm_cell_cuda, lstm_stack_cuda,
                                            lstm_stack_train)
 from repro_torch.kernels.soa_step_cuda import ewma_fold_cuda, soa_step_fused_cuda
-from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_cuda
+from repro_torch.kernels.ssd_chunk_cuda import SsdChunk, ssd_chunk_cuda
 
 
 def lstm_cell(x, h, c, w_ih, w_hh, b, force: str | None = None):
@@ -70,24 +75,34 @@ def ewma_fold(obs, lens, m0, first, ewma, force: str | None = None):
     raise ValueError(f"unknown ewma_fold mode {mode!r}")
 
 
-def flash_attention(q, k, v, causal: bool = True, scale=None,
+def _mode(t, force):
+    mode = force or ("cuda" if t.is_cuda else "ref")
+    if mode not in ("ref", "cuda"):
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    return mode
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None, chunk=None,
                     force: str | None = None):
     """Attention over (B, S, H, D) with shared H -> (B, Sq, H, D) in q's
-    type.  force: None (by device) | 'ref' | 'cuda'."""
-    mode = force or ("cuda" if q.is_cuda else "ref")
+    type.  force: None (by device) | 'ref' | 'cuda'.  Inputs that need a
+    gradient take ``FlashAttention`` (unless ``force='ref'``), whose
+    backward runs over key chunks of ``chunk`` (None: one chunk)."""
+    mode = _mode(q, force)
+    if force != "ref" and needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, scale, chunk, mode == "cuda")
     if mode == "ref":
         return ref.flash_attention_ref(q, k, v, causal, scale)
-    if mode == "cuda":
-        return flash_attention_cuda(q, k, v, causal, scale)
-    raise ValueError(f"unknown flash_attention mode {mode!r}")
+    return flash_attention_cuda(q, k, v, causal, scale)
 
 
 def ssd_chunk(x, dt, A, B_in, C_in, state, force: str | None = None):
     """One Mamba2 SSD chunk -> (y, new_state), float32.
-    force: None (by device) | 'ref' | 'cuda'."""
-    mode = force or ("cuda" if x.is_cuda else "ref")
+    force: None (by device) | 'ref' | 'cuda'.  Inputs that need a gradient
+    take ``SsdChunk`` (unless ``force='ref'``)."""
+    mode = _mode(x, force)
+    if force != "ref" and needs_grad(x, dt, A, B_in, C_in, state):
+        return SsdChunk.apply(x, dt, A, B_in, C_in, state, mode == "cuda")
     if mode == "ref":
         return ref.ssd_chunk_ref(x, dt, A, B_in, C_in, state)
-    if mode == "cuda":
-        return ssd_chunk_cuda(x, dt, A, B_in, C_in, state)
-    raise ValueError(f"unknown ssd_chunk mode {mode!r}")
+    return ssd_chunk_cuda(x, dt, A, B_in, C_in, state)

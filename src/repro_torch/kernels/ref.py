@@ -165,6 +165,88 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
     return o.to(q.dtype)
 
 
+def _key_chunk(Sk: int, chunk) -> int:
+    """The flash loops' key chunk: ``min(chunk, Sk)``, or all of Sk where
+    that does not divide it (the JAX package then takes its naive path,
+    the same function)."""
+    c = Sk if chunk is None else min(int(chunk), Sk)
+    return c if c > 0 and Sk % c == 0 else Sk
+
+
+def flash_attention_fwd_lse(q, k, v, causal: bool = True, scale=None,
+                            chunk=None):
+    """Flash forward that also returns the log-sum-exp, the port of the JAX
+    package's ``models.attention._chunked_fwd`` (the forward of its custom
+    VJP): an online softmax over key chunks of ``chunk`` in float32.
+    q (B,Sq,H,D); k, v (B,Sk,H,D) -> (o (B,Sq,H,D) in q's type, lse (B,H,Sq)
+    float32), lse = m + log(max(l, 1e-30)) in natural units of
+    s = scale * q.k."""
+    f32 = torch.float32
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    c = _key_chunk(Sk, chunk)
+    q32 = q.to(f32) * scale
+    qpos = torch.arange(Sq, device=q.device)
+    neg = torch.full((), -1e30, dtype=f32, device=q.device)
+    m = torch.full((B, H, Sq), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, H, Sq, v.shape[-1]), dtype=f32, device=q.device)
+    for start in range(0, Sk, c):
+        s = torch.einsum("bqhd,bchd->bhqc", q32, k[:, start:start + c].to(f32))
+        if causal:
+            kpos = start + torch.arange(c, device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqc,bchd->bhqd", p, v[:, start:start + c].to(f32))
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, scale=None,
+                        chunk=None):
+    """The flash backward, the port of the JAX package's
+    ``models.attention._flash_bwd_rule`` line for line, in float32: with
+    D = sum(do * o) over the head dim, per key chunk p = exp(s - lse),
+    dv = p^T.do, dp = do.v^T, ds = p * (dp - D) * scale, then dq (summed
+    over the chunks), dk = ds^T.q.  q, o, do (B,Sq,H,D); k, v (B,Sk,H,D);
+    lse (B,H,Sq) float32 -> (dq, dk, dv), each in its input's type."""
+    f32 = torch.float32
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else Dh ** -0.5
+    c = _key_chunk(Sk, chunk)
+    q32 = q.to(f32)
+    do32 = do.to(f32).transpose(1, 2)                        # (B,H,Sq,D)
+    o32 = o.to(f32).transpose(1, 2)
+    Dsum = torch.sum(do32 * o32, dim=-1)                      # (B,H,Sq)
+    qpos = torch.arange(Sq, device=q.device)
+    neg = torch.full((), -1e30, dtype=f32, device=q.device)
+    dq = torch.zeros((B, Sq, H, Dh), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, Sk, c):
+        k32 = k[:, start:start + c].to(f32)
+        v32 = v[:, start:start + c].to(f32)
+        s = torch.einsum("bqhd,bchd->bhqc", q32 * scale, k32)
+        if causal:
+            kpos = start + torch.arange(c, device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
+        p = torch.exp(s - lse[..., None])                     # (B,H,Sq,C)
+        dvs.append(torch.einsum("bhqc,bhqd->bchd", p, do32))
+        dp = torch.einsum("bhqd,bchd->bhqc", do32, v32)
+        ds = p * (dp - Dsum[..., None]) * scale
+        dq = dq + torch.einsum("bhqc,bchd->bqhd", ds, k32)
+        dks.append(torch.einsum("bhqc,bqhd->bchd", ds, q32))
+    dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_chunk_ref(x, dt, A, B_in, C_in, state):
     """One Mamba2 SSD chunk with its incoming state: the arithmetic of the
     JAX package's ``models.ssd._chunk_scan_step`` (what ``ssd_chunk_pallas``
@@ -192,3 +274,23 @@ def ssd_chunk_ref(x, dt, A, B_in, C_in, state):
     new_state = state * chunk_decay[:, :, None, None] + torch.einsum(
         "bjhp,bjhn->bhpn", xbar * w[..., None], B_in)
     return y, new_state
+
+
+def ssd_chunk_bwd(x, dt, A, B_in, C_in, state, dy, dstate, needs=None):
+    """The SSD chunk's backward: ``ssd_chunk_ref`` recomputed on detached
+    inputs under ``torch.enable_grad()`` and differentiated by autograd,
+    the port of the ``jax.checkpoint`` around the JAX package's
+    ``_chunk_scan_step`` (nothing but the inputs is kept from the forward).
+    dy (B,Q,H,P), dstate (B,H,P,N) -> the gradients of (x, dt, A, B_in,
+    C_in, state), each of its input's shape (B_in and C_in with head stride
+    0 get a full (B,Q,H,N) gradient, which autograd sums over the heads of
+    the ``expand``); None where ``needs`` (one bool an input) is False."""
+    inputs = (x, dt, A, B_in, C_in, state)
+    needs = needs if needs is not None else (True,) * 6
+    with torch.enable_grad():
+        det = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        y, new_state = ssd_chunk_ref(*det)
+        wrt = [t for t, n in zip(det, needs) if n]
+        got = iter(torch.autograd.grad((y, new_state), wrt, (dy, dstate),
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)

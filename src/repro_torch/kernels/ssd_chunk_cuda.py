@@ -9,6 +9,14 @@ so a chunk's slice of a whole-sequence tensor is passed as it is; a tensor
 whose last dimension is not contiguous is copied first.  B and C may have
 head stride 0: ``models/ssd.py`` hands one group's (B,S,N) tensor to all of
 its heads as an ``expand``ed view, and the kernel reads it as it lies.
+
+Training goes through ``SsdChunk``, a ``torch.autograd.Function`` whose
+forward is the kernel on the card and ``ref.ssd_chunk_ref`` on the CPU and
+whose backward, ``ref.ssd_chunk_bwd``, recomputes the plain chunk from the
+saved inputs and differentiates it (the JAX package trains through
+``jax.checkpoint`` of its ``_chunk_scan_step``, not through the Pallas
+kernel).  ``ops.ssd_chunk`` takes it when a gradient is needed; the raw
+wrapper refuses inputs that require one.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import check_no_grad
 
 #: launches of the kernel since the count was last set to 0
@@ -92,9 +100,12 @@ def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
     """The kernel on float32 CUDA tensors; the arguments of
     ``ref.ssd_chunk_ref``.  Returns (y (B,Q,H,P), new_state (B,H,P,N)),
     float32 and contiguous.  Any (batch, row, head) strides are taken,
-    head stride 0 for B_in and C_in included."""
+    head stride 0 for B_in and C_in included.  It has no gradient: inputs
+    that require one go through ``SsdChunk`` (``ops.ssd_chunk`` sends them
+    there)."""
     global LAUNCHES
-    check_no_grad("ssd_chunk_cuda", x, dt, A, B_in, C_in, state)
+    check_no_grad("ssd_chunk_cuda", x, dt, A, B_in, C_in, state,
+                  route="ops.ssd_chunk")
     Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
     x, dt, B_in, C_in = (t if t.stride(-1) == 1 else t.contiguous()
                          for t in (x, dt, B_in, C_in))
@@ -113,3 +124,24 @@ def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
         raise RuntimeError(f"ssd_chunk kernel launch failed (code {err})")
     LAUNCHES += 1
     return y, new_state
+
+
+class SsdChunk(torch.autograd.Function):
+    """One SSD chunk with a gradient: the forward by device (with
+    ``use_kernel`` the kernel, else ``ref.ssd_chunk_ref``), saving only its
+    inputs (B_in and C_in as the views they are, head stride 0 kept); the
+    backward ``ref.ssd_chunk_bwd``.  No fallback: a kernel that cannot run
+    raises."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_in, C_in, state, use_kernel):
+        fwd = ssd_chunk_cuda if use_kernel else ref.ssd_chunk_ref
+        y, new_state = fwd(x, dt, A, B_in, C_in, state)
+        ctx.save_for_backward(x, dt, A, B_in, C_in, state)
+        return y, new_state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        grads = ref.ssd_chunk_bwd(*ctx.saved_tensors, dy, dstate,
+                                  needs=ctx.needs_input_grad[:6])
+        return (*grads, None)

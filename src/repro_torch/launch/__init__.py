@@ -1,2 +1,3 @@
-"""Launchers: ``serve`` (batched greedy decoding) for now; the rest of the
-JAX package's ``launch`` (train, dry-run, meshes) is not ported yet."""
+"""Launchers: ``serve`` (batched greedy decoding) and ``train`` (the train
+step and ``Trainer`` with checkpoint/restart); the rest of the JAX
+package's ``launch`` (dry-run, meshes, sharding) is not ported yet."""

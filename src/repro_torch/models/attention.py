@@ -11,7 +11,12 @@ Full-sequence attention (train forward and prefill) always goes through
 version on the CPU.  Where the JAX package picks a lowering by length (the
 ``lax.scan`` flash path when S is a multiple of the chunk, else the naive
 one), the function is the same, so the port runs the kernel at every length.
-Decode stays plain PyTorch over the full local cache.
+Training takes the kernel's ``FlashAttention`` Function, whose plain
+backward walks the keys in chunks of ``min(chunk, S)`` (one chunk where
+that does not divide S), as the JAX package's flash VJP does.  The
+gradients of the K/V heads that GQA repeats are summed by autograd of
+``repeat_interleave``.  Decode stays plain PyTorch over the full local
+cache.
 """
 
 from __future__ import annotations
@@ -86,18 +91,19 @@ def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
 
 
 def attention(q, k, v, causal: bool, scale: Optional[float] = None,
-              kernels: Optional[str] = None):
+              kernels: Optional[str] = None, chunk: Optional[int] = None):
     """Full-sequence attention through ``kops.flash_attention``.
     q (B,S,KV,G,Dh); k, v (B,S,KV,Dh) -> (B,S,KV,G,Dh) in q's type.  K/V are
     expanded to the H = KV * G query heads first (the kernel's layout, as
     ``flash_attention.py`` asks of GQA callers); ``kernels`` is
-    ``ModelCtx.kernels``."""
+    ``ModelCtx.kernels``, ``chunk`` its ``attn_chunk`` (the backward's key
+    chunk)."""
     B, S, KV, G, Dh = q.shape
     q4 = q.reshape(B, S, KV * G, Dh)
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    o = kops.flash_attention(q4, k, v, causal, scale, force=kernels)
+    o = kops.flash_attention(q4, k, v, causal, scale, chunk=chunk, force=kernels)
     return o.reshape(B, S, KV, G, Dh)
 
 

@@ -35,7 +35,8 @@ def init_attn(gen, cfg, device):
 def _sharded_attention(q, k, v, cfg, ctx, causal):
     """The JAX package's 'kv' attention layout (heads as they come); one
     card shards nothing."""
-    return attn_lib.attention(q, k, v, causal=causal, kernels=ctx.kernels)
+    return attn_lib.attention(q, k, v, causal=causal, kernels=ctx.kernels,
+                              chunk=ctx.attn_chunk)
 
 
 def attn_fwd(h, p, cfg, ctx, positions, causal=True):

@@ -17,6 +17,12 @@ distributions (not the same numbers).
 Decode updates the cache in place and returns the same dict: the JAX
 package's jitted step donates its cache and returns a new one, which here
 would copy every layer's KV cache each token.
+
+``Model.loss`` is the training objective: the backbone, the final norm and
+the unembedding, masked cross-entropy and the MoE aux term.  With
+``ctx.remat == "full"`` each layer body that the JAX package wraps in
+``jax.checkpoint`` is run under ``torch.utils.checkpoint`` (recomputed in
+the backward) while grad mode is on.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
@@ -109,28 +116,70 @@ class Model:
     def n_shared_invocations(self):
         return len(self._segments())
 
+    @staticmethod
+    def _maybe_remat(body, ctx):
+        """``body`` recomputed in the backward when ``ctx.remat`` is "full"
+        and grad mode is on (the JAX package's ``jax.checkpoint`` of the
+        scan body); as it is otherwise."""
+        if ctx.remat != "full":
+            return body
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return body(*args)
+            return checkpoint(body, *args, use_reentrant=False)
+        return run
+
     # ------------------------------------------------------------ forward
     def forward(self, params, batch, ctx: Optional[ModelCtx] = None):
         """Full-sequence forward.  Returns (logits, aux_loss)."""
-        cfg = self.cfg
         ctx = ctx or null_ctx()
+        x, aux = self._backbone(params, batch, ctx)
+        return self._unembed(params, x, ctx), aux
+
+    def _backbone(self, params, batch, ctx: ModelCtx):
+        """The layer stack only: pre-final-norm hidden states.  Returns
+        (x, aux)."""
+        cfg = self.cfg
         x, positions = self._embed_inputs(params, batch, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "dense":
+            body = self._maybe_remat(
+                lambda x, lp: blocks.block_fwd(x, lp, cfg, ctx, positions), ctx)
             for i in range(cfg.n_layers):
-                x, a = blocks.block_fwd(x, _row(params["layers"], i), cfg, ctx,
-                                        positions)
+                x, a = body(x, _row(params["layers"], i))
                 aux = aux + a
-        elif cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                x = blocks.mamba_fwd(x, _row(params["layers"], i), cfg, ctx)
         else:
-            for lo, hi in self._segments():
-                for i in range(lo, hi):
-                    x = blocks.mamba_fwd(x, _row(params["mamba_layers"], i), cfg, ctx)
-                x, _ = blocks.block_fwd(x, params["shared_block"], cfg, ctx,
-                                        positions)
-        return self._unembed(params, x, ctx), aux
+            body = self._maybe_remat(
+                lambda x, lp: blocks.mamba_fwd(x, lp, cfg, ctx), ctx)
+            if cfg.family == "ssm":
+                for i in range(cfg.n_layers):
+                    x = body(x, _row(params["layers"], i))
+            else:
+                for lo, hi in self._segments():
+                    for i in range(lo, hi):
+                        x = body(x, _row(params["mamba_layers"], i))
+                    x, _ = blocks.block_fwd(x, params["shared_block"], cfg, ctx,
+                                            positions)
+        return x, aux
+
+    def loss(self, params, batch, ctx: Optional[ModelCtx] = None):
+        """Scalar LM loss: the mean cross-entropy over ``labels >= 0`` plus
+        the MoE aux term -> (loss, {"xent", "aux"}).  As in the JAX package,
+        the log-sum-exp subtracts a detached row max inside the exp and adds
+        the (not detached) max back, and the logits are float32 from the
+        product in the config dtype.  ``batch``: {"tokens", "labels"}
+        (B, S) integer tensors on the parameters' device."""
+        ctx = ctx or null_ctx()
+        x, aux = self._backbone(params, batch, ctx)
+        labels = batch["labels"].long()
+        logits32 = self._unembed(params, x, ctx).float()
+        m = (labels >= 0).float()
+        mx = torch.amax(logits32, dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits32 - mx.detach()), dim=-1)) + mx[..., 0]
+        gold = torch.gather(logits32, -1, labels.clamp(min=0)[..., None])[..., 0]
+        xe = torch.sum((lse - gold) * m) / torch.clamp(torch.sum(m), min=1.0)
+        return xe + aux, {"xent": xe, "aux": aux}
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params, batch, ctx: Optional[ModelCtx] = None,

@@ -4,7 +4,10 @@ The port of ``repro.models.ssd``.  Chunked SSD (the train/prefill path) is a
 host loop over sequence chunks, where the JAX package runs ``lax.scan``;
 each chunk is one ``kops.ssd_chunk`` call (the hand-written kernel on the
 card, its plain version on the CPU), which carries the (B, H, P, N) state
-to the next.  Decode is the one-token state update in plain PyTorch.
+to the next.  Training takes the kernel's ``SsdChunk`` Function, which
+keeps only a chunk's inputs and recomputes the plain chunk in the backward
+(the JAX package's ``jax.checkpoint`` of the chunk body).  Decode is the
+one-token state update in plain PyTorch.
 
 Projections are split per segment (z / x / B / C / dt) and the depthwise
 conv is per segment, as in the JAX package.

@@ -1,7 +1,7 @@
-"""AdamW with global-norm clipping over parameter trees, PyTorch.
+"""AdamW and SGD with global-norm clipping over parameter trees, PyTorch.
 
-The JAX package's ``repro.optim.optimizers.adamw`` as plain functions over
-nested dicts and lists of tensors:
+The JAX package's ``repro.optim.optimizers`` (``adamw``, ``sgd``) as plain
+functions over nested dicts and lists of tensors:
 
     init(params)                     -> opt_state
     update(grads, opt_state, params) -> (new_params, new_opt_state, metrics)
@@ -126,6 +126,45 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         new_state = {"step": step, "m": new_m, "v": new_v}
         if keep_master:
             new_state["master"] = new32
+        metrics = {"lr": lr_t}
+        if gn is not None:
+            metrics["grad_norm"] = gn
+        return new_params, new_state, metrics
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(lr: Callable | float, momentum: float = 0.0,
+        grad_clip: Optional[float] = None) -> Optimizer:
+    """SGD, with float32 heavy-ball momentum ``mu = momentum * mu + g`` when
+    ``momentum`` is not 0, and optional global-norm clipping; the update is
+    float32 and the parameters are cast back to their type."""
+    sched = lr if callable(lr) else (lambda step: lr)
+
+    def init(params):
+        state = {"step": 0}
+        if momentum:
+            state["mu"] = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+        return state
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        gn = None
+        if grad_clip is not None:
+            grads, gn = clip_by_global_norm(grads, grad_clip)
+        lr_t = sched(step)
+        if momentum:
+            mu = tree_map(lambda m, g: momentum * m + g.float(), state["mu"], grads)
+            new_params = tree_map(
+                lambda p, m: (p.detach().float() - lr_t * m).to(p.dtype), params, mu)
+            new_state = {"step": step, "mu": mu}
+        else:
+            new_params = tree_map(
+                lambda p, g: (p.detach().float() - lr_t * g.float()).to(p.dtype),
+                params, grads)
+            new_state = {"step": step}
         metrics = {"lr": lr_t}
         if gn is not None:
             metrics["grad_norm"] = gn

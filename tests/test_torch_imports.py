@@ -36,13 +36,19 @@ def test_port_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     count, names = out.stdout.strip().splitlines()[-2:]
     assert int(count) >= 20
-    # the training slice's and the service slice's modules load on their
+    # the training slices' and the service slice's modules load on their
     # own as well
     assert {"repro_torch.optim", "repro_torch.optim.optimizers",
             "repro_torch.core.orchestrator", "repro_torch.service.spec",
             "repro_torch.service.registry", "repro_torch.service.market",
             "repro_torch.service.loop",
-            "repro_torch.tuner.equivalence"} <= set(names.split())
+            "repro_torch.tuner.equivalence",
+            # the model's training path
+            "repro_torch.data.pipeline", "repro_torch.optim.schedules",
+            "repro_torch.optim.compression", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.object_store",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.train"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

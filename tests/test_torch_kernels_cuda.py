@@ -663,14 +663,20 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(card):
         torch.full((4,), 0.5, dtype=torch.float64, device=card))
     calls = [lambda: klc.lstm_cell_cuda(x[0].requires_grad_(True), *x[1:]),
              lambda: klc.lstm_stack_cuda(xs, layers),
-             lambda: kfa.flash_attention_cuda(q, q, q),
-             lambda: kss.ssd_chunk_cuda(*ssd),
              lambda: ksc.ewma_fold_cuda(*fold),
              lambda: ksc.soa_step_fused_cuda(*fold, torch.zeros(
                  4, dtype=torch.int64, device=card), torch.zeros(
                  4, dtype=torch.int64, device=card), 1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward yet .ROADMAP A10"):
+            call()
+    # flash attention and the SSD chunk train through their autograd
+    # Functions: the raw wrappers name that route
+    routed = [(lambda: kfa.flash_attention_cuda(q, q, q), "ops.flash_attention"),
+              (lambda: kfa.flash_attention_lse_cuda(q, q, q), "ops.flash_attention"),
+              (lambda: kss.ssd_chunk_cuda(*ssd), "ops.ssd_chunk")]
+    for call, route in routed:
+        with pytest.raises(RuntimeError, match=f"no gradient; train through {route}"):
             call()
     with torch.no_grad():
         kfa.flash_attention_cuda(q, q, q)
@@ -719,3 +725,110 @@ def test_train_model_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(lc, lp, rtol=1e-4)
     for a, b in zip(rp.tree_leaves(pc), rp.tree_leaves(pp)):
         np.testing.assert_allclose(a, b, atol=1e-3)
+
+
+# ------------------------------------------------ the model's training path
+
+LSE_TOL = 1e-4      # the kernel's log-sum-exp against the plain one, absolute
+FN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}  # of each leaf's largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
+    (2, 512, 512, 32, 64, True),                # zamba2-1.2b's training shape
+    (1, 200, 237, 4, 96, False), (2, 1, 38, 4, 16, True),
+    (1, 333, 333, 2, 128, True), (2, 70, 70, 3, 32, False)])
+def test_flash_attention_kernel_writes_the_plain_lse(B, Sq, Sk, H, D, causal, dtype, card):
+    gen = torch.Generator().manual_seed(Sq + D)
+    q = _randn(gen, B, Sq, H, D, dtype=dtype, device=card)
+    k, v = (_randn(gen, B, Sk, H, D, dtype=dtype, device=card) for _ in range(2))
+    before = kfa.LAUNCHES
+    o, lse = kfa.flash_attention_lse_cuda(q, k, v, causal)
+    assert kfa.LAUNCHES == before + 1
+    o2, lse2 = ref.flash_attention_fwd_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse2, rtol=0, atol=LSE_TOL)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), o2.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(o, kfa.flash_attention_cuda(q, k, v, causal))
+
+
+def _leafwise(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = w.float().abs().max().clamp_min(1e-30)
+        assert (g.float() - w.float()).abs().max() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,D,chunk,causal", [
+    (2, 512, 32, 64, 512, True), (1, 192, 4, 96, 64, True),
+    (2, 100, 3, 16, 30, False)])
+def test_flash_attention_function_gradients_match_autograd_of_plain(
+        B, S, H, D, chunk, causal, dtype, card):
+    gen = torch.Generator().manual_seed(S + H)
+    q, k, v = (_randn(gen, B, S, H, D, dtype=dtype, device=card).requires_grad_(True)
+               for _ in range(3))
+    do = _randn(gen, B, S, H, D, dtype=dtype, device=card)
+    before = kfa.LAUNCHES
+    o = ops.flash_attention(q, k, v, causal, chunk=chunk)
+    assert kfa.LAUNCHES == before + 1
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o2 = ops.flash_attention(q, k, v, causal, force="ref")
+    want = torch.autograd.grad(o2, (q, k, v), do)
+    torch.cuda.synchronize()
+    _leafwise(got, want, FN_GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,H,P,N,stride0", [
+    (2, 256, 64, 64, 64, True),                 # zamba2-1.2b's training chunk
+    (2, 32, 3, 8, 4, False), (1, 200, 4, 64, 128, True)])
+def test_ssd_chunk_function_gradients_match_autograd_of_plain(B, Q, H, P, N, stride0, card):
+    gen = torch.Generator().manual_seed(Q + H)
+    x, dt, A, Bm, Cm, st = _ssd_inputs(gen, B, Q, H, P, N, card)
+    if stride0:
+        Bm, Cm = (t[:, :, :1].contiguous() for t in (Bm, Cm))
+    leaves = [t.requires_grad_(True) for t in (x, dt, A, Bm, Cm, st)]
+    args = leaves[:3] + [t.expand(B, Q, H, N) for t in leaves[3:5]] + leaves[5:]
+    dy, dst = _randn(gen, B, Q, H, P, device=card), _randn(gen, B, H, P, N, device=card)
+    before = kss.LAUNCHES
+    y, new = ops.ssd_chunk(*args)
+    assert kss.LAUNCHES == before + 1
+    assert type(y.grad_fn).__name__ == "SsdChunkBackward"
+    got = torch.autograd.grad((y, new), leaves, (dy, dst))
+    y2, new2 = ops.ssd_chunk(*args, force="ref")
+    want = torch.autograd.grad((y2, new2), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    _leafwise(got, want, FN_GRAD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_trains_the_same_on_card_and_cpu(card):
+    """Three Trainer steps of the float32 reduced zamba2, card against CPU
+    (the same weights from one seed), and a restart on the card."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, LocalObjectStore
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import Trainer
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True), dtype="float32")
+    cpu = Trainer(cfg, batch=2, seq=32, seed=0, val_every=1, device="cpu")
+    cpu.run_steps(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(LocalObjectStore(tmp), "t", save_interval_steps=2)
+        gpu = Trainer(cfg, batch=2, seq=32, seed=0, val_every=1, ckpt=mgr)
+        before = (kfa.LAUNCHES, kss.LAUNCHES)
+        gpu.run_steps(3)
+        assert kfa.LAUNCHES > before[0] and kss.LAUNCHES > before[1]
+        np.testing.assert_allclose(gpu.metrics_vals, cpu.metrics_vals, rtol=1e-4)
+        again = Trainer(cfg, batch=2, seq=32, seed=0, val_every=1,
+                        ckpt=CheckpointManager(LocalObjectStore(tmp), "t", 2))
+        assert again.restore(step=2) == 2
+        again.run_steps(1)
+        assert again.metrics_vals[-1] == pytest.approx(gpu.metrics_vals[-1], rel=1e-5)

@@ -313,14 +313,17 @@ def test_kernels_without_a_backward_refuse_grad_before_anything_else():
     fold = (obs, torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.float64),
             torch.zeros(2, dtype=torch.bool), torch.zeros(2, dtype=torch.float64))
     seg = (torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int64), 1)
-    calls = [lambda: klc.lstm_cell_cuda(*cell),
-             lambda: klc.lstm_stack_cuda(xs, layers),
-             lambda: kfa.flash_attention_cuda(q, q, q),
-             lambda: kss.ssd_chunk_cuda(*ssd),
-             lambda: ksc.ewma_fold_cuda(*fold),
-             lambda: ksc.soa_step_fused_cuda(*fold, *seg)]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="no backward yet .ROADMAP A10"):
+    # flash attention and the SSD chunk train through their autograd
+    # Functions (``ops``): their raw wrappers name that route
+    calls = [(lambda: klc.lstm_cell_cuda(*cell), "no backward yet .ROADMAP A10"),
+             (lambda: klc.lstm_stack_cuda(xs, layers), "no backward yet .ROADMAP A10"),
+             (lambda: kfa.flash_attention_cuda(q, q, q),
+              "no gradient; train through ops.flash_attention"),
+             (lambda: kss.ssd_chunk_cuda(*ssd), "no gradient; train through ops.ssd_chunk"),
+             (lambda: ksc.ewma_fold_cuda(*fold), "no backward yet .ROADMAP A10"),
+             (lambda: ksc.soa_step_fused_cuda(*fold, *seg), "no backward yet .ROADMAP A10")]
+    for call, match in calls:
+        with pytest.raises(RuntimeError, match=match):
             call()
         with torch.no_grad(), pytest.raises(ValueError):
             call()

@@ -192,7 +192,7 @@ def variants() -> None:
         if proc.returncode:
             raise SystemExit(f"variant {name} did not build:\n{log}")
         fn = ctypes.CDLL(str(d / "lib.so")).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 17
                        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -206,7 +206,8 @@ def variants() -> None:
         order = list(fns.items())
         for name, fn in order + order[::-1]:
             def call(fn=fn):
-                if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, S, H, D,
+                if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+                      B, S, S, H, D,
                       *strides, D ** -0.5, 1, 0, q.device.index, stream) != 0:
                     raise SystemExit(f"variant {name} failed to launch")
             res.setdefault(name, []).append(round(_events_us(torch, call, iters=100), 2))
