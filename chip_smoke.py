@@ -52,7 +52,7 @@ drives the port's two paths through them:
   prefill runs flash attention at head dim 96, through the kernels and the
   plain versions, bf16 and float32 (every float32 launch on the 3xTF32
   route).
-* the model's training path, last: flash attention's log-sum-exp (both
+* the model's training path: flash attention's log-sum-exp (both
   routes) against the plain one and the kernels' autograd Functions
   (``FlashAttention``, ``SsdChunk``: kernel forwards, plain backwards)
   against autograd of the plain forwards; float32 zamba2-1.2b at full width
@@ -65,7 +65,21 @@ drives the port's two paths through them:
   shapes beside SDPA's backward and their bounds; ``Trainer`` on the card
   against the CPU on the reduced zamba2 and qwen1.5-0.5b, a checkpoint
   restart on the card, and the full-width state's checkpoint size against
-  fig12's store rates.
+  fig12's store rates;
+* the training backend's slice, last: flash attention and the SSD chunk at
+  the trials' and whisper's shapes (D = 16, ragged Sk = 30 and 1500 not
+  causal, Sq != Sk, P = N = 16 with Q = 32) against their plain versions
+  and timed; whisper-base at full width (random weights from a seed)
+  served through ``Server(device="cuda")`` with its frames, 2 x 256
+  prompt tokens and 32 greedy tokens (18 flash launches a prefill: 6
+  encoder, 6 decoder self, 6 cross), through the kernels and the plain
+  versions in bf16 and float32, one float32 loss and its gradients, five
+  profiled bf16 train steps; a ``backend="training"`` ScenarioSpec
+  (qwen1.5-0.5b) through ``SweepRunner(device="cuda")`` beside a sim
+  replica (the SpotTune loop with real snapshots, restores and refunds),
+  and each seed arch's trial: its 48-step stream, a snapshot and restore,
+  replay bitwise equal to the cursor's state, its stream against the
+  CPU's, and a profiled trial step.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -2704,7 +2718,7 @@ def model_train_phases(torch) -> dict:
         o, lse = kfa.flash_attention_lse_cuda(q, k, v, True)
 
         def fb():
-            return ref.flash_attention_bwd(q, k, v, o, lse, do, True, None, S)
+            return ref.flash_attention_bwd(q, k, v, lse, do, True, None, S)
 
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -2805,6 +2819,533 @@ def model_train_phases(torch) -> dict:
     wall = time.perf_counter() - t_all
     print(f"the model's training phases: {wall:.1f} s of wall")
     out["flash"]["train"]["phases_wall_s"] = wall
+    return out
+
+
+# ---------------------------------------------------------------------------
+# real-training trials and the whisper-base audio family (the training
+# backend's slice)
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, D, causal): the reduced trials at D = 16 (qwen and
+# whisper's decoder self-attention, causal; whisper's encoder over Se = 30
+# frames and its cross-attention, Sq = 32 against Sk = 30, not causal) and
+# whisper-base at full width (the encoder over 1500 frames: a ragged last
+# key tile; the cross-attention of 256 prompt tokens against them; the
+# decoder's causal self-attention)
+SLICE_FLASH_SHAPES = [
+    (4, 32, 32, 4, 16, True), (2, 32, 32, 4, 16, True),
+    (4, 30, 30, 4, 16, False), (4, 32, 30, 4, 16, False),
+    (2, 30, 30, 4, 16, False), (2, 32, 30, 4, 16, False),
+    (2, 1500, 1500, 8, 64, False), (2, 256, 1500, 8, 64, False),
+    (2, 256, 256, 8, 64, True),
+]
+# mamba2-130m reduced: (B, Q, H, P, N) at both trial batches
+SLICE_SSD_SHAPES = [(4, 32, 8, 16, 16), (2, 32, 8, 16, 16)]
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = "whisper-base", 2, 256, 32
+WHISPER_STEPS = 5
+# C4: a trial's bf16 losses (float32 master), card against CPU, relative;
+# the bound tests/test_torch_training_backend.py holds the port to against
+# the JAX package (the two round bf16 at different places)
+TRIAL_RTOL = 1e-2
+TRIAL_REPLAY_STEP = 22       # not a cached boundary: replayed from step 16
+
+
+def slice_flash_timing(torch, B, Sq, Sk, H, D, causal, dtype, what, gen):
+    """The flash kernel beside its plain version and
+    ``scaled_dot_product_attention`` on the same inputs (CUDA events, ms a
+    call from Python; the card time of a kernel and SDPA call from the
+    profiler) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+
+    q = torch.randn(B, Sq, H, D, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(B, Sk, H, D, generator=gen).to("cuda", dtype)
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kern():
+        return kfa.flash_attention_cuda(q, k, v, causal)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    r = {"ms": cuda_ms(kern, iters=200),
+         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+                             iters=20, warmup=3),
+         "library_ms": cuda_ms(sdpa, iters=200),
+         "device_us": device_us_per_call(kern, iters=50, what=f"of the kernel, {what}"),
+         "library_device_us": device_us_per_call(
+             sdpa, iters=50, what=f"of scaled_dot_product_attention, {what}")}
+    r["bound_ms"], r["bound_by"] = flash_bound_ms(B, Sq, Sk, H, D, causal,
+                                                  q.element_size())
+    r["shape"] = {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "D": D, "causal": causal,
+                  "dtype": str(dtype)[6:]}
+    print(f"flash_attention {what} {str(dtype)[6:]} (B,Sq,Sk,H,D) = "
+          f"{(B, Sq, Sk, H, D)} causal={causal}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{r['library_ms']:.4f} ms (CUDA events); card time a call: kernel "
+          f"{r['device_us']} us, SDPA {r['library_device_us']} us; bound "
+          f"{r['bound_ms']:.4g} ms ({r['bound_by']})")
+    return r
+
+
+def trial_phases(torch) -> dict:
+    """The training backend's slice on the card: flash attention and the
+    SSD chunk at the trials' and whisper's shapes against their plain
+    versions; whisper-base at full width (random weights from a seed):
+    served through the kernels and through the plain versions in bf16 and
+    float32, one float32 loss and its gradients, five bf16 train steps;
+    then real-training trials: a training ScenarioSpec through
+    SweepRunner(device="cuda") beside a sim replica (the SpotTune loop with
+    revocation snapshots and restores), and for each seed arch its 48-step
+    stream, a snapshot and restore, bitwise replay and the card's stream
+    against the CPU's.  Returns the slice's fields of the flash and ssd JSON
+    rows."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.backends.training import (TRAINING_ARCHS, TRAINING_BINDINGS,
+                                               TRAINING_WORKLOADS,
+                                               TrainingTrialBackend, _to_host)
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.trial import TrialSpec
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.train import Trainer, batch_to, make_train_step
+    from repro_torch.models.context import ModelCtx, null_ctx
+    from repro_torch.models.inputs import sample_train_batch
+    from repro_torch.models.model import Model, tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.sweep.runner import SweepRunner
+    from repro_torch.sweep.spec import ScenarioSpec
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}, "ssd": {}}
+    gen = torch.Generator().manual_seed(21)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    # ------------------------------- the kernels at the slice's shapes
+    phase("flash_attention and ssd_chunk at the training backend's shapes "
+          "against their plain versions")
+    flash_err = {"float32": 0.0, "bfloat16": 0.0}
+    for b_, sq, sk, h_, d_, causal in SLICE_FLASH_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(b_, sq, h_, d_, dtype=dt)
+            k, v = (randn(b_, sk, h_, d_, dtype=dt) for _ in range(2))
+            o = kfa.flash_attention_cuda(q, k, v, causal)
+            want = ref.flash_attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            e = (o.float() - want.float()).abs().max().item()
+            print(f"  {names[dt]} (B,Sq,Sk,H,D) = {(b_, sq, sk, h_, d_)} "
+                  f"causal={causal}: max abs err {e:.3g}")
+            if not (o.shape == q.shape and e <= FLASH_TOL[names[dt]]):
+                fail(f"flash_attention {names[dt]} B={b_} Sq={sq} Sk={sk} H={h_} "
+                     f"D={d_} causal={causal}: max abs err {e:.3g} > "
+                     f"{FLASH_TOL[names[dt]]}")
+            flash_err[names[dt]] = max(flash_err[names[dt]], e)
+    ssd_err = 0.0
+    for b_, q_, h_, p_, n_ in SLICE_SSD_SHAPES:
+        x = randn(b_, q_, h_, p_)
+        dt = (torch.rand(b_, q_, h_, generator=gen) * 0.099 + 0.001).cuda()
+        A = -(torch.rand(h_, generator=gen) * 1.5 + 0.5).cuda()
+        Bm, Cm = (randn(b_, q_, 1, n_).expand(b_, q_, h_, n_) for _ in range(2))
+        st = randn(b_, h_, p_, n_)
+        y, s = kss.ssd_chunk_cuda(x, dt, A, Bm, Cm, st)
+        y2, s2 = ref.ssd_chunk_ref(x, dt, A, Bm, Cm, st)
+        torch.cuda.synchronize()
+        e = max((y - y2).abs().max().item(), (s - s2).abs().max().item())
+        ok = all(torch.allclose(a, b, rtol=SSD_TOL, atol=SSD_TOL)
+                 for a, b in ((y, y2), (s, s2)))
+        print(f"  ssd_chunk (B,Q,H,P,N) = {(b_, q_, h_, p_, n_)}, B/C head "
+              f"stride 0: max abs err {e:.3g}")
+        if not ok:
+            fail(f"ssd_chunk {(b_, q_, h_, p_, n_)}: max abs err {e:.3g} "
+                 f"(rtol = atol = {SSD_TOL})")
+        ssd_err = max(ssd_err, e)
+    print(f"{2 * len(SLICE_FLASH_SHAPES)} flash cases (D = 16 at the trials' "
+          f"shapes, Sq != Sk, ragged Sk = 30 and 1500 not causal, whisper-base's "
+          f"D = 64): max abs err f32 {flash_err['float32']:.3g} (tol "
+          f"{FLASH_TOL['float32']}), bf16 {flash_err['bfloat16']:.3g} (tol "
+          f"{FLASH_TOL['bfloat16']}); {len(SLICE_SSD_SHAPES)} ssd_chunk cases "
+          f"(P = N = 16, Q = 32): max abs err {ssd_err:.3g} (tol {SSD_TOL})")
+    out["flash"]["slice_max_abs_err"] = flash_err["bfloat16"]
+    out["flash_f32"]["slice_max_abs_err"] = flash_err["float32"]
+    out["ssd"]["slice_max_abs_err"] = ssd_err
+
+    phase("the kernels' time at the slice's shapes (CUDA events)")
+    out["flash"]["slice_timing"] = {
+        "whisper_encoder": slice_flash_timing(
+            torch, 2, 1500, 1500, 8, 64, False, torch.bfloat16,
+            "whisper-base encoder", gen),
+        "whisper_cross": slice_flash_timing(
+            torch, 2, 256, 1500, 8, 64, False, torch.bfloat16,
+            "whisper-base cross-attention", gen),
+        "qwen_trial": slice_flash_timing(
+            torch, 4, 32, 32, 4, 16, True, torch.bfloat16, "reduced qwen trial", gen)}
+    out["flash_f32"]["slice_timing"] = {
+        "whisper_encoder": slice_flash_timing(
+            torch, 2, 1500, 1500, 8, 64, False, torch.float32,
+            "whisper-base encoder", gen)}
+    b_, q_, h_, p_, n_ = SLICE_SSD_SHAPES[0]
+    x = randn(b_, q_, h_, p_)
+    dt = (torch.rand(b_, q_, h_, generator=gen) * 0.099 + 0.001).cuda()
+    A = -(torch.rand(h_, generator=gen) * 1.5 + 0.5).cuda()
+    Bm, Cm = (randn(b_, q_, 1, n_).expand(b_, q_, h_, n_) for _ in range(2))
+    st = randn(b_, h_, p_, n_)
+    r = {"ms": cuda_ms(lambda: kss.ssd_chunk_cuda(x, dt, A, Bm, Cm, st), iters=200),
+         "plain_ms": cuda_ms(lambda: ref.ssd_chunk_ref(x, dt, A, Bm, Cm, st),
+                             iters=50, warmup=5), "library_ms": None,
+         "device_us": device_us_per_call(
+             lambda: kss.ssd_chunk_cuda(x, dt, A, Bm, Cm, st), iters=50,
+             what="of ssd_chunk, mamba2 trial")}
+    r["bound_ms"], r["bound_by"] = ssd_bound_ms(b_, q_, h_, p_, n_, groups=1)
+    r["shape"] = {"B": b_, "Q": q_, "H": h_, "P": p_, "N": n_, "bc_head_stride": 0}
+    print(f"ssd_chunk mamba2 trial (B,Q,H,P,N) = {(b_, q_, h_, p_, n_)}: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (CUDA events), card time "
+          f"a call {r['device_us']} us; bound "
+          f"{r['bound_ms']:.4g} ms ({r['bound_by']}); no PyTorch call computes it")
+    out["ssd"]["slice_timing"] = {"mamba2_trial": r}
+
+    # ------------------------------- whisper-base at full width: serving
+    phase(f"main path: {WHISPER_ARCH} served at full width on the card "
+          f"(bf16, then float32)")
+    cfg = get_config(WHISPER_ARCH)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    want_fa = cfg.enc_layers + 2 * cfg.n_layers
+    print(f"{cfg.name}: {n_params:,} parameters ({cfg.dtype}), {cfg.enc_layers} "
+          f"encoder + {cfg.n_layers} decoder layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim}, {cfg.enc_seq_len} frames), "
+          f"published width and depth; random weights from seed 0, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    sample = sample_train_batch(np.random.default_rng(0), cfg, WHISPER_BATCH,
+                                WHISPER_PROMPT)
+    toks, frames = sample["tokens"], sample["frames"].cuda()
+    max_len = WHISPER_PROMPT + WHISPER_NEW
+    server = Server(cfg, params, max_len=max_len, device="cuda")
+    plain = Server(cfg, params, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    server.generate({"tokens": toks[:, :16], "frames": frames}, 2)    # warm-up
+    torch.cuda.synchronize()
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = kss.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wout = server.generate({"tokens": toks, "frames": frames}, WHISPER_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    serve_launches = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    print(f"generate: {WHISPER_BATCH} x {WHISPER_PROMPT} prompt tokens and "
+          f"{cfg.enc_seq_len} frames -> {tuple(wout.shape)} tokens in "
+          f"{gen_s * 1e3:.1f} ms; flash launches per prefill {serve_launches[0]}, "
+          f"on the bf16 wgmma route {serve_launches[1]} (want {want_fa}: "
+          f"{cfg.enc_layers} encoder, {cfg.n_layers} decoder self, "
+          f"{cfg.n_layers} cross)")
+    if serve_launches != (want_fa, want_fa):
+        fail(f"whisper's prefill launched flash {serve_launches} (want {want_fa} "
+             "on the bf16 route)")
+    if not (int(wout.min()) >= 0 and int(wout.max()) < cfg.vocab_size):
+        fail("whisper generated tokens out of range")
+    dev_tok = torch.as_tensor(toks, device="cuda").long()
+    with torch.inference_mode():
+        def prefill_ms(srv, n=3):
+            srv.prefill(dev_tok, frames)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                srv.prefill(dev_tok, frames)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n * 1e3
+        pre_ms, pre_plain_ms = prefill_ms(server), prefill_ms(plain)
+        lg_k = server.prefill(dev_tok, frames)[0].float()[:, -1]
+        lg_r = plain.prefill(dev_tok, frames)[0].float()[:, -1]
+    lg_err = (lg_k - lg_r).abs().max().item()
+    lg_tol = SERVE_REL_TOL * lg_r.abs().max().item()
+    print(f"bf16 prefill {pre_ms:.2f} ms through the kernels, {pre_plain_ms:.2f} "
+          f"ms plain; logits max abs diff {lg_err:.4g} (tol {lg_tol:.4g} = "
+          f"{SERVE_REL_TOL} x max |logit|); decode "
+          f"{(gen_s * 1e3 - pre_ms) / (WHISPER_NEW - 1):.3f} ms a token step")
+    if not lg_err <= lg_tol:
+        fail("whisper bf16 prefill logits, kernels against plain, beyond the "
+             "stated tolerance")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    s32 = Server(cfg32, p32, max_len=max_len, device="cuda")
+    s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    f32_frames = frames.float()
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = 0
+    o32 = s32.generate({"tokens": toks, "frames": f32_frames}, WHISPER_NEW)
+    torch.cuda.synchronize()
+    tf32_serve = (kfa.LAUNCHES, kfa.TF32_LAUNCHES)
+    o32_r = s32_r.generate({"tokens": toks, "frames": f32_frames}, WHISPER_NEW)
+    same32 = int((o32 == o32_r).sum())
+    print(f"float32 (weights cast from the bf16 ones): {same32} of {o32.numel()} "
+          f"greedy tokens equal, kernels against plain; flash launches per "
+          f"prefill {tf32_serve[0]}, on the 3xTF32 route {tf32_serve[1]}")
+    if tf32_serve != (want_fa, want_fa) or same32 != o32.numel():
+        fail(f"whisper float32 serving: launches {tf32_serve} (want {want_fa}), "
+             f"{same32} of {o32.numel()} tokens equal")
+    del s32, s32_r, server, plain
+    out["flash"]["whisper_serve"] = {
+        "arch": cfg.name, "batch": WHISPER_BATCH, "prompt": WHISPER_PROMPT,
+        "frames": cfg.enc_seq_len, "new_tokens": WHISPER_NEW,
+        "launches_per_prefill": serve_launches[1], "prefill_ms": pre_ms,
+        "prefill_plain_ms": pre_plain_ms, "generate_s": gen_s,
+        "logit_err": lg_err, "logit_tol": lg_tol}
+    out["flash_f32"]["whisper_serve"] = {
+        "launches_per_prefill": tf32_serve[1], "tokens_equal": same32,
+        "tokens": o32.numel()}
+
+    # --------------------- whisper-base: float32 loss and gradients
+    phase(f"main path: {WHISPER_ARCH} (float32) Model.loss and its gradients "
+          f"at full width, through the kernels and through the plain versions")
+    B, S = WHISPER_BATCH, WHISPER_PROMPT
+    model32 = Model(cfg32)
+    batch32 = batch_to(SyntheticLMDataset(cfg32, B, S, seed=0).get_batch(0), "cuda")
+
+    def loss_and_grads(ctx):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p32)
+        loss, _ = model32.loss(p, batch32, ctx)
+        n = kfa.TF32_LAUNCHES
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        return float(loss.detach()), [g.detach() for g in grads], n
+
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = 0
+    loss_k, g_k, fwd_fa = loss_and_grads(null_ctx(attn_chunk=min(512, S), remat="none"))
+    loss_r, g_r, _ = loss_and_grads(null_ctx(attn_chunk=min(512, S), remat="none",
+                                             kernels="ref"))
+    leaf = leaf_names(p32)
+    errs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(g_k, g_r)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    print(f"batch {B} x {S} tokens and {cfg.enc_seq_len} frames: loss through the "
+          f"kernels {loss_k:.7f}, plain {loss_r:.7f}, relative diff {loss_rel:.3g} "
+          f"(tol {TRAIN_LOSS_RTOL}); worst of {len(errs)} gradient leaves "
+          f"{leaf[worst]} {errs[worst]:.3g} of its largest (tol {TRAIN_GRAD_TOL}); "
+          f"flash launches in the forward {fwd_fa} (3xTF32, want {want_fa})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL
+            and fwd_fa == want_fa):
+        fail(f"whisper float32 training through the kernels: loss {loss_rel:.3g} "
+             f"relative, worst leaf {errs[worst]:.3g}, {fwd_fa} flash launches")
+    out["flash_f32"]["whisper_train"] = {
+        "loss_rel": loss_rel, "worst_leaf": leaf[worst],
+        "worst_leaf_err": errs[worst], "launches_per_forward": fwd_fa}
+    del p32, g_k, g_r, batch32
+    torch.cuda.empty_cache()
+
+    # --------------------- whisper-base: the config's bf16, 5 train steps
+    phase(f"main path: {WHISPER_ARCH} ({cfg.dtype}, float32 master) "
+          f"{WHISPER_STEPS} train steps through the kernels")
+    opt = adamw(TRAIN_LR, keep_master=(cfg.opt_precision == "fp32"))
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step_fn = make_train_step(model, opt, null_ctx(attn_chunk=min(512, S),
+                                                   remat="none"))
+    batch = batch_to(SyntheticLMDataset(cfg, B, S, seed=0).get_batch(0), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = 0
+    losses, step_ms = [], []
+    for _ in range(WHISPER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fa_step = kfa.WGMMA_LAUNCHES / WHISPER_STEPS
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof.step()
+    busy = busy_us(seen) / 1e6
+    idle = 1 - busy / prof_wall
+    ms_step = sum(step_ms[-3:]) / 3
+    print(f"losses {[round(x, 5) for x in losses]} on the repeated batch (lr "
+          f"{TRAIN_LR}); step ms {[round(x, 1) for x in step_ms]}, {ms_step:.2f} ms "
+          f"a step over the last 3; peak memory {peak_gb:.2f} GB; flash launches "
+          f"a step {fa_step:g} (bf16 wgmma, want {want_fa}); under the profiler: "
+          f"{len(seen)} kernels a step, wall {prof_wall * 1e3:.2f} ms, card busy "
+          f"{busy * 1e3:.2f} ms, idle {100 * idle:.2f}%")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"whisper bf16 training: losses {losses}")
+    if fa_step != want_fa:
+        fail(f"whisper bf16 training launched flash {fa_step:g} times a step")
+    out["flash"]["whisper_train"] = {
+        "arch": cfg.name, "dtype": cfg.dtype, "master": "float32", "batch": B,
+        "seq": S, "losses": losses, "step_ms": step_ms, "ms_per_step": ms_step,
+        "peak_memory_gb": peak_gb, "launches_per_step": fa_step,
+        "kernels_per_step_seen": len(seen), "busy_ms": busy * 1e3,
+        "wall_ms": prof_wall * 1e3, "idle_share": idle}
+    del state, m, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ real-training trials: the loop
+    phase("main path: a backend='training' ScenarioSpec (qwen1.5-0.5b) through "
+          "SweepRunner(device='cuda') beside a sim replica: the SpotTune loop "
+          "on real trials")
+    t_trials = time.perf_counter()
+    sim = ScenarioSpec(workload="LoR", market_seed=0, days=2.0)
+    train = ScenarioSpec(workload="qwen1.5-0.5b", market_seed=0,
+                         backend="training", days=2.0)
+    tuners = SweepRunner(device="cuda").prepare([sim, train])
+    be = tuners[1].engine.backend
+    if not (isinstance(be, TrainingTrialBackend) and be.device.type == "cuda"):
+        fail(f"the training replica's backend is {type(be).__name__} on "
+             f"{getattr(be, 'device', None)}")
+    res_sim = tuners[0].run()
+    torch.cuda.synchronize()
+    kfa.LAUNCHES = kss.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = tuners[1].run()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_launches = (kfa.LAUNCHES, kss.LAUNCHES)
+    runs = list(be._runs.values())
+    steps = sum(r.trainer.step + (r.replayer.step if r.replayer else 0) for r in runs)
+    host = [r.trainer.mean_step_time() for r in runs]
+    print(f"sim replica: {res_sim.steps_total:.0f} steps; training replica: "
+          f"{res.steps_total:.0f} steps, {res.redeployments} redeployments, "
+          f"{be.snapshots} snapshots, {be.restores} restores, {be.snapshot_skips} "
+          f"skipped, billed ${res.cost:.2f}, refunded ${res.refunded:.2f}; "
+          f"ranking {len(res.predicted_rank)} trials, top {res.predicted_rank[0]}")
+    print(f"{len(runs)} runs, {steps} train steps on the card (cursors and "
+          f"replayers) in {loop_s:.2f} s of wall ({steps / loop_s:.1f} steps/s); "
+          f"host_step_time mean {1e3 * sum(host) / len(host):.2f} ms; flash "
+          f"launches {loop_launches[0]} ({loop_launches[0] / max(steps, 1):.2f} a "
+          f"step: the reduced qwen has 2 layers)")
+    if not (res.steps_total > 0 and res.redeployments > 0 and be.snapshots > 0
+            and be.restores > 0 and res.refunded > 0
+            and len(res.predicted_rank) == 8
+            and res.predicted_rank[0].startswith("train-qwen1.5-0.5b/")):
+        fail("the SpotTune loop on real trials did not run whole: steps, "
+             "redeployments, snapshots, restores, refunds or the ranking missing")
+    if loop_launches[0] == 0:
+        fail("the training loop launched no flash kernel")
+    shutil.rmtree(be.store.inner.root, ignore_errors=True)
+    trials = {"loop": {
+        "arch": "qwen1.5-0.5b", "steps_total": res.steps_total,
+        "redeployments": res.redeployments, "snapshots": be.snapshots,
+        "restores": be.restores, "refunded": res.refunded, "cost": res.cost,
+        "wall_s": loop_s, "train_steps": steps, "flash_launches": loop_launches[0],
+        "host_step_ms": 1e3 * sum(host) / len(host)}}
+
+    # ----------------------- real-training trials: each arch on its own
+    phase("the three seed archs' trials on the card: 48-step streams, a "
+          "snapshot and restore, bitwise replay, card against CPU")
+    for arch in TRAINING_ARCHS:
+        w = TRAINING_WORKLOADS[arch]
+        t = TrialSpec(w, w.hp_grid()[0], 0)
+        card = TrainingTrialBackend(device="cuda")
+        run = card._run(t)
+        kfa.LAUNCHES = kss.LAUNCHES = 0
+        t0 = time.perf_counter()
+        card._ensure(run, TRIAL_REPLAY_STEP)
+        mid = _to_host(run.trainer.state)
+        stream = card.metric_range(t, 1, w.max_trial_steps // w.val_every)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = run.trainer.step
+        per_step = (kfa.LAUNCHES / n, kss.LAUNCHES / n)
+        replayed = card._host_state(run, TRIAL_REPLAY_STEP)
+        bitwise = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                      for a, b in zip(tree_leaves(replayed), tree_leaves(mid)))
+        differ = [nm for nm, a, b in zip(leaf_names(replayed), tree_leaves(replayed),
+                                         tree_leaves(mid))
+                  if isinstance(a, torch.Tensor) and not torch.equal(a, b)]
+        snap = card.snapshot(t, 24, deadline_s=120.0)
+        card.restore(t, 24)
+        restored = card.last_restore[2]
+        restore_ok = snap == 24.0 and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(tree_leaves(restored),
+                            tree_leaves(card._host_state(run, 24))))
+        cpu = TrainingTrialBackend(device="cpu")
+        cstream = cpu.metric_range(t, 1, w.max_trial_steps // w.val_every)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(stream, cstream))
+        print(f"{arch}: {n} steps in {wall:.2f} s ({n / wall:.1f} steps/s, "
+              f"host_step_time {1e3 * card.host_step_time(t):.2f} ms); launches a "
+              f"step flash {per_step[0]:g}, ssd_chunk {per_step[1]:g}; losses "
+              f"{stream[0]:.4f} -> {stream[-1]:.4f}; replay to step "
+              f"{TRIAL_REPLAY_STEP} bitwise equal on every leaf: {bitwise}"
+              + (f" (differ: {differ[:6]})" if differ else "")
+              + f"; snapshot 24 and restore bit-identical: {restore_ok}; card "
+              f"against CPU stream max relative diff {rel:.3g} (tol {TRIAL_RTOL})")
+        tc = run.trainer.cfg
+        want = ((0, tc.n_layers * -(-run.trainer.data.seq // tc.ssm_chunk))
+                if tc.family == "ssm" else
+                (tc.enc_layers + 2 * tc.n_layers if tc.family == "audio"
+                 else tc.n_layers, 0))
+        if per_step != want:
+            fail(f"{arch} trial launched (flash, ssd_chunk) {per_step} a step, "
+                 f"want {want}")
+        if not (bitwise and restore_ok and rel <= TRIAL_RTOL
+                and all(math.isfinite(x) for x in stream)):
+            fail(f"{arch} trial: bitwise replay {bitwise}, restore {restore_ok}, "
+                 f"card against CPU {rel:.3g}")
+        trials[arch] = {"steps": n, "wall_s": wall, "host_step_ms":
+                        1e3 * card.host_step_time(t), "flash_per_step": per_step[0],
+                        "ssd_per_step": per_step[1], "bitwise_replay": bitwise,
+                        "restore_bit_identical": restore_ok, "card_vs_cpu_rel": rel,
+                        "first_loss": stream[0], "last_loss": stream[-1]}
+        shutil.rmtree(card.store.inner.root, ignore_errors=True)
+        shutil.rmtree(cpu.store.inner.root, ignore_errors=True)
+
+    phase("a trial's steps under torch.profiler (reduced qwen, bf16)")
+    w = TRAINING_WORKLOADS["qwen1.5-0.5b"]
+    tr = Trainer(**TRAINING_BINDINGS[w.name].trainer_kwargs({"lr": 3e-3},
+                                                           w.val_every),
+                 device="cuda")
+    tr.run_steps(3)
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_steps(4)
+            torch.cuda.synchronize()
+            trial_wall = time.perf_counter() - t0
+            prof.step()
+    busy = busy_us(seen) / 1e6
+    trial_idle = 1 - busy / trial_wall
+    print(f"4 trial steps: wall {trial_wall * 1e3:.2f} ms, {len(seen) / 4:.0f} "
+          f"kernels a step, card busy {busy * 1e3:.2f} ms, idle "
+          f"{100 * trial_idle:.2f}%")
+    trials["profile"] = {"kernels_per_step": len(seen) / 4,
+                         "wall_ms_per_step": trial_wall * 1e3 / 4,
+                         "busy_ms_per_step": busy * 1e3 / 4, "idle_share": trial_idle}
+    trials["phases_wall_s"] = time.perf_counter() - t_trials
+    out["flash"]["trials"] = trials
+    out["ssd"]["trials_launches_per_step"] = trials["mamba2-130m"]["ssd_per_step"]
+    wall = time.perf_counter() - t_all
+    print(f"the training backend's phases: {wall:.1f} s of wall (trials "
+          f"{trials['phases_wall_s']:.1f} s)")
+    out["flash"]["slice_wall_s"] = wall
     return out
 
 
@@ -3140,11 +3681,16 @@ def main() -> None:
         "lstm_stack (inference)"]
     for key, val in phi3_phase(torch).items():
         (flash_f32_row if "_f32_" in key else flash_row)[key] = val
-    # the model's training path last: it needs the card's memory to itself
+    # the model's training path next: it needs the card's memory to itself
     train = model_train_phases(torch)
     flash_row.update(train["flash"])
     flash_f32_row.update(train["flash_f32"])
     ssd_row.update(train["ssd"])
+    # the training backend's slice last: whisper-base and real-training trials
+    trials = trial_phases(torch)
+    flash_row.update(trials["flash"])
+    flash_f32_row.update(trials["flash_f32"])
+    ssd_row.update(trials["ssd"])
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

@@ -6,12 +6,18 @@ registry names two implementations:
   sim        ``repro_torch.core.trial.SimTrialBackend`` — synthetic
              anchor-lattice curves and a hand-modelled step-time table.
              Dependency-light, bit-exact, the default everywhere.
-  training   real training runs of small seed configs; not ported yet
-             (ROADMAP A11): ``make_backend("training")`` raises.
+  training   ``repro_torch.backends.training.TrainingTrialBackend``: each
+             trial is a real training run of a small seed config on the
+             card (``device="cpu"`` for the plain versions); metric
+             streams are real losses, snapshots go through
+             ``repro_torch.checkpoint``, and per-instance step times come
+             from the train step's cost through the simulated pool's
+             roofline.
 
 ``BACKENDS`` is the machine-readable registry (consumed by
 ``repro_torch.tuner.registry.describe_json`` and ``ScenarioSpec.validate``);
-``make_backend`` constructs by name.
+``make_backend`` constructs by name.  The training backend (and the model
+stack) is imported lazily, so sim-only paths never pay for it.
 """
 
 from __future__ import annotations
@@ -40,15 +46,17 @@ BACKENDS = {
 
 
 def make_backend(name: str, pool=None, **kw):
-    """Construct a backend by registry name."""
+    """Construct a backend by registry name.  ``device`` (the training
+    backend's, "cuda" by default) is taken by the training backend and
+    ignored by the sim, whose curves hold no tensors."""
     if name == "sim":
         from repro_torch.core.market import DEFAULT_POOL
         from repro_torch.core.trial import SimTrialBackend
+        kw.pop("device", None)
         return SimTrialBackend(list(pool or DEFAULT_POOL), **kw)
     if name == "training":
-        raise NotImplementedError(
-            "the training backend is not ported yet (ROADMAP A11): the port "
-            "runs simulated trials only")
+        from repro_torch.backends.training import TrainingTrialBackend
+        return TrainingTrialBackend(pool=pool, **kw)
     raise ValueError(f"unknown backend {name!r} "
                      f"(registered: {sorted(BACKENDS)})")
 

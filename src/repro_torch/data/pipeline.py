@@ -1,9 +1,10 @@
 """Data pipeline: deterministic synthetic LM batches, DP-rank sharding,
 threaded prefetch.
 
-The port of ``repro.data.pipeline``.  Batches are numpy, drawn by the
-port's ``models.inputs.sample_train_batch`` from the same seed sequence as
-the JAX package, so the two packages see bit-equal batches.
+The port of ``repro.data.pipeline``.  Batches are numpy (whisper's
+``frames`` a CPU tensor in the config dtype), drawn by the port's
+``models.inputs.sample_train_batch`` from the same seed sequence as the
+JAX package, so the two packages see bit-equal batches.
 
 Determinism contract: batch contents are a pure function of
 (seed, step, dp_rank): a restarted or re-deployed trial (the SpotTune

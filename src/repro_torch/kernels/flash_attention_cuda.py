@@ -165,7 +165,7 @@ def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
 class FlashAttention(torch.autograd.Function):
     """Flash attention with a gradient: the forward by device (with
     ``use_kernel`` the kernel and its lse, else
-    ``ref.flash_attention_fwd_lse``), saving (q, k, v, o, lse); the
+    ``ref.flash_attention_fwd_lse``), saving (q, k, v, lse); the
     backward ``ref.flash_attention_bwd`` over key chunks of ``chunk`` (None:
     one chunk).  No fallback: a kernel that cannot run raises."""
 
@@ -175,13 +175,13 @@ class FlashAttention(torch.autograd.Function):
             o, lse = flash_attention_lse_cuda(q, k, v, causal, scale)
         else:
             o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk)
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.causal, ctx.scale, ctx.chunk = causal, scale, chunk
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = ref.flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, ctx.causal,
                                              ctx.scale, ctx.chunk)
         return dq, dk, dv, None, None, None, None

@@ -209,14 +209,22 @@ def flash_attention_fwd_lse(q, k, v, causal: bool = True, scale=None,
     return o.transpose(1, 2).to(q.dtype), lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, scale=None,
+def flash_attention_bwd(q, k, v, lse, do, causal: bool = True, scale=None,
                         chunk=None):
     """The flash backward, the port of the JAX package's
-    ``models.attention._flash_bwd_rule`` line for line, in float32: with
-    D = sum(do * o) over the head dim, per key chunk p = exp(s - lse),
-    dv = p^T.do, dp = do.v^T, ds = p * (dp - D) * scale, then dq (summed
-    over the chunks), dk = ds^T.q.  q, o, do (B,Sq,H,D); k, v (B,Sk,H,D);
-    lse (B,H,Sq) float32 -> (dq, dk, dv), each in its input's type."""
+    ``models.attention._flash_bwd_rule``, in float32: per key chunk
+    p = exp(s - lse), dv = p^T.do, dp = do.v^T, ds = p * (dp - D) * scale,
+    then dq (summed over the chunks), dk = ds^T.q.  The reference takes
+    D = sum(do * o) over the head dim; here D = sum(p * dp) / sum(p) over
+    the keys, from the probabilities this backward recomputes (a first pass
+    over the chunks where there are several).  The two are equal in exact
+    arithmetic (o = p.v and sum(p) = 1), but the reference's D carries the
+    forward's rounding of o and lse into every ds: where the attention is
+    nearly uniform (whisper's cross-attention over 1500 frames) dq cancels
+    to far below |o|, and sum(ds) must vanish for it to, which this D makes
+    hold whatever the forward's rounding.  q, do (B,Sq,H,D); k, v
+    (B,Sk,H,D); lse (B,H,Sq) float32 -> (dq, dk, dv), each in its input's
+    type."""
     f32 = torch.float32
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
@@ -224,13 +232,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, scale=None,
     c = _key_chunk(Sk, chunk)
     q32 = q.to(f32)
     do32 = do.to(f32).transpose(1, 2)                        # (B,H,Sq,D)
-    o32 = o.to(f32).transpose(1, 2)
-    Dsum = torch.sum(do32 * o32, dim=-1)                      # (B,H,Sq)
     qpos = torch.arange(Sq, device=q.device)
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
-    dq = torch.zeros((B, Sq, H, Dh), dtype=f32, device=q.device)
-    dks, dvs = [], []
-    for start in range(0, Sk, c):
+
+    def chunk_terms(start):
+        """(k, p, dp) of the key chunk at ``start``."""
         k32 = k[:, start:start + c].to(f32)
         v32 = v[:, start:start + c].to(f32)
         s = torch.einsum("bqhd,bchd->bhqc", q32 * scale, k32)
@@ -238,8 +244,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, scale=None,
             kpos = start + torch.arange(c, device=q.device)
             s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
         p = torch.exp(s - lse[..., None])                     # (B,H,Sq,C)
+        return k32, p, torch.einsum("bhqd,bchd->bhqc", do32, v32)
+
+    starts = range(0, Sk, c)
+    terms = [chunk_terms(0)] if c == Sk else map(chunk_terms, starts)
+    pdp = psum = 0
+    for _, p, dp in terms:
+        pdp = pdp + torch.sum(p * dp, dim=-1)
+        psum = psum + torch.sum(p, dim=-1)
+    Dsum = pdp / psum
+    dq = torch.zeros((B, Sq, H, Dh), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for start in starts:
+        k32, p, dp = terms[0] if c == Sk else chunk_terms(start)
         dvs.append(torch.einsum("bhqc,bhqd->bchd", p, do32))
-        dp = torch.einsum("bhqd,bchd->bhqc", do32, v32)
         ds = p * (dp - Dsum[..., None]) * scale
         dq = dq + torch.einsum("bhqc,bchd->bqhd", ds, k32)
         dks.append(torch.einsum("bhqc,bqhd->bchd", ds, q32))

@@ -1,3 +1,5 @@
-"""Launchers: ``serve`` (batched greedy decoding) and ``train`` (the train
-step and ``Trainer`` with checkpoint/restart); the rest of the JAX
-package's ``launch`` (dry-run, meshes, sharding) is not ported yet."""
+"""Launchers: ``serve`` (batched greedy decoding), ``train`` (the train
+step and ``Trainer`` with checkpoint/restart) and ``roofline`` (the
+simulated pool's rates, constants only); the rest of the JAX package's
+``launch`` (dry-run, meshes, sharding, the HLO cost walk) is not ported
+yet."""

@@ -3,7 +3,9 @@
 The port of ``repro.launch.serve``: one prefill over the prompts, then a
 host loop of single-token decode steps, each feeding back the argmax.  On
 the card the prefill runs the ``flash_attention`` and ``ssd_chunk`` kernels
-(through ``Model.prefill``); decode is plain PyTorch.
+(through ``Model.prefill``); decode is plain PyTorch.  Whisper's prefill
+takes the stub frame embeddings (``frames``) beside the prompt; its
+encoder runs once there, and decode reads the cached cross K/V.
 """
 
 from __future__ import annotations
@@ -31,11 +33,15 @@ class Server:
         self.max_len = max_len
 
     @torch.inference_mode()
-    def prefill(self, tokens):
-        """(last-position logits (B,1,V), cache padded to ``max_len``).
+    def prefill(self, tokens, frames=None):
+        """(last-position logits (B,1,V), cache padded to ``max_len``);
+        ``frames`` (B, enc_seq_len, D), whisper's, on the server's device.
         Serving takes no gradient: the kernels run as they do in
         ``generate``, whatever the weights' ``requires_grad``."""
-        return self.model.prefill(self.params, {"tokens": tokens}, self.ctx,
+        batch = {"tokens": tokens}
+        if frames is not None:
+            batch["frames"] = frames
+        return self.model.prefill(self.params, batch, self.ctx,
                                   cache_len=self.max_len)
 
     @torch.inference_mode()
@@ -48,14 +54,18 @@ class Server:
     @torch.inference_mode()
     def generate(self, batch: dict, max_new_tokens: int = 32):
         """batch: prefill inputs ({'tokens': (B, S_prompt)}, numpy or a
-        tensor).  Returns (B, max_new_tokens) int32 greedy continuations, on
-        the server's device."""
+        tensor, and whisper's ``frames``, a tensor).  Returns (B,
+        max_new_tokens) int32 greedy continuations, on the server's
+        device."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        prompt_len = tokens.shape[1]
+        frames = batch.get("frames")
+        if frames is not None:
+            frames = torch.as_tensor(frames, device=self.device)
+        prompt_len = tokens.shape[1]      # the frames sit in the encoder
         if prompt_len + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {prompt_len} + {max_new_tokens} new tokens "
                              f"exceeds max_len {self.max_len}")
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, frames)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out = [tok]
         for i in range(max_new_tokens - 1):

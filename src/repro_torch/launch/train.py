@@ -33,10 +33,10 @@ from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
 
 def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``: state
-    {"params", "opt"}; batch {"tokens", "labels"} tensors on the
-    parameters' device; metrics {"loss", "xent", "aux", "lr",
-    "grad_norm"} (tensors, and a float lr).  The given state is not
-    changed."""
+    {"params", "opt"}; batch {"tokens", "labels"} (and whisper's
+    ``frames``) tensors on the parameters' device; metrics {"loss",
+    "xent", "aux", "lr", "grad_norm"} (tensors, and a float lr).  The given
+    state is not changed."""
     def train_step(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(True),
                           state["params"])
@@ -64,8 +64,11 @@ def init_state(model: Model, optimizer: Optimizer, seed: int = 0, device="cuda")
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A numpy batch ({"tokens", "labels"}) as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v), device=device).long()
+    """A batch as ``SyntheticLMDataset`` makes it, on ``device``: the token
+    ids and labels (numpy) as int64 tensors, whisper's ``frames`` (a float
+    tensor) in its own type."""
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) and v.is_floating_point()
+                else torch.as_tensor(np.asarray(v), device=device).long())
             for k, v in batch.items()}
 
 

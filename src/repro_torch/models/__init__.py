@@ -1,5 +1,6 @@
-"""The model stack's serving path in PyTorch: layers, attention (on the
+"""The model stack in PyTorch: layers, attention (on the
 ``flash_attention`` kernel), Mamba2 SSD (on the ``ssd_chunk`` kernel),
-blocks and ``Model`` for the dense, ssm and hybrid families.  Parameters keep
-the JAX package's pytree layout (nested dicts, layer stacks along a leading
-L axis), so ``model.params_from_numpy`` carries its weights across."""
+blocks and ``Model`` for the dense, ssm, hybrid and audio (whisper)
+families, serving and training.  Parameters keep the JAX package's pytree
+layout (nested dicts, layer stacks along a leading L axis), so
+``model.params_from_numpy`` carries its weights across."""

@@ -1,11 +1,12 @@
 """Block composition: pre-norm transformer and mamba blocks.
 
-The port of ``repro.models.blocks`` for the dense, ssm and hybrid families.
-Each block provides ``init_*``, a full-sequence ``*_fwd``, a ``*_prefill``
-(returns a decode cache) and a ``*_decode`` (one token).  Blocks are pure
-functions over per-layer parameter dicts; ``model.py`` stacks them along a
-leading L axis and loops over it.  MLA, MoE layers and the encoder-decoder
-blocks are not ported yet (ROADMAP A10) and raise.
+The port of ``repro.models.blocks`` for the dense, ssm, hybrid and audio
+families.  Each block provides ``init_*``, a full-sequence ``*_fwd``, a
+``*_prefill`` (returns a decode cache) and a ``*_decode`` (one token);
+whisper's encoder block has the forward only.  Blocks are pure functions
+over per-layer parameter dicts; ``model.py`` stacks them along a leading L
+axis and loops over it.  MLA and MoE layers are not ported yet (ROADMAP
+A10) and raise.
 """
 
 from __future__ import annotations
@@ -146,3 +147,108 @@ def mamba_decode(x, p, cfg, ctx, cache):
     h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
     y, cache = ssd.mamba_decode(h, p["mixer"], cfg, cache, ctx)
     return x + y, cache
+
+
+# ---------------------------------------------------------------------------
+# whisper-style encoder / decoder blocks (LayerNorm + non-gated GeLU MLP)
+# ---------------------------------------------------------------------------
+
+
+def init_enc_block(gen, cfg, device):
+    return {
+        "ln1": layers.init_layernorm(cfg.d_model, device),
+        "attn": attn_lib.init_attention(gen, cfg, device),
+        "ln2": layers.init_layernorm(cfg.d_model, device),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, False,
+                               layers.dtype_of(cfg), device),
+    }
+
+
+def enc_block_fwd(x, p, cfg, ctx, positions):
+    """Non-causal self-attention over the frames (no RoPE), then the MLP."""
+    h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_lib.qkv_project(h, p["attn"], cfg, positions, rope=False)
+    o = _sharded_attention(q, k, v, cfg, ctx, causal=False)
+    x = x + attn_lib.merge_heads(o, cfg) @ p["attn"]["wo"]
+    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.mlp(h, p["mlp"], False)
+
+
+def init_dec_block(gen, cfg, device):
+    dt = layers.dtype_of(cfg)
+    return {
+        "ln1": layers.init_layernorm(cfg.d_model, device),
+        "self_attn": attn_lib.init_attention(gen, cfg, device),
+        "ln_x": layers.init_layernorm(cfg.d_model, device),
+        "cross_attn": attn_lib.init_attention(gen, cfg, device),
+        "ln2": layers.init_layernorm(cfg.d_model, device),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, False, dt, device),
+    }
+
+
+def _cross_kv(enc_out, p, cfg):
+    """Cross-attention K/V from the encoder output: (B, Se, KV, Dh) each."""
+    B, Se, _ = enc_out.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(B, Se, kv, dh)
+    v = (enc_out @ p["wv"]).reshape(B, Se, kv, dh)
+    return k, v
+
+
+def _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out):
+    """The decoder block's two attention halves -> (x, self k, self v,
+    cross k, cross v).  Cross-attention is non-causal with Sq != Sk (the
+    prompt against the frames)."""
+    h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = attn_lib.qkv_project(h, p["self_attn"], cfg, positions, rope=False)
+    o = _sharded_attention(q, k, v, cfg, ctx, causal=True)
+    x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
+
+    h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
+    B, S, _ = h.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    qx = (h @ p["cross_attn"]["wq"]).reshape(B, S, kv, cfg.n_heads // kv, dh)
+    kx, vx = _cross_kv(enc_out, p["cross_attn"], cfg)
+    o = _sharded_attention(qx, kx, vx, cfg, ctx, causal=False)
+    x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
+    return x, k, v, kx, vx
+
+
+def dec_block_fwd(x, p, cfg, ctx, positions, enc_out):
+    x = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)[0]
+    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.mlp(h, p["mlp"], False)
+
+
+def dec_block_prefill(x, p, cfg, ctx, positions, enc_out):
+    """-> (x, cache): the self-attention K/V and the cross K/V, computed
+    once here and read by every decode step."""
+    x, k, v, kx, vx = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)
+    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + layers.mlp(h, p["mlp"], False)
+    return x, {"k": k, "v": v, "xk": kx, "xv": vx}
+
+
+def dec_block_decode(x, p, cfg, ctx, cache, pos: int):
+    """h (B,1,D); cache {k, v, xk, xv}: the self K/V updated in place at
+    ``pos``, the cross K/V read whole."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
+    q, k_new, v_new = attn_lib.qkv_project(h, p["self_attn"], cfg, positions,
+                                           rope=False)
+    self_cache = attn_lib.cache_update({"k": cache["k"], "v": cache["v"]},
+                                       k_new, v_new, pos)
+    o = attn_lib.decode_attention(q, self_cache, pos)
+    x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
+
+    h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    qx = (h @ p["cross_attn"]["wq"]).reshape(B, 1, kv, cfg.n_heads // kv, dh)
+    Se = cache["xk"].shape[1]
+    o = attn_lib.decode_attention(qx, {"k": cache["xk"], "v": cache["xv"]}, Se - 1)
+    x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
+
+    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + layers.mlp(h, p["mlp"], False)
+    return x, cache

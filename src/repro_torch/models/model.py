@@ -6,8 +6,9 @@ The port of ``repro.models.model`` for the families
   ssm      mamba2 stack
   hybrid   mamba2 stack + one weight-shared attention block after every
            ``attn_every`` layers (zamba2)
+  audio    whisper-style encoder-decoder over stub frame embeddings
 
-(``moe``, ``audio`` and ``vlm`` are not ported yet and raise).  Parameters
+(``moe`` and ``vlm`` are not ported yet and raise).  Parameters
 keep the JAX package's pytree: nested dicts with the layer stacks along a
 leading L axis.  Where the JAX package runs ``lax.scan`` over a stack, the
 port loops in Python over its rows.  ``params_from_numpy`` carries the JAX
@@ -38,7 +39,7 @@ from repro_torch.models import blocks, layers
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "audio")
 
 
 def _stacked_init(init_fn, n):
@@ -79,11 +80,20 @@ class Model:
         elif cfg.family == "ssm":
             p["layers"] = _stacked_init(
                 lambda: blocks.init_mamba(gen, cfg, dev), cfg.n_layers)
-        else:
+        elif cfg.family == "hybrid":
             p["mamba_layers"] = _stacked_init(
                 lambda: blocks.init_mamba(gen, cfg, dev), cfg.n_layers)
             p["shared_block"] = blocks.init_block(gen, cfg, False, dev)
-        p["ln_f"] = layers.init_rmsnorm(cfg.d_model, dev)
+        else:
+            p["enc_pos"] = layers.embed_init(gen, cfg.enc_seq_len, cfg.d_model,
+                                             layers.dtype_of(cfg), dev)
+            p["enc_layers"] = _stacked_init(
+                lambda: blocks.init_enc_block(gen, cfg, dev), cfg.enc_layers)
+            p["ln_enc"] = layers.init_layernorm(cfg.d_model, dev)
+            p["dec_layers"] = _stacked_init(
+                lambda: blocks.init_dec_block(gen, cfg, dev), cfg.n_layers)
+        p["ln_f"] = (layers.init_layernorm(cfg.d_model, dev)
+                     if cfg.family == "audio" else layers.init_rmsnorm(cfg.d_model, dev))
         if not cfg.tie_embeddings:
             p["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                              layers.dtype_of(cfg), dev)
@@ -99,9 +109,25 @@ class Model:
 
     def _unembed(self, params, x, ctx):
         cfg = self.cfg
-        x = layers.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        norm = layers.layer_norm if cfg.family == "audio" else layers.rms_norm
+        x = norm(x, params["ln_f"], cfg.norm_eps)
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
         return ctx.constrain(x @ w, "logits")
+
+    def _encode(self, params, batch, ctx):
+        """Whisper's encoder over the stub frame embeddings ``batch["frames"]``
+        (B, Se, D): absolute encoder positions, the encoder stack, a final
+        LayerNorm."""
+        cfg = self.cfg
+        frames = batch["frames"].to(layers.dtype_of(cfg))
+        Se = frames.shape[1]
+        x = ctx.constrain(frames + params["enc_pos"][None, :Se], "residual")
+        positions = torch.arange(Se, device=x.device)
+        body = self._maybe_remat(
+            lambda x, lp: blocks.enc_block_fwd(x, lp, cfg, ctx, positions), ctx)
+        for i in range(cfg.enc_layers):
+            x = body(x, _row(params["enc_layers"], i))
+        return layers.layer_norm(x, params["ln_enc"], cfg.norm_eps)
 
     def _segments(self):
         cfg = self.cfg
@@ -149,6 +175,13 @@ class Model:
             for i in range(cfg.n_layers):
                 x, a = body(x, _row(params["layers"], i))
                 aux = aux + a
+        elif cfg.family == "audio":
+            enc_out = self._encode(params, batch, ctx)
+            body = self._maybe_remat(
+                lambda x, lp, e: blocks.dec_block_fwd(x, lp, cfg, ctx, positions, e),
+                ctx)
+            for i in range(cfg.n_layers):
+                x = body(x, _row(params["dec_layers"], i), enc_out)
         else:
             body = self._maybe_remat(
                 lambda x, lp: blocks.mamba_fwd(x, lp, cfg, ctx), ctx)
@@ -205,6 +238,14 @@ class Model:
                 x, c = blocks.mamba_prefill(x, _row(params["layers"], i), cfg, ctx)
                 caches.append(c)
             cache = stack(caches)
+        elif cfg.family == "audio":
+            enc_out = self._encode(params, batch, ctx)
+            caches = []
+            for i in range(cfg.n_layers):
+                x, c = blocks.dec_block_prefill(x, _row(params["dec_layers"], i),
+                                                cfg, ctx, positions, enc_out)
+                caches.append(c)
+            cache = stack(caches)
         else:
             m_caches, a_caches = [], []
             for lo, hi in self._segments():
@@ -241,6 +282,10 @@ class Model:
                 x, c = blocks.mamba_decode(x, _row(params["layers"], i), cfg, ctx,
                                            _row(cache, i))
                 _write_row(cache, i, c)
+        elif cfg.family == "audio":
+            for i in range(cfg.n_layers):
+                x, _ = blocks.dec_block_decode(x, _row(params["dec_layers"], i), cfg,
+                                               ctx, _row(cache, i), pos)
         else:
             for n, (lo, hi) in enumerate(self._segments()):
                 for i in range(lo, hi):
@@ -257,7 +302,8 @@ _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 
 
 def _pad_cache_to(cache, cache_len: int):
     """Right-pad sequence-indexed cache leaves (stacked layout (L, B, S, ...))
-    to ``cache_len`` with zeros.  SSM states and conv windows untouched."""
+    to ``cache_len`` with zeros.  SSM states, conv windows and the cross
+    K/V (``xk``, ``xv``) untouched."""
     out = {}
     for key, val in cache.items():
         if isinstance(val, dict):
@@ -273,7 +319,8 @@ def _pad_cache_to(cache, cache_len: int):
 
 def count_params_analytic(cfg, active_only: bool = False) -> int:
     """Parameter count from the shapes ``Model.init`` makes on the ``meta``
-    device (nothing allocated).  The ported families have no experts, so
+    device (nothing allocated); whisper's encoder stack and its position
+    table are in it.  The ported families have no experts, so
     ``active_only`` counts the same."""
     params = Model(cfg).init(None, device="meta")
     return sum(t.numel() for t in tree_leaves(params))

@@ -108,7 +108,7 @@ class SweepRunner:
         def _backend(kind: str):
             if kind not in backends:
                 backends[kind] = make_backend(
-                    kind, pool=list(market_mod.DEFAULT_POOL))
+                    kind, pool=list(market_mod.DEFAULT_POOL), device=self.device)
             return backends[kind]
 
         shared_rp: Dict[tuple, object] = {}
@@ -263,7 +263,8 @@ class SweepRunner:
                 clear_shared_caches()
             market = SpotMarket(days=spec.days, seed=spec.market_seed,
                                 ledger=spec.ledger or None)
-            backend = make_backend(spec.backend, pool=market.pool)
+            backend = make_backend(spec.backend, pool=market.pool,
+                                   device=self.device)
             rp = build_revpred(spec, market, train_minutes=self.train_minutes,
                                epochs=self.revpred_epochs,
                                stride=self.revpred_stride, device=self.device)

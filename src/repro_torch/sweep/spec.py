@@ -65,10 +65,10 @@ class ScenarioSpec:
     space: str = "grid"
     adaptive_brackets: bool = False      # hyperband survival reweighting
     # trial ground truth: "sim" = synthetic anchor-lattice curves (default,
-    # bit-exact); "training" = real training runs of a seed config, whose
-    # backend is not ported yet (make_backend raises) — workload names the
-    # arch id ("qwen1.5-0.5b" | "mamba2-130m" | "whisper-base", with or
-    # without the "train-" prefix)
+    # bit-exact); "training" = real training runs of a seed config
+    # (repro_torch.backends.training) — workload names the arch id
+    # ("qwen1.5-0.5b" | "mamba2-130m" | "whisper-base", with or without the
+    # "train-" prefix)
     backend: str = "sim"
     # allocation-ledger layout: "" = the market default (columnar);
     # "scalar" | "columnar" force one.  The
@@ -82,9 +82,17 @@ class ScenarioSpec:
             raise ValueError(f"unknown space {self.space!r} "
                              "(expected 'grid' or 'continuous')")
         if self.backend == "training":
-            raise NotImplementedError(
-                "training-backend workloads are not ported yet (ROADMAP A11)")
-        w = _WORKLOADS_BY_NAME[self.workload]
+            from repro_torch.backends.training import TRAINING_WORKLOADS
+            arch = (self.workload[len("train-"):]
+                    if self.workload.startswith("train-") else self.workload)
+            try:
+                w = TRAINING_WORKLOADS[arch]
+            except KeyError:
+                raise ValueError(
+                    f"workload {self.workload!r} has no training binding "
+                    f"(bound archs: {sorted(TRAINING_WORKLOADS)})") from None
+        else:
+            w = _WORKLOADS_BY_NAME[self.workload]
         if self.space == "continuous":
             return continuous_variant(w)
         return w

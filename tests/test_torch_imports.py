@@ -48,7 +48,10 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.optim.compression", "repro_torch.checkpoint",
             "repro_torch.checkpoint.object_store",
             "repro_torch.checkpoint.checkpointer",
-            "repro_torch.launch.train"} <= set(names.split())
+            "repro_torch.launch.train",
+            # real-training trials and the simulated pool's rates
+            "repro_torch.backends.training", "repro_torch.launch.roofline",
+            "repro_torch.launch.serve"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

@@ -832,3 +832,92 @@ def test_reduced_zamba2_trains_the_same_on_card_and_cpu(card):
         assert again.restore(step=2) == 2
         again.run_steps(1)
         assert again.metrics_vals[-1] == pytest.approx(gpu.metrics_vals[-1], rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the training-backend slice: the kernels at the trials' and whisper's shapes
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, D, causal): the reduced trials at D = 16 (qwen, whisper's
+# decoder self-attention, its encoder over Se = 30 frames and its
+# cross-attention, Sq = 32 against Sk = 30), and whisper-base at full width
+# (the encoder over 1500 frames, a ragged last key tile, and the
+# cross-attention of a 256-token prompt against them)
+SLICE_FLASH_SHAPES = [
+    (4, 32, 32, 4, 16, True), (2, 32, 32, 4, 16, True),
+    (4, 30, 30, 4, 16, False), (4, 32, 30, 4, 16, False),
+    (2, 1500, 1500, 8, 64, False), (2, 256, 1500, 8, 64, False),
+    (2, 256, 256, 8, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", SLICE_FLASH_SHAPES)
+def test_flash_attention_kernel_at_the_trials_and_whispers_shapes(
+        B, Sq, Sk, H, D, causal, dtype, card):
+    gen = torch.Generator().manual_seed(Sq + Sk + D)
+    q = _randn(gen, B, Sq, H, D, dtype=dtype, device=card)
+    k, v = (_randn(gen, B, Sk, H, D, dtype=dtype, device=card) for _ in range(2))
+    before = kfa.LAUNCHES
+    o = ops.flash_attention(q, k, v, causal)
+    assert kfa.LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 2])
+def test_ssd_chunk_kernel_at_the_mamba2_trials_shape(B, card):
+    """mamba2-130m reduced: Q = 32, H = 8, P = N = 16, B and C with head
+    stride 0 (one group), where the wgmma tiles are mostly padding."""
+    gen = torch.Generator().manual_seed(B)
+    x, dt, A, _, _, st = _ssd_inputs(gen, B, 32, 8, 16, 16, card)
+    Bm, Cm = _stride0(gen, B, 32, 8, 16, card)
+    before = kss.LAUNCHES
+    y, s = ops.ssd_chunk(x, dt, A, Bm, Cm, st)
+    assert kss.LAUNCHES == before + 1
+    y2, s2 = ref.ssd_chunk_ref(x, dt, A, Bm, Cm, st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y2, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(s, s2, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# the trials' bf16 streams, card against CPU (tests/test_torch_train.py
+# states the reason for the bound against the JAX package; the card and the
+# CPU also round bf16 products at different places)
+TRIAL_RTOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m", "whisper-base"])
+def test_training_trials_replay_bitwise_on_the_card(arch, card):
+    """C5 on the card: the replayer's state at a mid step equals the
+    cursor's on every leaf, and the card's stream follows the CPU's from
+    the same initial state."""
+    from repro_torch.backends.training import (TRAINING_WORKLOADS,
+                                               TrainingTrialBackend, _to_host)
+    from repro_torch.core.trial import TrialSpec
+    from repro_torch.optim.optimizers import tree_leaves
+
+    w = TRAINING_WORKLOADS[arch]
+    t = TrialSpec(w, w.hp_grid()[0], 0)
+    be = TrainingTrialBackend()
+    run = be._run(t)
+    before = kfa.LAUNCHES, kss.LAUNCHES
+    be._ensure(run, 6)
+    at6 = _to_host(run.trainer.state)
+    be._ensure(run, 12)
+    launched = kfa.LAUNCHES - before[0], kss.LAUNCHES - before[1]
+    assert launched[1 if arch == "mamba2-130m" else 0] > 0
+    replayed = be._host_state(run, 6)
+    for a, b in zip(tree_leaves(replayed), tree_leaves(at6)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    cpu = TrainingTrialBackend(device="cpu")
+    crun = cpu._run(t)
+    crun.trainer.state = cpu._to_device(run.state0)
+    cpu._ensure(crun, 12)
+    np.testing.assert_allclose(run.trainer.metrics_vals, crun.trainer.metrics_vals,
+                               rtol=TRIAL_RTOL)

@@ -185,9 +185,9 @@ def test_registry_resolves_every_arch_and_unported_families_raise():
         assert tget(arch) == dataclasses.replace(
             tget(arch), **dataclasses.asdict(jget(arch)))
         cfg = tget(arch, reduced=True)
-        if cfg.family in ("dense", "ssm", "hybrid") and not cfg.use_mla:
+        if cfg.family in ("dense", "ssm", "hybrid", "audio") and not cfg.use_mla:
             TModel(cfg)
-        elif cfg.family not in ("dense", "ssm", "hybrid"):
+        elif cfg.family not in ("dense", "ssm", "hybrid", "audio"):
             with pytest.raises(NotImplementedError, match="A10"):
                 TModel(cfg)
 

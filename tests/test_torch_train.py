@@ -10,6 +10,16 @@ plain versions through the kernels' autograd Functions; the kernels' own
 forwards are held against those on the card (``test_torch_kernels_cuda.py``,
 ``chip_smoke.py``).
 
+The configs' own bf16 with a float32 master (what the training backend's
+trials run) is held too: ``Trainer`` steps of reduced qwen1.5-0.5b,
+mamba2-130m and whisper-base from the JAX package's weights, the losses
+within 1e-2 relative.  Reason, written before the first run: both round
+activations to bf16 (eps 2^-8 = 3.9e-3) at different places (XLA fuses
+elementwise chains in float32 and rounds once, eager PyTorch rounds after
+every op); the per-element differences of about one ulp average out in the
+mean loss, and Adam's first steps, of about the learning rate whatever a
+gradient's size, carry them on without growing them past that.
+
 Tolerances, float32: the loss within 1e-5 relative (~3e-7 seen); each
 gradient leaf within 1e-4 of its largest magnitude (~4e-6 seen: the two
 differ by summation order); Trainer losses over three AdamW steps within
@@ -49,6 +59,8 @@ from repro_torch.optim.optimizers import adamw, sgd as tsgd
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 ARCHS = ["qwen1.5-0.5b", "mamba2-130m", "zamba2-1.2b"]
+BF16_ARCHS = ["qwen1.5-0.5b", "mamba2-130m", "whisper-base"]
+BF16_TRAINER_RTOL = 1e-2
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 TRAINER_RTOL = 1e-5
@@ -270,6 +282,26 @@ def test_trainer_three_steps_match_the_jax_trainer(pair):
     assert tt.metrics_steps == jt.metrics_steps == [1, 2, 3]
     np.testing.assert_allclose(tt.metrics_vals, jt.metrics_vals, rtol=TRAINER_RTOL)
     assert tt.state["opt"]["step"] == 3 and tt.mean_step_time() > 0
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
+def test_bf16_trainer_matches_the_jax_trainer(arch):
+    """C4: the config's bf16 and float32 master, five Trainer steps."""
+    jc, tc = jget(arch, reduced=True), tget(arch, reduced=True)
+    assert jc.dtype == tc.dtype == "bfloat16" and tc.opt_precision == "fp32"
+    jp = jax.jit(JModel(jc).init)(jax.random.key(3))
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    jt = JTrainer(jc, batch=BATCH, seq=SEQ, seed=2, val_every=1)
+    jt.state = {"params": jp, "opt": jt.optimizer.init(jp)}
+    tt = TTrainer(tc, batch=BATCH, seq=SEQ, seed=2, val_every=1, device="cpu")
+    tt.state = {"params": tp, "opt": tt.optimizer.init(tp)}
+    assert tt.state["opt"]["master"]["embed"]["tok"].dtype == torch.float32
+    jt.run_steps(5)
+    tt.run_steps(5)
+    assert np.isfinite(tt.metrics_vals).all()
+    np.testing.assert_allclose(tt.metrics_vals, jt.metrics_vals,
+                               rtol=BF16_TRAINER_RTOL)
+    assert tree_leaves(tt.state["params"])[0].dtype == torch.bfloat16
 
 
 def test_train_step_reports_the_references_metrics():
