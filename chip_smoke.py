@@ -79,7 +79,20 @@ drives the port's two paths through them:
   replica (the SpotTune loop with real snapshots, restores and refunds),
   and each seed arch's trial: its 48-step stream, a snapshot and restore,
   replay bitwise equal to the cursor's state, its stream against the
-  CPU's, and a profiled trial step.
+  CPU's, and a profiled trial step;
+* the last model families, after that: flash attention at head dim 128
+  behind grok-1's and pixtral-12b's GQA (G = 6 and 4) on both routes
+  against the plain version and timed, with the D = 128 kernels' register
+  spills from the build; grok-1 (2 of 64 layers), pixtral-12b (all 40, its
+  1024 stub patches ahead of 256 prompt tokens) and deepseek-v2 (3 of 60
+  layers, MLA) served at published width through ``Server(device="cuda")``,
+  2 prompts and 32 greedy tokens: bf16 through the kernels and the plain
+  versions (logits compared), a profiled prefill and decode, each MoE
+  layer's capacity drops and the card time of its router, dispatch,
+  expert products and combine; float32 (tokens compared, every flash
+  launch on the 3xTF32 route); deepseek-v2's MLA forms and incremental
+  decode against the full forward at full width, MLA's plain attention
+  timed beside SDPA; the reduced three on the card against the CPU.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -3349,6 +3362,543 @@ def trial_phases(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# the last model families: grok-1 and pixtral-12b through flash attention
+# at D = 128 (GQA, G = 6 and 4), deepseek-v2 through MLA's plain attention
+# ------------------------------------------------------------------------
+
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 2, 256, 32
+# the depth cuts at published width: grok-1 64 -> 2 layers (11.45 B
+# parameters), deepseek-v2 60 -> 3 (the dense layer and 2 MoE layers, every
+# expert whole: 9.33 B); pixtral-12b keeps its 40 (12.25 B), in float32 too
+FAMILY_LAYERS = {"grok-1-314b": 2, "deepseek-v2-236b": 3, "pixtral-12b": 40}
+# flash attention at D = 128 inside the models: (B, S, H, KV), causal
+FAMILY_FLASH = {"grok-1-314b": (2, 256, 48, 8), "pixtral-12b": (2, 1280, 32, 8)}
+# MLA (float32, full width): the materialized form against the absorbed
+# one (tests/test_models_equiv.py:123); prefill of S - 1 tokens and one
+# decode step against the full forward (tests/test_models_equiv.py:159-165)
+MLA_EQUIV_TOL, PREFILL_TOL, DECODE_TOL = 2e-4, 2e-4, 3e-4
+# the reduced models, card against CPU, float32 logits
+CARD_CPU_LOGIT_TOL = 1e-4
+FAMILY_DECODE_STEPS = 8      # decode steps under the profiler
+
+
+def mla_bound_ms(B, S, H, Dk, Dv, elem_bytes):
+    """Least time for MLA's attention (causal, one shared key and value
+    head): q, the shared k and v read once and o written once over the HBM
+    rate, against the two products' multiply-adds over the (query, key)
+    pairs the mask keeps, at the bf16 tensor-core peak (bf16 inputs) or the
+    3xTF32 rate (float32)."""
+    n_bytes = elem_bytes * B * (S * H * Dk + S * Dk + S * Dv + S * H * Dv)
+    flops = 2.0 * B * H * (S * (S + 1) // 2) * (Dk + Dv)
+    peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_TF32_FLOPS / 3
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def profiled(torch, fn):
+    """(wall s, the card's kernel intervals) of one call of ``fn`` traced by
+    torch.profiler, after a traced call whose events are discarded (the
+    profiler misses launches in its first moments)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    seen, wall = [], 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    return wall, seen
+
+
+def params_to_float32(tree) -> None:
+    """Every leaf of a parameter tree cast to float32 in place, one leaf at
+    a time: each bf16 leaf is freed as its float32 copy is made, so the
+    card never holds both whole trees."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            params_to_float32(val)
+        else:
+            tree[key] = val.float()
+
+
+def moe_layer_replay(torch, model, params, batch, ctx):
+    """The prefill replayed layer by layer: each MoE layer's share of
+    (token, expert) assignments that capacity dropped, and the first MoE
+    layer's FFN input and parameters (for the timing of its parts)."""
+    from repro_torch.models import blocks, layers, moe
+    from repro_torch.models.model import _row
+
+    cfg = model.cfg
+    shares, first = [], None
+    with torch.inference_mode():
+        x, positions = model._embed_inputs(params, batch, ctx)
+        for name, _, depth in model._block_stacks():
+            for i in range(depth):
+                lp = _row(params[name], i)
+                if "moe" in lp:
+                    h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+                    a, _ = blocks.attn_prefill(h, lp["attn"], cfg, ctx, positions)
+                    h2 = layers.rms_norm(x + a, lp["ln2"], cfg.norm_eps)
+                    T = h2.shape[0] * h2.shape[1]
+                    _, idx, _ = moe._route(h2.reshape(T, -1), lp["moe"]["router"], cfg)
+                    _, keep = moe._dispatch_indices(idx, 0, cfg.n_experts,
+                                                    moe.capacity(T, cfg))
+                    shares.append(1.0 - keep.float().mean().item())
+                    if first is None:
+                        first = (h2, lp["moe"])
+                x, _ = blocks.block_prefill(x, lp, cfg, ctx, positions)
+    return shares, first
+
+
+def moe_split_us(torch, cfg, h, p):
+    """Card us of one MoE layer's parts on its prefill input h (B, S, D):
+    the router (logits, softmax, top-k, aux), the dispatch (slots and the
+    index_add_ into the capacity buffers), the expert products, the combine,
+    and the shared experts where the config has them."""
+    from repro_torch.models import layers, moe
+
+    T = h.shape[0] * h.shape[1]
+    x = h.reshape(T, -1)
+    cap = moe.capacity(T, cfg)
+    E = cfg.n_experts
+    with torch.inference_mode():
+        w, idx, _ = moe._route(x, p["router"], cfg)
+        slot, keep = moe._dispatch_indices(idx, 0, E, cap)
+        buf = moe._dispatch(x, slot, keep, E, cap)
+        out = moe._expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
+    parts = {
+        "router": lambda: moe._route(x, p["router"], cfg),
+        "dispatch": lambda: moe._dispatch(x, *moe._dispatch_indices(idx, 0, E, cap),
+                                          E, cap),
+        "expert_products": lambda: moe._expert_ffn(buf, p["w_gate"], p["w_up"],
+                                                   p["w_down"]),
+        "combine": lambda: moe._combine(out, slot, keep, w, x.dtype)}
+    if cfg.n_shared_experts:
+        parts["shared_experts"] = lambda: layers.mlp(h, p["shared"], gated=True)
+    res = {"capacity": cap, "tokens": T}
+    with torch.inference_mode():
+        for name, fn in parts.items():
+            res[name] = device_us_per_call(fn, iters=10, warmup=3,
+                                           what=f"of the MoE layer's {name}")
+    return res
+
+
+def serve_family(torch, arch, gen_seed=0):
+    """One family at published width (cut in depth as FAMILY_LAYERS says),
+    random weights from a seed, served B x 256 prompt tokens (pixtral: its
+    1024 stub patches ahead of them) and 32 greedy tokens through
+    ``Server(device="cuda")``: in bf16 through the kernels and through the
+    plain versions (prefill logits compared), profiled, the MoE layers'
+    drops and parts timed; then in float32 (cast from the bf16 weights,
+    which are freed first), tokens compared.  Returns the phase's numbers."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.context import ModelCtx
+    from repro_torch.models.inputs import sample_train_batch
+    from repro_torch.models.model import Model, tree_leaves
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS[arch])
+    n_flash = 0 if cfg.use_mla else cfg.n_layers
+    phase(f"main path: {arch} served at published width, {cfg.n_layers} of "
+          f"{full.n_layers} layers (bf16, then float32)")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(gen_seed),
+                             device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{cfg.name}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f}"
+          f" GB; the whole model {full.param_count():,}, "
+          f"{full.active_param_count():,} active), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads"
+          + (f" (MLA: q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, qk "
+             f"{cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, v {cfg.v_head_dim})"
+             if cfg.use_mla else f" over {cfg.n_kv_heads} K/V heads of {cfg.head_dim}")
+          + (f", {cfg.n_experts} experts at d_ff {cfg.moe_d_ff}, top-"
+             f"{cfg.experts_per_tok}, {cfg.n_shared_experts} shared, "
+             f"{cfg.first_k_dense} dense first" if cfg.n_experts else "")
+          + f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; random weights from "
+          f"seed {gen_seed}, init {time.perf_counter() - t0:.2f} s")
+    seq = FAMILY_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    sample = sample_train_batch(np.random.default_rng(4), cfg, FAMILY_BATCH, seq)
+    pre = {k: (v.cuda() if isinstance(v, torch.Tensor) else v)
+           for k, v in sample.items() if k != "labels"}
+    max_len = seq + FAMILY_NEW
+    dev_tok = torch.as_tensor(pre["tokens"], device="cuda").long()
+    patches = pre.get("patch_embeds")
+    server = Server(cfg, params, max_len=max_len, device="cuda")
+    plain = Server(cfg, params, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    server.generate({k: (v[:, :16] if k == "tokens" else v) for k, v in pre.items()},
+                    2)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = server.generate(pre, FAMILY_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"generate: {FAMILY_BATCH} x {seq} positions -> {tuple(out.shape)} tokens "
+          f"in {gen_s * 1e3:.1f} ms; flash launches {launches[0]}, on the bf16 "
+          f"wgmma route {launches[1]} (want {n_flash}); peak memory {peak_gb:.2f} GB")
+    if launches != (n_flash, n_flash):
+        fail(f"{arch} bf16 serving launched flash {launches} (want {n_flash})")
+    if not (int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
+        fail(f"{arch} generated tokens out of range")
+
+    def prefill_ms(srv, n=3):
+        srv.prefill(dev_tok, patch_embeds=patches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            srv.prefill(dev_tok, patch_embeds=patches)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    pre_ms, pre_plain_ms = prefill_ms(server), prefill_ms(plain)
+    with torch.inference_mode():
+        lg_k = server.prefill(dev_tok, patch_embeds=patches)[0].float()[:, -1]
+        lg_r = plain.prefill(dev_tok, patch_embeds=patches)[0].float()[:, -1]
+    lg_err = (lg_k - lg_r).abs().max().item()
+    lg_tol = SERVE_REL_TOL * lg_r.abs().max().item()
+    decode_ms = (gen_s * 1e3 - pre_ms) / (FAMILY_NEW - 1)
+    finite = bool(torch.isfinite(lg_k).all())
+    print(f"bf16 prefill {pre_ms:.2f} ms through the kernels, {pre_plain_ms:.2f} ms "
+          f"plain; last-position logits max abs diff {lg_err:.4g} (tol "
+          f"{lg_tol:.4g} = {SERVE_REL_TOL} x max |logit|), finite {finite}; decode "
+          f"{decode_ms:.3f} ms a token step")
+    if not (finite and lg_err <= lg_tol):
+        fail(f"{arch} bf16 prefill logits, kernels against plain, {lg_err:.4g} "
+             f"apart (tol {lg_tol:.4g})")
+
+    # the card's idle share over a profiled prefill and decode steps
+    def prefill():
+        return server.prefill(dev_tok, patch_embeds=patches)
+
+    with torch.inference_mode():
+        pre_wall, pre_iv = profiled(torch, prefill)
+        lg, cache = prefill()
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        steps = iter(range(2 * FAMILY_DECODE_STEPS))
+
+        def decode():
+            nonlocal tok, cache
+            for _ in range(FAMILY_DECODE_STEPS):
+                tok, cache = server.step(cache, tok, seq + next(steps))
+        dec_wall, dec_iv = profiled(torch, decode)
+        del cache, lg
+    idle_pre = 1 - busy_us(pre_iv) / 1e6 / pre_wall
+    idle_dec = 1 - busy_us(dec_iv) / 1e6 / dec_wall
+    per_step = len(dec_iv) / FAMILY_DECODE_STEPS
+    print(f"profiled prefill: wall {pre_wall * 1e3:.2f} ms, {len(pre_iv)} kernels, "
+          f"card busy {busy_us(pre_iv) / 1e3:.2f} ms, idle {100 * idle_pre:.2f}%; "
+          f"{FAMILY_DECODE_STEPS} decode steps: wall {dec_wall * 1e3:.2f} ms, "
+          f"{per_step:.0f} kernels a step, card busy {busy_us(dec_iv) / 1e3:.2f} ms, "
+          f"idle {100 * idle_dec:.2f}%")
+    res = {"arch": arch, "layers": cfg.n_layers, "published_layers": full.n_layers,
+           "parameters": n_params, "batch": FAMILY_BATCH, "positions": seq,
+           "new_tokens": FAMILY_NEW, "flash_launches_per_prefill": launches[0],
+           "prefill_ms": pre_ms, "prefill_plain_ms": pre_plain_ms,
+           "decode_ms_per_step": decode_ms, "generate_s": gen_s,
+           "peak_memory_gb": peak_gb, "bf16_logit_err": lg_err,
+           "bf16_logit_tol": lg_tol, "kernels_per_decode_step": per_step,
+           "prefill_idle_share": idle_pre, "decode_idle_share": idle_dec}
+
+    if cfg.n_experts:
+        batch = {"tokens": dev_tok}
+        if patches is not None:
+            batch["patch_embeds"] = patches
+        shares, (h2, lp) = moe_layer_replay(torch, server.model, params, batch,
+                                            server.ctx)
+        print(f"assignments capacity dropped, per MoE layer (capacity factor "
+              f"{cfg.capacity_factor}, T = {FAMILY_BATCH * seq}): "
+              + ", ".join(f"{100 * x:.2f}%" for x in shares))
+        split = moe_split_us(torch, cfg, h2, lp)
+        parts = [k for k in split if k not in ("capacity", "tokens")]
+        total = sum(split[k] or 0.0 for k in parts)
+        print(f"one MoE layer's card time at the prefill (capacity "
+              f"{split['capacity']} of {split['tokens']} tokens): "
+              + ", ".join(f"{k} {split[k]:.1f} us ({100 * (split[k] or 0) / total:.1f}%)"
+                          for k in parts))
+        res["moe_dropped_share"] = shares
+        res["moe_layer_us"] = split
+        del h2, lp
+    del server, plain, out
+
+    # ------------------------------------------------------------ float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params_to_float32(params)
+    torch.cuda.empty_cache()
+    p32 = params
+    s32 = Server(cfg32, p32, max_len=max_len, device="cuda")
+    s32_r = Server(cfg32, p32, ctx=ModelCtx(kernels="ref"), max_len=max_len,
+                   device="cuda")
+    pre32 = {k: (v.float() if isinstance(v, torch.Tensor) else v)
+             for k, v in pre.items()}
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = 0
+    o32 = s32.generate(pre32, FAMILY_NEW)
+    torch.cuda.synchronize()
+    tf32 = (kfa.LAUNCHES, kfa.TF32_LAUNCHES)
+    o32_r = s32_r.generate(pre32, FAMILY_NEW)
+    p32_patches = pre32.get("patch_embeds")
+    with torch.inference_mode():
+        l32_k = s32.prefill(dev_tok, patch_embeds=p32_patches)[0][:, -1]
+        l32_r = s32_r.prefill(dev_tok, patch_embeds=p32_patches)[0][:, -1]
+    torch.cuda.synchronize()
+    same = int((o32 == o32_r).sum())
+    l32_err = (l32_k - l32_r).abs().max().item()
+    print(f"float32 (weights cast from the bf16 ones): {same} of {o32.numel()} "
+          f"greedy tokens equal, kernels against plain; flash launches "
+          f"{tf32[0]}, on the 3xTF32 route {tf32[1]} (want {n_flash}); prefill "
+          f"logits max abs diff {l32_err:.4g}")
+    if tf32 != (n_flash, n_flash) or same != o32.numel():
+        fail(f"{arch} float32 serving: flash launches {tf32} (want {n_flash}), "
+             f"{same} of {o32.numel()} tokens equal")
+    res.update({"f32_flash_launches_per_prefill": tf32[1], "f32_tokens_equal": same,
+                "f32_tokens": o32.numel(), "f32_logit_err": l32_err})
+    del s32, s32_r, o32, o32_r
+    return res, cfg32, p32
+
+
+def family_phases(torch) -> dict:
+    """The slice of the last model families on the card: flash attention at
+    D = 128 with grok-1's and pixtral-12b's GQA (G = 6 and 4) on both
+    routes against the plain version, timed beside SDPA and the bound, the
+    kernels' D = 128 register spills from the build; grok-1 (2 layers),
+    pixtral-12b (40 layers) and deepseek-v2 (3 layers) served at published
+    width (``serve_family``); deepseek's MLA checks in float32 at full width
+    and its plain attention timed; the reduced three on the card against
+    the CPU.  Returns the slice's fields of the two flash rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mla
+    from repro_torch.models.context import ModelCtx, null_ctx
+    from repro_torch.models.inputs import sample_train_batch
+    from repro_torch.models.model import Model, _row, tree_map
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}}
+    gen = torch.Generator().manual_seed(22)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+    # ------------------------------- flash attention at D = 128, GQA
+    phase("flash_attention at D = 128 with grok-1's and pixtral-12b's GQA "
+          "against the plain version (both routes)")
+    torch.cuda.empty_cache()
+    print(f"card memory held by tensors of earlier phases: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    spills = {}
+    for line_no, line in enumerate(build.BUILD_LOG.get("flash_attention", "")
+                                   .splitlines()):
+        if "Function properties for" in line and "ILi128E" in line:
+            route = "bf16" if "wgmma_kernel" in line else "f32"
+            spills[route] = (build.BUILD_LOG["flash_attention"].splitlines()
+                             [line_no + 1].strip())
+    print(f"ptxas at D = 128: bf16 wgmma kernel: {spills.get('bf16')}; 3xTF32 "
+          f"kernel: {spills.get('f32')}")
+    for arch, (b_, s_, h_, kv) in FAMILY_FLASH.items():
+        cfg = get_config(arch)
+        g = h_ // kv
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(b_, s_, kv, g, 128, generator=gen).to("cuda", dt)
+            k, v = (torch.randn(b_, s_, kv, 128, generator=gen).to("cuda", dt)
+                    for _ in range(2))
+            before = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES)
+            with torch.inference_mode():
+                o = attn_lib.attention(q, k, v, causal=True)
+                o_ref = attn_lib.attention(q, k, v, causal=True, kernels="ref")
+            torch.cuda.synchronize()
+            n = (kfa.LAUNCHES - before[0], kfa.WGMMA_LAUNCHES - before[1],
+                 kfa.TF32_LAUNCHES - before[2])
+            e = (o.float() - o_ref.float()).abs().max().item()
+            tol = FLASH_TOL[names[dt]]
+            want = (1, 1, 0) if dt == torch.bfloat16 else (1, 0, 1)
+            print(f"  {arch} {names[dt]} (B,S,H,KV,G,D) = {(b_, s_, h_, kv, g, 128)} "
+                  f"causal, through models.attention.attention: max abs err "
+                  f"{e:.3g} (tol {tol}); launches (all, wgmma, 3xTF32) {n}")
+            if not (cfg.head_dim == 128 and o.shape == q.shape and e <= tol
+                    and n == want):
+                fail(f"flash_attention at {arch}'s D = 128 GQA shape, {names[dt]}: "
+                     f"max abs err {e:.3g}, launches {n} (want {want})")
+            row = out["flash" if dt == torch.bfloat16 else "flash_f32"]
+            row.setdefault("d128_max_abs_err", 0.0)
+            row["d128_max_abs_err"] = max(row["d128_max_abs_err"], e)
+    out["flash"]["d128_spill"] = spills.get("bf16")
+    out["flash_f32"]["d128_spill"] = spills.get("f32")
+
+    phase("flash_attention at D = 128, grok-1's and pixtral-12b's prefill "
+          "shapes (CUDA events, card time)")
+    for arch, (b_, s_, h_, _) in FAMILY_FLASH.items():
+        key = arch.split("-")[0]
+        for dt, row in ((torch.bfloat16, out["flash"]), (torch.float32, out["flash_f32"])):
+            r = slice_flash_timing(torch, b_, s_, s_, h_, 128, True, dt,
+                                   f"{arch}'s prefill", gen)
+            row.setdefault("d128_timing", {})[key] = r
+
+    # -------------------------------------------- the three families served
+    fam = {}
+    for arch in ("grok-1-314b", "pixtral-12b"):
+        res, _, p32 = serve_family(torch, arch)
+        fam[arch] = res
+        del p32
+        torch.cuda.empty_cache()
+    res, cfg32, p32 = serve_family(torch, "deepseek-v2-236b")
+    fam["deepseek-v2-236b"] = res
+
+    # ------------------------------ deepseek-v2: MLA checks at full width
+    phase("deepseek-v2 (float32, full width): MLA's materialized form against "
+          "the absorbed one; prefill of S - 1 and one decode step against the "
+          "full forward")
+    B, S = FAMILY_BATCH, FAMILY_PROMPT
+    lp = _row(p32["moe_layers"]["attn"], 0)
+    x = torch.randn(B, S, cfg32.d_model, generator=gen).cuda()
+    pos = torch.arange(S, device="cuda")
+    before = kfa.LAUNCHES
+    with torch.inference_mode():
+        o_abs = mla.mla_train(x, lp, cfg32, pos, null_ctx())
+        o_mat = mla.mla_train(x, lp, cfg32, pos,
+                              ModelCtx(rules={"mla_materialized": True}))
+    torch.cuda.synchronize()
+    mla_err = (o_abs - o_mat).abs().max().item()
+    print(f"B = {B}, S = {S}, {cfg32.n_heads} heads: materialized against absorbed "
+          f"max abs diff {mla_err:.3g} (tol {MLA_EQUIV_TOL}; max |out| "
+          f"{o_abs.abs().max().item():.3g}); flash launches {kfa.LAUNCHES - before}")
+    if not (mla_err <= MLA_EQUIV_TOL and kfa.LAUNCHES == before):
+        fail(f"deepseek-v2 MLA forms {mla_err:.3g} apart, or a flash launch")
+    del o_abs, o_mat
+    cfg_cf = dataclasses.replace(cfg32, capacity_factor=float(cfg32.n_experts))
+    m = Model(cfg_cf)
+    batch = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(v)).cuda().long()
+             for k, v in sample_train_batch(np.random.default_rng(0), cfg_cf, B,
+                                            S).items()}
+    ctx = null_ctx(remat="none")
+    with torch.inference_mode():
+        full_lg = m.forward(p32, {"tokens": batch["tokens"]}, ctx)[0]
+        lg_pre, cache = m.prefill(p32, {"tokens": batch["tokens"][:, :-1]}, ctx,
+                                  cache_len=S)
+        lg_dec, _ = m.decode_step(p32, cache, batch["tokens"][:, -1:], S - 1, ctx)
+    torch.cuda.synchronize()
+    pre_err = (lg_pre[:, -1] - full_lg[:, -2]).abs().max().item()
+    dec_err = (lg_dec[:, 0] - full_lg[:, -1]).abs().max().item()
+    print(f"capacity_factor = n_experts = {cfg32.n_experts}: prefill of {S - 1} "
+          f"against the full forward max abs diff {pre_err:.3g} (tol "
+          f"{PREFILL_TOL}), one decode step {dec_err:.3g} (tol {DECODE_TOL}); max "
+          f"|logit| {full_lg.abs().max().item():.3g}")
+    if not (pre_err <= PREFILL_TOL and dec_err <= DECODE_TOL):
+        fail(f"deepseek-v2 incremental decode against the full forward: "
+             f"{pre_err:.3g} / {dec_err:.3g}")
+    fam["deepseek-v2-236b"].update({"mla_forms_err": mla_err,
+                                    "prefill_vs_forward_err": pre_err,
+                                    "decode_vs_forward_err": dec_err})
+    del full_lg, lg_pre, cache, lg_dec, p32, m
+    torch.cuda.empty_cache()
+
+    phase("MLA's plain attention at deepseek-v2's shape (CUDA events, card time)")
+    cfg = get_config("deepseek-v2-236b")
+    H, R, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    mla_t = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, S, H, R + qr, generator=gen).to("cuda", dt)
+        kk = torch.randn(B, S, R + qr, generator=gen).to("cuda", dt)
+        vv = kk[..., :R]
+        scale = mla._scale(cfg)
+
+        def plain():
+            return mla.latent_attention(q, kk, vv, True, scale)
+        qt, kt, vt = q.transpose(1, 2), kk[:, None], vv[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=scale, enable_gqa=True)
+        r = {"ms": cuda_ms(plain, iters=50, warmup=5),
+             "device_us": device_us_per_call(plain, iters=20, warmup=3,
+                                             what=f"of MLA's plain attention, {names[dt]}")}
+        try:
+            o_s = sdpa().transpose(1, 2)
+            r["library_err"] = (o_s.float() - plain().float()).abs().max().item()
+            r["library_ms"] = cuda_ms(sdpa, iters=50, warmup=5)
+            r["library_device_us"] = device_us_per_call(
+                sdpa, iters=20, warmup=3, what=f"of SDPA at MLA's shape, {names[dt]}")
+            lib = (f"SDPA (Dk {R + qr} != Dv {R}, enable_gqa) {r['library_ms']:.4f} "
+                   f"ms, card {r['library_device_us']} us, {r['library_err']:.3g} "
+                   f"from the plain version")
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            # SDPA refused the shapes: recorded, the plain version stands
+            r["library_ms"] = None
+            r["library_refused"] = str(err).splitlines()[0][:200]
+            lib = f"SDPA refused: {r['library_refused']}"
+        r["bound_ms"], r["bound_by"] = mla_bound_ms(B, S, H, R + qr, R,
+                                                    torch.finfo(dt).bits // 8)
+        r["shape"] = {"B": B, "S": S, "H": H, "Dk": R + qr, "Dv": R, "causal": True,
+                      "dtype": names[dt]}
+        print(f"MLA plain attention {names[dt]} (B,S,H,Dk,Dv) = {(B, S, H, R + qr, R)} "
+              f"causal: {r['ms']:.4f} ms (CUDA events), card {r['device_us']} us; "
+              f"bound {r['bound_ms']:.4g} ms ({r['bound_by']}); {lib}")
+        mla_t[names[dt]] = r
+    out["flash"]["mla_plain_attention"] = mla_t
+
+    # ------------------------------ the reduced three, card against CPU
+    phase("the reduced deepseek-v2, grok-1 and pixtral-12b (float32) on the "
+          "card against the CPU")
+    reduced = {}
+    for arch in ("deepseek-v2-236b", "grok-1-314b", "pixtral-12b"):
+        rc = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        p_cpu = Model(rc).init(torch.Generator().manual_seed(3), device="cpu")
+        p_card = tree_map(lambda t: t.cuda(), p_cpu)
+        n = 13 + (rc.n_patches if rc.family == "vlm" else 0)
+        smp = sample_train_batch(np.random.default_rng(5), rc, B, n)
+        pre = {k: v for k, v in smp.items() if k != "labels"}
+        kfa.LAUNCHES = 0
+        tok_card = Server(rc, p_card, max_len=n + 16, device="cuda").generate(pre, 12)
+        torch.cuda.synchronize()
+        launches = kfa.LAUNCHES
+        tok_cpu = Server(rc, p_cpu, max_len=n + 16, device="cpu").generate(pre, 12)
+        pre_t = {"tokens": torch.as_tensor(pre["tokens"]).long(),
+                 **({"patch_embeds": pre["patch_embeds"]} if rc.family == "vlm" else {})}
+        with torch.inference_mode():
+            lc = Model(rc).forward(p_card, {k: v.cuda() for k, v in pre_t.items()})[0]
+            lh = Model(rc).forward(p_cpu, pre_t)[0]
+        err = (lc.cpu() - lh).abs().max().item()
+        same = bool(torch.equal(tok_card.cpu(), tok_cpu))
+        want = 0 if rc.use_mla else rc.n_layers
+        print(f"  {arch} reduced: tokens equal {same}, forward logits max abs diff "
+              f"{err:.3g} (tol {CARD_CPU_LOGIT_TOL}); flash launches {launches} "
+              f"(want {want})")
+        if not (same and err <= CARD_CPU_LOGIT_TOL and launches == want):
+            fail(f"{arch} reduced on the card against the CPU: tokens equal {same}, "
+                 f"logits {err:.3g}, flash launches {launches}")
+        reduced[arch] = {"tokens_equal": same, "logit_err": err}
+
+    wall = time.perf_counter() - t_all
+    print(f"the model families' phases: {wall:.1f} s of wall")
+    out["flash"]["families"] = fam
+    out["flash"]["families_reduced_card_vs_cpu"] = reduced
+    out["flash"]["families_wall_s"] = wall
+    out["flash_f32"]["families_tokens_equal"] = {
+        a: (r["f32_tokens_equal"], r["f32_tokens"]) for a, r in fam.items()}
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3691,6 +4241,10 @@ def main() -> None:
     flash_row.update(trials["flash"])
     flash_f32_row.update(trials["flash_f32"])
     ssd_row.update(trials["ssd"])
+    # the last model families after them: each model has the card to itself
+    families = family_phases(torch)
+    flash_row.update(families["flash"])
+    flash_f32_row.update(families["flash_f32"])
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

@@ -1,12 +1,11 @@
-"""Block composition: pre-norm transformer and mamba blocks.
+"""Block composition: pre-norm transformer (dense GQA or MLA attention,
+dense or MoE FFN), mamba and whisper encoder / decoder blocks.
 
-The port of ``repro.models.blocks`` for the dense, ssm, hybrid and audio
-families.  Each block provides ``init_*``, a full-sequence ``*_fwd``, a
-``*_prefill`` (returns a decode cache) and a ``*_decode`` (one token);
-whisper's encoder block has the forward only.  Blocks are pure functions
-over per-layer parameter dicts; ``model.py`` stacks them along a leading L
-axis and loops over it.  MLA and MoE layers are not ported yet (ROADMAP
-A10) and raise.
+The port of ``repro.models.blocks``.  Each block provides ``init_*``, a
+full-sequence ``*_fwd``, a ``*_prefill`` (returns a decode cache) and a
+``*_decode`` (one token); whisper's encoder block has the forward only.
+Blocks are pure functions over per-layer parameter dicts; ``model.py``
+stacks them along a leading L axis and loops over it.
 """
 
 from __future__ import annotations
@@ -14,22 +13,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, ssd
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(ROADMAP A10)")
+from repro_torch.models import layers, mla, moe, ssd
 
 
 # ---------------------------------------------------------------------------
-# attention sub-block (dense GQA)
+# attention sub-block (dense GQA or MLA)
 # ---------------------------------------------------------------------------
 
 
 def init_attn(gen, cfg, device):
     if cfg.use_mla:
-        raise _not_ported("MLA attention")
+        return mla.init_mla(gen, cfg, device)
     return attn_lib.init_attention(gen, cfg, device)
 
 
@@ -43,7 +37,7 @@ def _sharded_attention(q, k, v, cfg, ctx, causal):
 def attn_fwd(h, p, cfg, ctx, positions, causal=True):
     """Normed input -> attention output (full sequence)."""
     if cfg.use_mla:
-        raise _not_ported("MLA attention")
+        return mla.mla_train(h, p, cfg, positions, ctx)
     q, k, v = attn_lib.qkv_project(h, p, cfg, positions)
     o = _sharded_attention(q, k, v, cfg, ctx, causal)
     return attn_lib.merge_heads(o, cfg) @ p["wo"]
@@ -51,7 +45,7 @@ def attn_fwd(h, p, cfg, ctx, positions, causal=True):
 
 def attn_prefill(h, p, cfg, ctx, positions):
     if cfg.use_mla:
-        raise _not_ported("MLA attention")
+        return mla.mla_prefill(h, p, cfg, positions, ctx)
     q, k, v = attn_lib.qkv_project(h, p, cfg, positions)
     o = _sharded_attention(q, k, v, cfg, ctx, causal=True)
     out = attn_lib.merge_heads(o, cfg) @ p["wo"]
@@ -59,12 +53,13 @@ def attn_prefill(h, p, cfg, ctx, positions):
 
 
 def attn_decode(h, p, cfg, ctx, cache, pos: int):
-    """h (B,1,D); cache {k, v} (B,S,KV,Dh), updated in place; pos int."""
-    if cfg.use_mla:
-        raise _not_ported("MLA attention")
+    """h (B,1,D); cache {k, v} (B,S,KV,Dh) or MLA's {c_kv, k_rope}, updated
+    in place; pos int."""
     if ctx.decode_attn != "local":
         raise NotImplementedError(f"decode_attn={ctx.decode_attn!r}: the port "
                                   "has only 'local' (one card, no mesh)")
+    if cfg.use_mla:
+        return mla.mla_decode(h, p, cfg, cache, pos, ctx)
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
     q, k_new, v_new = attn_lib.qkv_project(h, p, cfg, positions)
@@ -74,27 +69,29 @@ def attn_decode(h, p, cfg, ctx, cache, pos: int):
 
 
 # ---------------------------------------------------------------------------
-# dense transformer block
+# dense / MoE transformer blocks
 # ---------------------------------------------------------------------------
 
 
 def init_block(gen, cfg, moe_layer: bool, device):
-    if moe_layer:
-        raise _not_ported("the MoE layer")
-    return {
+    p = {
         "ln1": layers.init_rmsnorm(cfg.d_model, device),
         "attn": init_attn(gen, cfg, device),
         "ln2": layers.init_rmsnorm(cfg.d_model, device),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                               layers.dtype_of(cfg), device),
     }
+    if moe_layer:
+        p["moe"] = moe.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                   layers.dtype_of(cfg), device)
+    return p
 
 
 def _ffn(x, p, cfg, ctx):
     """Second half-block: returns (delta, aux_loss)."""
-    if "moe" in p:
-        raise _not_ported("the MoE layer")
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return moe.moe_ffn(h, p["moe"], cfg, ctx)
     return (layers.mlp(h, p["mlp"], cfg.gated_mlp),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

@@ -8,7 +8,9 @@ where the JAX package applies ``jax.checkpoint`` to its scan body),
 ``"ref"`` sends every ``kops`` call on the model path to its plain PyTorch
 version (the model-level form of ``ops``'s ``force``; tests and
 ``chip_smoke.py`` set it to hold the kernels against their plain versions),
-``None`` lets the device decide.
+``None`` lets the device decide.  ``rules`` is the JAX package's dict of
+sharding rules and switches; with no mesh the port reads one key of it,
+``"mla_materialized"`` (``models.mla.mla_train``'s form).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ class ModelCtx:
     remat: str = "full"            # none | full (checkpoint each layer body)
     decode_attn: str = "local"     # the port has only "local"
     kernels: Optional[str] = None  # None (by device) | "ref" | "cuda"
+    rules: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.remat not in REMAT:

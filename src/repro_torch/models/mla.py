@@ -1,0 +1,158 @@
+"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
+
+The port of ``repro.models.mla``, with its two exactly equivalent forms:
+
+* the absorbed form (``mla_prefill``, ``mla_decode`` and ``mla_train`` by
+  default): the cache holds only the normed latent ``c_kv``
+  (kv_lora_rank wide) and the shared RoPE key ``k_rope`` per token; the
+  per-head nope key projection is folded into the query and the value
+  projection into the output, so attention runs with one shared key head,
+  ``concat(c_kv, k_rope)`` (576 wide at deepseek-v2's width), one shared
+  value head ``c_kv`` (512 wide) and G = H query heads;
+* the materialized form (``_mla_train_materialized``, behind
+  ``ctx.rules["mla_materialized"]``): per-head K (qk_nope + qk_rope wide)
+  and V (v_head_dim wide).
+
+Neither form runs the flash kernel, by design.  The JAX package computes
+both with ``attention.attention`` (its ``lax.scan`` chunks or the naive
+path: XLA code, no Pallas kernel), and the kernel takes k and v of one
+shape and head dims up to 128 only.  The port computes both with plain
+float32 scores and softmax (``latent_attention``,
+``attention.naive_attention``) on every device; which one runs is decided
+by ``cfg.use_mla`` alone.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers
+
+
+def init_mla(gen, cfg, device):
+    dt = layers.dtype_of(cfg)
+    d, h = cfg.d_model, cfg.n_heads
+    qk, qr, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    R = cfg.kv_lora_rank
+    return {
+        "wq_a": layers.dense_init(gen, d, cfg.q_lora_rank, dt, device),
+        "q_a_norm": layers.init_rmsnorm(cfg.q_lora_rank, device),
+        "wq_b": layers.dense_init(gen, cfg.q_lora_rank, h * (qk + qr), dt, device),
+        "wkv_a": layers.dense_init(gen, d, R + qr, dt, device),
+        "kv_a_norm": layers.init_rmsnorm(R, device),
+        # K-nope and V halves apart, so that decode absorbs each on its own
+        "wkv_b_k": layers.dense_init(gen, R, h * qk, dt, device).reshape(R, h, qk),
+        "wkv_b_v": layers.dense_init(gen, R, h * vd, dt, device).reshape(R, h, vd),
+        "wo": layers.dense_init(gen, h * vd, d, dt, device),
+    }
+
+
+def _scale(cfg) -> float:
+    """The softmax scale over the true query-key width, qk_nope + qk_rope."""
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+
+
+def _project_q(x, params, cfg, positions):
+    """-> q_nope (B,S,H,qk), q_rope (B,S,H,qr) with RoPE applied."""
+    B, S, _ = x.shape
+    h, qk, qr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = layers.rms_norm(x @ params["wq_a"], params["q_a_norm"], cfg.norm_eps)
+    q = (cq @ params["wq_b"]).reshape(B, S, h, qk + qr)
+    q_nope, q_rope = q[..., :qk], q[..., qk:]
+    return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _project_kv_latent(x, params, cfg, positions):
+    """-> c_kv (B,S,R) the normed latent, k_rope (B,S,qr) the shared RoPE
+    key."""
+    R = cfg.kv_lora_rank
+    kv = x @ params["wkv_a"]
+    c_kv = layers.rms_norm(kv[..., :R], params["kv_a_norm"], cfg.norm_eps)
+    k_rope = layers.apply_rope(kv[..., R:][:, :, None, :], positions,
+                               cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _absorbed_q(q_nope, q_rope, params):
+    """The per-head nope key projection folded into the query -> q_eff
+    (B,S,H,R+qr), against the keys concat(c_kv, k_rope)."""
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wkv_b_k"])
+    return torch.cat([q_lat, q_rope], dim=-1)
+
+
+def latent_attention(q_eff, k_eff, v_eff, causal: bool, scale: float):
+    """Attention of H query heads against one shared key head and one shared
+    value head, plain: q_eff (B,S,H,Dk), k_eff (B,Sk,Dk), v_eff (B,Sk,Dv) ->
+    (B,S,H,Dv) in q's type.  Float32 scores and softmax over the shared head
+    (one group of G = H), the key never repeated per head."""
+    o = attn_lib.naive_attention(q_eff[:, :, None], k_eff[:, :, None],
+                                 v_eff[:, :, None], causal, scale=scale)
+    return o[:, :, 0]
+
+
+def mla_train(x, params, cfg, positions, ctx):
+    """Training-time MLA: the absorbed form, or the materialized one when
+    ``ctx.rules["mla_materialized"]`` is set (as in the JAX package)."""
+    if not ctx.rules.get("mla_materialized", False):
+        return mla_prefill(x, params, cfg, positions, ctx)[0]
+    return _mla_train_materialized(x, params, cfg, positions, ctx)
+
+
+def _mla_train_materialized(x, params, cfg, positions, ctx):
+    """Full attention with per-head K (qk + qr wide) and V (vd wide), as
+    KV = H heads of one group each."""
+    B, S, _ = x.shape
+    h, qr, vd = cfg.n_heads, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _project_q(x, params, cfg, positions)
+    c_kv, k_rope = _project_kv_latent(x, params, cfg, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wkv_b_k"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["wkv_b_v"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, h, qr)], dim=-1)
+    o = attn_lib.naive_attention(q[:, :, :, None, :], k, v, causal=True,
+                                 scale=_scale(cfg))
+    return o.reshape(B, S, h * vd) @ params["wo"]
+
+
+def mla_prefill(x, params, cfg, positions, ctx):
+    """The absorbed form -> (out (B,S,D), cache {c_kv, k_rope})."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _project_q(x, params, cfg, positions)
+    c_kv, k_rope = _project_kv_latent(x, params, cfg, positions)
+    q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,S,H,R+qr)
+    k_eff = torch.cat([c_kv, k_rope], dim=-1)                        # (B,S,R+qr)
+    o_lat = latent_attention(q_eff, k_eff, c_kv, causal=True, scale=_scale(cfg))
+    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
+    out = o.reshape(B, S, cfg.n_heads * cfg.v_head_dim) @ params["wo"]
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def init_mla_cache(cfg, batch: int, seq_len: int, dtype, device):
+    return {"c_kv": torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, seq_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(x, params, cfg, cache, pos: int, ctx):
+    """One token, absorbed.  x (B,1,D); the compressed cache {c_kv, k_rope}
+    updated in place at ``pos`` (the JAX package's jitted step donates it
+    and returns a new one).  Only the local decode exists: the JAX
+    package's distributed form needs a mesh."""
+    if ctx.decode_attn != "local":
+        raise NotImplementedError(f"decode_attn={ctx.decode_attn!r}: the port "
+                                  "has only 'local' (one card, no mesh)")
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _project_q(x, params, cfg, positions)
+    c_new, kr_new = _project_kv_latent(x, params, cfg, positions)
+    cache["c_kv"][:, pos:pos + 1] = c_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos:pos + 1] = kr_new.to(cache["k_rope"].dtype)
+    q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,1,H,R+qr)
+    kv = {"k": torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None],
+          "v": cache["c_kv"][:, :, None]}
+    o_lat = attn_lib.decode_attention(q_eff[:, :, None], kv, pos,
+                                      scale=_scale(cfg))[:, :, 0]   # (B,1,H,R)
+    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
+    return o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim) @ params["wo"], cache

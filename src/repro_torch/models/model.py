@@ -3,15 +3,18 @@
 The port of ``repro.models.model`` for the families
 
   dense    pre-norm GQA transformer
+  vlm      the same over stub patch embeddings prepended to the tokens
+           (pixtral)
+  moe      the same skeleton with MoE FFNs after ``first_k_dense`` dense
+           layers (grok-1; deepseek-v2 with MLA attention)
   ssm      mamba2 stack
   hybrid   mamba2 stack + one weight-shared attention block after every
            ``attn_every`` layers (zamba2)
   audio    whisper-style encoder-decoder over stub frame embeddings
 
-(``moe`` and ``vlm`` are not ported yet and raise).  Parameters
-keep the JAX package's pytree: nested dicts with the layer stacks along a
-leading L axis.  Where the JAX package runs ``lax.scan`` over a stack, the
-port loops in Python over its rows.  ``params_from_numpy`` carries the JAX
+Parameters keep the JAX package's pytree: nested dicts with the layer
+stacks along a leading L axis.  Where the JAX package runs ``lax.scan``
+over a stack, the port loops in Python over its rows.  ``params_from_numpy`` carries the JAX
 package's weights across; ``Model.init`` draws fresh ones with the same
 distributions (not the same numbers).
 
@@ -39,7 +42,7 @@ from repro_torch.models import blocks, layers
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-FAMILIES = ("dense", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _stacked_init(init_fn, n):
@@ -58,9 +61,8 @@ def _write_row(tree, i, new):
 class Model:
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported to "
-                f"repro_torch yet (ROADMAP A10); ported: {FAMILIES}")
+            raise ValueError(f"family {cfg.family!r} ({cfg.name}): one of "
+                             f"{FAMILIES}")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ init
@@ -74,9 +76,17 @@ class Model:
         dev = resolve_device(device)
         gen = generator
         p = {"embed": layers.init_embed(gen, cfg, dev)}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             p["layers"] = _stacked_init(
                 lambda: blocks.init_block(gen, cfg, False, dev), cfg.n_layers)
+        elif cfg.family == "moe":
+            if cfg.first_k_dense:
+                p["dense_layers"] = _stacked_init(
+                    lambda: blocks.init_block(gen, cfg, False, dev),
+                    cfg.first_k_dense)
+            p["moe_layers"] = _stacked_init(
+                lambda: blocks.init_block(gen, cfg, True, dev),
+                cfg.n_layers - cfg.first_k_dense)
         elif cfg.family == "ssm":
             p["layers"] = _stacked_init(
                 lambda: blocks.init_mamba(gen, cfg, dev), cfg.n_layers)
@@ -101,9 +111,14 @@ class Model:
 
     # ------------------------------------------------------------- embedding
     def _embed_inputs(self, params, batch, ctx):
-        """-> (x (B,S,D), positions (S,))."""
-        tokens = batch["tokens"]
-        x = layers.embed_tokens(params["embed"], tokens, self.cfg)
+        """-> (x (B,S,D), positions (S,)).  vlm: the stub patch embeddings
+        ``batch["patch_embeds"]`` (B, n_patches, D) ahead of the token
+        embeddings, the positions over the whole S."""
+        cfg = self.cfg
+        x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+        if cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(layers.dtype_of(cfg))
+            x = torch.cat([patches, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         return ctx.constrain(x, "residual"), positions
 
@@ -138,6 +153,17 @@ class Model:
             lo = hi
         return segs
 
+    def _block_stacks(self):
+        """The transformer families' layer stacks in order, as (parameter
+        key, cache key, depth): moe's cache is {"dense": ..., "moe": ...},
+        the dense and vlm cache is the one stack's (cache key None)."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return (("layers", None, cfg.n_layers),)
+        dense = (("dense_layers", "dense", cfg.first_k_dense),)
+        return (dense if cfg.first_k_dense else ()) + (
+            ("moe_layers", "moe", cfg.n_layers - cfg.first_k_dense),)
+
     @property
     def n_shared_invocations(self):
         return len(self._segments())
@@ -169,12 +195,13 @@ class Model:
         cfg = self.cfg
         x, positions = self._embed_inputs(params, batch, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm", "moe"):
             body = self._maybe_remat(
                 lambda x, lp: blocks.block_fwd(x, lp, cfg, ctx, positions), ctx)
-            for i in range(cfg.n_layers):
-                x, a = body(x, _row(params["layers"], i))
-                aux = aux + a
+            for name, _, depth in self._block_stacks():
+                for i in range(depth):
+                    x, a = body(x, _row(params[name], i))
+                    aux = aux + a
         elif cfg.family == "audio":
             enc_out = self._encode(params, batch, ctx)
             body = self._maybe_remat(
@@ -225,13 +252,16 @@ class Model:
         ctx = ctx or null_ctx()
         x, positions = self._embed_inputs(params, batch, ctx)
         stack = lambda cs: tree_map(lambda *xs: torch.stack(xs), *cs)  # noqa: E731
-        if cfg.family == "dense":
-            caches = []
-            for i in range(cfg.n_layers):
-                x, c = blocks.block_prefill(x, _row(params["layers"], i), cfg, ctx,
-                                            positions)
-                caches.append(c)
-            cache = stack(caches)
+        if cfg.family in ("dense", "vlm", "moe"):
+            cache = {}
+            for name, key, depth in self._block_stacks():
+                caches = []
+                for i in range(depth):
+                    x, c = blocks.block_prefill(x, _row(params[name], i), cfg, ctx,
+                                                positions)
+                    caches.append(c)
+                cache[key] = stack(caches)
+            cache = cache.get(None, cache)
         elif cfg.family == "ssm":
             caches = []
             for i in range(cfg.n_layers):
@@ -273,10 +303,12 @@ class Model:
             params["embed"], tokens, cfg,
             positions=(torch.full((1,), pos, dtype=torch.int64, device=tokens.device)
                        if cfg.use_abs_pos else None))
-        if cfg.family == "dense":
-            for i in range(cfg.n_layers):
-                x, _ = blocks.block_decode(x, _row(params["layers"], i), cfg, ctx,
-                                           _row(cache, i), pos)
+        if cfg.family in ("dense", "vlm", "moe"):
+            for name, key, depth in self._block_stacks():
+                c = cache if key is None else cache[key]
+                for i in range(depth):
+                    x, _ = blocks.block_decode(x, _row(params[name], i), cfg, ctx,
+                                               _row(c, i), pos)
         elif cfg.family == "ssm":
             for i in range(cfg.n_layers):
                 x, c = blocks.mamba_decode(x, _row(params["layers"], i), cfg, ctx,
@@ -320,10 +352,35 @@ def _pad_cache_to(cache, cache_len: int):
 def count_params_analytic(cfg, active_only: bool = False) -> int:
     """Parameter count from the shapes ``Model.init`` makes on the ``meta``
     device (nothing allocated); whisper's encoder stack and its position
-    table are in it.  The ported families have no experts, so
-    ``active_only`` counts the same."""
+    table are in it.  ``active_only``: the parameters a token touches, the
+    routed experts counted at ``experts_per_tok / n_experts`` of their
+    size.  As in the JAX package, "routed" is every leaf under a key
+    ``w_gate``, ``w_up`` or ``w_down`` in ``moe_layers``, and so includes
+    the shared experts' MLP, which has the same names."""
     params = Model(cfg).init(None, device="meta")
-    return sum(t.numel() for t in tree_leaves(params))
+    total = sum(t.numel() for t in tree_leaves(params))
+    if active_only and cfg.n_experts > 0:
+        routed = sum(t.numel() for name in ("w_gate", "w_up", "w_down")
+                     for sub in _find(params.get("moe_layers", {}), name)
+                     for t in tree_leaves(sub))
+        frac = cfg.experts_per_tok / cfg.n_experts
+        total = total - routed + int(routed * frac)
+    return total
+
+
+def _find(tree, name):
+    """The subtrees under keys equal to ``name``, not searched below."""
+    out = []
+
+    def rec(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == name:
+                    out.append(v)
+                else:
+                    rec(v)
+    rec(tree)
+    return out
 
 
 def _to_tensor(a, device):

@@ -51,7 +51,9 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.launch.train",
             # real-training trials and the simulated pool's rates
             "repro_torch.backends.training", "repro_torch.launch.roofline",
-            "repro_torch.launch.serve"} <= set(names.split())
+            "repro_torch.launch.serve",
+            # the last model families
+            "repro_torch.models.moe", "repro_torch.models.mla"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

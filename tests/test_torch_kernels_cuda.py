@@ -921,3 +921,65 @@ def test_training_trials_replay_bitwise_on_the_card(arch, card):
     cpu._ensure(crun, 12)
     np.testing.assert_allclose(run.trainer.metrics_vals, crun.trainer.metrics_vals,
                                rtol=TRIAL_RTOL)
+
+
+# --------------------------------------------------------------------------
+# the last model families: flash attention at D = 128 behind GQA (grok-1,
+# G = 6; pixtral-12b, G = 4), and the reduced moe and vlm models
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,KV,G", [(2, 256, 8, 6), (1, 1280, 8, 4),
+                                      (2, 77, 2, 6), (1, 200, 2, 4)])
+def test_flash_attention_d128_behind_gqa_matches_plain(B, S, KV, G, dtype, card):
+    """``models.attention.attention`` with K/V repeated to the KV * G query
+    heads, through the kernel (one launch on the dtype's route) against the
+    plain version, at the flash tolerances (float32 3e-5, bf16 4e-2)."""
+    from repro_torch.models import attention as attn_lib
+    gen = torch.Generator().manual_seed(S + G)
+    q = _randn(gen, B, S, KV, G, 128, dtype=dtype, device=card)
+    k, v = (_randn(gen, B, S, KV, 128, dtype=dtype, device=card) for _ in range(2))
+    before = kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES
+    with torch.no_grad():
+        o = attn_lib.attention(q, k, v, causal=True)
+        want = attn_lib.attention(q, k, v, causal=True, kernels="ref")
+    bf16 = dtype == torch.bfloat16
+    assert (kfa.LAUNCHES - before[0], kfa.WGMMA_LAUNCHES - before[1],
+            kfa.TF32_LAUNCHES - before[2]) == (1, int(bf16), int(not bf16))
+    tol = 4e-2 if bf16 else 3e-5
+    torch.testing.assert_close(o.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b", "pixtral-12b"])
+def test_reduced_moe_and_vlm_models_on_the_card_match_the_cpu(arch, card):
+    """The reduced float32 model on the card and on the CPU from the same
+    weights: prefill logits and every cache leaf within 1e-4, equal greedy
+    tokens; flash launches a prefill: one a layer (grok-1, pixtral), none
+    on MLA's plain route (deepseek-v2)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.inputs import sample_train_batch
+    from repro_torch.models.model import Model, tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(card), params)
+    n = 20 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = sample_train_batch(np.random.default_rng(1), cfg, 2, n)
+    pre = {k: (torch.as_tensor(v).long() if k == "tokens" else v)
+           for k, v in batch.items() if k != "labels"}
+    fa = kfa.LAUNCHES
+    with torch.no_grad():
+        lg, cache = Model(cfg).prefill(on_card, {k: v.to(card) for k, v in pre.items()},
+                                       cache_len=n + 12)
+        lg_cpu, cache_cpu = Model(cfg).prefill(params, pre, cache_len=n + 12)
+    assert kfa.LAUNCHES - fa == (0 if cfg.use_mla else cfg.n_layers)
+    torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(cache), tree_leaves(cache_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    got = Server(cfg, on_card, max_len=n + 12, device=card).generate(pre, 12)
+    want = Server(cfg, params, max_len=n + 12, device="cpu").generate(pre, 12)
+    assert torch.equal(got.cpu(), want)

@@ -1,0 +1,223 @@
+"""The port's Multi-head Latent Attention (``repro_torch.models.mla``)
+against the JAX package's (``repro.models.mla``).
+
+Reduced deepseek-v2 in float32, the JAX package's weights carried across by
+``params_from_numpy``, the same inputs from a numpy seed:
+
+* ``mla_prefill``'s output and both cache leaves (``c_kv``, ``k_rope``)
+  within 1e-4 (rtol and atol);
+* the materialized form (``ctx.rules["mla_materialized"]``) equals the
+  absorbed form on the port within the reference's 2e-4
+  (``tests/test_models_equiv.py::test_mla_train_equals_absorbed``), and
+  the JAX package's materialized form within 1e-4;
+* ``mla_decode``, step by step after a prefill, its outputs and the
+  updated cache within 1e-4;
+* the gradients of the absorbed form against ``jax.grad``'s, each leaf
+  within 1e-3 of its largest magnitude.
+
+MLA's attention is plain by design (one shared 576-wide key head and a
+512-wide value at full width; the flash kernel takes k and v of one shape
+and D <= 128).  Two tests marked ``cuda`` show it on a card: the MLA route
+launches no flash kernel, and ``kops.flash_attention`` at D = 576 raises.
+They need no JAX: this module imports it only where a test compares with
+the JAX package, so ``python -m pytest -q -m cuda tests/test_torch_mla.py``
+runs where JAX is not installed.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config as tget
+from repro_torch.models import mla
+from repro_torch.models.context import ModelCtx, null_ctx
+from repro_torch.models.model import params_from_numpy
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+TOL, EQUIV_TOL, GRAD_TOL = 1e-4, 2e-4, 1e-3
+ARCH = "deepseek-v2-236b"
+B, S = 2, 32
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX package's side: its mla module, config, weights and ctx."""
+    jax = pytest.importorskip("jax")
+    import _torch_port  # noqa: F401  (one intra-op thread)
+    from repro.configs.base import get_config as jget
+    from repro.models import mla as jmla
+    from repro.models.context import null_ctx as jnull
+    jc = dataclasses.replace(jget(ARCH, reduced=True), dtype="float32")
+    jp = jmla.init_mla(jax.random.key(0), jc)
+    tc = dataclasses.replace(tget(ARCH, reduced=True), dtype="float32")
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    return dataclasses.make_dataclass("J", ["jax", "jmla", "jnull", "jc", "jp",
+                                            "tc", "tp"])(
+        jax, jmla, jnull, jc, jp, tc, tp)
+
+
+def _x(seed, S_=S):
+    return np.random.default_rng(seed).standard_normal(
+        (B, S_, 64)).astype(np.float32) * 0.1
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def test_init_has_the_jax_tree(J):
+    """``init_mla`` draws its own numbers into the JAX package's tree: the
+    same keys, shapes and dtypes (``wkv_b_k`` and ``wkv_b_v`` (R, H, .))."""
+    got = _flat(mla.init_mla(torch.Generator().manual_seed(0), J.tc, "cpu"))
+    want = _flat(J.jax.tree.map(np.asarray, J.jp))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape and str(got[k].dtype)[6:] == str(w.dtype), k
+    assert tuple(got["/wkv_b_k"].shape) == (J.tc.kv_lora_rank, J.tc.n_heads,
+                                            J.tc.qk_nope_head_dim)
+    assert tuple(got["/wkv_b_v"].shape) == (J.tc.kv_lora_rank, J.tc.n_heads,
+                                            J.tc.v_head_dim)
+
+
+def test_prefill_output_and_cache_match_the_jax_package(J):
+    x = _x(1)
+    pos = np.arange(S)
+    jo, jcache = J.jmla.mla_prefill(J.jax.numpy.asarray(x), J.jp, J.jc, pos,
+                                    J.jnull(attn_chunk=16))
+    with torch.no_grad():
+        o, cache = mla.mla_prefill(torch.from_numpy(x), J.tp, J.tc,
+                                   torch.arange(S), null_ctx())
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
+    assert set(cache) == set(jcache) == {"c_kv", "k_rope"}
+    for k in cache:
+        assert tuple(cache[k].shape) == jcache[k].shape
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=TOL, atol=TOL, err_msg=k)
+
+
+def test_materialized_form_equals_the_absorbed_form(J):
+    """The reference's test_mla_train_equals_absorbed, run on the port, and
+    the port's materialized form against the JAX package's."""
+    x = _x(2)
+    pos = torch.arange(S)
+    ctx = ModelCtx(attn_chunk=16, rules={"mla_materialized": True})
+    with torch.no_grad():
+        o_train = mla.mla_train(torch.from_numpy(x), J.tp, J.tc, pos, ctx)
+        o_pre, cache = mla.mla_prefill(torch.from_numpy(x), J.tp, J.tc, pos,
+                                       null_ctx(attn_chunk=16))
+        o_default = mla.mla_train(torch.from_numpy(x), J.tp, J.tc, pos, null_ctx())
+    np.testing.assert_allclose(o_train.numpy(), o_pre.numpy(), rtol=EQUIV_TOL,
+                               atol=EQUIV_TOL)
+    torch.testing.assert_close(o_default, o_pre, rtol=0, atol=0)
+    assert tuple(cache["c_kv"].shape) == (B, S, J.tc.kv_lora_rank)
+    jctx = J.jnull(attn_chunk=16)
+    jctx.rules = {"mla_materialized": True}
+    jo = J.jmla.mla_train(J.jax.numpy.asarray(x), J.jp, J.jc, np.arange(S), jctx)
+    np.testing.assert_allclose(o_train.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
+
+
+def test_decode_matches_the_jax_package_step_by_step(J):
+    """Prefill 12 tokens into a 20-slot cache, then 8 decode steps, each
+    step's output and the whole cache after it against the JAX package's."""
+    jnp = J.jax.numpy
+    P, L, steps = 12, 20, 8
+    xs = _x(3, P + steps)
+    jo, jc0 = J.jmla.mla_prefill(jnp.asarray(xs[:, :P]), J.jp, J.jc, np.arange(P),
+                                 J.jnull())
+    jcache = {k: jnp.pad(v, ((0, 0), (0, L - P), (0, 0))) for k, v in jc0.items()}
+    with torch.no_grad():
+        _, c0 = mla.mla_prefill(torch.from_numpy(xs[:, :P]), J.tp, J.tc,
+                                torch.arange(P), null_ctx())
+        cache = {k: torch.cat([v, v.new_zeros(B, L - P, v.shape[-1])], 1)
+                 for k, v in c0.items()}
+        for i in range(steps):
+            x = xs[:, P + i:P + i + 1]
+            jout, jcache = J.jmla.mla_decode(jnp.asarray(x), J.jp, J.jc, jcache,
+                                             jnp.int32(P + i), J.jnull())
+            out, cache = mla.mla_decode(torch.from_numpy(x), J.tp, J.tc, cache,
+                                        P + i, null_ctx())
+            np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=TOL,
+                                       atol=TOL, err_msg=f"step {i}")
+    for k in cache:
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=TOL, atol=TOL, err_msg=k)
+
+
+def test_init_mla_cache_and_distributed_decode(J):
+    cache = mla.init_mla_cache(J.tc, B, 16, torch.float32, "cpu")
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        "c_kv": (B, 16, J.tc.kv_lora_rank), "k_rope": (B, 16, J.tc.qk_rope_head_dim)}
+    with pytest.raises(NotImplementedError, match="local"):
+        mla.mla_decode(torch.zeros(B, 1, 64), J.tp, J.tc, cache, 0,
+                       ModelCtx(decode_attn="distributed"))
+
+
+def test_absorbed_gradients_match_jax_grad(J):
+    jnp = J.jax.numpy
+    x = _x(4)
+
+    def jloss(p, x):
+        return jnp.sum(J.jmla.mla_train(x, p, J.jc, np.arange(S), J.jnull()) ** 2)
+
+    jgp, jgx = J.jax.grad(jloss, argnums=(0, 1))(J.jp, jnp.asarray(x))
+    p = tree_map(lambda t: t.detach().requires_grad_(True), J.tp)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = mla.mla_train(xt, p, J.tc, torch.arange(S), null_ctx())
+    got = torch.autograd.grad(torch.sum(out ** 2), [xt] + tree_leaves(p))
+    want = [np.asarray(jgx)] + [np.asarray(g) for g in J.jax.tree.leaves(jgp)]
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert tuple(a.shape) == b.shape, i
+        assert np.abs(a.numpy() - b).max() <= GRAD_TOL * max(np.abs(b).max(), 1e-30), i
+
+
+# --------------------------------------------------------------- on a card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_mla_route_launches_no_flash_kernel(dtype, card):
+    """Prefill, the materialized form and a decode step of the reduced
+    deepseek-v2's MLA on the card: plain by design, so the flash kernel's
+    launch count does not move; the card's answer is the CPU's."""
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(tget(ARCH, reduced=True), dtype=str(dtype)[6:])
+    p = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    lp = tree_map(lambda t: t[0], p["moe_layers"]["attn"])
+    lp_card = tree_map(lambda t: t.to(card), lp)
+    x = torch.from_numpy(_x(5)).to(dtype)
+    before = kfa.LAUNCHES
+    with torch.no_grad():
+        o, cache = mla.mla_prefill(x.to(card), lp_card, cfg, torch.arange(S, device=card),
+                                   null_ctx())
+        mla.mla_train(x.to(card), lp_card, cfg, torch.arange(S, device=card),
+                      ModelCtx(rules={"mla_materialized": True}))
+        cache = {k: torch.cat([v, v.new_zeros(B, 1, v.shape[-1])], 1)
+                 for k, v in cache.items()}
+        mla.mla_decode(x[:, :1].to(card), lp_card, cfg, cache, S, null_ctx())
+        torch.cuda.synchronize()
+        o_cpu, _ = mla.mla_prefill(x, lp, cfg, torch.arange(S), null_ctx())
+    assert kfa.LAUNCHES == before
+    tol = 1e-4 if dtype == torch.float32 else 5e-2 * o_cpu.abs().max().item()
+    assert (o.cpu().float() - o_cpu.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_mlas_576_wide_head(card):
+    from repro_torch.kernels import ops as kops
+    q = torch.randn(2, 64, 1, 576, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 576"):
+        kops.flash_attention(q, q, q, True)

@@ -180,19 +180,23 @@ def test_bf16_zamba2_logits_within_the_stated_bound():
 
 
 def test_registry_resolves_every_arch_and_unported_families_raise():
+    """Every arch's config equals the JAX package's, and every arch, reduced
+    and at full width, constructs a port ``Model``: no family is left
+    unported (an unknown family is a ValueError)."""
     assert list(registry()) == ARCH_IDS
     for arch in ARCH_IDS:
         assert tget(arch) == dataclasses.replace(
             tget(arch), **dataclasses.asdict(jget(arch)))
-        cfg = tget(arch, reduced=True)
-        if cfg.family in ("dense", "ssm", "hybrid", "audio") and not cfg.use_mla:
-            TModel(cfg)
-        elif cfg.family not in ("dense", "ssm", "hybrid", "audio"):
-            with pytest.raises(NotImplementedError, match="A10"):
-                TModel(cfg)
+        for cfg in (tget(arch), tget(arch, reduced=True)):
+            assert TModel(cfg).cfg is cfg
+    with pytest.raises(ValueError, match="family 'video'"):
+        TModel(dataclasses.replace(tget("qwen1.5-0.5b", reduced=True),
+                                   family="video"))
 
 
 def test_distributed_decode_and_mla_raise():
+    """decode_attn != "local" raises (the port has no mesh), for GQA and
+    MLA alike; MLA's ``init_attn`` builds the JAX package's tree."""
     cfg = tget("qwen1.5-0.5b", reduced=True)
     tp = TModel(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     cache = {"k": torch.zeros(1, 8, 4, 16), "v": torch.zeros(1, 8, 4, 16)}
@@ -200,9 +204,22 @@ def test_distributed_decode_and_mla_raise():
     with pytest.raises(NotImplementedError, match="local"):
         blocks.attn_decode(torch.zeros(1, 1, 64), lp, cfg,
                            ModelCtx(decode_attn="distributed"), cache, 0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        blocks.init_attn(torch.Generator(), tget("deepseek-v2-236b", reduced=True),
-                         "cpu")
+    from repro.models.blocks import init_attn as jinit_attn
+    ds = tget("deepseek-v2-236b", reduced=True)
+    p_mla = blocks.init_attn(torch.Generator().manual_seed(0), ds, "cpu")
+    got = _flat(p_mla)
+    want = _flat(jax.eval_shape(lambda k: jinit_attn(k, jget("deepseek-v2-236b",
+                                                             reduced=True)),
+                                jax.random.key(0)))
+    assert got.keys() == want.keys() and "/wkv_b_k" in got
+    for key, w in want.items():
+        assert tuple(got[key].shape) == w.shape, key
+        assert str(got[key].dtype)[6:] == str(w.dtype), key
+    mla_cache = {"c_kv": torch.zeros(1, 8, ds.kv_lora_rank),
+                 "k_rope": torch.zeros(1, 8, ds.qk_rope_head_dim)}
+    with pytest.raises(NotImplementedError, match="local"):
+        blocks.attn_decode(torch.zeros(1, 1, ds.d_model), p_mla, ds,
+                           ModelCtx(decode_attn="distributed"), mla_cache, 0)
 
 
 def test_kernels_ref_ctx_gives_the_same_answer_on_the_cpu():
