@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only elastic    # the build, then the last phases alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -92,7 +93,19 @@ drives the port's two paths through them:
   expert products and combine; float32 (tokens compared, every flash
   launch on the 3xTF32 route); deepseek-v2's MLA forms and incremental
   decode against the full forward at full width, MLA's plain attention
-  timed beside SDPA; the reduced three on the card against the CPU.
+  timed beside SDPA; the reduced three on the card against the CPU;
+* the distribution layer, last (``elastic_phases``): a NCCL process group
+  of one and ``slice_mesh()`` of the card; qwen1.5-0.5b at published width
+  trained 4 bf16 steps (B = 2 x 256) through flash attention, saved to an
+  object store and restored through ``ElasticTrial.restore_onto`` (every
+  leaf equal to the saved one, the restore wall and state bytes beside the
+  120 s revocation notice), served 32 tokens from the migrated weights in
+  bf16 and float32 (equal to the un-migrated ``Server``'s); deepseek-v2 (3
+  of 60 layers) decoded under ``Policy(cfg, mesh, "decode")`` on its
+  "distributed" MLA plan against the decode with no mesh (logits on the
+  same tokens in bf16 and float32, float32 tokens equal, decode ms a token
+  step of both, all-reduces a step); ``int8_allreduce`` over
+  "data" bit-equal to ``axis=None`` on the attention gradients.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -3899,7 +3912,293 @@ def family_phases(torch) -> dict:
     return out
 
 
+ELASTIC_ARCH = "qwen1.5-0.5b"    # hf:Qwen/Qwen1.5-0.5B, published width and depth
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 2, 256, 4
+NOTICE_S = 120.0                 # the spot revocation notice (paper §IV-F)
+# deepseek-v2's sharded decode against the decode with no mesh: float32
+# logits on the same tokens (and the tokens equal); the MLA sub-block's
+# output on the same input, relative to its largest magnitude (bf16: a few
+# ulps of 2^-8; a flipped expert choice downstream is no attention error)
+ELASTIC_F32_LOGIT_TOL = 1e-4
+ELASTIC_ATTN_REL_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+
+
+def elastic_phases(torch) -> dict:
+    """The distribution layer on the card: a NCCL process group of one
+    (``init_world_of_one``; no gloo fallback, a failure to start fails the
+    run) and ``slice_mesh()`` of the one card.
+
+    (a) Algorithm 1's migration at published width: qwen1.5-0.5b trained
+    ``ELASTIC_STEPS`` bf16 steps (B = 2 x 256) through the flash kernel,
+    saved to a ``LocalObjectStore``, restored through
+    ``ElasticTrial.restore_onto(slice_mesh(), ...)``: every leaf equal to
+    the saved one, the restore wall and the state bytes beside the 120 s
+    notice; a ``Server`` of the migrated parameters generates 32 tokens in
+    bf16 and float32, equal to one fed the saved parameters.
+    (b) deepseek-v2 (3 of 60 layers, published width) under
+    ``Policy(cfg, mesh, "decode")``, whose MLA plan is "distributed" even
+    on one card, against the decode with no mesh: every step's logits on
+    the same tokens (bf16 within ``SERVE_REL_TOL`` of the largest, float32
+    within ``ELASTIC_F32_LOGIT_TOL``), the float32 tokens equal, decode ms
+    a token step of both and the all-reduces a step.
+    (c) ``int8_allreduce`` over "data" on the attention gradients of (a)'s
+    model, bit-equal to ``axis=None``.  Returns the flash rows' fields."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint import LocalObjectStore
+    from repro_torch.checkpoint.checkpointer import tree_bytes
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.launch.elastic import ElasticTrial, full_state, slice_mesh
+    from repro_torch.launch.mesh import init_world_of_one
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.launch.train import Trainer, batch_to
+    from repro_torch.models import blocks
+    from repro_torch.models.model import Model, _row, tree_leaves, tree_map
+    from repro_torch.optim.compression import init_error, int8_allreduce
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}}
+    phase("the distribution layer: a NCCL group of one, slice_mesh() of the card")
+    started = init_world_of_one("cuda")
+    print(f"process group: backend {dist.get_backend()}, world {dist.get_world_size()}"
+          f" (started here: {started})")
+    if "nccl" not in str(dist.get_backend()):
+        fail(f"the card's process group runs {dist.get_backend()}, not NCCL")
+    mesh = slice_mesh()
+    print(f"slice_mesh(): {mesh}")
+
+    # ---------------------------------------- (a) the Algorithm-1 migration
+    cfg = get_config(ELASTIC_ARCH)
+    phase(f"main path: {ELASTIC_ARCH} trained {ELASTIC_STEPS} bf16 steps (B = "
+          f"{ELASTIC_BATCH} x {ELASTIC_SEQ}), saved, restored onto slice_mesh(), "
+          f"served from the migrated weights")
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = 0
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, batch=ELASTIC_BATCH, seq=ELASTIC_SEQ, device="cuda")
+    tr.run_steps(ELASTIC_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    n_bytes = tree_bytes(tr.state)
+    print(f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, vocab "
+          f"{cfg.vocab_size}, D = {cfg.head_dim}; {ELASTIC_STEPS} steps in "
+          f"{train_s:.2f} s (init included), step ms "
+          f"{[round(x * 1e3, 2) for x in tr.step_seconds]}; flash launches "
+          f"{train_launches[0]}, on the bf16 wgmma route {train_launches[1]} (want "
+          f"{ELASTIC_STEPS * cfg.n_layers}); state {n_bytes:,} bytes")
+    if train_launches != (ELASTIC_STEPS * cfg.n_layers,) * 2:
+        fail(f"training launched flash {train_launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trial = ElasticTrial(cfg, LocalObjectStore(tmp), "trial")
+        t0 = time.perf_counter()
+        trial.save(tr.step, tr.state)
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step = trial.restore_onto(mesh, tr.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    saved, got = tree_leaves(tr.state), tree_leaves(state)
+    equal = sum(bool(torch.equal(b.to_local(), a)) if isinstance(a, torch.Tensor)
+                else a == b for a, b in zip(saved, got))
+    placements = {str(tuple(b.placements)) for b in got if isinstance(b, torch.Tensor)}
+    print(f"save {save_s:.2f} s, restore onto {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
+          f" {restore_s:.2f} s for {n_bytes:,} bytes ({n_bytes / restore_s / 1e9:.2f} "
+          f"GB/s), against the {NOTICE_S:.0f} s notice; step {step}; {equal} of "
+          f"{len(saved)} leaves equal; placements {sorted(placements)}")
+    if step != ELASTIC_STEPS or equal != len(saved) or restore_s > NOTICE_S:
+        fail(f"the migration: step {step}, {equal} of {len(saved)} leaves equal, "
+             f"restore {restore_s:.2f} s")
+
+    rng = np.random.default_rng(23)
+    prompts = {"tokens": rng.integers(0, cfg.vocab_size, (ELASTIC_BATCH, ELASTIC_SEQ))}
+    max_len = ELASTIC_SEQ + FAMILY_NEW
+    migrated = full_state(state["params"])
+    serve = {}
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        moved, kept = migrated, tr.state["params"]
+        if dt == "float32":
+            moved, kept = (tree_map(lambda t: t.float(), p) for p in (moved, kept))
+        kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = 0
+        t0 = time.perf_counter()
+        tok_m = Server(c, moved, max_len=max_len, device="cuda").generate(
+            prompts, FAMILY_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        route = kfa.WGMMA_LAUNCHES if dt == "bfloat16" else kfa.TF32_LAUNCHES
+        launches = kfa.LAUNCHES
+        tok_k = Server(c, kept, max_len=max_len, device="cuda").generate(
+            prompts, FAMILY_NEW)
+        same = int((tok_m == tok_k).sum())
+        print(f"{dt}: the migrated Server's {tuple(tok_m.shape)} tokens in "
+              f"{gen_s * 1e3:.1f} ms, {same} of {tok_m.numel()} equal to the "
+              f"un-migrated Server's; flash launches {launches}, on the {dt} route "
+              f"{route}")
+        if same != tok_m.numel() or not (route > 0 and route == launches):
+            fail(f"{dt} serving from the migrated weights: {same} of "
+                 f"{tok_m.numel()} tokens equal, flash launches {launches} "
+                 f"({route} on the route)")
+        serve[dt] = {"tokens_equal": same, "tokens": tok_m.numel(),
+                     "flash_launches": launches, "generate_ms": gen_s * 1e3}
+        del moved, kept
+    out["flash"]["elastic"] = {
+        "arch": ELASTIC_ARCH, "train_launches": train_launches[0],
+        "serve_launches": serve["bfloat16"]["flash_launches"],
+        "state_bytes": n_bytes, "save_s": save_s, "restore_s": restore_s,
+        "notice_s": NOTICE_S, "leaves_equal": equal, "leaves": len(saved),
+        "tokens_equal": serve["bfloat16"]["tokens_equal"],
+        "tokens": serve["bfloat16"]["tokens"]}
+    out["flash_f32"]["elastic"] = {
+        "serve_launches": serve["float32"]["flash_launches"],
+        "tokens_equal": serve["float32"]["tokens_equal"],
+        "tokens": serve["float32"]["tokens"]}
+
+    # ---------------------------- (c) int8_allreduce over "data", one card
+    phase("int8_allreduce over 'data' against axis=None (the attention "
+          "gradients of one qwen1.5-0.5b step)")
+    batch = batch_to(tr.data.get_batch(tr.step), "cuda")
+    params = tree_map(lambda p: p.detach().requires_grad_(True), tr.state["params"])
+    attn = params["layers"]["attn"]
+    with torch.enable_grad():
+        loss, _ = tr.model.loss(params, batch, tr.ctx)
+        grads = torch.autograd.grad(loss, tree_leaves(attn))
+    grads = dict(zip(sorted(attn), grads))
+    err = init_error(grads)
+    mean_d, err_d = int8_allreduce(grads, "data", err, mesh=mesh)
+    mean_n, err_n = int8_allreduce(grads, None, err)
+    torch.cuda.synchronize()
+    bit = all(torch.equal(mean_d[k], mean_n[k]) and torch.equal(err_d[k], err_n[k])
+              for k in grads)
+    print(f"{len(grads)} leaves ({', '.join(f'{k} {tuple(v.shape)}' for k, v in grads.items())}),"
+          f" {sum(v.numel() for v in grads.values()):,} values: means and residuals "
+          f"bit-equal {bit}")
+    if not bit:
+        fail("int8_allreduce over 'data' differs from axis=None on one card")
+    out["flash"]["elastic"]["int8_allreduce_bit_equal"] = bit
+    del tr, state, migrated, params, grads, mean_d, mean_n, err, err_d, err_n, batch
+    torch.cuda.empty_cache()
+
+    # ------------------------------- (b) deepseek-v2's sequence-sharded decode
+    arch = "deepseek-v2-236b"
+    full = get_config(arch)
+    mcfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS[arch])
+    phase(f"main path: {arch} ({mcfg.n_layers} of {full.n_layers} layers, published "
+          f"width) decoded on slice_mesh() under Policy(cfg, mesh, 'decode'), bf16 "
+          f"then float32")
+    params = Model(mcfg).init(torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    ctx = Policy(mcfg, mesh, "decode").ctx(decode=True, batch=FAMILY_BATCH)
+    plan = ctx.decode_plan
+    print(f"decode plan {plan}; decode_attn {ctx.decode_attn!r}")
+    if plan.mode != "distributed" or not ctx.sharded_decode:
+        fail(f"deepseek-v2's plan on one card: {plan}")
+    prompts = {"tokens": rng.integers(0, mcfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT))}
+    dev_tok = torch.as_tensor(prompts["tokens"], device="cuda").long()
+    max_len = FAMILY_PROMPT + FAMILY_NEW
+
+    def decode(srv, fed):
+        """The prefill, then a decode step on each of ``fed``'s tokens:
+        (every step's last-position logits, ms a step, the all-reduces of
+        one more step under the profiler and their host ms)."""
+        from torch.profiler import ProfilerActivity, profile
+        with torch.inference_mode():
+            lg, cache = srv.prefill(dev_tok)
+            if srv.ctx.sharded_decode:
+                cache = srv._shard_cache(cache)
+            logits = [lg[:, -1].float()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(fed.shape[1] - 1):
+                lg, cache = srv.model.decode_step(srv.params, cache, fed[:, i:i + 1],
+                                                  FAMILY_PROMPT + i, srv.ctx)
+                logits.append(lg[:, -1].float())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / (fed.shape[1] - 1) * 1e3
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                srv.model.decode_step(srv.params, cache, fed[:, -1:],
+                                      FAMILY_PROMPT + fed.shape[1] - 1, srv.ctx)
+                torch.cuda.synchronize()
+        ar = [e for e in prof.key_averages() if "allreduce" in e.key.lower()]
+        return (torch.stack(logits, 1), ms, sum(e.count for e in ar),
+                sum(e.cpu_time_total for e in ar) / 1e3)
+
+    res = {"plan": dataclasses.asdict(plan)}
+    for dt in ("bfloat16", "float32"):
+        if dt == "float32":
+            params_to_float32(params)
+            torch.cuda.empty_cache()
+        c = dataclasses.replace(mcfg, dtype=dt)
+        local = Server(c, params, max_len=max_len, device="cuda")
+        shard = Server(c, params, ctx=ctx, max_len=max_len, device="cuda")
+        # the sharded MLA sub-block against the local one on the same input,
+        # every layer's weights and its prefill cache
+        with torch.inference_mode():
+            _, cache = local.prefill(dev_tok)
+            stacks = (("dense", "dense_layers", mcfg.first_k_dense),
+                      ("moe", "moe_layers", mcfg.n_layers - mcfg.first_k_dense))
+            caches = [_row(cache[ck], i) for ck, _, n in stacks for i in range(n)]
+            layers_p = [_row(params[pk], i) for _, pk, n in stacks for i in range(n)]
+            h = torch.randn(FAMILY_BATCH, 1, mcfg.d_model, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+            h = h.to(getattr(torch, dt))
+            attn_err = 0.0
+            for lp, lc in zip(layers_p, caches):
+                a_l, _ = blocks.attn_decode(h, lp["attn"], c, local.ctx,
+                                            tree_map(lambda t: t.clone(), lc), FAMILY_PROMPT)
+                a_s, _ = blocks.attn_decode(h, lp["attn"], c, ctx,
+                                            tree_map(lambda t: t.clone(), lc), FAMILY_PROMPT)
+                attn_err = max(attn_err, ((a_s.float() - a_l.float()).abs().max()
+                                          / a_l.float().abs().max()).item())
+            del cache, caches
+        tok_l = local.generate(prompts, FAMILY_NEW)
+        tok_s = shard.generate(prompts, FAMILY_NEW)
+        same = int((tok_l == tok_s).sum())
+        fed = tok_l.long()
+        lg_l, ms_l, ar_l, _ = decode(local, fed)
+        lg_s, ms_s, ar_s, ar_ms = decode(shard, fed)
+        _, ms_s2, _, _ = decode(shard, fed)
+        _, ms_l2, _, _ = decode(local, fed)
+        err = (lg_s - lg_l).abs().max().item()
+        a_tol = ELASTIC_ATTN_REL_TOL[dt]
+        print(f"{dt}: the MLA sub-block on the mesh against no mesh, {mcfg.n_layers} "
+              f"layers: max diff {attn_err:.4g} of the largest |output| (tol {a_tol}); "
+              f"tokens {same} of {tok_l.numel()} equal; on the same tokens every "
+              f"step's logits max abs diff {err:.4g} (max |logit| "
+              f"{lg_l.abs().max().item():.4g}); decode ms a token step: no mesh "
+              f"{ms_l:.3f} / {ms_l2:.3f}, on the mesh {ms_s:.3f} / {ms_s2:.3f}; "
+              f"all-reduces a step {ar_s} (no mesh {ar_l}; 3 a MLA layer), "
+              f"{ar_ms:.3f} ms of host time")
+        if attn_err > a_tol or (dt == "float32" and not (
+                same == tok_l.numel() and err <= ELASTIC_F32_LOGIT_TOL)):
+            fail(f"deepseek-v2 {dt} on the mesh: the MLA sub-block {attn_err:.4g} "
+                 f"apart, {same} of {tok_l.numel()} tokens equal, logits {err:.4g} "
+                 f"apart (float32 tol {ELASTIC_F32_LOGIT_TOL})")
+        res[dt] = {"attn_rel_err": attn_err, "attn_rel_tol": a_tol,
+                   "tokens_equal": same, "tokens": tok_l.numel(), "logit_err": err,
+                   "decode_ms_local": [ms_l, ms_l2], "decode_ms_mesh": [ms_s, ms_s2],
+                   "allreduces_per_step": ar_s, "allreduce_host_ms": ar_ms}
+        del local, shard
+    out["flash"]["elastic"]["deepseek_decode"] = res
+    del params
+    torch.cuda.empty_cache()
+    if started:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_all
+    print(f"the distribution layer's phases: {wall:.1f} s of wall")
+    out["flash"]["elastic"]["wall_s"] = wall
+    return out
+
+
 def main() -> None:
+    only_elastic = sys.argv[1:] == ["--only", "elastic"]
+    if sys.argv[1:] and not only_elastic:
+        fail(f"arguments {sys.argv[1:]}: none, or --only elastic")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -3936,6 +4235,15 @@ def main() -> None:
     for stem, log in build.BUILD_LOG.items():
         print(f"-- nvcc {stem}.cu ({build.BUILD_SECONDS[stem]:.2f} s):")
         print(log.strip())
+    if only_elastic:
+        # the distribution layer's phases alone, after the build
+        elastic = elastic_phases(torch)
+        print(smi)
+        print(json.dumps(elastic))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     # ------------------------------------- kernel against plain, on card
     phase("lstm_cell kernel against its plain version")
@@ -4245,6 +4553,10 @@ def main() -> None:
     families = family_phases(torch)
     flash_row.update(families["flash"])
     flash_f32_row.update(families["flash_f32"])
+    # the distribution layer last: a NCCL group of one over the card
+    elastic = elastic_phases(torch)
+    flash_row.update(elastic["flash"])
+    flash_f32_row.update(elastic["flash_f32"])
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

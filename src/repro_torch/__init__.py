@@ -6,4 +6,6 @@ library, never ``jax`` or ``repro``.  Entry points that hold tensors
 (``core.revpred``, ``core.earlycurve``, ``sweep``, ``models.model``,
 ``launch.serve``) run on the card unless the caller passes
 ``device="cpu"``; ``kernels`` holds the hand-written CUDA kernels.
+``collectives`` and ``launch.{mesh,sharding,elastic}`` lay states and
+decode caches out on a ``torch.distributed`` ``DeviceMesh``.
 """

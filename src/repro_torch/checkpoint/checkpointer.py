@@ -42,13 +42,13 @@ _DTYPES = {torch.float32: "float32", torch.float64: "float64",
 _BY_NAME = {v: k for k, v in _DTYPES.items()}
 
 
-def _paths(tree, prefix=""):
+def leaf_paths(tree, prefix=""):
     """(key string, leaf) in leaf order; keys as ``jax.tree_util.keystr``
     writes them (``['opt']['m'][0]``)."""
     if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _paths(tree[k], f"{prefix}[{k!r}]")]
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
-        return [p for i, t in enumerate(tree) for p in _paths(t, f"{prefix}[{i}]")]
+        return [p for i, t in enumerate(tree) for p in leaf_paths(t, f"{prefix}[{i}]")]
     return [(prefix, tree)]
 
 
@@ -90,7 +90,7 @@ def save_pytree(store, prefix: str, step: int, tree, blocking: bool = True,
                 extra_meta: Optional[dict] = None):
     """Serialize a tree.  The leaves are copied to the host before a write
     thread starts.  Returns a handle with .wait() (async support)."""
-    paths = _paths(tree)
+    paths = leaf_paths(tree)
     host = [_host(leaf) for _, leaf in paths]        # device -> host first
     meta = {
         "treedef": _treedef(tree),
@@ -162,17 +162,20 @@ def _leaf(data: bytes, dtype: str, shape, tmpl, device_fn):
     if list(t.shape) != list(tmpl.shape):
         raise ValueError(f"checkpoint leaf of shape {list(t.shape)}, template "
                          f"{list(tmpl.shape)}")
-    dev = device_fn(tmpl) if device_fn is not None else tmpl.device
-    return t.to(device=dev, dtype=tmpl.dtype)
+    target = device_fn(tmpl) if device_fn is not None else tmpl.device
+    if hasattr(target, "place"):                  # a launch.sharding.NamedSharding
+        return target.place(t.to(dtype=tmpl.dtype))
+    return t.to(device=target, dtype=tmpl.dtype)
 
 
 def restore_pytree(store, prefix: str, like, step: Optional[int] = None,
                    sharding_fn: Optional[Callable[[Any], Any]] = None):
     """Restore into the structure of ``like`` (a tree of tensors, int
-    leaves allowed).  Each leaf lands on its template's device, or on
-    ``sharding_fn(template)`` where one is given (the JAX package's elastic
-    placement hook; one card, so it names a device).  Returns
-    (tree, step)."""
+    leaves allowed).  Each leaf lands on its template's device, or where
+    ``sharding_fn(template)`` says (the JAX package's elastic placement
+    hook): a device, or a ``launch.sharding.NamedSharding``, whose
+    ``place`` keeps this rank's block of the leaf just read, so that no
+    more than one leaf is ever whole on a rank.  Returns (tree, step)."""
     if step is None:
         step = latest_step(store, prefix)
         if step is None:

@@ -1,5 +1,19 @@
-"""Launchers: ``serve`` (batched greedy decoding), ``train`` (the train
-step and ``Trainer`` with checkpoint/restart) and ``roofline`` (the
-simulated pool's rates, constants only); the rest of the JAX package's
-``launch`` (dry-run, meshes, sharding, the HLO cost walk) is not ported
-yet."""
+"""Launchers: ``serve`` (batched greedy decoding, on one device or on a
+mesh), ``train`` (the train step and ``Trainer`` with checkpoint/restart),
+the distribution layer — ``mesh`` (``DeviceMesh`` meshes with the JAX axis
+names, the device-free ``MeshShape``, ``init_world_of_one``), ``sharding``
+(the divisibility-aware ``Policy``, ``DecodePlan``, ``NamedSharding``) and
+``elastic`` (``slice_mesh``, ``reshard_state``, ``ElasticTrial``: a
+checkpoint restored onto another mesh) — and ``roofline`` (the simulated
+pool's rates, constants only).  The JAX package's dry run, its HLO cost
+walk and the rest of its ``roofline`` are not ported yet (ROADMAP)."""
+
+from repro_torch.launch.elastic import (ElasticTrial, reshard_state, slice_mesh,
+                                        slice_shape, state_shardings)
+from repro_torch.launch.mesh import (MeshShape, init_world_of_one,
+                                     make_production_mesh, make_small_mesh)
+from repro_torch.launch.sharding import DecodePlan, NamedSharding, Policy
+
+__all__ = ["DecodePlan", "ElasticTrial", "MeshShape", "NamedSharding", "Policy",
+           "init_world_of_one", "make_production_mesh", "make_small_mesh",
+           "reshard_state", "slice_mesh", "slice_shape", "state_shardings"]

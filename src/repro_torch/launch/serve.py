@@ -8,6 +8,17 @@ takes the stub frame embeddings (``frames``) beside the prompt; its
 encoder runs once there, and decode reads the cached cross K/V.
 Pixtral's takes the stub patch embeddings (``patch_embeds``), which come
 ahead of the prompt and take its first ``n_patches`` positions.
+
+On a mesh, ``Server(cfg, params, ctx=policy.ctx(decode=True, batch=B))``
+with ``policy = Policy(cfg, mesh, "decode")``: every rank is given the
+whole batch and the whole (replicated) parameters; it prefills its batch
+slice (``plan.b_axes``) replicated, cuts the cache to its shard as
+``Policy.cache_shardings`` lays it out (sequence over ``plan.seq_axes``, KV
+heads or head_dim over ``model``), decodes through the shard-aware path
+and gathers the tokens of the whole batch.  The cache's sequence
+(``max_len``) must split evenly over the sequence axes.  The transformer
+families (dense, vlm, moe, MLA) decode on a mesh; ssm, hybrid and audio
+raise.
 """
 
 from __future__ import annotations
@@ -16,7 +27,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.collectives import all_gather_ordered
 from repro_torch.device import resolve_device
+from repro_torch.checkpoint.checkpointer import leaf_paths
+from repro_torch.launch.sharding import Policy, local_block, map_with_path
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model
 
@@ -33,6 +47,10 @@ class Server:
         self.params = params
         self.ctx = ctx or null_ctx()
         self.max_len = max_len
+        if self.ctx.sharded_decode and cfg.family not in ("dense", "vlm", "moe"):
+            raise NotImplementedError(
+                f"{cfg.family} decode on a mesh: the port shards the transformer "
+                "families' caches only (ROADMAP A12)")
 
     @torch.inference_mode()
     def prefill(self, tokens, frames=None, patch_embeds=None):
@@ -72,10 +90,39 @@ class Server:
         if prompt_len + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {prompt_len} + {max_new_tokens} new tokens "
                              f"exceeds max_len {self.max_len}")
+        b_axes = self.ctx.decode_plan.b_axes if self.ctx.sharded_decode else None
+        if b_axes:
+            tokens, frames, patches = (None if t is None else self._batch_slice(t)
+                                       for t in (tokens, frames, patches))
         logits, cache = self.prefill(tokens, frames, patches)
+        if self.ctx.sharded_decode:
+            cache = self._shard_cache(cache)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out = [tok]
         for i in range(max_new_tokens - 1):
             tok, cache = self.step(cache, tok, prompt_len + i)
             out.append(tok)
-        return torch.cat(out, dim=1).to(torch.int32)
+        out = torch.cat(out, dim=1).to(torch.int32)
+        if b_axes:
+            out = all_gather_ordered(out, self.ctx.groups, b_axes, 0)
+        return out
+
+    def _batch_slice(self, t):
+        """This rank's rows of a whole batch (the plan's batch axes)."""
+        return local_block(t, (tuple(self.ctx.decode_plan.b_axes),), self.ctx.mesh)
+
+    def _shard_cache(self, cache):
+        """A prefill's cache (this rank's batch rows, whole sequence and
+        heads) cut to this rank's shard, as ``Policy.cache_shardings`` lays
+        it out; the batch dim is already this rank's.  Each leaf is copied
+        to storage of its own, so the whole cache is freed."""
+        sh = Policy(self.cfg, self.ctx.mesh, "decode").cache_shardings(
+            cache, self.ctx.decode_plan)
+        flat = dict(leaf_paths(sh))
+
+        def cut(path, t):
+            spec = list(flat[path].spec)
+            spec[1] = None                        # (L, B, ...): B is local
+            return local_block(t, spec, self.ctx.mesh).clone(
+                memory_format=torch.contiguous_format)
+        return map_with_path(cut, cache)

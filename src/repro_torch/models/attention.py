@@ -15,8 +15,10 @@ Training takes the kernel's ``FlashAttention`` Function, whose plain
 backward walks the keys in chunks of ``min(chunk, S)`` (one chunk where
 that does not divide S), as the JAX package's flash VJP does.  The
 gradients of the K/V heads that GQA repeats are summed by autograd of
-``repeat_interleave``.  Decode stays plain PyTorch over the full local
-cache.
+``repeat_interleave``.  Decode stays plain PyTorch: over the full local
+cache, or, on a mesh, over this rank's shard of it
+(``distributed_decode_attention``: the JAX package's ``shard_map``
+flash-decode, its ``pmax`` / ``psum`` as all-reduces over process groups).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.collectives import axis_index, axis_size
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 
@@ -121,10 +125,18 @@ def init_cache(cfg, batch: int, seq_len: int, device, dtype=None,
             "v": torch.zeros((batch, seq_len, kv, dh), dtype=dt, device=device)}
 
 
-def cache_update(cache, k_new, v_new, pos: int):
+def cache_update(cache, k_new, v_new, pos: int,
+                 shard_start: Optional[int] = None):
     """Write (B, 1, KV, Dh) at position ``pos``.  In place, where the JAX
     package returns a new cache (its jitted step donates the old one): the
-    cache's tensors are updated and the same dict is returned."""
+    cache's tensors are updated and the same dict is returned.  With
+    ``shard_start`` the cache is this rank's slice of a sequence-sharded
+    one, whose first slot is global position ``shard_start``: only the rank
+    whose slice holds ``pos`` writes, at ``pos - shard_start``."""
+    if shard_start is not None:
+        pos -= shard_start
+        if not 0 <= pos < cache["k"].shape[1]:
+            return cache
     cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
     cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
     return cache
@@ -149,3 +161,48 @@ def merge_heads(o, cfg):
     """(B, S, KV, G, Dh) -> (B, S, H*Dh)."""
     B, S = o.shape[:2]
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+
+
+def distributed_decode_attention(q, k_shard, v_shard, pos: int, seq_group,
+                                 shard_start: int, scale: Optional[float] = None,
+                                 hd_group=None):
+    """Flash-decode across a sequence-sharded cache: the JAX package's
+    ``shard_map`` body, its collectives on process groups.
+
+    q (B,1,KV,G,Dh) the same on every rank of ``seq_group``; k/v shards
+    (B,S_loc,KV,Dh'); ``shard_start``: this shard's first global cache slot.
+    One MAX all-reduce and two SUM all-reduces over ``seq_group`` implement
+    an exact log-sum-exp combine (``seq_group`` None: one shard, no
+    collective).  When the head_dim is additionally split over the model
+    axis (``hd_group``), the partial scores are SUM-reduced over it before
+    the softmax; ``scale`` is then the full head's, which the caller
+    passes.  -> (B,1,KV,G,Dv') in q's type."""
+    Dh = q.shape[-1]
+    S_loc = k_shard.shape[1]
+    scale = scale if scale is not None else Dh ** -0.5
+    f32 = torch.float32
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(f32) * scale, k_shard.to(f32))
+    if hd_group is not None:
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=hd_group)
+    gpos = shard_start + torch.arange(S_loc, device=q.device)
+    s = torch.where(gpos <= pos, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
+
+    m = torch.amax(s, dim=-1)                                   # (B,KV,G,1)
+    if seq_group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=seq_group)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v_shard.to(f32))
+    if seq_group is not None:
+        dist.all_reduce(l, op=dist.ReduceOp.SUM, group=seq_group)
+        dist.all_reduce(o, op=dist.ReduceOp.SUM, group=seq_group)
+    o = o / torch.clamp(l, min=1e-30)[..., None]                # (B,KV,G,1,Dv)
+    return o.permute(0, 3, 1, 2, 4).to(q.dtype)                 # (B,1,KV,G,Dv)
+
+
+def seq_shard_start(mesh, seq_axes, total_len: int) -> int:
+    """Global offset of this rank's slice of a cache sequence of
+    ``total_len`` split over ``seq_axes`` (major to minor)."""
+    if not seq_axes:
+        return 0
+    return axis_index(mesh, seq_axes) * (total_len // axis_size(mesh, seq_axes))

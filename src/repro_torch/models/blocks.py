@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.collectives import all_gather_ordered, axis_index
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mla, moe, ssd
 
@@ -54,18 +55,51 @@ def attn_prefill(h, p, cfg, ctx, positions):
 
 def attn_decode(h, p, cfg, ctx, cache, pos: int):
     """h (B,1,D); cache {k, v} (B,S,KV,Dh) or MLA's {c_kv, k_rope}, updated
-    in place; pos int."""
-    if ctx.decode_attn != "local":
-        raise NotImplementedError(f"decode_attn={ctx.decode_attn!r}: the port "
-                                  "has only 'local' (one card, no mesh)")
+    in place; pos int.  Under a decode plan on a mesh (``ctx.sharded_decode``)
+    h is this rank's batch slice and the cache its shard."""
     if cfg.use_mla:
         return mla.mla_decode(h, p, cfg, cache, pos, ctx)
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
     q, k_new, v_new = attn_lib.qkv_project(h, p, cfg, positions)
-    cache = attn_lib.cache_update(cache, k_new, v_new, pos)
-    o = attn_lib.decode_attention(q, cache, pos)
+    if ctx.sharded_decode:
+        o = _distributed_decode(q, k_new, v_new, cache, pos, ctx)
+    else:
+        cache = attn_lib.cache_update(cache, k_new, v_new, pos)
+        o = attn_lib.decode_attention(q, cache, pos)
     return attn_lib.merge_heads(o, cfg) @ p["wo"], cache
+
+
+def _distributed_decode(q, k_new, v_new, cache, pos: int, ctx):
+    """Flash-decode over this rank's shard of the KV cache (the JAX
+    package's ``shard_map`` body, with the cache write it does outside).
+
+    The layout is ``ctx.decode_plan``'s: the batch over ``plan.b_axes`` (q
+    is already this rank's batch slice), the cache sequence over
+    ``plan.seq_axes``, the KV heads (``kv_axis == "model"``) or the head_dim
+    (``"HD"``) over the model axis.  q and the new K/V are computed whole on
+    every rank; each keeps its own heads or head_dim slice, the rank whose
+    sequence slice holds ``pos`` writes the new K/V, and the output's heads
+    or head_dim are gathered back over the model axis.  A plan without
+    sequence axes (mode "local") makes no sequence collective."""
+    plan, mesh, groups, m = ctx.decode_plan, ctx.mesh, ctx.groups, ctx.model_axis
+    seq = tuple(plan.seq_axes)
+    scale = q.shape[-1] ** -0.5                     # the whole head's
+    # the dims of q (B,1,KV,G,Dh) and of k, v (B,1,KV,Dh) the model axis splits
+    q_dim, kv_dim = {"model": (2, 2), "HD": (4, 3)}.get(plan.kv_axis, (None, None))
+    if q_dim is not None:
+        n, i = ctx.axis_size(m), axis_index(mesh, m)
+        q = q.narrow(q_dim, i * (q.shape[q_dim] // n), q.shape[q_dim] // n)
+        w = k_new.shape[kv_dim] // n
+        k_new, v_new = k_new.narrow(kv_dim, i * w, w), v_new.narrow(kv_dim, i * w, w)
+    start = attn_lib.seq_shard_start(mesh, seq, cache["k"].shape[1] * ctx.axis_size(seq))
+    attn_lib.cache_update(cache, k_new, v_new, pos, shard_start=start)
+    o = attn_lib.distributed_decode_attention(
+        q, cache["k"], cache["v"], pos, groups.group(seq) if seq else None, start,
+        scale=scale, hd_group=groups.group(m) if plan.kv_axis == "HD" else None)
+    if q_dim is not None:
+        o = all_gather_ordered(o, groups, m, q_dim)
+    return o
 
 
 # ---------------------------------------------------------------------------

@@ -138,21 +138,44 @@ def init_mla_cache(cfg, batch: int, seq_len: int, dtype, device):
 def mla_decode(x, params, cfg, cache, pos: int, ctx):
     """One token, absorbed.  x (B,1,D); the compressed cache {c_kv, k_rope}
     updated in place at ``pos`` (the JAX package's jitted step donates it
-    and returns a new one).  Only the local decode exists: the JAX
-    package's distributed form needs a mesh."""
-    if ctx.decode_attn != "local":
-        raise NotImplementedError(f"decode_attn={ctx.decode_attn!r}: the port "
-                                  "has only 'local' (one card, no mesh)")
+    and returns a new one).  Under a decode plan on a mesh
+    (``ctx.sharded_decode``) x is this rank's batch slice and the cache its
+    sequence shard: only the rank whose slice holds ``pos`` writes, and the
+    attention combines the shards (``_distributed_mla_decode``)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _project_q(x, params, cfg, positions)
     c_new, kr_new = _project_kv_latent(x, params, cfg, positions)
-    cache["c_kv"][:, pos:pos + 1] = c_new.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos:pos + 1] = kr_new.to(cache["k_rope"].dtype)
+    start = 0
+    if ctx.sharded_decode:
+        seq = tuple(ctx.decode_plan.seq_axes)
+        start = attn_lib.seq_shard_start(
+            ctx.mesh, seq, cache["c_kv"].shape[1] * ctx.axis_size(seq))
+    i = pos - start
+    if 0 <= i < cache["c_kv"].shape[1]:
+        cache["c_kv"][:, i:i + 1] = c_new.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, i:i + 1] = kr_new.to(cache["k_rope"].dtype)
     q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,1,H,R+qr)
-    kv = {"k": torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None],
-          "v": cache["c_kv"][:, :, None]}
-    o_lat = attn_lib.decode_attention(q_eff[:, :, None], kv, pos,
-                                      scale=_scale(cfg))[:, :, 0]   # (B,1,H,R)
+    if ctx.sharded_decode:
+        o_lat = _distributed_mla_decode(q_eff, cache, pos, start, ctx, _scale(cfg))
+    else:
+        kv = {"k": torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None],
+              "v": cache["c_kv"][:, :, None]}
+        o_lat = attn_lib.decode_attention(q_eff[:, :, None], kv, pos,
+                                          scale=_scale(cfg))[:, :, 0]   # (B,1,H,R)
     o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
     return o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim) @ params["wo"], cache
+
+
+def _distributed_mla_decode(q_eff, cache, pos: int, start: int, ctx, scale):
+    """Flash-decode over the sequence-sharded compressed cache (MQA form:
+    one shared key head concat(c_kv, k_rope), 576 wide at deepseek-v2's
+    width, and G = n_heads query heads), the JAX package's ``shard_map``
+    body: the log-sum-exp combine over ``plan.seq_axes``; ``start`` is this
+    shard's first global slot.  -> (B,1,H,R)."""
+    seq = tuple(ctx.decode_plan.seq_axes)
+    k = torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None]  # (B,S_loc,1,·)
+    o = attn_lib.distributed_decode_attention(
+        q_eff[:, :, None], k, cache["c_kv"][:, :, None], pos,
+        ctx.groups.group(seq) if seq else None, start, scale=scale)
+    return o[:, :, 0]

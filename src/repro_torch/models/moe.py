@@ -2,8 +2,10 @@
 
 The port of ``repro.models.moe`` for one card: the path the JAX package
 takes with ``ctx.mesh is None`` (strategy ``tp`` over all experts,
-``e_start = 0``, no sequence-parallel gather, no psum).  The mesh pieces
-(``moe_weight_specs``, ``shard_map``) have no counterpart here.
+``e_start = 0``, no sequence-parallel gather, no psum).  Of the mesh
+pieces, ``moe_weight_specs`` (the sharding policy's expert specs) is
+ported; the ``shard_map`` expert-parallel route is not, and every rank of
+a mesh runs the local math.
 
 Every step that decides which tokens an expert keeps is the reference's:
 
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.collectives import P
 from repro_torch.models import layers
 
 
@@ -53,6 +56,18 @@ def _expert_init(gen, e, d_in, d_out, dt, device):
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
         t.mul_(std)
     return layers._draw(gen, (e, d_in, d_out), device, dt, fill)
+
+
+def moe_weight_specs(cfg, strategy: str, model_axis, fsdp_axis):
+    """PartitionSpecs for the stacked (L-leading) expert weights: ``ep``
+    shards the experts over ``model_axis``, ``tp`` their hidden dim."""
+    m, f = model_axis, fsdp_axis
+    if strategy == "ep":
+        wg = wd = P(None, m, f, None)
+    else:
+        wg = P(None, None, f, m)
+        wd = P(None, None, m, f)
+    return {"w_gate": wg, "w_up": wg, "w_down": wd, "router": P(None, None, None)}
 
 
 def _route(x, router_w, cfg):

@@ -4,10 +4,11 @@
 * ``int8_allreduce(grads, axis, error)``: quantize each gradient leaf to
   int8 with a per-leaf scale, reduce the int8 payload, dequantize, and
   carry the quantization residual forward as *error feedback*, so the
-  compression bias cancels over steps.  One card: ``axis=None`` is the
-  only reduction the port has (the collective is the identity, the
-  quantization and its residuals are real); a named axis needs a mesh of
-  processes and raises (ROADMAP A12).
+  compression bias cancels over steps.  ``axis=None`` is one shard (the
+  collective is the identity, the quantization and its residuals are
+  real); a named mesh axis (or a tuple of them) of a ``DeviceMesh``
+  reduces over that axis's process group, as the JAX package's ``psum``
+  under ``shard_map`` reduces over the bound axis name.
 * ``compressed(optimizer)``: an optimizer wrapper that applies error
   feedback around any base optimizer (quantize-dequantize each step, the
   residual carried in the state).
@@ -21,7 +22,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.collectives import Axes, MeshGroups, axis_size
 from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           tree_unflatten)
 
@@ -48,26 +51,39 @@ def compress_leaf(g, err):
     return deq.to(g.dtype), target - deq
 
 
-def int8_allreduce(grads, axis: Optional[str], error):
+def int8_allreduce(grads, axis: Optional[Axes], error, mesh=None):
     """Quantized mean-reduce over ``axis`` with error feedback.
 
     ``error`` is a tree like ``grads`` (float32 residuals); pass zeros on
     step 0.  Returns (mean_grads, new_error).  With ``axis=None`` the
     collective is the identity (one shard) but the quantization and its
     residuals are computed, so the numerics are the real ones.  A named
-    axis raises NotImplementedError: it needs a mesh (ROADMAP A12)."""
+    axis needs ``mesh``, the ``DeviceMesh`` that names it; every rank of
+    the axis calls with its own gradients (a tuple of axes builds its
+    group with ``dist.new_group`` at each call).  The reference's arithmetic in
+    its order: a SUM of the int32 payload, ``n`` the axis size, the mean of
+    the scales (summed, over ``n``), then ``s * sc / n``."""
     if axis is not None:
-        raise NotImplementedError(
-            f"int8_allreduce over axis {axis!r} needs a device mesh, which "
-            "the port does not have yet (ROADMAP A12); axis=None is the "
-            "one-shard path")
+        if mesh is None:
+            raise ValueError(f"int8_allreduce over axis {axis!r} needs the "
+                             "DeviceMesh that names it (mesh=)")
+        group = MeshGroups(mesh).group(axis)
+        n = axis_size(mesh, axis)
 
     @torch.no_grad()
     def one(g, e):
         target = g.float() + e
         q, scale = quantize_int8(target)
-        deq = dequantize_int8(q, scale)
-        return deq.to(g.dtype), target - deq
+        if axis is not None:
+            s = q.to(torch.int32)                 # int32 accumulation
+            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+            sc = scale.clone()
+            dist.all_reduce(sc, op=dist.ReduceOp.SUM, group=group)
+            sc = sc / n                           # avg scale
+            mean = s.float() * sc / n
+        else:
+            mean = dequantize_int8(q, scale)
+        return mean.to(g.dtype), target - dequantize_int8(q, scale)
 
     outs = tree_map(one, grads, error)
     return (tree_map(lambda _, o: o[0], grads, outs),

@@ -1,0 +1,161 @@
+"""Spawned gloo ranks for the port's distributed tests, and the rank
+workers they run.
+
+Nothing here imports JAX: a spawned child imports torch, the port and this
+module only.  ``run_ranks`` starts ``world`` processes with
+``torch.multiprocessing.start_processes(..., join=False)``; each starts a
+gloo group (``init_method=file://...`` in the test's own temporary
+directory, so parallel test workers never race for a port; a 60 s
+collective timeout; one intra-op thread), runs a worker and saves what it
+returns; the arguments travel through a file beside it.  The parent joins them with a deadline and kills any rank still
+alive when it passes, so no rank outlives its test.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+DEADLINE_S = 60.0      # a whole spawned run: start, work, exit
+
+
+def _entry(rank, fn, world, tmp):
+    torch.set_num_threads(1)
+    args = torch.load(f"{tmp}/args.pt", weights_only=False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=60))
+    try:
+        out = fn(rank, *args)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_path: Path, *args, deadline: float = DEADLINE_S):
+    """``fn(rank, *args)`` on ``world`` spawned gloo ranks -> their results,
+    by rank.  Raises if a rank raises or the deadline passes."""
+    tmp = Path(tmp_path) / f"ranks_{time.monotonic_ns()}"
+    tmp.mkdir()
+    # the arguments go through a file: a spawned child reads its pipe only
+    # once its imports are done, so large arguments would start the ranks
+    # one after another
+    torch.save(args, tmp / "args.pt")
+    ctx = mp.start_processes(_entry, args=(fn, world, str(tmp)), nprocs=world,
+                             join=False, start_method="spawn")
+    end = time.monotonic() + deadline
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.01)):
+            if time.monotonic() >= end:
+                raise TimeoutError(f"{world} ranks of {fn.__name__} still running "
+                                   f"after {deadline:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    assert not any(p.is_alive() for p in ctx.processes)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ------------------------------------------------------------------ workers
+def _cfg(arch):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+
+
+def restore_worker(rank, arch, mesh_shape, store_dir, prefix, kinds):
+    """``ElasticTrial.restore_onto`` a mesh of ``mesh_shape`` for each
+    ``kind`` -> {kind: {leaf path: (local block, the tensor dim each mesh
+    dim shards or None)}}."""
+    from repro_torch.checkpoint import LocalObjectStore
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.elastic import ElasticTrial, slice_mesh
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.launch.train import init_state
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch, reduced=True)
+    if mesh_shape is None:
+        mesh = slice_mesh(4, max_model=2, device_type="cpu")
+    else:
+        mesh = make_small_mesh(mesh_shape, device_type="cpu")
+    opt = adamw(3e-3, keep_master=(cfg.opt_precision == "fp32"))
+    like = init_state(Model(cfg), opt, device="meta")
+    out = {"mesh": tuple(mesh.mesh.shape), "coord": tuple(mesh.get_coordinate())}
+    for kind in kinds:
+        trial = ElasticTrial(cfg, LocalObjectStore(store_dir), prefix, kind=kind)
+        state, step = trial.restore_onto(mesh, like)
+        leaves = {path: (x.to_local(), [getattr(p, "dim", None) for p in x.placements])
+                  if isinstance(x, torch.Tensor) else (x, None)
+                  for path, x in leaf_paths(state)}
+        out[kind] = {"step": step, "leaves": leaves}
+    return out
+
+
+def decode_worker(rank, cases, steps, max_len):
+    """For each case (arch, mesh shape, JAX weights as numpy, prompt
+    tokens): the port's ``Server`` on a mesh of the shape over the first
+    ranks, under ``Policy(cfg, mesh, "decode")``: its generated tokens, then
+    the prefill and ``steps - 1`` decode steps replayed on those tokens,
+    every step's last-position logits of this rank's batch rows.  Each
+    mesh spans every rank."""
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models.model import params_from_numpy
+
+    out = []
+    for arch, mesh_shape, params_np, tokens in cases:
+        cfg = _cfg(arch)
+        mesh = make_small_mesh(mesh_shape, device_type="cpu")
+        B = tokens.shape[0]
+        ctx = Policy(cfg, mesh, "decode").ctx(decode=True, batch=B)
+        params = params_from_numpy(cfg, params_np, device="cpu")
+        srv = Server(cfg, params, ctx=ctx, max_len=max_len, device="cpu")
+        gen = srv.generate({"tokens": tokens}, steps)
+        with torch.inference_mode():
+            toks, fed = torch.as_tensor(tokens).long(), gen.long()
+            if ctx.decode_plan.b_axes:
+                toks, fed = srv._batch_slice(toks), srv._batch_slice(fed)
+            logits, cache = srv.prefill(toks)
+            cache = srv._shard_cache(cache)
+            lgs = [logits[:, -1]]
+            for i in range(steps - 1):
+                lg, cache = srv.model.decode_step(params, cache, fed[:, i:i + 1],
+                                                  tokens.shape[1] + i, ctx)
+                lgs.append(lg[:, -1])
+        plan = ctx.decode_plan
+        out.append({"tokens": gen, "logits": torch.stack(lgs, 1),
+                    "plan": (plan.b_axes, plan.kv_axis, plan.seq_axes, plan.mode),
+                    "cache_shapes": {k: tuple(v.shape) for k, v in _leaves(cache)}})
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def int8_worker(rank, grads_np, errors_np):
+    """``int8_allreduce`` over the ``data`` axis of a (2,) mesh, each rank
+    with its own gradients and residuals."""
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.optim.compression import int8_allreduce
+
+    mesh = make_small_mesh((2,), axes=("data",), device_type="cpu")
+    g = {k: torch.from_numpy(np.array(v[rank])) for k, v in grads_np.items()}
+    e = {k: torch.from_numpy(np.array(v[rank])) for k, v in errors_np.items()}
+    mean, err = int8_allreduce(g, "data", e, mesh=mesh)
+    return {"mean": mean, "err": err}

@@ -53,7 +53,10 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.backends.training", "repro_torch.launch.roofline",
             "repro_torch.launch.serve",
             # the last model families
-            "repro_torch.models.moe", "repro_torch.models.mla"} <= set(names.split())
+            "repro_torch.models.moe", "repro_torch.models.mla",
+            # the distribution layer
+            "repro_torch.collectives", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.elastic"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

@@ -983,3 +983,56 @@ def test_reduced_moe_and_vlm_models_on_the_card_match_the_cpu(arch, card):
     got = Server(cfg, on_card, max_len=n + 12, device=card).generate(pre, 12)
     want = Server(cfg, params, max_len=n + 12, device="cpu").generate(pre, 12)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_restore_onto_the_one_card_nccl_mesh_and_decode(card, tmp_path):
+    """The reduced qwen1.5-0.5b trained two steps on the card, saved,
+    restored through ``ElasticTrial.restore_onto`` onto ``slice_mesh()`` of
+    a NCCL group of one: every leaf equal to the saved one, flash launches
+    in the training steps; then the reduced deepseek-v2 (MLA, a distributed
+    decode plan even on one card) decodes on that mesh the tokens of its
+    decode with no mesh."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.checkpoint import LocalObjectStore
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.elastic import ElasticTrial, full_state, slice_mesh
+    from repro_torch.launch.mesh import init_world_of_one
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.model import Model, tree_leaves
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    fa = kfa.LAUNCHES
+    tr = Trainer(cfg, batch=2, seq=32, device=card)
+    tr.run_steps(2)
+    assert kfa.LAUNCHES - fa == 2 * cfg.n_layers
+    trial = ElasticTrial(cfg, LocalObjectStore(str(tmp_path / "s")), "t")
+    trial.save(tr.step, tr.state)
+    started = init_world_of_one(card)
+    try:
+        assert "nccl" in str(dist.get_backend())
+        mesh = slice_mesh()
+        state, step = trial.restore_onto(mesh, tr.state)
+        assert step == 2
+        for a, b in zip(tree_leaves(tr.state), tree_leaves(state)):
+            assert (torch.equal(b.to_local(), a) if isinstance(a, torch.Tensor)
+                    else a == b)
+        prompts = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8))}
+        moved = Server(cfg, full_state(state["params"]), max_len=24, device=card)
+        kept = Server(cfg, tr.state["params"], max_len=24, device=card)
+        assert torch.equal(moved.generate(prompts, 8), kept.generate(prompts, 8))
+
+        mla = dataclasses.replace(get_config("deepseek-v2-236b", reduced=True),
+                                  dtype="float32")
+        params = Model(mla).init(torch.Generator().manual_seed(0), device=card)
+        ctx = Policy(mla, mesh, "decode").ctx(decode=True, batch=2)
+        assert ctx.decode_attn == "distributed" and ctx.sharded_decode
+        prompts = {"tokens": np.random.default_rng(2).integers(0, mla.vocab_size, (2, 8))}
+        got = Server(mla, params, ctx=ctx, max_len=24, device=card).generate(prompts, 8)
+        want = Server(mla, params, max_len=24, device=card).generate(prompts, 8)
+        assert torch.equal(got, want)
+    finally:
+        if started:
+            dist.destroy_process_group()

@@ -152,9 +152,15 @@ def test_init_mla_cache_and_distributed_decode(J):
     cache = mla.init_mla_cache(J.tc, B, 16, torch.float32, "cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == {
         "c_kv": (B, 16, J.tc.kv_lora_rank), "k_rope": (B, 16, J.tc.qk_rope_head_dim)}
-    with pytest.raises(NotImplementedError, match="local"):
-        mla.mla_decode(torch.zeros(B, 1, 64), J.tp, J.tc, cache, 0,
-                       ModelCtx(decode_attn="distributed"))
+    # decode_attn="distributed" with no mesh is the local decode, as in the
+    # JAX package (the sharded one: tests/test_torch_distributed_decode.py)
+    x = torch.from_numpy(_x(1)[:, :1])
+    got = mla.mla_decode(x, J.tp, J.tc, {k: v.clone() for k, v in cache.items()}, 0,
+                         ModelCtx(decode_attn="distributed"))
+    want = mla.mla_decode(x, J.tp, J.tc, {k: v.clone() for k, v in cache.items()}, 0,
+                          null_ctx())
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(got[1][k], want[1][k]) for k in cache)
 
 
 def test_absorbed_gradients_match_jax_grad(J):

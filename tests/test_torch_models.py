@@ -195,15 +195,24 @@ def test_registry_resolves_every_arch_and_unported_families_raise():
 
 
 def test_distributed_decode_and_mla_raise():
-    """decode_attn != "local" raises (the port has no mesh), for GQA and
-    MLA alike; MLA's ``init_attn`` builds the JAX package's tree."""
+    """decode_attn="distributed" with no mesh runs the local decode, as in
+    the JAX package (its distributed path needs a mesh; the port's sharded
+    decode is held in tests/test_torch_distributed_decode.py); MLA's
+    ``init_attn`` builds the JAX package's tree."""
     cfg = tget("qwen1.5-0.5b", reduced=True)
     tp = TModel(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    cache = {"k": torch.zeros(1, 8, 4, 16), "v": torch.zeros(1, 8, 4, 16)}
     lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="local"):
-        blocks.attn_decode(torch.zeros(1, 1, 64), lp, cfg,
-                           ModelCtx(decode_attn="distributed"), cache, 0)
+    h = torch.randn(1, 1, 64, generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16)
+    outs = []
+    for ctx in (ModelCtx(decode_attn="distributed"), ModelCtx()):
+        cache = {"k": torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16),
+                 "v": torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)}
+        outs.append(blocks.attn_decode(h, lp, cfg, ctx, cache, 3))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1]["k"], outs[1][1]["k"]) and outs[0][1]["k"][:, 3].abs().sum() > 0
+    with pytest.raises(ValueError, match="decode_attn"):
+        ModelCtx(decode_attn="sharded")
     from repro.models.blocks import init_attn as jinit_attn
     ds = tget("deepseek-v2-236b", reduced=True)
     p_mla = blocks.init_attn(torch.Generator().manual_seed(0), ds, "cpu")
@@ -215,11 +224,15 @@ def test_distributed_decode_and_mla_raise():
     for key, w in want.items():
         assert tuple(got[key].shape) == w.shape, key
         assert str(got[key].dtype)[6:] == str(w.dtype), key
-    mla_cache = {"c_kv": torch.zeros(1, 8, ds.kv_lora_rank),
-                 "k_rope": torch.zeros(1, 8, ds.qk_rope_head_dim)}
-    with pytest.raises(NotImplementedError, match="local"):
-        blocks.attn_decode(torch.zeros(1, 1, ds.d_model), p_mla, ds,
-                           ModelCtx(decode_attn="distributed"), mla_cache, 0)
+    h = torch.randn(1, 1, ds.d_model, generator=torch.Generator().manual_seed(2)).to(
+        torch.bfloat16)
+    outs = []
+    for ctx in (ModelCtx(decode_attn="distributed"), ModelCtx()):
+        mla_cache = {"c_kv": torch.zeros(1, 8, ds.kv_lora_rank, dtype=torch.bfloat16),
+                     "k_rope": torch.zeros(1, 8, ds.qk_rope_head_dim,
+                                           dtype=torch.bfloat16)}
+        outs.append(blocks.attn_decode(h, p_mla, ds, ctx, mla_cache, 0)[0])
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_kernels_ref_ctx_gives_the_same_answer_on_the_cpu():
