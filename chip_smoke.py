@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only elastic    # the build, then the last phases alone
+    python3 chip_smoke.py --only elastic    # the build, then the distribution layer
+    python3 chip_smoke.py --only tp         # the build, then the sharded forward
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -16,8 +17,8 @@ drives the port's two paths through them:
   per-replica boundary min), repeated on the CPU and compared replica by
   replica, and a 20-replica sweep with RevPreds that reaches lstm_stack
   and soa_step;
-* the multi-tenant tuning service: three tenants' fig9-shaped studies (300
-  replicas, each with its own 12-day market) under demand contention and
+* the multi-tenant tuning service: three tenants' fig9-shaped studies (144
+  replicas, 12 market seeds a tenant, each with its own 12-day market) under demand contention and
   max-min fairness through ``TuningService(device="cuda")``, whose studies'
   SoA rounds run soa_step, repeated on the CPU and compared (logs, demand
   impulses, records, billing, every replica), beside ``SweepRunner`` on the
@@ -105,7 +106,17 @@ drives the port's two paths through them:
   "distributed" MLA plan against the decode with no mesh (logits on the
   same tokens in bf16 and float32, float32 tokens equal, decode ms a token
   step of both, all-reduces a step); ``int8_allreduce`` over
-  "data" bit-equal to ``axis=None`` on the attention gradients.
+  "data" bit-equal to ``axis=None`` on the attention gradients;
+* the tensor-, sequence- and expert-parallel forward, last
+  (``tp_phases``): a NCCL group of one under a (1, 1) ("data", "model")
+  mesh, the full TP rule set of ``Policy.ctx``, parameters, optimizer
+  state and batches as DTensors; zamba2-1.2b at published width (B = 2 x
+  512): float32 loss and gradients on the placed state against the no-mesh
+  path (7 flash and 76 ssd_chunk launches a forward on both, through
+  ``local_map`` on the mesh), then bf16 ``Trainer`` steps on the mesh and
+  with no mesh (ms, kernels a step, idle share, peak memory); deepseek-v2
+  (3 of 60 layers) float32 prefill through MLA and the MoE "ep" shard_map
+  body against the no-mesh prefill (logits, each MoE layer's slots).
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -805,11 +816,13 @@ def soa_phases(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVICE_TENANTS = ("alice", "bob", "carol")
-SERVICE_MARKET_SEEDS = 25        # a tenant's market seeds, as fig9's grid
+SERVICE_MARKET_SEEDS = 12        # a tenant's market seeds (fig9's grid has 25)
 # fig9 runs 10 engine seeds: the contended service costs markets x impulses
 # x window (every market replays every tenant's demand impulses): about a
-# minute a run at one seed (300 replicas) on the H100 machine's host, and
-# 2 or 3 seeds (600, 900) would take several minutes a run (PERF.md §4)
+# minute a run at one seed and 25 market seeds a tenant (300 replicas) on
+# the H100 machine's host, so the run is cut to 12 market seeds (144
+# replicas, about a quarter of that) to keep the script inside half its
+# time limit (PERF.md §4)
 SERVICE_ENGINE_SEEDS = 1
 SERVICE_IMPACT = 0.04
 SERVICE_POLICY = ("maxmin", {"max_active": 2})
@@ -818,8 +831,9 @@ SLAQ_RTOL = 1e-4   # the port's EarlyCurve against the JAX package's
 
 
 def service_studies():
-    """Each tenant's fig9-shaped study: 4 workloads x 25 market seeds of its
-    own (alice 100-124, bob 125-149, carol 150-174) x the engine seeds,
+    """Each tenant's fig9-shaped study: 4 workloads x SERVICE_MARKET_SEEDS
+    market seeds of its own (alice from 100, bob and carol after) x the
+    engine seeds,
     oracle RevPred, theta=0.7, 12-day markets."""
     from repro_torch.core.trial import WORKLOADS
     from repro_torch.sweep import scenario_grid
@@ -4195,10 +4209,274 @@ def elastic_phases(torch) -> dict:
     return out
 
 
+TP_STEPS = 3                     # bf16 Trainer steps timed on each path
+TP_LOSS_RTOL, TP_GRAD_TOL = 1e-5, 1e-4
+TP_LOGIT_TOL = 1e-4
+TP_MLA_ARCH, TP_MLA_LAYERS, TP_MLA_BATCH, TP_MLA_PROMPT = "deepseek-v2-236b", 3, 2, 256
+
+
+def tp_phases(torch) -> dict:
+    """The tensor-, sequence- and expert-parallel forward on the card: a
+    NCCL group of one under a (1, 1) ("data", "model") mesh, on which every
+    rule of ``Policy.ctx`` divides, so the full TP/FSDP set applies
+    ("kv" attention, ``ssm_x``, the sequence-sharded ``residual``,
+    ``logits_sp``, MoE "ep" with e_start 0).  Parameters, optimizer state
+    and batches are DTensors placed by the policy; the flash and SSD-chunk
+    kernels run on each rank's local shard under ``local_map``.
+
+    (a) zamba2-1.2b at published width and depth, B = 2 x 512, under
+    ``Policy(cfg, mesh, "train", global_batch=2)`` (above 1e9 parameters:
+    not DP-only): float32 loss and gradients on the placed state against
+    the no-mesh path, both through the kernels with remat "full"; the
+    kernels a forward (7 flash, 76 ssd_chunk) and a whole step; then
+    ``TP_STEPS`` bf16 ``Trainer`` steps on the mesh and with no mesh (the
+    same remat): ms a step, kernels a step, the card's idle share and peak
+    memory.  (b) deepseek-v2 at published width, 3 of 60 layers, float32
+    prefill of 2 x 256 under ``Policy(cfg, mesh, "prefill")``: MLA on
+    DTensors, each MoE layer through the shard_map body ("ep"): the
+    last-position logits and each MoE layer's (slot, keep) against the
+    no-mesh prefill's.  Returns the flash and ssd rows' fields."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.mesh import init_world_of_one, make_small_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy, place, place_batch
+    from repro_torch.launch.train import Trainer, batch_to, loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.context import null_ctx
+    from repro_torch.models.model import Model, tree_leaves
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}, "ssd": {}}
+    phase("the sharded forward: a NCCL group of one, a (1, 1) (data, model) mesh")
+    started = init_world_of_one("cuda")
+    if "nccl" not in str(dist.get_backend()):
+        fail(f"the card's process group runs {dist.get_backend()}, not NCCL")
+    mesh = make_small_mesh((1, 1), device_type="cuda")
+    print(f"mesh: {mesh} (started the group here: {started})")
+
+    def counts():
+        return kfa.LAUNCHES, kss.LAUNCHES
+
+    def since(c0):
+        c1 = counts()
+        return c1[0] - c0[0], c1[1] - c0[1]
+
+    # ------------------------------------------- (a) zamba2, float32 check
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    policy = Policy(cfg32, mesh, "train", global_batch=B)
+    ctx = policy.ctx()
+    phase(f"main path: {TRAIN_ARCH} (float32, B = {B} x {S}) loss and gradients "
+          f"on the placed state under Policy(cfg, mesh, 'train').ctx(), against "
+          f"the no-mesh path")
+    rules = {k: (v if isinstance(v, str) else tuple(v)) for k, v in ctx.rules.items()}
+    print(f"policy: dp_only {policy.dp_only}, rules {rules}, remat {ctx.remat}, "
+          f"attn_chunk {ctx.attn_chunk}")
+    if policy.dp_only or rules.get("attn_mode") != "kv" or "ssm_x" not in rules:
+        fail("zamba2-1.2b's train policy on (1, 1) is not the TP rule set")
+    model = Model(cfg32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = batch_to(SyntheticLMDataset(cfg32, B, S, seed=0).get_batch(0), "cuda")
+    placed = place(params, policy.param_shardings(params))
+    pbatch = place_batch(batch, policy)
+    plain_ctx = null_ctx(remat=ctx.remat, attn_chunk=ctx.attn_chunk)
+    want_fwd = (model.n_shared_invocations, cfg.n_layers * -(-S // cfg.ssm_chunk))
+    fwd_counts = {}
+    for name, p, b, c in (("mesh", placed, pbatch, ctx), ("no mesh", params, batch,
+                                                          plain_ctx)):
+        c0 = counts()
+        with torch.no_grad():
+            model.loss(p, b, c)
+        torch.cuda.synchronize()
+        fwd_counts[name] = since(c0)
+    results = {}
+    for name, p, b, c in (("mesh", placed, pbatch, ctx), ("no mesh", params, batch,
+                                                          plain_ctx)):
+        torch.cuda.synchronize()
+        c0, t0 = counts(), time.perf_counter()
+        loss, _, grads = loss_and_grads(model, p, b, c)
+        torch.cuda.synchronize()
+        results[name] = (loss, grads, since(c0), (time.perf_counter() - t0) * 1e3)
+    loss_m, grads_m, step_counts_m, ms_m = results["mesh"]
+    loss_p, grads_p, step_counts_p, ms_p = results["no mesh"]
+    loss_m = float(loss_m.full_tensor())
+    loss_p = float(loss_p)
+    names = leaf_names(params)
+    errs = [((g.full_tensor() - g0).abs().max() / g0.abs().max().clamp_min(1e-30)).item()
+            for g, g0 in zip(tree_leaves(grads_m), tree_leaves(grads_p))]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    loss_rel = abs(loss_m - loss_p) / abs(loss_p)
+    print(f"loss on the mesh {loss_m:.7f}, no mesh {loss_p:.7f}: relative "
+          f"{loss_rel:.3g} (tol {TP_LOSS_RTOL}); worst gradient leaf "
+          f"{names[worst]} {errs[worst]:.3g} of its largest (tol {TP_GRAD_TOL}), "
+          f"{len(errs)} leaves")
+    print(f"launches (flash, ssd_chunk): a forward {fwd_counts['mesh']} on the mesh, "
+          f"{fwd_counts['no mesh']} with no mesh (want {want_fwd}); a loss and its "
+          f"gradients under remat 'full' (the forward recomputed in the backward) "
+          f"{step_counts_m} on the mesh, {step_counts_p} with no mesh; wall "
+          f"{ms_m:.1f} / {ms_p:.1f} ms")
+    if fwd_counts["mesh"] != want_fwd or fwd_counts["no mesh"] != want_fwd \
+            or step_counts_m != step_counts_p:
+        fail("the sharded path did not launch the kernels the no-mesh path does")
+    if not (loss_rel <= TP_LOSS_RTOL and errs[worst] <= TP_GRAD_TOL):
+        fail(f"float32 sharded training: loss {loss_rel:.3g} relative, worst leaf "
+             f"{names[worst]} {errs[worst]:.3g}")
+    out["flash_f32"]["tp"] = {
+        "arch": cfg.name, "batch": B, "seq": S, "mesh": [1, 1],
+        "launches_per_forward": fwd_counts["mesh"][0],
+        "launches_per_loss_and_grads": step_counts_m[0],
+        "loss_rel": loss_rel, "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
+        "loss_and_grads_ms": ms_m, "loss_and_grads_ms_no_mesh": ms_p}
+    out["ssd"]["tp"] = {"launches_per_forward": fwd_counts["mesh"][1],
+                        "launches_per_loss_and_grads": step_counts_m[1]}
+    del params, placed, grads_m, grads_p, results
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- (a) bf16 Trainer steps, timed
+    phase(f"main path: {TRAIN_ARCH} ({cfg.dtype}, float32 master) {TP_STEPS} "
+          f"Trainer steps on the mesh and with no mesh (remat 'full' both)")
+
+    def trainer_numbers(tr):
+        tr.run_steps(1)                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = counts()
+        tr.run_steps(TP_STEPS)
+        n = since(c0)
+        ms = [x * 1e3 for x in tr.step_seconds[-TP_STEPS:]]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        seen, walls = [], []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: seen.extend(device_intervals(p))) as prof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run_steps(1)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                prof.step()
+        busy = busy_us(seen) / 1e6
+        return {"ms": ms, "ms_step": sum(ms) / len(ms), "peak_gb": peak,
+                "flash_per_step": n[0] / TP_STEPS, "ssd_per_step": n[1] / TP_STEPS,
+                "kernels_per_step": len(seen), "idle": 1 - busy / walls[-1],
+                "profiled_wall_ms": walls[-1] * 1e3, "losses": list(tr.metrics_vals)}
+
+    steps = {}
+    for name in ("mesh", "no mesh"):
+        tctx = (Policy(cfg, mesh, "train", global_batch=B).ctx() if name == "mesh"
+                else null_ctx(remat="full", attn_chunk=ctx.attn_chunk))
+        tr = Trainer(cfg, batch=B, seq=S, lr=TRAIN_LR, val_every=1, ctx=tctx,
+                     device="cuda")
+        if name == "mesh" and not isinstance(tree_leaves(tr.state)[0], DTensor):
+            fail("the Trainer on a mesh did not place its state")
+        steps[name] = trainer_numbers(tr)
+        del tr
+        torch.cuda.empty_cache()
+    for name, r in steps.items():
+        print(f"{name}: step ms {[round(x, 1) for x in r['ms']]}, {r['ms_step']:.2f} "
+              f"ms a step; kernels a step {r['kernels_per_step']} (profiled), flash "
+              f"{r['flash_per_step']:g}, ssd_chunk {r['ssd_per_step']:g}; card idle "
+              f"{100 * r['idle']:.2f}% of a profiled step ({r['profiled_wall_ms']:.1f} "
+              f"ms); peak {r['peak_gb']:.2f} GB; losses "
+              f"{[round(x, 5) for x in r['losses']]}")
+    m, p = steps["mesh"], steps["no mesh"]
+    print(f"DTensor dispatch on a group of one: {m['ms_step'] - p['ms_step']:+.2f} ms a "
+          f"step ({m['ms_step'] / p['ms_step']:.2f}x), "
+          f"{m['kernels_per_step'] - p['kernels_per_step']:+d} kernels a step")
+    if not all(math.isfinite(x) for r in steps.values() for x in r["losses"]):
+        fail("bf16 Trainer losses not finite")
+    if (m["flash_per_step"], m["ssd_per_step"]) != (p["flash_per_step"], p["ssd_per_step"]) \
+            or m["flash_per_step"] <= 0 or m["ssd_per_step"] <= 0:
+        fail("the sharded bf16 step launched other kernels than the no-mesh step")
+    out["flash"]["tp"] = {"arch": cfg.name, "batch": B, "seq": S, "steps": steps,
+                          "launches_per_step": m["flash_per_step"]}
+    out["ssd"]["tp"]["launches_per_bf16_step"] = m["ssd_per_step"]
+
+    # ------------------------------- (b) deepseek-v2, MLA + the "ep" body
+    full = get_config(TP_MLA_ARCH)
+    mcfg = dataclasses.replace(full, n_layers=TP_MLA_LAYERS, dtype="float32")
+    phase(f"main path: {TP_MLA_ARCH} ({TP_MLA_LAYERS} of {full.n_layers} layers, "
+          f"float32) prefill of {TP_MLA_BATCH} x {TP_MLA_PROMPT} under "
+          f"Policy(cfg, mesh, 'prefill').ctx(), against the no-mesh prefill")
+    mpolicy = Policy(mcfg, mesh, "prefill")
+    mctx = mpolicy.ctx()
+    print(f"policy: dp_only {mpolicy.dp_only}, MoE strategy {moe._strategy(mcfg, mctx)}")
+    if mpolicy.dp_only or moe._strategy(mcfg, mctx) != "ep":
+        fail("deepseek-v2's prefill policy on (1, 1) is not the TP / 'ep' set")
+    t0 = time.perf_counter()
+    mparams = Model(mcfg).init(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    torch.cuda.synchronize()
+    print(f"{sum(t.numel() for t in tree_leaves(mparams)):,} parameters (float32), "
+          f"init {time.perf_counter() - t0:.2f} s")
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, mcfg.vocab_size, (TP_MLA_BATCH, TP_MLA_PROMPT)), device="cuda")
+    seen = {}
+    real = moe._dispatch_indices
+
+    def recording(idx, e_start, e_count, capacity):
+        slot, keep = real(idx, e_start, e_count, capacity)
+        seen.setdefault(key, []).append((slot.clone(), keep.clone(), e_start, capacity))
+        return slot, keep
+
+    moe._dispatch_indices = recording
+    pre = {}
+    try:
+        for key, c in (("mesh", mctx), ("no mesh", None)):
+            srv = Server(mcfg, mparams, ctx=c, max_len=TP_MLA_PROMPT, device="cuda")
+            srv.prefill(tokens)                               # warm-up
+            seen.pop(key, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = srv.prefill(tokens)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            pre[key] = (logits.full_tensor() if key == "mesh" else logits, ms)
+            del srv
+    finally:
+        moe._dispatch_indices = real
+    lerr = (pre["mesh"][0] - pre["no mesh"][0]).abs().max().item()
+    n_moe = mcfg.n_layers - mcfg.first_k_dense
+    same = (len(seen["mesh"]) == len(seen["no mesh"]) == n_moe and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2:] == b[2:]
+        for a, b in zip(seen["mesh"], seen["no mesh"])))
+    drops = [int((~k).sum()) for _, k, _, _ in seen["mesh"]]
+    print(f"last-position logits: max abs diff {lerr:.3g} (tol {TP_LOGIT_TOL}); "
+          f"{n_moe} MoE layers, (slot, keep) equal: {same} (e_start "
+          f"{[a[2] for a in seen['mesh']]}, capacity {[a[3] for a in seen['mesh']]}, "
+          f"dropped {drops}); prefill {pre['mesh'][1]:.1f} ms on the mesh, "
+          f"{pre['no mesh'][1]:.1f} ms with no mesh")
+    if not (lerr <= TP_LOGIT_TOL and same):
+        fail("deepseek-v2's sharded prefill differs from the no-mesh prefill")
+    out["flash"]["tp_mla"] = {"arch": full.name, "layers": TP_MLA_LAYERS,
+                              "logit_err": lerr, "slot_keep_equal": same,
+                              "prefill_ms": pre["mesh"][1],
+                              "prefill_ms_no_mesh": pre["no mesh"][1]}
+    del mparams
+    torch.cuda.empty_cache()
+    if started:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_all
+    print(f"the sharded forward's phases: {wall:.1f} s of wall")
+    out["flash"]["tp"]["wall_s"] = wall
+    return out
+
+
 def main() -> None:
-    only_elastic = sys.argv[1:] == ["--only", "elastic"]
-    if sys.argv[1:] and not only_elastic:
-        fail(f"arguments {sys.argv[1:]}: none, or --only elastic")
+    only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" else None
+    if sys.argv[1:] and only not in ("elastic", "tp"):
+        fail(f"arguments {sys.argv[1:]}: none, --only elastic or --only tp")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -4235,11 +4513,12 @@ def main() -> None:
     for stem, log in build.BUILD_LOG.items():
         print(f"-- nvcc {stem}.cu ({build.BUILD_SECONDS[stem]:.2f} s):")
         print(log.strip())
-    if only_elastic:
-        # the distribution layer's phases alone, after the build
-        elastic = elastic_phases(torch)
+    if only is not None:
+        # the distribution layer's or the sharded forward's phases alone,
+        # after the build
+        alone = elastic_phases(torch) if only == "elastic" else tp_phases(torch)
         print(smi)
-        print(json.dumps(elastic))
+        print(json.dumps(alone))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4553,10 +4832,15 @@ def main() -> None:
     families = family_phases(torch)
     flash_row.update(families["flash"])
     flash_f32_row.update(families["flash_f32"])
-    # the distribution layer last: a NCCL group of one over the card
+    # the distribution layer: a NCCL group of one over the card
     elastic = elastic_phases(torch)
     flash_row.update(elastic["flash"])
     flash_f32_row.update(elastic["flash_f32"])
+    # the sharded forward last, on its own group of one
+    tp = tp_phases(torch)
+    flash_row.update(tp["flash"])
+    flash_f32_row.update(tp["flash_f32"])
+    ssd_row.update(tp["ssd"])
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

@@ -23,15 +23,13 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.checkpointer import restore_pytree, save_pytree
 from repro_torch.collectives import MeshShape
 from repro_torch.launch.mesh import device_mesh
-from repro_torch.launch.sharding import Policy, full_state
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.launch.sharding import Policy, full_state, place, restore_hook
+
 
 def slice_shape(chips: int, max_model: int = 16) -> MeshShape:
     """The (data, model) shape of a slice of ``chips``: model = the largest
@@ -56,22 +54,14 @@ def slice_mesh(chips: Optional[int] = None, max_model: int = 16,
 def state_shardings(cfg, mesh, state_shapes, kind: str = "train",
                     global_batch: Optional[int] = None):
     """``NamedSharding``s for a {params, opt} train state on ``mesh``."""
-    policy = Policy(cfg, mesh, kind, global_batch=global_batch)
-    param_sh = policy.param_shardings(state_shapes["params"])
-    out = {"params": param_sh}
-    if "opt" in state_shapes:
-        out["opt"] = policy.opt_state_shardings(state_shapes["opt"], param_sh)
-    return out
+    return Policy(cfg, mesh, kind, global_batch=global_batch).state_shardings(
+        state_shapes)
 
 
 def reshard_state(state, shardings):
     """Every tensor leaf placed onto its target sharding (a ``DTensor`` of
     another mesh gathered whole first); int leaves as they are."""
-    def one(x, s):
-        if isinstance(x, DTensor):
-            x = x.full_tensor()
-        return s.place(x) if hasattr(x, "shape") else x
-    return tree_map(one, state, shardings)
+    return place(state, shardings)
 
 
 class ElasticTrial:
@@ -107,10 +97,6 @@ class ElasticTrial:
         state of the same structure, shapes and types (tensors on any
         device, ``meta`` included)."""
         shardings = state_shardings(self.cfg, mesh, like, self.kind, global_batch)
-        # restore_pytree walks the leaves in tree_leaves order and asks for
-        # the placement of the tensor leaves only (an int step stays an int)
-        leaves_sh = iter([s for s, t in zip(tree_leaves(shardings), tree_leaves(like))
-                          if isinstance(t, torch.Tensor)])
         return restore_pytree(self.store, self.prefix, like, step=step,
-                              sharding_fn=lambda tmpl: next(leaves_sh))
+                              sharding_fn=restore_hook(shardings, like))
 

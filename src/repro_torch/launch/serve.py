@@ -19,6 +19,13 @@ and gathers the tokens of the whole batch.  The cache's sequence
 (``max_len``) must split evenly over the sequence axes.  The transformer
 families (dense, vlm, moe, MLA) decode on a mesh; ssm, hybrid and audio
 raise.
+
+The prefill also runs sharded: ``Server(cfg, params,
+ctx=Policy(cfg, mesh, "prefill").ctx())`` places the parameters by that
+policy (each rank keeps its blocks) and each prompt batch by its
+``batch_shardings``, and ``prefill`` runs the model as the policy's rules
+lay it out, for every family, returning ``DTensor`` logits and cache.
+``generate`` takes the decode ctx above; under the prefill ctx it raises.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 from repro_torch.collectives import all_gather_ordered
 from repro_torch.device import resolve_device
 from repro_torch.checkpoint.checkpointer import leaf_paths
-from repro_torch.launch.sharding import Policy, local_block, map_with_path
+from repro_torch.launch.sharding import (Policy, local_block, map_with_path, place,
+                                         place_batch)
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model
 
@@ -47,23 +55,34 @@ class Server:
         self.params = params
         self.ctx = ctx or null_ctx()
         self.max_len = max_len
+        # a prefill or train policy's ctx on a mesh: the sharded prefill
+        self.policy = (self.ctx.policy if self.ctx.sharded and self.ctx.decode_plan
+                       is None else None)
+        if self.policy is not None:
+            self.params = place(params, self.policy.param_shardings(params))
         if self.ctx.sharded_decode and cfg.family not in ("dense", "vlm", "moe"):
             raise NotImplementedError(
                 f"{cfg.family} decode on a mesh: the port shards the transformer "
                 "families' caches only (ROADMAP A12)")
 
-    @torch.inference_mode()
     def prefill(self, tokens, frames=None, patch_embeds=None):
         """(last-position logits (B,1,V), cache padded to ``max_len``);
         ``frames`` (B, enc_seq_len, D), whisper's, and ``patch_embeds``
         (B, n_patches, D), pixtral's, on the server's device.
         Serving takes no gradient: the kernels run as they do in
-        ``generate``, whatever the weights' ``requires_grad``."""
+        ``generate``, whatever the weights' ``requires_grad`` (under
+        ``no_grad`` on a mesh: DTensors do not take inference mode)."""
+        with torch.no_grad() if self.policy is not None else torch.inference_mode():
+            return self._prefill(tokens, frames, patch_embeds)
+
+    def _prefill(self, tokens, frames, patch_embeds):
         batch = {"tokens": tokens}
         if frames is not None:
             batch["frames"] = frames
         if patch_embeds is not None:
             batch["patch_embeds"] = patch_embeds
+        if self.policy is not None:
+            batch = place_batch(batch, self.policy)
         return self.model.prefill(self.params, batch, self.ctx,
                                   cache_len=self.max_len)
 
@@ -80,6 +99,10 @@ class Server:
         tensor, and whisper's ``frames`` or pixtral's ``patch_embeds``, a
         tensor).  Returns (B, max_new_tokens) int32 greedy continuations,
         on the server's device."""
+        if self.policy is not None:
+            raise NotImplementedError(
+                "generate on a mesh decodes under Policy(cfg, mesh, 'decode')"
+                ".ctx(decode=True, batch=B); this server's ctx is for the prefill")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         frames, patches = (None if batch.get(k) is None else
                            torch.as_tensor(batch[k], device=self.device)

@@ -31,15 +31,15 @@ import re
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.checkpointer import leaf_paths
 from repro_torch.collectives import (MeshShape, P, _as_tuple, axis_index,
-                                     axis_names, axis_sizes)
+                                     axis_sizes, to_placements)
 from repro_torch.launch.mesh import data_axes_of, model_axis_of
 from repro_torch.models.context import ModelCtx
 from repro_torch.models.moe import moe_weight_specs
-from repro_torch.optim.optimizers import tree_unflatten
+from repro_torch.optim.optimizers import tree_leaves, tree_map, tree_unflatten
 
 STACK_KEYS = ("layers", "moe_layers", "dense_layers", "mamba_layers",
               "enc_layers", "dec_layers", "lstm")
@@ -62,25 +62,6 @@ def map_with_path(fn, tree):
 
 
 # --------------------------------------------------------------- placement
-def to_placements(spec, mesh) -> list:
-    """DTensor placements of ``spec`` on ``mesh``: per mesh dimension the
-    tensor dim it shards, or ``Replicate()``."""
-    names = axis_names(mesh)
-    out = [Replicate()] * len(names)
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        idx = [names.index(a) for a in _as_tuple(entry)]
-        if idx != sorted(idx):
-            raise ValueError(f"spec {spec}: axes {entry} are not in mesh order "
-                             f"{names}, which DTensor's Shard cannot express")
-        for i in idx:
-            if not isinstance(out[i], Replicate):
-                raise ValueError(f"spec {spec}: axis {names[i]} used twice")
-            out[i] = Shard(dim)
-    return out
-
-
 def local_block(t, spec, mesh):
     """This rank's block of the whole tensor ``t`` under ``spec`` (a view):
     a dim split over axes (a1, a2, ...) is cut into their product of equal
@@ -114,17 +95,60 @@ class NamedSharding:
         return to_placements(self.spec, self.mesh)
 
     def place(self, t: torch.Tensor) -> DTensor:
-        """This rank's block of the whole tensor ``t`` in storage of its own
-        on the mesh's device (``t`` can be freed), as a ``DTensor``."""
+        """This rank's block of the whole tensor ``t`` on the mesh's device,
+        as a ``DTensor``: in storage of its own (``t`` can be freed), or,
+        where the block is the whole of a contiguous ``t`` already there (a
+        mesh of one card), in ``t``'s storage, so that placing a model does
+        not hold it twice."""
         if isinstance(self.mesh, MeshShape):
             raise TypeError("a MeshShape plans layouts; placing needs a DeviceMesh")
         block = local_block(t, self.spec, self.mesh)
         dev = mesh_device(self.mesh)
-        local = (block.to(dev) if block.device != dev
-                 else block.clone(memory_format=torch.contiguous_format))
+        if block.device != dev:
+            local = block.to(dev)
+        elif block.shape == t.shape and t.is_contiguous():
+            local = t.detach()
+        else:
+            local = block.clone(memory_format=torch.contiguous_format)
         stride = torch.empty(t.shape, device="meta").stride()
         return DTensor.from_local(local.contiguous(), self.mesh, self.placements,
                                   run_check=False, shape=t.shape, stride=stride)
+
+
+def place(tree, shardings):
+    """Every tensor leaf of ``tree`` placed by its ``NamedSharding`` in
+    ``shardings`` (a tree of the same structure): a whole tensor is cut to
+    this rank's block, a ``DTensor`` (of any mesh) is gathered whole first;
+    int leaves stay as they are."""
+    def one(x, s):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        return s.place(x) if hasattr(x, "shape") else x
+    return tree_map(one, tree, shardings)
+
+
+def place_state(state, policy: "Policy"):
+    """A {params, opt} train state laid out as the JAX package's jitted
+    step takes it (``in_shardings``): the parameters by
+    ``policy.param_shardings``, the optimizer's moments and master copy
+    like their parameters, its step an int."""
+    return place(state, policy.state_shardings(state))
+
+
+def restore_hook(shardings, like):
+    """The ``sharding_fn`` of ``checkpointer.restore_pytree`` that places
+    each tensor leaf by its ``NamedSharding`` in ``shardings`` (a tree like
+    ``like``): the restore walks the leaves in ``tree_leaves`` order and
+    asks for the placement of the tensor leaves only."""
+    leaves_sh = iter([s for s, t in zip(tree_leaves(shardings), tree_leaves(like))
+                      if isinstance(t, torch.Tensor)])
+    return lambda tmpl: next(leaves_sh)
+
+
+def place_batch(batch: dict, policy: "Policy") -> dict:
+    """A batch's tensors placed by ``policy.batch_shardings``: the batch dim
+    over the data axes where it splits, replicated otherwise."""
+    return place(batch, policy.batch_shardings(batch))
 
 
 def full_state(tree):
@@ -251,6 +275,15 @@ class Policy:
                                              self.param_spec(path, _shape(leaf))),
             param_shapes)
 
+    def state_shardings(self, state_shapes):
+        """``NamedSharding``s of a {params, opt} train state (or of a state
+        with params only)."""
+        param_sh = self.param_shardings(state_shapes["params"])
+        out = {"params": param_sh}
+        if "opt" in state_shapes:
+            out["opt"] = self.opt_state_shardings(state_shapes["opt"], param_sh)
+        return out
+
     def opt_state_shardings(self, opt_shapes, param_shardings):
         """Moments/master mirror the param spec; scalars replicate."""
         pflat = dict(leaf_paths(param_shardings))
@@ -321,6 +354,7 @@ class Policy:
             decode_attn=(plan.mode if plan else "local"),
             decode_plan=plan,
         )
+        ctx.policy = self
         if plan is not None and ctx.groups is not None:
             for axes in (plan.seq_axes, plan.b_axes):
                 if axes:

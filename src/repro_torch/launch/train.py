@@ -9,6 +9,16 @@ hand-written ``flash_attention`` and ``ssd_chunk`` kernels in the forward,
 with their plain backwards.  Fault tolerance comes from the checkpoint
 manager (atomic manifests) and the deterministic data pipeline: a restore
 replays the exact stream.
+
+On a mesh, ``Trainer(..., ctx=policy.ctx())`` with ``policy =
+Policy(cfg, mesh, "train", global_batch=batch)`` places its state by the
+policy (``launch.sharding.place_state``: every rank holds its blocks of
+the parameters and the AdamW moments) and each batch by
+``policy.batch_shardings``; the step is the JAX package's jitted step
+under ``in_shardings``: the forward and backward sharded as the policy's
+rules lay them out, the gradients placed like their parameters, the
+update on each rank's shards.  ``save`` gathers the state whole (rank 0
+writes); ``restore`` reads it back onto the policy's placements.
 """
 
 from __future__ import annotations
@@ -19,11 +29,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.checkpointer import MANIFEST
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import (full_state, place_batch, place_state,
+                                         restore_hook)
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
@@ -31,25 +45,40 @@ from repro_torch.optim.optimizers import (Optimizer, tree_leaves, tree_map,
                                           tree_unflatten)
 
 
+def _plain(t):
+    """A metric as a plain tensor (a replicated ``DTensor`` gathered)."""
+    t = t.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def loss_and_grads(model: Model, params, batch, ctx: ModelCtx):
+    """(loss, metrics, grads): ``Model.loss`` and the gradient of every
+    parameter leaf (zeros where a leaf is unused), each placed like its
+    parameter on a mesh."""
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        loss, metrics = model.loss(params, batch, ctx)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None
+             else g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor)
+             else g for p, g in zip(leaves, grads)]
+    return loss, metrics, tree_unflatten(params, grads)
+
+
 def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``: state
     {"params", "opt"}; batch {"tokens", "labels"} (and whisper's
-    ``frames``) tensors on the parameters' device; metrics {"loss",
-    "xent", "aux", "lr", "grad_norm"} (tensors, and a float lr).  The given
-    state is not changed."""
+    ``frames``) tensors on the parameters' device, or, on a mesh, the
+    state and batch placed by ``ctx.policy``; metrics {"loss", "xent",
+    "aux", "lr", "grad_norm"} (tensors, and a float lr).  The given state
+    is not changed."""
     def train_step(state, batch):
-        params = tree_map(lambda p: p.detach().requires_grad_(True),
-                          state["params"])
-        leaves = tree_leaves(params)
-        with torch.enable_grad():
-            loss, metrics = model.loss(params, batch, ctx)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        loss, metrics, grads = loss_and_grads(model, state["params"], batch, ctx)
         new_params, new_opt, opt_metrics = optimizer.update(
-            tree_unflatten(params, grads), state["opt"], state["params"])
+            grads, state["opt"], state["params"])
         return ({"params": new_params, "opt": new_opt},
-                {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
+                {"loss": _plain(loss), **{k: _plain(v) for k, v in metrics.items()},
                  **opt_metrics})
 
     return train_step
@@ -94,6 +123,9 @@ class Trainer:
         self.data = SyntheticLMDataset(cfg, batch, seq, seed=seed)
         self.step_fn = make_train_step(self.model, self.optimizer, self.ctx)
         self.state = init_state(self.model, self.optimizer, seed, self.device)
+        self.policy = self.ctx.policy if self.ctx.sharded else None
+        if self.policy is not None:
+            self.state = place_state(self.state, self.policy)
         self.step = 0
         self.ckpt = ckpt
         self.val_every = val_every
@@ -106,6 +138,8 @@ class Trainer:
         new_points = []
         for _ in range(n):
             batch = batch_to(self.data.get_batch(self.step), self.device)
+            if self.policy is not None:
+                batch = place_batch(batch, self.policy)
             t0 = time.perf_counter()
             self.state, m = self.step_fn(self.state, batch)
             loss = float(m["loss"])              # waits for the step
@@ -125,7 +159,14 @@ class Trainer:
             raise RuntimeError("Trainer.save: no CheckpointManager (ckpt=None)")
         meta = {"metrics_steps": self.metrics_steps,
                 "metrics_vals": self.metrics_vals}
-        self.ckpt.save(self.step, self.state, blocking=blocking, extra_meta=meta)
+        if self.policy is None:
+            self.ckpt.save(self.step, self.state, blocking=blocking, extra_meta=meta)
+            return
+        # on a mesh: the state gathered whole, written by rank 0
+        state = full_state(self.state)
+        if dist.get_rank() == 0:
+            self.ckpt.save(self.step, state, blocking=True, extra_meta=meta)
+        dist.barrier()
 
     def restore(self, sharding_fn=None, step=None):
         """Rehydrate from the latest checkpoint (or an explicit ``step``)
@@ -134,6 +175,10 @@ class Trainer:
         original stream exactly."""
         if self.ckpt is None:
             raise RuntimeError("Trainer.restore: no CheckpointManager (ckpt=None)")
+        if self.policy is not None and sharding_fn is None:
+            # each leaf read and cut to this rank's block, as the policy lays it out
+            sharding_fn = restore_hook(self.policy.state_shardings(self.state),
+                                       self.state)
         self.state, step = self.ckpt.restore(self.state, step=step,
                                              sharding_fn=sharding_fn)
         self.step = step

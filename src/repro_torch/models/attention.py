@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.collectives import axis_index, axis_size
+from repro_torch.collectives import axis_index, axis_size, replicate_like
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 
@@ -53,8 +53,15 @@ def init_attention(gen, cfg, device):
     return p
 
 
-def qkv_project(x, params, cfg, positions, rope: bool = True):
-    """x: (B, S, D) -> q (B,S,KV,G,Dh), k, v (B,S,KV,Dh)."""
+def qkv_project(x, params, cfg, positions, rope: bool = True, layout=None,
+                flat_q: bool = False):
+    """x: (B, S, D) -> q (B,S,KV,G,Dh), k, v (B,S,KV,Dh).
+
+    The sharded forward passes ``layout``, a function that places each flat
+    projection (B, S, n*Dh) before its heads are split, called as
+    ``layout(t, "q")`` and ``layout(t, "kv")``; with ``flat_q`` q comes
+    back as (B, S, H, Dh) (a head dim split over the model axis cannot be
+    cut into KV x G on a DTensor when KV does not divide it)."""
     B, S, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
@@ -63,17 +70,18 @@ def qkv_project(x, params, cfg, positions, rope: bool = True):
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, kv, g, dh)
+    if layout is not None:
+        q, k, v = layout(q, "q"), layout(k, "kv"), layout(v, "kv")
+    q = q.reshape(B, S, h, dh)
     k = k.reshape(B, S, kv, dh)
     v = v.reshape(B, S, kv, dh)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
     if rope:
-        qf = layers.apply_rope(q.reshape(B, S, kv * g, dh), positions, cfg.rope_theta)
-        q = qf.reshape(B, S, kv, g, dh)
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (q if flat_q else q.reshape(B, S, kv, g, dh)), k, v
 
 
 def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
@@ -87,7 +95,7 @@ def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
     if causal:
         qpos = torch.arange(Sq, device=q.device) + q_offset
         kpos = torch.arange(Sk, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
+        mask = replicate_like(qpos[:, None] >= kpos[None, :], s)
         s = torch.where(mask, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f32))
@@ -158,7 +166,7 @@ def decode_attention(q, cache, pos: int, scale: Optional[float] = None):
 
 
 def merge_heads(o, cfg):
-    """(B, S, KV, G, Dh) -> (B, S, H*Dh)."""
+    """(B, S, KV, G, Dh) or (B, S, H, Dh) -> (B, S, H*Dh)."""
     B, S = o.shape[:2]
     return o.reshape(B, S, cfg.n_heads * cfg.head_dim)
 

@@ -11,8 +11,10 @@ stacks them along a leading L axis and loops over it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.collectives import all_gather_ordered, axis_index
+from repro_torch.collectives import P, all_gather_ordered, axis_index
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mla, moe, ssd
 
@@ -28,28 +30,94 @@ def init_attn(gen, cfg, device):
     return attn_lib.init_attention(gen, cfg, device)
 
 
+def _proj_layout(ctx, h):
+    """The sharded forward's placement of the flat q and k/v projections
+    (B, S, n*Dh), from the attention mode's rules: the sequence whole, the
+    batch over the residual's batch axes, and the heads over the model axis
+    where the mode shards them ("kv": q and k/v; "expand": q, whose H heads
+    then split evenly; "replicate": none).  None unless the input ``h`` is
+    a ``DTensor``."""
+    if not isinstance(h, DTensor):
+        return None
+    mode = _mode(ctx)
+    b, m = ctx.rules["residual"][0], ctx.model_axis
+    q_spec = P(b, None, m if mode in ("kv", "expand") else None)
+    kv_spec = P(b, None, m if mode == "kv" else None)
+    return lambda t, which: ctx.place(t, q_spec if which == "q" else kv_spec)
+
+
+def _qkv(h, p, cfg, ctx, positions, rope: bool = True):
+    """``attn_lib.qkv_project`` with the sharded forward's layout; q is
+    (B, S, H, Dh) under "expand" on a mesh, (B, S, KV, G, Dh) otherwise."""
+    h = ctx.gather_seq(h)
+    return attn_lib.qkv_project(h, p, cfg, positions, rope=rope,
+                                layout=_proj_layout(ctx, h),
+                                flat_q=_expand_on_mesh(ctx, h))
+
+
+def _expand_on_mesh(ctx, h) -> bool:
+    return isinstance(h, DTensor) and _mode(ctx) == "expand"
+
+
+def _mode(ctx) -> str:
+    return ctx.rules.get("attn_mode", "kv")
+
+
 def _sharded_attention(q, k, v, cfg, ctx, causal):
-    """The JAX package's 'kv' attention layout (heads as they come); one
-    card shards nothing."""
-    return attn_lib.attention(q, k, v, causal=causal, kernels=ctx.kernels,
-                              chunk=ctx.attn_chunk)
+    """-> the attention output with its heads merged, (B, S, H*Dh).
+
+    The policy's attention layout (``launch.sharding``): "kv" shards the KV
+    heads; "expand" repeats K/V to the full H heads and then shards H (each
+    shard holds only its own heads' copies); "replicate" leaves the heads
+    whole.  Off a mesh this is ``attn_lib.attention``.  On a mesh q, k and
+    v are DTensors, placed here by the mode's rules, and the flash kernel
+    runs on each rank's local (B_loc, S, H_loc, Dh) under ``local_map``;
+    its gradients come back with the inputs' placements."""
+    if not isinstance(q, DTensor):
+        return attn_lib.merge_heads(attn_lib.attention(
+            q, k, v, causal=causal, kernels=ctx.kernels, chunk=ctx.attn_chunk), cfg)
+    mode = _mode(ctx)
+    if mode == "expand":
+        # q arrives (B, S, H, Dh); repeat first, then shard H (attn_kv4)
+        G = cfg.n_heads // cfg.n_kv_heads
+        q = ctx.constrain(q, "attn_q4")[:, :, :, None]        # G = 1
+        k = ctx.constrain(k.repeat_interleave(G, dim=2), "attn_kv4")
+        v = ctx.constrain(v.repeat_interleave(G, dim=2), "attn_kv4")
+    elif mode == "kv":
+        q = ctx.constrain(q, "attn_q")
+        k, v = ctx.constrain(k, "attn_kv"), ctx.constrain(v, "attn_kv")
+    else:
+        b = ctx.rules["residual"][0]
+        q = ctx.place(q, P(b, None, None, None, None))
+        k, v = (ctx.place(t, P(b, None, None, None)) for t in (k, v))
+
+    def local(q, k, v):
+        o = attn_lib.attention(q, k, v, causal=causal, kernels=ctx.kernels,
+                               chunk=ctx.attn_chunk)
+        return o.reshape(o.shape[0], o.shape[1], -1)
+
+    # the heads merge on the local shard: the output's gradient then comes
+    # back to the placements of the forward (its heads major in H*Dh)
+    out = [pl if not isinstance(pl, Shard) or pl.dim < 2 else Shard(2)
+           for pl in q.placements]
+    return local_map(local, out_placements=out,
+                     in_placements=(q.placements, k.placements, v.placements),
+                     device_mesh=ctx.mesh)(q, k, v)
 
 
 def attn_fwd(h, p, cfg, ctx, positions, causal=True):
     """Normed input -> attention output (full sequence)."""
     if cfg.use_mla:
-        return mla.mla_train(h, p, cfg, positions, ctx)
-    q, k, v = attn_lib.qkv_project(h, p, cfg, positions)
-    o = _sharded_attention(q, k, v, cfg, ctx, causal)
-    return attn_lib.merge_heads(o, cfg) @ p["wo"]
+        return mla.mla_train(ctx.gather_seq(h), p, cfg, positions, ctx)
+    q, k, v = _qkv(h, p, cfg, ctx, positions)
+    return _sharded_attention(q, k, v, cfg, ctx, causal) @ p["wo"]
 
 
 def attn_prefill(h, p, cfg, ctx, positions):
     if cfg.use_mla:
-        return mla.mla_prefill(h, p, cfg, positions, ctx)
-    q, k, v = attn_lib.qkv_project(h, p, cfg, positions)
-    o = _sharded_attention(q, k, v, cfg, ctx, causal=True)
-    out = attn_lib.merge_heads(o, cfg) @ p["wo"]
+        return mla.mla_prefill(ctx.gather_seq(h), p, cfg, positions, ctx)
+    q, k, v = _qkv(h, p, cfg, ctx, positions)
+    out = _sharded_attention(q, k, v, cfg, ctx, causal=True) @ p["wo"]
     return out, {"k": k, "v": v}  # the cache stays KV-compact
 
 
@@ -102,6 +170,14 @@ def _distributed_decode(q, k_new, v_new, cache, pos: int, ctx):
     return o
 
 
+def _add(x, delta, ctx):
+    """The residual plus a sub-block's output, the output moved to the
+    residual's layout first on a mesh (a row-parallel product's partial sum
+    reduce-scattered over the sequence), so that its gradient comes back
+    in the product's own layout."""
+    return x + ctx.constrain(delta, "residual")
+
+
 # ---------------------------------------------------------------------------
 # dense / MoE transformer blocks
 # ---------------------------------------------------------------------------
@@ -123,7 +199,7 @@ def init_block(gen, cfg, moe_layer: bool, device):
 
 def _ffn(x, p, cfg, ctx):
     """Second half-block: returns (delta, aux_loss)."""
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = ctx.gather_seq(layers.rms_norm(x, p["ln2"], cfg.norm_eps))
     if "moe" in p:
         return moe.moe_ffn(h, p["moe"], cfg, ctx)
     return (layers.mlp(h, p["mlp"], cfg.gated_mlp),
@@ -132,17 +208,18 @@ def _ffn(x, p, cfg, ctx):
 
 def block_fwd(x, p, cfg, ctx, positions):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_fwd(h, p["attn"], cfg, ctx, positions)
+    x = _add(x, attn_fwd(h, p["attn"], cfg, ctx, positions), ctx)
+    x = ctx.constrain(x, "residual")
     delta, aux = _ffn(x, p, cfg, ctx)
-    return x + delta, aux
+    return ctx.constrain(_add(x, delta, ctx), "residual"), aux
 
 
 def block_prefill(x, p, cfg, ctx, positions):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn_prefill(h, p["attn"], cfg, ctx, positions)
-    x = x + a
+    x = ctx.constrain(_add(x, a, ctx), "residual")
     delta, _ = _ffn(x, p, cfg, ctx)
-    return x + delta, cache
+    return ctx.constrain(_add(x, delta, ctx), "residual"), cache
 
 
 def block_decode(x, p, cfg, ctx, cache, pos: int):
@@ -164,14 +241,15 @@ def init_mamba(gen, cfg, device):
 
 
 def mamba_fwd(x, p, cfg, ctx):
-    h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + ssd.mamba_block(h, p["mixer"], cfg, ctx)
+    h = ctx.gather_seq(layers.rms_norm(x, p["ln"], cfg.norm_eps))
+    return ctx.constrain(_add(x, ssd.mamba_block(h, p["mixer"], cfg, ctx), ctx),
+                         "residual")
 
 
 def mamba_prefill(x, p, cfg, ctx):
-    h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    h = ctx.gather_seq(layers.rms_norm(x, p["ln"], cfg.norm_eps))
     y, cache = ssd.mamba_prefill(h, p["mixer"], cfg, ctx)
-    return x + y, cache
+    return ctx.constrain(_add(x, y, ctx), "residual"), cache
 
 
 def mamba_decode(x, p, cfg, ctx, cache):
@@ -198,11 +276,11 @@ def init_enc_block(gen, cfg, device):
 def enc_block_fwd(x, p, cfg, ctx, positions):
     """Non-causal self-attention over the frames (no RoPE), then the MLP."""
     h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn_lib.qkv_project(h, p["attn"], cfg, positions, rope=False)
-    o = _sharded_attention(q, k, v, cfg, ctx, causal=False)
-    x = x + attn_lib.merge_heads(o, cfg) @ p["attn"]["wo"]
-    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.mlp(h, p["mlp"], False)
+    q, k, v = _qkv(h, p["attn"], cfg, ctx, positions, rope=False)
+    x = _add(x, _sharded_attention(q, k, v, cfg, ctx, causal=False) @ p["attn"]["wo"],
+             ctx)
+    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
+    return ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
 
 
 def init_dec_block(gen, cfg, device):
@@ -217,13 +295,15 @@ def init_dec_block(gen, cfg, device):
     }
 
 
-def _cross_kv(enc_out, p, cfg):
-    """Cross-attention K/V from the encoder output: (B, Se, KV, Dh) each."""
+def _cross_kv(enc_out, p, cfg, layout=None):
+    """Cross-attention K/V from the encoder output: (B, Se, KV, Dh) each
+    (``layout`` as ``attn_lib.qkv_project``'s)."""
     B, Se, _ = enc_out.shape
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ p["wk"]).reshape(B, Se, kv, dh)
-    v = (enc_out @ p["wv"]).reshape(B, Se, kv, dh)
-    return k, v
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if layout is not None:
+        k, v = layout(k, "kv"), layout(v, "kv")
+    return k.reshape(B, Se, kv, dh), v.reshape(B, Se, kv, dh)
 
 
 def _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out):
@@ -231,32 +311,38 @@ def _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out):
     cross k, cross v).  Cross-attention is non-causal with Sq != Sk (the
     prompt against the frames)."""
     h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn_lib.qkv_project(h, p["self_attn"], cfg, positions, rope=False)
-    o = _sharded_attention(q, k, v, cfg, ctx, causal=True)
-    x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
+    q, k, v = _qkv(h, p["self_attn"], cfg, ctx, positions, rope=False)
+    x = _add(x, _sharded_attention(q, k, v, cfg, ctx, causal=True) @ p["self_attn"]["wo"],
+             ctx)
 
-    h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
+    h = ctx.gather_seq(layers.layer_norm(x, p["ln_x"], cfg.norm_eps))
     B, S, _ = h.shape
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    qx = (h @ p["cross_attn"]["wq"]).reshape(B, S, kv, cfg.n_heads // kv, dh)
-    kx, vx = _cross_kv(enc_out, p["cross_attn"], cfg)
-    o = _sharded_attention(qx, kx, vx, cfg, ctx, causal=False)
-    x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
+    layout = _proj_layout(ctx, h)
+    qx = h @ p["cross_attn"]["wq"]
+    if layout is not None:
+        qx = layout(qx, "q")
+    qx = qx.reshape(B, S, cfg.n_heads, dh)
+    if not _expand_on_mesh(ctx, h):
+        qx = qx.reshape(B, S, kv, cfg.n_heads // kv, dh)
+    kx, vx = _cross_kv(ctx.gather_seq(enc_out), p["cross_attn"], cfg, layout)
+    x = _add(x, _sharded_attention(qx, kx, vx, cfg, ctx, causal=False)
+             @ p["cross_attn"]["wo"], ctx)
     return x, k, v, kx, vx
 
 
 def dec_block_fwd(x, p, cfg, ctx, positions, enc_out):
     x = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)[0]
-    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.mlp(h, p["mlp"], False)
+    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
+    return ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
 
 
 def dec_block_prefill(x, p, cfg, ctx, positions, enc_out):
     """-> (x, cache): the self-attention K/V and the cross K/V, computed
     once here and read by every decode step."""
     x, k, v, kx, vx = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)
-    h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.mlp(h, p["mlp"], False)
+    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
+    x = ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
     return x, {"k": k, "v": v, "xk": kx, "xv": vx}
 
 

@@ -17,11 +17,23 @@ the shard-aware path (``blocks._distributed_decode``,
 ``shard_map`` ones; ``decode_attn`` is the plan's mode, ``"distributed"``
 when the cache sequence is sharded.
 
-``constrain`` is the identity: the port's prefill and training forward
-run each rank's work replicated, not tensor- or sequence-parallel yet, so
-the activation rules (``rules["residual"]`` and the like) are planned and
-compared but not applied.  ``use_shard_map`` is kept for the JAX package's
-constructor: the port's MoE runs its local math on every rank.
+On a ``DeviceMesh`` the prefill and training forward run sharded, as the
+JAX package's jitted program does under the same rules: parameters and
+batches are ``DTensor``s placed by the policy (``launch.sharding``'s
+``place_state`` / ``place_batch``), and ``constrain(x, role)`` moves an
+activation to the placements of ``rules[role]``
+(``x.redistribute``), where the JAX package puts a
+``with_sharding_constraint``.  It is the identity with no mesh, on a
+``MeshShape``, for a role without a rule, and for a plain tensor (the
+decode's local tensors, which the shard-aware decode lays out itself).
+The hand-written kernels run on each rank's local shard
+(``torch.distributed.tensor.experimental.local_map``), and the MoE FFN
+runs the JAX package's ``shard_map`` body on local tensors over
+``groups`` when ``use_shard_map`` is set.  Constants made inside the
+model (positions, masks, RoPE angles) meet DTensors as replicated
+DTensors (``collectives.replicate_like``).  ``policy`` is the
+``launch.sharding.Policy`` that built the ctx (None otherwise); the
+``Trainer`` and ``Server`` place their state by it.
 
 ``remat`` is the JAX package's: ``"full"`` recomputes each layer body in
 the backward (``torch.utils.checkpoint``, where the JAX package applies
@@ -39,7 +51,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.collectives import MeshGroups, MeshShape, P, axis_size
+from torch.distributed.tensor import DTensor
+
+from repro_torch.collectives import (MeshGroups, MeshShape, P, axis_size,
+                                     to_placements)
 
 REMAT = ("none", "full")
 DECODE_ATTN = ("local", "distributed")
@@ -60,11 +75,12 @@ class ModelCtx:
     remat: str = "full"            # none | full (checkpoint each layer body)
     decode_attn: str = "local"     # local | distributed (LSE-combine over seq shards)
     decode_plan: object = None     # launch.sharding.DecodePlan under a policy
-    use_shard_map: bool = True     # kept for the JAX package's constructor
+    use_shard_map: bool = True     # MoE on a mesh: the shard_map body
     kernels: Optional[str] = None  # None (by device) | "ref" | "cuda"
     # the mesh's process groups, built from ``mesh`` (not an argument)
     groups: Optional[MeshGroups] = dataclasses.field(default=None, init=False,
                                                      repr=False)
+    policy: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.remat not in REMAT:
@@ -79,8 +95,35 @@ class ModelCtx:
         """Decode runs the shard-aware path: a plan on a mesh of processes."""
         return self.decode_plan is not None and self.groups is not None
 
+    @property
+    def sharded(self) -> bool:
+        """On a mesh of processes (the forward takes DTensors, the decode
+        its local tensors)."""
+        return self.groups is not None
+
     def constrain(self, x, role: str):
-        return x
+        """``x`` moved to the placements of ``rules[role]``."""
+        if role not in self.rules:
+            return x
+        return self.place(x, self.rules[role])
+
+    def place(self, x, spec):
+        """A DTensor ``x`` moved to ``spec``, also a layout that the JAX
+        program holds without a rule of its own (the flat projections
+        before their heads are split, a kernel's inputs); plain tensors as
+        they are."""
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, to_placements(spec, self.mesh))
+
+    def gather_seq(self, x):
+        """A residual-stream DTensor (B, S, D) with its sequence whole, the
+        batch over the residual's batch axes: the sequence-parallel gather
+        before a projection (a product over a sharded sequence dim would
+        flatten it with the batch); plain tensors as they are."""
+        if not isinstance(x, DTensor) or "residual" not in self.rules:
+            return x
+        return self.place(x, P(self.rules["residual"][0], None, None))
 
     def spec(self, role: str) -> P:
         return self.rules.get(role, P())

@@ -14,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.collectives import replicate_like
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -135,8 +138,8 @@ def apply_rope(x, positions, theta: float):
     head_dim = x.shape[-1]
     inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta), device=x.device)
     ang = positions[..., None].to(torch.float32) * inv_freq   # (..., seq, half)
-    cos = torch.cos(ang)[..., None, :]                        # (..., seq, 1, half)
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicate_like(torch.cos(ang)[..., None, :], x)     # (..., seq, 1, half)
+    sin = replicate_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -154,10 +157,19 @@ def init_embed(gen, cfg, device):
     return p
 
 
+def _rows(table, ids):
+    """``table[ids]``; a DTensor table through ``F.embedding``, whose
+    sharding rule keeps the table's placement (d_model over the model axis)
+    and whose backward has one."""
+    if isinstance(table, DTensor):
+        return F.embedding(replicate_like(ids, table), table)
+    return table[ids]
+
+
 def embed_tokens(params, tokens, cfg, positions=None):
-    x = params["tok"][tokens]
+    x = _rows(params["tok"], tokens)
     if cfg.use_abs_pos:
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=tokens.device)
-        x = x + params["pos"][positions]
+        x = x + _rows(params["pos"], positions)
     return x

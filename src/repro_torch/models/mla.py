@@ -25,7 +25,9 @@ by ``cfg.use_mla`` alone.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch.collectives import P, local_map_summed
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 
@@ -91,6 +93,32 @@ def latent_attention(q_eff, k_eff, v_eff, causal: bool, scale: float):
     return o[:, :, 0]
 
 
+def _on_local_heads(fn, q, kvs, ctx, shared: bool):
+    """``fn(q, *kvs)`` on each rank's local heads of a DTensor q (B, S, H,
+    D) under ``local_map``: the heads over the model axis where they split
+    it, the batch as the residual's; the key/value tensors either shared by
+    every head (``shared``: (B, S, D'), whole over the model axis, their
+    gradients partial sums over it) or per head like q.  Plain tensors:
+    ``fn`` of them."""
+    if not isinstance(q, DTensor):
+        return fn(q, *kvs)
+    m = ctx.model_axis
+    hm = m if q.shape[2] % ctx.axis_size(m) == 0 else None
+    b = ctx.rules["residual"][0]
+    q = ctx.place(q, P(b, None, hm, None))
+    kv_spec = P(b, None, None) if shared else P(b, None, hm, None)
+    kvs = [ctx.place(t, kv_spec) for t in kvs]
+    # a shared key/value's gradient: partial over the mesh dims that split
+    # q's heads
+    grad = ([Partial() if isinstance(qp, Shard) and qp.dim == 2 else kp
+             for qp, kp in zip(q.placements, kvs[0].placements)] if shared
+            else list(kvs[0].placements))
+    return local_map_summed(fn, list(q.placements),
+                            (q.placements,) + tuple(t.placements for t in kvs),
+                            (q.placements,) + (grad,) * len(kvs), ctx.mesh,
+                            ctx.groups)(q, *kvs)
+
+
 def mla_train(x, params, cfg, positions, ctx):
     """Training-time MLA: the absorbed form, or the materialized one when
     ``ctx.rules["mla_materialized"]`` is set (as in the JAX package)."""
@@ -110,8 +138,10 @@ def _mla_train_materialized(x, params, cfg, positions, ctx):
     v = torch.einsum("bsr,rhk->bshk", c_kv, params["wkv_b_v"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, h, qr)], dim=-1)
-    o = attn_lib.naive_attention(q[:, :, :, None, :], k, v, causal=True,
-                                 scale=_scale(cfg))
+    o = _on_local_heads(
+        lambda q, k, v: attn_lib.naive_attention(q[:, :, :, None, :], k, v, causal=True,
+                                                 scale=_scale(cfg))[:, :, :, 0],
+        q, (k, v), ctx, shared=False)
     return o.reshape(B, S, h * vd) @ params["wo"]
 
 
@@ -122,7 +152,9 @@ def mla_prefill(x, params, cfg, positions, ctx):
     c_kv, k_rope = _project_kv_latent(x, params, cfg, positions)
     q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,S,H,R+qr)
     k_eff = torch.cat([c_kv, k_rope], dim=-1)                        # (B,S,R+qr)
-    o_lat = latent_attention(q_eff, k_eff, c_kv, causal=True, scale=_scale(cfg))
+    o_lat = _on_local_heads(
+        lambda q, k, v: latent_attention(q, k, v, causal=True, scale=_scale(cfg)),
+        q_eff, (k_eff, c_kv), ctx, shared=True)
     o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
     out = o.reshape(B, S, cfg.n_heads * cfg.v_head_dim) @ params["wo"]
     return out, {"c_kv": c_kv, "k_rope": k_rope}

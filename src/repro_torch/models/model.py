@@ -35,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -122,12 +123,15 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         return ctx.constrain(x, "residual"), positions
 
-    def _unembed(self, params, x, ctx):
+    def _unembed(self, params, x, ctx, role: str = "logits"):
+        """The final norm and the unembedding, the logits laid out by
+        ``role``: "logits" (vocab over the model axis) for prefill and
+        decode, "logits_sp" (sequence over it, vocab local) for the loss."""
         cfg = self.cfg
         norm = layers.layer_norm if cfg.family == "audio" else layers.rms_norm
-        x = norm(x, params["ln_f"], cfg.norm_eps)
+        x = ctx.gather_seq(norm(x, params["ln_f"], cfg.norm_eps))
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
-        return ctx.constrain(x @ w, "logits")
+        return ctx.constrain(x @ w, role)
 
     def _encode(self, params, batch, ctx):
         """Whisper's encoder over the stub frame embeddings ``batch["frames"]``
@@ -233,7 +237,10 @@ class Model:
         ctx = ctx or null_ctx()
         x, aux = self._backbone(params, batch, ctx)
         labels = batch["labels"].long()
-        logits32 = self._unembed(params, x, ctx).float()
+        # on a mesh (S over the model axis, V local) each rank reduces its
+        # block and the two sums below reduce over the shards
+        logits32 = self._unembed(params, x, ctx, "logits_sp").float()
+        labels = ctx.constrain(labels, "logits_sp")
         m = (labels >= 0).float()
         mx = torch.amax(logits32, dim=-1, keepdim=True)
         lse = torch.log(torch.sum(torch.exp(logits32 - mx.detach()), dim=-1)) + mx[..., 0]
@@ -289,7 +296,7 @@ class Model:
             cache = {"mamba": stack(m_caches), "attn": stack(a_caches)}
         if cache_len is not None:
             cache = _pad_cache_to(cache, cache_len)
-        return self._unembed(params, x[:, -1:], ctx), cache
+        return self._unembed(params, ctx.gather_seq(x)[:, -1:], ctx), cache
 
     # --------------------------------------------------------------- decode
     def decode_step(self, params, cache, tokens, pos: int,
@@ -341,9 +348,8 @@ def _pad_cache_to(cache, cache_len: int):
         if isinstance(val, dict):
             out[key] = _pad_cache_to(val, cache_len)
         elif key in _SEQ_CACHE_KEYS and cache_len > val.shape[2]:
-            pad = torch.zeros(val.shape[:2] + (cache_len - val.shape[2],)
-                              + val.shape[3:], dtype=val.dtype, device=val.device)
-            out[key] = torch.cat([val, pad], dim=2)
+            pad = [0, 0] * (val.dim() - 3) + [0, cache_len - val.shape[2]]
+            out[key] = F.pad(val, pad)
         else:
             out[key] = val
     return out

@@ -1,11 +1,29 @@
-"""Top-k routed mixture-of-experts, as direct local math.
+"""Top-k routed mixture-of-experts with the JAX package's EP/TP sharding.
 
-The port of ``repro.models.moe`` for one card: the path the JAX package
-takes with ``ctx.mesh is None`` (strategy ``tp`` over all experts,
-``e_start = 0``, no sequence-parallel gather, no psum).  Of the mesh
-pieces, ``moe_weight_specs`` (the sharding policy's expert specs) is
-ported; the ``shard_map`` expert-parallel route is not, and every rank of
-a mesh runs the local math.
+The port of ``repro.models.moe``.  Two routes, as in the JAX package:
+
+* the local math (no mesh, or ``ctx.use_shard_map`` off): strategy ``tp``
+  over all experts, ``e_start = 0``, no gather, no psum;
+* on a mesh (the input a ``DTensor``), the ``shard_map`` body
+  (``_moe_shard_body``) on each (data, model) shard's local tensors under
+  ``local_map``, its collectives (``collectives.all_gather``, ``psum``,
+  ``psum_scatter``, ``pmean``) on ``ctx.groups``:
+    1. with the residual sequence-sharded over ``model`` (B % data and
+       S % model divide: ``sp``), the token shard is gathered over
+       ``model``, so that the tokens are replicated over it within a data
+       shard, and flattened only then;
+    2. FSDP: the expert weights, sharded over the fsdp axis, are gathered
+       inside the shard (dim 1, or 2 for ``tp``'s ``w_down``);
+    3. ``ep`` (the experts split over ``model``, n_experts % model == 0):
+       each shard dispatches to its own experts, ``e_start`` = its model
+       index times their count; ``tp``: every shard holds all experts and
+       a slice of their hidden dim;
+    4. the capacity comes from the shard's own token count;
+    5. the partial outputs are combined by a ``psum_scatter`` over
+       ``model`` (``sp``: back to sequence shards) or a ``psum``, and the
+       aux loss is averaged over ``model`` and every data axis.
+  The decode's local tensors (the server's shard-aware decode hands each
+  rank its batch slice and the whole weights) take the local math.
 
 Every step that decides which tokens an expert keeps is the reference's:
 
@@ -26,10 +44,14 @@ package computes them with ``einsum`` outside any Pallas kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.collectives import P
+from repro_torch import collectives as C
+from repro_torch.collectives import P, axis_index, to_placements
 from repro_torch.models import layers
 
 
@@ -143,20 +165,129 @@ def _combine(out_buf, slot, keep, w, dtype):
     return y
 
 
+def _moe_shard_body(x_shard, router_w, w_gate, w_up, w_down, *, cfg, groups,
+                    model_axis, fsdp_axis, data_axes: tuple, strategy: str,
+                    sp: bool, same_data: bool):
+    """Per-(data, model)-shard computation on local tensors.  x_shard:
+    (B_loc, S_loc, D) -> (y (B_loc, S_loc or S, D), aux).  The token
+    flatten happens here, after the sequence-parallel gather.
+    ``same_data``: the tokens are the same on every rank of the data axes
+    (the batch did not split over them), so the data ranks compute the
+    same thing: the weights' FSDP gather slices its gradient instead of
+    summing it, and the aux loss needs no mean over them.  With no mesh
+    (``model_axis`` None, strategy "tp", no fsdp axis) this is the local
+    math: all experts, no collective."""
+    if sp:
+        x = C.all_gather(x_shard, groups, model_axis, 1)
+    else:
+        x = x_shard
+    B_loc, S_full, D = x.shape
+    T = B_loc * S_full
+    x = x.reshape(T, D)
+    if fsdp_axis is not None:
+        w_gate = C.all_gather(w_gate, groups, fsdp_axis, 1, same_grad=same_data)
+        w_up = C.all_gather(w_up, groups, fsdp_axis, 1, same_grad=same_data)
+        w_down = C.all_gather(w_down, groups, fsdp_axis, 1 if strategy == "ep" else 2,
+                              same_grad=same_data)
+
+    w, idx, aux = _route(x, router_w, cfg)
+    e_count = w_gate.shape[0]
+    e_start = axis_index(groups.mesh, model_axis) * e_count if strategy == "ep" else 0
+    cap = capacity(T, cfg)
+    slot, keep = _dispatch_indices(idx, e_start, e_count, cap)
+    buf = _dispatch(x, slot, keep, e_count, cap)
+    out_buf = _expert_ffn(buf, w_gate, w_up, w_down)
+    y = _combine(out_buf, slot, keep, w, x.dtype).reshape(B_loc, S_full, -1)
+
+    # combine the partials (sp: the reduce-scatter back to sequence shards)
+    if model_axis is not None:
+        y = (C.psum_scatter(y, groups, model_axis, 1) if sp
+             else C.psum(y, groups, model_axis))
+        aux = C.pmean(aux, groups, model_axis)
+    if not same_data:
+        for ax in data_axes:
+            aux = C.pmean(aux, groups, ax)
+    return y, aux
+
+
+def _strategy(cfg, ctx) -> str:
+    strategy = cfg.moe_sharding
+    if strategy in ("auto", "ep"):
+        if ctx.mesh is None or cfg.n_experts % max(ctx.axis_size(ctx.model_axis), 1):
+            return "tp"
+        return "ep"
+    return strategy
+
+
+def _grad_placements(placements, x_pl, names, model_axis) -> list:
+    """The placements of the gradient that ``_moe_shard_body`` leaves for
+    an input of ``placements``: a sharded mesh dim keeps its shard (the
+    body's collectives complete it); on a dim that does not shard the input
+    the ranks' gradients are partial sums where they saw different tokens
+    or experts (the model axis, a data axis that splits the batch), and the
+    same where they saw the same (a data axis the batch did not split)."""
+    out = []
+    for name, pl, xp in zip(names, placements, x_pl):
+        if isinstance(pl, Shard):
+            out.append(pl)
+        elif name == model_axis or isinstance(xp, Shard):
+            out.append(Partial())
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _moe_sharded(x, params, cfg, ctx, strategy: str):
+    """``moe_ffn``'s mesh route: the specs of the JAX package's
+    ``shard_map`` and ``_moe_shard_body`` under ``local_map``."""
+    B, S, D = x.shape
+    maxis, faxis = ctx.model_axis, ctx.fsdp_axis
+    dsize, msize = ctx.axis_size(ctx.data_axes), ctx.axis_size(maxis)
+    # keep the (B, S, D) layout at the boundary; flatten inside
+    if B % dsize == 0 and S % msize == 0:
+        x_spec, sp = P(tuple(ctx.data_axes), maxis, None), True
+    elif B % dsize == 0:
+        x_spec, sp = P(tuple(ctx.data_axes), None, None), False
+    else:
+        x_spec, sp = P(None, None, None), False
+    wspecs = moe_weight_specs(cfg, strategy, maxis, faxis)
+    specs = [x_spec] + [P(*wspecs[k][1:])
+                        for k in ("router", "w_gate", "w_up", "w_down")]
+    mesh = ctx.mesh
+    pls = [to_placements(sp_, mesh) for sp_ in specs]
+    names = C.axis_names(mesh)
+    x_pl = pls[0]
+    grads = [_grad_placements(pl, x_pl, names, maxis) for pl in pls]
+    same_data = x_spec[0] is None
+    args = [t.redistribute(mesh, pl) for t, pl in zip(
+        (x, params["router"], params["w_gate"], params["w_up"], params["w_down"]), pls)]
+    body = functools.partial(
+        _moe_shard_body, cfg=cfg, groups=ctx.groups, model_axis=maxis,
+        fsdp_axis=faxis, data_axes=tuple(ctx.data_axes), strategy=strategy, sp=sp,
+        same_data=same_data)
+    return C.local_map_summed(body, (x_pl, [Replicate()] * len(names)), tuple(pls),
+                              tuple(grads), mesh, ctx.groups)(*args)
+
+
 def moe_ffn(x, params, cfg, ctx=None):
     """x (B, S, D), the normed residual -> (y (B, S, D), aux loss scalar
     times ``moe_aux_loss_coef``).  The shared experts, where the config has
-    them, apply to the same x and add to y."""
-    B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D)
-    w, idx, aux = _route(xt, params["router"], cfg)
-    e_count = params["w_gate"].shape[0]
-    cap = capacity(T, cfg)
-    slot, keep = _dispatch_indices(idx, 0, e_count, cap)
-    buf = _dispatch(xt, slot, keep, e_count, cap)
-    out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"], params["w_down"])
-    y = _combine(out_buf, slot, keep, w, x.dtype).reshape(B, S, -1)
+    them, apply to the same x and add to y.  A ``DTensor`` x on a mesh
+    takes the ``shard_map`` route (``ctx.use_shard_map``); otherwise the
+    local math."""
+    if isinstance(x, DTensor):
+        if not ctx.use_shard_map:
+            raise NotImplementedError(
+                "MoE on DTensors runs the shard_map body: use_shard_map=True")
+        y, aux = _moe_sharded(x, params, cfg, ctx, _strategy(cfg, ctx))
+    else:
+        y, aux = _moe_shard_body(
+            x, params["router"], params["w_gate"], params["w_up"], params["w_down"],
+            cfg=cfg, groups=None, model_axis=None, fsdp_axis=None, data_axes=(),
+            strategy="tp", sp=False, same_data=True)
     if cfg.n_shared_experts > 0:
-        y = y + layers.mlp(x, params["shared"], gated=True)
+        shared = layers.mlp(x, params["shared"], gated=True)
+        if isinstance(y, DTensor):      # the routed output's layout
+            shared = shared.redistribute(y.device_mesh, y.placements)
+        y = y + shared
     return y, aux * cfg.moe_aux_loss_coef

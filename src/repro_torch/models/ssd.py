@@ -15,12 +15,16 @@ conv is per segment, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.collectives import (P, axis_index, grad_as_forward, local_map_summed,
+                                     to_placements)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 
@@ -163,24 +167,26 @@ def _finish(y, x4, z, p, cfg):
     """Skip + gate + norm + out-projection.  y float32 (B,S,H,P)."""
     Bb, S = y.shape[:2]
     y = y + p["D_skip"][None, None, :, None] * x4.to(torch.float32)
-    y = y.reshape(Bb, S, cfg.ssm_d_inner).to(z.dtype)
+    y = grad_as_forward(y.reshape(Bb, S, cfg.ssm_d_inner)).to(z.dtype)
     y = y * F.silu(z)
     y = layers.rms_norm(y, p["gate_norm"], cfg.norm_eps)
     return y @ p["wo"]
 
 
-def _broadcast_groups(t, cfg):
+def _broadcast_groups(t, cfg, heads=None):
     """(B,S,G*N) -> (B,S,H,N) float32.  The cast comes first, at (B,S,G*N):
     casting an expanded view would materialise it.  With one group the
     result is an ``expand``ed view of that tensor (head stride 0, its
     storage shared), so every head reads the one group's rows; with G > 1
-    each group is copied to its H/G heads."""
+    each group is copied to its H/G heads.  ``heads`` (start, count) keeps
+    those heads only (a rank's local heads on a mesh)."""
     Bb, S = t.shape[:2]
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads
+    start, count = heads if heads is not None else (0, h)
     t = t.to(torch.float32).reshape(Bb, S, g, n)
     if g == 1:
-        return t.expand(Bb, S, h, n)
-    return t.repeat_interleave(h // g, dim=2)
+        return t.expand(Bb, S, count, n)
+    return t.repeat_interleave(h // g, dim=2).narrow(2, start, count)
 
 
 def _dt_A(dt_r, p):
@@ -205,17 +211,103 @@ def mamba_prefill(x, p, cfg, ctx):
         w = t[:, max(S - (k - 1), 0):]
         return F.pad(w, (0, 0, max(k - 1 - S, 0), 0))
 
-    xs = F.silu(causal_conv(xs_raw, p["conv_x"]))
-    B_r = F.silu(causal_conv(B_raw, p["conv_B"]))
-    C_r = F.silu(causal_conv(C_raw, p["conv_C"]))
+    sharded = isinstance(x, DTensor)
+    if sharded:
+        # the conv and the scan run along the whole sequence
+        x_spec = _x_spec(ctx)
+        heads = P(x_spec[0], None, ctx.model_axis if x_spec[2] else None)
+        whole = P(x_spec[0], None, None)
+        z, xs_raw, dt_r = (ctx.place(t, heads) for t in (z, xs_raw, dt_r))
+        B_raw, C_raw = ctx.place(B_raw, whole), ctx.place(C_raw, whole)
+
+    def conv(t, q):
+        return _sharded_conv(t, q, ctx.groups) if sharded else causal_conv(t, q)
+
+    xs = F.silu(conv(xs_raw, p["conv_x"]))
+    B_r = F.silu(conv(B_raw, p["conv_B"]))
+    C_r = F.silu(conv(C_raw, p["conv_C"]))
     dt, A = _dt_A(dt_r, p)
+    if sharded:
+        xs = ctx.place(xs, heads)        # channels split only where H splits
     x4 = ctx.constrain(xs.reshape(Bb, S, h, pd), "ssm_x")
-    y, state = ssd_chunked(x4, dt, A, _broadcast_groups(B_r, cfg),
-                           _broadcast_groups(C_r, cfg), cfg.ssm_chunk,
-                           kernels=ctx.kernels)
+    if sharded:
+        y, state = _sharded_scan(x4, dt, A, B_r, C_r, cfg, ctx)
+        if x_spec[3] is not None:
+            # the head dim whole before (H, P) merges into d_inner
+            whole_p = P(x_spec[0], None, x_spec[2], None)
+            y, x4 = ctx.place(y, whole_p), ctx.place(x4, whole_p)
+    else:
+        y, state = ssd_chunked(x4, dt, A, _broadcast_groups(B_r, cfg),
+                               _broadcast_groups(C_r, cfg), cfg.ssm_chunk,
+                               kernels=ctx.kernels)
     cache = {"state": state, "conv_x": window(xs_raw),
              "conv_B": window(B_raw), "conv_C": window(C_raw)}
     return _finish(y, x4, z, p, cfg), cache
+
+
+def _x_spec(ctx) -> P:
+    """x4's (B, S, H, P) layout on a mesh: the ``ssm_x`` rule (H, or else
+    P, over the model axis), or, without one, the batch over the
+    residual's batch axes and the rest whole."""
+    return ctx.rules.get("ssm_x", P(ctx.rules["residual"][0], None, None, None))
+
+
+def _follow(placements, dims: dict, grad: bool = False) -> list:
+    """The placements of a tensor whose dims are x4's ``dims`` (x4 dim ->
+    its dim) when x4 has ``placements``: a mesh dim that shards one of
+    those dims shards the tensor's, one that shards another dim of x4
+    leaves it whole, or, for its gradient (``grad``), partial (each rank
+    holds its slice's sum)."""
+    out = []
+    for pl in placements:
+        if isinstance(pl, Shard) and pl.dim in dims:
+            out.append(Shard(dims[pl.dim]))
+        elif isinstance(pl, Shard) and grad:
+            out.append(Partial())
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _sharded_conv(x, p, groups):
+    """``causal_conv`` on each rank's local channels under ``local_map``: x
+    (B, S, C) with its sequence whole, the weights (C, K) and bias cut as
+    its channels are, their gradients summed over the batch's shards."""
+    pl, mesh = list(x.placements), x.device_mesh
+    w_pl = _follow(pl, {2: 0})
+    w_grad = _follow(pl, {2: 0}, grad=True)
+    w, b = (t.redistribute(mesh, w_pl) for t in (p["w"], p["b"]))
+    return local_map_summed(lambda x, w, b: causal_conv(x, {"w": w, "b": b}), pl,
+                            (pl, w_pl, w_pl), (pl, w_grad, w_grad), mesh,
+                            groups)(x, w, b)
+
+
+def _sharded_scan(x4, dt, A, B_r, C_r, cfg, ctx):
+    """``ssd_chunked`` on each rank's local heads (or head-dim slice),
+    under ``local_map``: x4 (B,S,H,P) as ``ssm_x`` places it, dt (B,S,H)
+    and A (H,) following its heads, B_r / C_r (B,S,G*N) whole over the
+    model axis and broadcast to the local heads inside.  -> (y like x4,
+    state (B,H,P,N)), DTensors."""
+    pl = to_placements(_x_spec(ctx), ctx.mesh)
+    # dims of dt, A, B_r, C_r that are x4's: (B, S, H), (H,), (B, S), (B, S)
+    dims = [{0: 0, 1: 1, 2: 2}, {2: 0}, {0: 0, 1: 1}, {0: 0, 1: 1}]
+    ins = [pl] + [_follow(pl, d) for d in dims]
+    grads = [pl] + [_follow(pl, d, grad=True) for d in dims]
+    x4, dt, A, B_r, C_r = (t.redistribute(ctx.mesh, q)
+                           for t, q in zip((x4, dt, A, B_r, C_r), ins))
+    h = cfg.ssm_nheads
+    n_loc = h // math.prod(ctx.mesh.size(i) for i, q in enumerate(pl)
+                           if isinstance(q, Shard) and q.dim == 2)
+    start = axis_index(ctx.mesh, ctx.model_axis) * n_loc if n_loc < h else 0
+
+    def local(x, dt, A, B_r, C_r):
+        heads = (start, x.shape[2])
+        return ssd_chunked(x, dt, A, _broadcast_groups(B_r, cfg, heads),
+                           _broadcast_groups(C_r, cfg, heads), cfg.ssm_chunk,
+                           kernels=ctx.kernels)
+
+    return local_map_summed(local, (pl, _follow(pl, {0: 0, 2: 1, 3: 2})), tuple(ins),
+                            tuple(grads), ctx.mesh, ctx.groups)(x4, dt, A, B_r, C_r)
 
 
 def mamba_decode(x, p, cfg, cache, ctx):

@@ -14,6 +14,12 @@ moments are float32; with ``keep_master`` a float32 master copy of the
 parameters is kept and updated, and the parameters are cast from it.
 ``update`` is functional: it returns new tensors and changes none it was
 given.
+
+On a mesh the leaves are ``DTensor``s (``launch.sharding.place_state``):
+the gradients placed like their parameters and the moments and master
+copy like them too.  The update is elementwise, so it runs on each rank's
+local shards and keeps their placements; the global norm is one
+reduction over every shard, each replicated block counted once.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 
 def tree_map(fn: Callable, *trees):
@@ -65,16 +72,54 @@ class Optimizer:
     update: Callable  # (grads, state, params) -> (new_params, new_state, metrics)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """-> (grads scaled by min(1, max_norm / |grads|), |grads|): the global
-    norm over every leaf in float32, summed leaf by leaf in the reference's
-    leaf order."""
-    total = 0
+def on_local(fn, *leaves):
+    """``fn`` of the tensors' local shards, each result placed like the
+    first ``DTensor`` among ``leaves`` (plain tensors: ``fn`` of them)."""
+    like = next((t for t in leaves if isinstance(t, DTensor)), None)
+    if like is None:
+        return fn(*leaves)
+    out = fn(*(t.to_local() if isinstance(t, DTensor) else t for t in leaves))
+    wrap = lambda o: DTensor.from_local(  # noqa: E731
+        o, like.device_mesh, like.placements, run_check=False,
+        shape=like.shape, stride=like.stride())
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _counted_here(t) -> bool:
+    """This rank's block of ``t`` counts in a sum over the mesh: it is the
+    first copy (coordinate 0) on every mesh dim that replicates ``t``."""
+    if any(isinstance(p, Partial) for p in t.placements):
+        raise ValueError("a partial gradient: place it like its parameter first")
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, t.placements) if isinstance(p, Replicate))
+
+
+def global_norm(grads):
+    """|grads| in float32: the squares summed leaf by leaf in the
+    reference's leaf order; on a mesh over each rank's own blocks, then
+    reduced over the mesh once."""
+    total, like = 0, None
     for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
-    gn = torch.sqrt(total)
+        if isinstance(g, DTensor):
+            like = g
+            if _counted_here(g):
+                total = total + torch.sum(torch.square(g.to_local().float()))
+        else:
+            total = total + torch.sum(torch.square(g.float()))
+    if like is not None:
+        local = torch.as_tensor(total, dtype=torch.float32,
+                                device=like.to_local().device).reshape(())
+        total = DTensor.from_local(local, like.device_mesh,
+                                   [Partial()] * like.device_mesh.ndim).full_tensor()
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """-> (grads scaled by min(1, max_norm / |grads|), |grads|)."""
+    gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    return tree_map(lambda g: on_local(lambda x: (x.float() * scale).to(x.dtype), g),
+                    grads), gn
 
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
@@ -87,10 +132,8 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
     def init(params):
         state = {
             "step": 0,
-            "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                device=p.device), params),
+            "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
         }
         if keep_master:
             state["master"] = tree_map(
@@ -119,10 +162,12 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             p32 = p.detach().float()
             return m, v, p32 - lr_t * (u + weight_decay * p32)
 
-        out = tree_map(upd, grads, state["m"], state["v"], ref)
+        out = tree_map(lambda *ts: on_local(upd, *ts), grads, state["m"], state["v"],
+                       ref)
         new_m, new_v, new32 = (tree_map(lambda _, o: o[i], grads, out)
                                for i in range(3))
-        new_params = tree_map(lambda p, n: n.to(p.dtype), params, new32)
+        new_params = tree_map(lambda p, n: on_local(lambda x: x.to(p.dtype), n),
+                              params, new32)
         new_state = {"step": step, "m": new_m, "v": new_v}
         if keep_master:
             new_state["master"] = new32

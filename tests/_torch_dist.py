@@ -159,3 +159,121 @@ def int8_worker(rank, grads_np, errors_np):
     e = {k: torch.from_numpy(np.array(v[rank])) for k, v in errors_np.items()}
     mean, err = int8_allreduce(g, "data", e, mesh=mesh)
     return {"mean": mean, "err": err}
+
+
+def _batch(batch_np, device="cpu"):
+    """A numpy batch as tensors: token ids and labels int64, float
+    embeddings (whisper's frames, pixtral's patches) in their own type."""
+    return {k: (torch.from_numpy(np.array(v)).to(device) if np.asarray(v).dtype.kind == "f"
+                else torch.from_numpy(np.array(v)).long().to(device))
+            for k, v in batch_np.items()}
+
+
+def _case_cfg(case):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(case["arch"], reduced=True), dtype="float32",
+                               **case.get("overrides", {}))
+
+
+def _locals(tree):
+    """keystr -> (local block, [tensor dim each mesh dim shards or None])
+    of every leaf (an int leaf as it is)."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    return {path: ((x.to_local().clone(), [getattr(p, "dim", None) for p in x.placements])
+                   if isinstance(x, torch.Tensor) else (x, None))
+            for path, x in leaf_paths(tree)}
+
+
+def sharded_worker(rank, mesh_shape, cases):
+    """The port's sharded programs on a (data, model) mesh of ``mesh_shape``
+    over every rank, one case after another.  A case is a dict: ``arch``
+    (and config ``overrides``), ``kind``, JAX weights ``params`` and
+    ``batch`` (numpy), ``thr`` (``dp_only_threshold``):
+
+    * "grad": ``launch.train.loss_and_grads`` under ``Policy(cfg, mesh,
+      "train", global_batch=B, dp_only_threshold=thr).ctx()`` on the placed
+      parameters and batch -> the loss, this rank's gradient blocks, and
+      (rank 0) the gradients whole;
+    * "prefill": ``Server(cfg, params, ctx=Policy(cfg, mesh, "prefill",
+      dp_only_threshold=thr).ctx()).prefill`` -> the last-position logits
+      whole;
+    * "steps": ``make_train_step`` on ``place_state`` of the initial
+      {params, AdamW state}, one step per batch of ``batches`` -> this
+      rank's blocks of the final state and (rank 0) its params whole;
+    * "trainer": ``Trainer(cfg, B, S, ctx=policy.ctx())`` (its own
+      initial weights, ``params`` unused) saving every 2 steps under
+      ``store``: 3 steps, then ``restore(step=2)`` and 1 step again -> the
+      losses and this rank's parameter blocks after the steps."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import (Policy, full_state, place, place_batch,
+                                             place_state)
+    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.models.model import Model, params_from_numpy
+    from repro_torch.optim import adamw
+
+    mesh = make_small_mesh(mesh_shape, device_type="cpu")
+    out = {}
+    for case in cases:
+        t0 = time.perf_counter()
+        cfg = _case_cfg(case)
+        params = (None if case["params"] is None
+                  else params_from_numpy(cfg, case["params"], device="cpu"))
+        thr = case.get("thr", 1e9)
+        res = {}
+        if case["kind"] == "grad":
+            batch = _batch(case["batch"])
+            policy = Policy(cfg, mesh, "train", global_batch=batch["tokens"].shape[0],
+                            dp_only_threshold=thr)
+            ctx = policy.ctx()
+            loss, _, grads = loss_and_grads(Model(cfg), place(
+                params, policy.param_shardings(params)), place_batch(batch, policy), ctx)
+            res["loss"] = float(loss.full_tensor())
+            res["mode"] = ctx.rules.get("attn_mode")
+            res["local"] = _locals(grads)
+            whole = full_state(grads)
+            if rank == 0:
+                res["full"] = dict(leaf_paths(whole))
+        elif case["kind"] == "prefill":
+            batch = _batch(case["batch"])
+            batch.pop("labels", None)
+            ctx = Policy(cfg, mesh, "prefill", dp_only_threshold=thr).ctx()
+            srv = Server(cfg, params, ctx=ctx, max_len=case["max_len"], device="cpu")
+            logits, _ = srv.prefill(batch["tokens"], batch.get("frames"),
+                                    batch.get("patch_embeds"))
+            res["logits"] = logits.full_tensor()
+        elif case["kind"] == "trainer":
+            from repro_torch.checkpoint import CheckpointManager, LocalObjectStore
+            from repro_torch.launch.train import Trainer
+            policy = Policy(cfg, mesh, "train", global_batch=case["B"],
+                            dp_only_threshold=thr)
+            ckpt = CheckpointManager(LocalObjectStore(case["store"]), "trial",
+                                     save_interval_steps=2)
+            tr = Trainer(cfg, case["B"], case["S"], seed=0, ckpt=ckpt, val_every=1,
+                         ctx=policy.ctx(), device="cpu")
+            tr.run_steps(3)
+            res["losses"] = list(tr.metrics_vals)
+            res["local"] = _locals(tr.state["params"])
+            tr.restore(step=2)
+            res["restored_step"] = tr.step
+            res["replayed"] = [v for _, v in tr.run_steps(1)]
+        else:
+            batches = [_batch(b) for b in case["batches"]]
+            policy = Policy(cfg, mesh, "train", global_batch=batches[0]["tokens"].shape[0],
+                            dp_only_threshold=thr)
+            opt = adamw(case.get("lr", 3e-3), keep_master=(cfg.opt_precision == "fp32"))
+            state = place_state({"params": params, "opt": opt.init(params)}, policy)
+            step = make_train_step(Model(cfg), opt, policy.ctx())
+            losses = []
+            for b in batches:
+                state, m = step(state, place_batch(b, policy))
+                losses.append(float(m["loss"]))
+            res["losses"] = losses
+            res["local"] = _locals(state)
+            whole = full_state(state["params"])
+            if rank == 0:
+                res["full"] = dict(leaf_paths(whole))
+        res["seconds"] = time.perf_counter() - t0
+        out[case["name"]] = res
+    return out

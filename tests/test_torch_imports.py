@@ -56,7 +56,12 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.models.moe", "repro_torch.models.mla",
             # the distribution layer
             "repro_torch.collectives", "repro_torch.launch.mesh",
-            "repro_torch.launch.sharding", "repro_torch.launch.elastic"} <= set(names.split())
+            "repro_torch.launch.sharding", "repro_torch.launch.elastic",
+            # the sharded forward
+            "repro_torch.models.context", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.blocks",
+            "repro_torch.models.ssd", "repro_torch.models.model",
+            "repro_torch.optim.optimizers"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

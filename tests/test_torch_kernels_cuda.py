@@ -1036,3 +1036,78 @@ def test_restore_onto_the_one_card_nccl_mesh_and_decode(card, tmp_path):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+@pytest.fixture
+def one_card_mesh(card):
+    """A (1, 1) ("data", "model") mesh over a NCCL group of one."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world_of_one, make_small_mesh
+    started = init_world_of_one(card)
+    try:
+        yield make_small_mesh((1, 1), device_type="cuda")
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_zamba2_trains_through_the_kernels_as_the_no_mesh_path(one_card_mesh):
+    """The reduced zamba2 (float32) under ``Policy(..., "train",
+    dp_only_threshold=0).ctx()`` on the one-card mesh ("kv", ``ssm_x``,
+    ``residual``, ``logits_sp``): the loss within 1e-5 relative and every
+    gradient leaf within 1e-4 of its largest of the no-mesh path's (the
+    same remat and key chunk), the flash and SSD-chunk launches equal."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.sharding import Policy, place, place_batch
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.context import null_ctx
+    from repro_torch.models.inputs import sample_train_batch
+    from repro_torch.models.model import Model, tree_leaves
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = {k: torch.as_tensor(np.asarray(v), device="cuda").long()
+             for k, v in sample_train_batch(np.random.default_rng(0), cfg, 2, 64).items()}
+    policy = Policy(cfg, one_card_mesh, "train", global_batch=2, dp_only_threshold=0)
+    ctx = policy.ctx()
+    assert ctx.rules["attn_mode"] == "kv" and "ssm_x" in ctx.rules
+
+    def run(p, b, c):
+        counts = kfa.LAUNCHES, kss.LAUNCHES
+        loss, _, grads = loss_and_grads(model, p, b, c)
+        torch.cuda.synchronize()
+        return loss, grads, (kfa.LAUNCHES - counts[0], kss.LAUNCHES - counts[1])
+
+    loss, grads, n = run(place(params, policy.param_shardings(params)),
+                         place_batch(batch, policy), ctx)
+    loss0, grads0, n0 = run(params, batch, null_ctx(remat="full",
+                                                   attn_chunk=ctx.attn_chunk))
+    assert n == n0 and n[0] > 0 and n[1] > 0
+    assert abs(float(loss.full_tensor()) - float(loss0)) <= 1e-5 * abs(float(loss0))
+    for g, g0 in zip(tree_leaves(grads), tree_leaves(grads0)):
+        g = g.full_tensor()
+        assert (g - g0).abs().max() <= 1e-4 * g0.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_sharded_deepseek_prefill_runs_the_ep_body_as_the_no_mesh_prefill(one_card_mesh):
+    """The reduced deepseek-v2 prefill under ``Policy(..., "prefill",
+    dp_only_threshold=0).ctx()`` on the one-card mesh: MoE through the
+    shard_map body ("ep", e_start 0), MLA on DTensors; the last-position
+    logits within 1e-4 of the no-mesh prefill's."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", reduced=True), dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)),
+                             device="cuda")
+    ctx = Policy(cfg, one_card_mesh, "prefill", dp_only_threshold=0).ctx()
+    got, _ = Server(cfg, params, ctx=ctx, max_len=32, device="cuda").prefill(tokens)
+    want, _ = Server(cfg, params, max_len=32, device="cuda").prefill(tokens)
+    assert (got.full_tensor() - want).abs().max() <= 1e-4
