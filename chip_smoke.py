@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only elastic    # the build, then the distribution layer
     python3 chip_smoke.py --only tp         # the build, then the sharded forward
+    python3 chip_smoke.py --only a12        # the build, the mesh decode, the dry run
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -116,7 +117,16 @@ drives the port's two paths through them:
   ``local_map`` on the mesh), then bf16 ``Trainer`` steps on the mesh and
   with no mesh (ms, kernels a step, idle share, peak memory); deepseek-v2
   (3 of 60 layers) float32 prefill through MLA and the MoE "ep" shard_map
-  body against the no-mesh prefill (logits, each MoE layer's slots).
+  body against the no-mesh prefill (logits, each MoE layer's slots);
+* the ssm, hybrid and audio decode on a mesh, last (``mesh_decode_phases``):
+  zamba2-1.2b, whisper-base and mamba2-130m at published width served by
+  ``Server.generate`` under the decode policy's "local" and "distributed"
+  plans on the (1, 1) mesh against the no-mesh ``generate``, bf16 and
+  float32, and under a prefill policy's ctx; then the dry run
+  (``dryrun_phase``): the port's ``launch.dryrun`` traces tp_phases' bf16
+  zamba2 step on a fake (1, 1) world in a child process, its flash and
+  ssd_chunk operators held to the launches the card counted and its
+  predicted peak memory to the step's measured peak.
 
 It profiles the card during the sweep and the serving run and times every
 kernel beside its plain version, its bound and a PyTorch call where one
@@ -144,6 +154,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+T_START = time.perf_counter()
 
 F32_TOL = 1e-5       # the Pallas kernel's tolerances (tests/test_kernels.py)
 BF16_TOL = 3e-2
@@ -1221,46 +1232,26 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = (
 
 
 def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False):
-    """Least time for one attention call: q, k, v read once and o written
-    once over the HBM rate, against the two products' multiply-adds over the
-    peak of the kernel's arithmetic, counting only the (query, key) pairs
-    the mask keeps: bf16 on the tensor cores, float32 at the 3xTF32 rate
-    (three TF32 products per float32 product, 495 / 3 TFLOP/s), or with
-    ``ffma`` at the float32 rate outside the tensor cores, the bound of the
-    float32 FFMA kernel the 3xTF32 one replaced."""
-    n_bytes = elem_bytes * B * H * D * (2 * Sq + 2 * Sk)
-    if causal:
-        pairs = sum(min(i + 1, Sk) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    flops = 4.0 * B * H * pairs * D
-    peak = (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS if ffma
-            else H100_TF32_FLOPS / 3)
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
+    """Least time for one attention call (the package's
+    ``flash_attention_cuda.flash_bound_ms``: q, k, v read once and o
+    written once over the HBM rate, against the two products'
+    multiply-adds over the (query, key) pairs the mask keeps at the peak of
+    the kernel's arithmetic: bf16 on the tensor cores, float32 at the
+    3xTF32 rate, or with ``ffma`` at the float32 rate outside the tensor
+    cores, the bound of the float32 FFMA kernel the 3xTF32 one replaced)."""
+    from repro_torch.kernels.flash_attention_cuda import flash_bound_ms as bound
+    return bound(B, Sq, Sk, H, D, causal, elem_bytes, ffma=ffma)
 
 
 def ssd_bound_ms(B, Q, H, P, N, groups=None):
-    """Least time for one SSD chunk (float32): x, dt, A and the state read
-    once, y and the new state written once, and B and C read once per head
-    (``groups=None``, what the FFMA kernel of PRs 13-14 was given) or once
-    per group; against the lower-triangle score products (once per head,
-    or once per (batch, group)), the output products, the state term and
-    the state update.  With ``groups=None`` the operations run at the
-    float32 peak outside the tensor cores (the FFMA kernel's bound); with
-    groups at the 3xTF32 rate, three TF32 products per float32 product on
-    the tensor cores (495 / 3 TFLOP/s)."""
-    bc_heads = H if groups is None else groups
-    n_bytes = 4 * (B * Q * H * (2 * P + 1) + 2 * B * Q * bc_heads * N + H
-                   + 2 * B * H * P * N)
-    tri = Q * (Q + 1) // 2
-    flops = 2.0 * B * (bc_heads * tri * N + H * tri * P + 2 * H * Q * P * N)
-    peak = H100_F32_FLOPS if groups is None else H100_TF32_FLOPS / 3
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for one SSD chunk (float32; the package's
+    ``ssd_chunk_cuda.ssd_bound_ms``): x, dt, A and the state read once, y
+    and the new state written once, B and C read once per head
+    (``groups=None``, what the port's first FFMA kernel was given, at the
+    float32 peak outside the tensor cores) or once per group (at the
+    3xTF32 rate on the tensor cores)."""
+    from repro_torch.kernels.ssd_chunk_cuda import ssd_bound_ms as bound
+    return bound(B, Q, H, P, N, groups)
 
 
 def flash_timing(torch, q, k, v, what: str, plain_card=False) -> dict:
@@ -4376,11 +4367,14 @@ def tp_phases(torch) -> dict:
     for name in ("mesh", "no mesh"):
         tctx = (Policy(cfg, mesh, "train", global_batch=B).ctx() if name == "mesh"
                 else null_ctx(remat="full", attn_chunk=ctx.attn_chunk))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()      # before the Trainer: not its step's
         tr = Trainer(cfg, batch=B, seq=S, lr=TRAIN_LR, val_every=1, ctx=tctx,
                      device="cuda")
         if name == "mesh" and not isinstance(tree_leaves(tr.state)[0], DTensor):
             fail("the Trainer on a mesh did not place its state")
         steps[name] = trainer_numbers(tr)
+        steps[name]["base_gb"] = base / 1e9
         del tr
         torch.cuda.empty_cache()
     for name, r in steps.items():
@@ -4388,7 +4382,8 @@ def tp_phases(torch) -> dict:
               f"ms a step; kernels a step {r['kernels_per_step']} (profiled), flash "
               f"{r['flash_per_step']:g}, ssd_chunk {r['ssd_per_step']:g}; card idle "
               f"{100 * r['idle']:.2f}% of a profiled step ({r['profiled_wall_ms']:.1f} "
-              f"ms); peak {r['peak_gb']:.2f} GB; losses "
+              f"ms); peak {r['peak_gb']:.2f} GB ({r['base_gb']:.2f} GB allocated "
+              f"before the Trainer); losses "
               f"{[round(x, 5) for x in r['losses']]}")
     m, p = steps["mesh"], steps["no mesh"]
     print(f"DTensor dispatch on a group of one: {m['ms_step'] - p['ms_step']:+.2f} ms a "
@@ -4473,10 +4468,351 @@ def tp_phases(torch) -> dict:
     return out
 
 
+# new tokens a generate: cut from 32 / 64 / 64 to keep the two phases
+# under 90 s (each generate is host-bound, ~40-75 ms a token step)
+MESH_DECODE = (("zamba2-1.2b", 16), ("whisper-base", 32), ("mamba2-130m", 32))
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT = 2, 256
+# float32: the last step's logits on the same tokens, of their largest
+MESH_DECODE_F32_TOL = 1e-5
+# bf16: one sub-block's output on the same input and cache (the mamba
+# mixer's decode; whisper's decoder block), relative to its largest
+# magnitude: a few ulps of 2^-8, as the MLA sub-block's in elastic_phases
+MESH_DECODE_BF16_TOL = 2.0 ** -6
+# the dry run's predicted peak against the measured one (PERF.md §6)
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+
+
+def mesh_decode_phases(torch) -> dict:
+    """The ssm, hybrid and audio decode caches on a mesh: a NCCL group of
+    one under a (1, 1) ("data", "model") mesh; zamba2-1.2b, whisper-base
+    and mamba2-130m at published width and depth (random weights from a
+    seed), 2 x 256 prompts (whisper with its frames), served by
+    ``Server.generate`` under ``Policy(cfg, mesh, "decode").ctx(decode=True,
+    batch=B)`` ("local") and ``ctx(decode=True, batch=None)``
+    ("distributed": the sequence, and whisper's cross cache, over "data"),
+    against the no-mesh ``generate``, bf16 then float32 (the weights cast
+    in place).  float32: tokens N of N equal and the last step's logits on
+    the same tokens within ``MESH_DECODE_F32_TOL`` of their largest; bf16:
+    one sub-block's output on the same input and cache within
+    ``MESH_DECODE_BF16_TOL`` of its largest, the tokens printed.  The
+    prefill's flash and ssd_chunk launches equal on both paths, and
+    ``generate`` under a prefill policy's ctx gives the no-mesh tokens
+    (float32)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.mesh import init_world_of_one, make_small_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models import blocks, ssd
+    from repro_torch.models.model import Model, _row, tree_map
+
+    t_all = time.perf_counter()
+    phase("the ssm, hybrid and audio decode on a mesh: a NCCL group of one, a "
+          "(1, 1) (data, model) mesh")
+    started = init_world_of_one("cuda")
+    mesh = make_small_mesh((1, 1), device_type="cuda")
+    B, S = MESH_DECODE_BATCH, MESH_DECODE_PROMPT
+    out = {}
+
+    def counts():
+        return kfa.LAUNCHES, kss.LAUNCHES
+
+    for arch, new in MESH_DECODE:
+        cfg = get_config(arch)
+        phase(f"main path: {arch} (published width and depth) served on the mesh, "
+              f"{B} x {S} prompts, {new} tokens, bf16 then float32")
+        t0 = time.perf_counter()
+        params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+        tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S))
+        dev_tok = torch.as_tensor(tokens, device="cuda").long()
+        frames = (torch.randn(B, cfg.enc_seq_len, cfg.d_model, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(7))
+                  * 0.02 if cfg.family == "audio" else None)
+        max_len = S + new
+        res = {}
+        for dt in ("bfloat16", "float32"):
+            if dt == "float32":
+                params_to_float32(params)
+                torch.cuda.empty_cache()
+            c = dataclasses.replace(cfg, dtype=dt)
+            fr = None if frames is None else frames.to(getattr(torch, dt))
+            batch = {"tokens": tokens, "frames": fr}
+            local = Server(c, params, max_len=max_len, device="cuda")
+            c0 = counts()
+            with torch.inference_mode():
+                _, cache = local.prefill(dev_tok, fr)
+            n_local = tuple(b - a for a, b in zip(c0, counts()))
+            t1 = time.perf_counter()
+            tok0 = local.generate(batch, new)
+            torch.cuda.synchronize()
+            gen_ms = (time.perf_counter() - t1) * 1e3
+            fed = tok0.long()
+            lg0 = _replay_last(torch, local, dev_tok, fr, fed, S)
+            # layer 0's mixer (ssm, hybrid) or decoder block (audio), and its cache
+            if cfg.family == "audio":
+                lp, lc = _row(params["dec_layers"], 0), _row(cache, 0)
+            else:
+                key = "layers" if cfg.family == "ssm" else "mamba_layers"
+                lp = _row(params[key], 0)["mixer"]
+                lc = _row(cache if cfg.family == "ssm" else cache["mamba"], 0)
+            h = (torch.randn(B, 1, cfg.d_model, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+                 .to(getattr(torch, dt)))
+
+            def sub_block(ctx):
+                with torch.inference_mode():
+                    lcc = tree_map(lambda t: t.clone(), lc)
+                    if cfg.family == "audio":
+                        return blocks.dec_block_decode(h, lp, c, ctx, lcc, S)[0].float()
+                    return ssd.mamba_decode(h, lp, c, lcc, ctx)[0].float()
+
+            a_local = sub_block(local.ctx)
+            # zamba2: also its shared attention block (layer 0's cache), whose
+            # decode on the mesh is the flash-decode combine
+            attn_c = _row(cache["attn"], 0) if cfg.family == "hybrid" else None
+
+            def attn_block(ctx):
+                with torch.inference_mode():
+                    lcc = tree_map(lambda t: t.clone(), attn_c)
+                    return blocks.attn_decode(h, params["shared_block"]["attn"], c, ctx,
+                                              lcc, S)[0].float()
+
+            at_local = attn_block(local.ctx) if attn_c is not None else None
+            row = {"prefill_launches_no_mesh": n_local, "generate_ms_no_mesh": gen_ms}
+            for mode, batch_arg in (("local", B), ("distributed", None)):
+                ctx = Policy(c, mesh, "decode").ctx(decode=True, batch=batch_arg)
+                if ctx.decode_plan.mode != mode or not ctx.sharded_decode:
+                    fail(f"{arch}: the decode plan {ctx.decode_plan} is not '{mode}'")
+                srv = Server(c, params, ctx=ctx, max_len=max_len, device="cuda")
+                c0 = counts()
+                with torch.inference_mode():
+                    srv.prefill(dev_tok, fr)
+                n_mesh = tuple(b - a for a, b in zip(c0, counts()))
+                t1 = time.perf_counter()
+                tok = srv.generate(batch, new)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                same = int((tok == tok0).sum())
+                lg = _replay_last(torch, srv, dev_tok, fr, fed, S)
+                lerr = ((lg - lg0).abs().max() / lg0.abs().max()).item()
+                a_mesh = sub_block(ctx)     # (1, 1): the shard is the whole cache
+                serr = ((a_mesh - a_local).abs().max() / a_local.abs().max()).item()
+                aerr = (((attn_block(ctx) - at_local).abs().max()
+                         / at_local.abs().max()).item() if attn_c is not None else 0.0)
+                print(f"{dt} {mode} plan {ctx.decode_plan}: tokens {same} of "
+                      f"{tok0.numel()} equal; last logits on the same tokens "
+                      f"{lerr:.3g} of their largest; the {'decoder block' if cfg.family == 'audio' else 'mamba mixer'} "
+                      f"on the same input {serr:.3g} of its largest, the shared "
+                      f"attention block {aerr:.3g} (bf16 tol "
+                      f"{MESH_DECODE_BF16_TOL:.4g}); prefill launches (flash, "
+                      f"ssd_chunk) {n_mesh} against {n_local} with no mesh; generate "
+                      f"{ms:.1f} ms against {gen_ms:.1f}")
+                if dt == "bfloat16":
+                    print(f"  bf16 tokens on the mesh {tok[0, :16].tolist()} ..., no "
+                          f"mesh {tok0[0, :16].tolist()} ...")
+                if n_mesh != n_local:
+                    fail(f"{arch} {dt} {mode}: the mesh prefill launched {n_mesh}, "
+                         f"the no-mesh one {n_local}")
+                if dt == "float32" and not (same == tok0.numel()
+                                            and lerr <= MESH_DECODE_F32_TOL):
+                    fail(f"{arch} float32 {mode}: {same} of {tok0.numel()} tokens "
+                         f"equal, last logits {lerr:.3g} apart")
+                if dt == "bfloat16" and not max(serr, aerr) <= MESH_DECODE_BF16_TOL:
+                    fail(f"{arch} bf16 {mode}: a sub-block {max(serr, aerr):.3g} apart")
+                row[mode] = {"plan": dataclasses.asdict(ctx.decode_plan),
+                             "tokens_equal": same, "tokens": tok0.numel(),
+                             "last_logit_rel_err": lerr, "sub_block_rel_err": serr,
+                             "attn_block_rel_err": aerr,
+                             "prefill_launches": n_mesh, "generate_ms": ms}
+                del srv
+            pre = Server(c, params, ctx=Policy(c, mesh, "prefill").ctx(),
+                         max_len=max_len, device="cuda")
+            tok_p = pre.generate(batch, new)
+            same_p = int((tok_p == tok0).sum())
+            print(f"{dt}: generate under a prefill policy's ctx: tokens {same_p} of "
+                  f"{tok0.numel()} equal to the no-mesh ones")
+            if dt == "float32" and same_p != tok0.numel():
+                fail(f"{arch}: generate under the prefill ctx differs from no mesh")
+            row["prefill_ctx_tokens_equal"] = same_p
+            res[dt] = row
+            del pre, local, cache, lc, lp, attn_c
+            torch.cuda.empty_cache()
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s")
+    if started:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_all
+    print(f"the mesh decode phases: {wall:.1f} s of wall")
+    out["wall_s"] = wall
+    return out
+
+
+def _replay_last(torch, srv, dev_tok, frames, fed, prompt):
+    """The prefill and a decode step on each of ``fed``'s tokens but the
+    last, on ``srv``'s path: the last step's last-position logits, float32."""
+    with torch.inference_mode():
+        lg, cache = srv.prefill(dev_tok, frames)
+        if srv.ctx.sharded_decode:
+            cache = srv._shard_cache(cache)
+        for i in range(fed.shape[1] - 1):
+            lg, cache = srv.model.decode_step(srv.params, cache, fed[:, i:i + 1],
+                                              prompt + i, srv.ctx)
+        return lg[:, -1].float()
+
+
+def mesh_train_step(torch) -> dict:
+    """The bf16 zamba2-1.2b ``Trainer`` step on the (1, 1) mesh as
+    ``tp_phases`` runs it (for ``--only a12``): one warm-up step, then one
+    step measured: its peak above the memory allocated before the Trainer
+    was built, its ms and its kernel launches."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    from repro_torch.launch.mesh import init_world_of_one, make_small_mesh
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.launch.train import Trainer
+
+    started = init_world_of_one("cuda")
+    mesh = make_small_mesh((1, 1), device_type="cuda")
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, val_every=1,
+                 ctx=Policy(cfg, mesh, "train", global_batch=TRAIN_BATCH).ctx(),
+                 device="cuda")
+    tr.run_steps(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = kfa.LAUNCHES, kss.LAUNCHES
+    tr.run_steps(1)
+    torch.cuda.synchronize()
+    r = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9, "base_gb": base / 1e9,
+         "ms_step": tr.step_seconds[-1] * 1e3,
+         "flash_per_step": kfa.LAUNCHES - c0[0], "ssd_per_step": kss.LAUNCHES - c0[1]}
+    del tr
+    torch.cuda.empty_cache()
+    if started:
+        dist.destroy_process_group()
+    return r
+
+
+def dryrun_child() -> None:
+    """The port's dry run of the train cell ``tp_phases`` runs for real
+    (zamba2-1.2b, bf16 with a float32 master, B = 2 x 512, ``Policy(cfg,
+    mesh, "train", global_batch=2)``) on a fake (1, 1) world of its own, in
+    this process: prints the artifact and the kernel operators' calls as
+    one JSON line."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import trace_cell, trace_device_type
+    from repro_torch.launch.mesh import init_fake_world, make_small_mesh
+
+    init_fake_world(1)
+    try:
+        mesh = make_small_mesh((1, 1), device_type=trace_device_type())
+        t0 = time.perf_counter()
+        art, counter = trace_cell(TRAIN_ARCH, "train_4k", mesh,
+                                  global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        ops = {n: counter.launches(n)
+               for n in ("flash_attention", "flash_attention_lse", "ssd_chunk")}
+        print(json.dumps({"artifact": art, "ops": ops, "device": mesh.device_type,
+                          "wall_s": time.perf_counter() - t0}))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dryrun_child():
+    """Start ``dryrun_child`` in a process of its own (the fake world needs
+    the default process group to itself); it traces on the host while the
+    card runs the mesh decode."""
+    import tempfile
+    code = (f"import sys; sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]; "
+            f"import chip_smoke; chip_smoke.dryrun_child()")
+    # files, not pipes: nobody reads a pipe while the card's phases run
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=out, stderr=err,
+                            text=True, cwd=str(ROOT))
+    return proc, out, err, time.perf_counter()
+
+
+def dryrun_phase(torch, measured: dict, child) -> dict:
+    """The dry run against the card: the port's ``trace_cell`` of the
+    zamba2-1.2b train step in the child ``start_dryrun_child`` started.
+    Its flash and ssd_chunk operators
+    must equal the launches the card counted for the step (``measured``:
+    ``tp_phases``' mesh Trainer, or ``mesh_train_step``), and its
+    predicted per-device peak must fall within ``DRYRUN_PEAK_BAND`` of the
+    step's measured peak above the memory allocated before its Trainer.
+    Printed, not gated: the cell's roofline row at the H100's rates beside
+    the measured ms a step."""
+    from repro_torch.launch.roofline import H100_RATES, analyze
+
+    phase(f"the dry run: {TRAIN_ARCH}'s train step (B = {TRAIN_BATCH} x {TRAIN_SEQ}) "
+          f"traced on a fake (1, 1) world, against the card")
+    proc, out, err, t0 = child
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("the dry run's child did not end within 600 s")
+    wall = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
+        print(stdout[-4000:])
+        print(stderr[-4000:], file=sys.stderr)
+        fail(f"the dry run's child exited {proc.returncode}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    art, ops = res["artifact"], res["ops"]
+    flash = ops["flash_attention"] + ops["flash_attention_lse"]
+    pred_gb = art["memory"]["peak_memory_in_bytes"] / 1e9
+    step_gb = measured["peak_gb"] - measured["base_gb"]
+    ratio = pred_gb / step_gb
+    row = analyze(art, H100_RATES)
+    print(f"traced on fake {res['device']} tensors in {res['wall_s']:.1f} s (the "
+          f"child's wall {wall:.1f} s, beside the mesh decode): operators flash {flash} ({ops}), ssd_chunk "
+          f"{ops['ssd_chunk']}; the card counted {measured['flash_per_step']:g} and "
+          f"{measured['ssd_per_step']:g} a step")
+    print(f"peak: predicted {pred_gb:.3f} GB ({art['memory']}); measured "
+          f"{measured['peak_gb']:.3f} GB, of which {measured['base_gb']:.3f} GB "
+          f"allocated before the Trainer: the step's {step_gb:.3f} GB; ratio "
+          f"{ratio:.3f} (band {DRYRUN_PEAK_BAND})")
+    print(f"roofline at the H100's rates {H100_RATES}: compute "
+          f"{row['t_compute_s'] * 1e3:.3f} ms, memory {row['t_memory_s'] * 1e3:.3f} ms, "
+          f"collective {row['t_collective_s'] * 1e3:.3f} ms, dominant {row['dominant']}; "
+          f"FLOPs {art['hlo_flops_per_device']:.4e}, bytes "
+          f"{art['hlo_bytes_per_device']:.4e}; the measured step "
+          f"{measured['ms_step']:.1f} ms")
+    if (flash, ops["ssd_chunk"]) != (measured["flash_per_step"],
+                                     measured["ssd_per_step"]):
+        fail(f"the traced step's operators ({flash}, {ops['ssd_chunk']}) differ from "
+             f"the card's launches ({measured['flash_per_step']}, "
+             f"{measured['ssd_per_step']})")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        fail(f"the predicted peak is {ratio:.3f}x the measured one")
+    return {"flash_ops": flash, "ssd_ops": ops["ssd_chunk"], "predicted_peak_gb": pred_gb,
+            "measured_step_peak_gb": step_gb, "peak_ratio": ratio,
+            "roofline_ms": {k: row[k] * 1e3 for k in ("t_compute_s", "t_memory_s",
+                                                       "t_collective_s")},
+            "measured_ms_step": measured["ms_step"], "trace_s": res["wall_s"],
+            "wall_s": wall}
+
+
 def main() -> None:
     only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" else None
-    if sys.argv[1:] and only not in ("elastic", "tp"):
-        fail(f"arguments {sys.argv[1:]}: none, --only elastic or --only tp")
+    if sys.argv[1:] and only not in ("elastic", "tp", "a12"):
+        fail(f"arguments {sys.argv[1:]}: none, --only elastic, --only tp or "
+             "--only a12")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -4514,9 +4850,15 @@ def main() -> None:
         print(f"-- nvcc {stem}.cu ({build.BUILD_SECONDS[stem]:.2f} s):")
         print(log.strip())
     if only is not None:
-        # the distribution layer's or the sharded forward's phases alone,
-        # after the build
-        alone = elastic_phases(torch) if only == "elastic" else tp_phases(torch)
+        # the distribution layer's, the sharded forward's or the mesh
+        # decode's and the dry run's phases alone, after the build
+        if only == "a12":
+            measured = mesh_train_step(torch)
+            child = start_dryrun_child()
+            alone = {"mesh_decode": mesh_decode_phases(torch),
+                     "dryrun": dryrun_phase(torch, measured, child)}
+        else:
+            alone = elastic_phases(torch) if only == "elastic" else tp_phases(torch)
         print(smi)
         print(json.dumps(alone))
         print(json.dumps({"ok": True, "device": {
@@ -4841,6 +5183,20 @@ def main() -> None:
     flash_row.update(tp["flash"])
     flash_f32_row.update(tp["flash_f32"])
     ssd_row.update(tp["ssd"])
+    # the ssm, hybrid and audio decode on the mesh, then the dry run held
+    # against the sharded step tp_phases measured
+    child = start_dryrun_child()
+    mesh_decode = mesh_decode_phases(torch)
+    flash_row["mesh_decode_prefill_launches"] = {
+        a: r["float32"]["local"]["prefill_launches"][0]
+        for a, r in mesh_decode.items() if a != "wall_s"}
+    ssd_row["mesh_decode_prefill_launches"] = {
+        a: r["float32"]["local"]["prefill_launches"][1]
+        for a, r in mesh_decode.items() if a != "wall_s"}
+    dry = dryrun_phase(torch, tp["flash"]["tp"]["steps"]["mesh"], child)
+    flash_row["dryrun_ops"] = dry["flash_ops"]
+    ssd_row["dryrun_ops"] = dry["ssd_ops"]
+    print(f"the whole script: {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row]}))

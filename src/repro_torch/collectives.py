@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -132,6 +133,9 @@ class MeshGroups:
     def __init__(self, mesh):
         self.mesh = mesh
         self._built: dict = {}
+        # the rank table as numpy: groups are planned with no tensor
+        # operator (a traced program's fake mode would take it over)
+        self._ranks = np.asarray(mesh.mesh.tolist())
 
     def _rows(self, axes: tuple):
         """Every group of ``axes`` as the rank lists, each ordered by the
@@ -139,7 +143,7 @@ class MeshGroups:
         names = axis_names(self.mesh)
         dims = [names.index(a) for a in axes]
         rest = [d for d in range(len(names)) if d not in dims]
-        ranks = self.mesh.mesh.permute(*rest, *dims)
+        ranks = self._ranks.transpose(*rest, *dims)
         return ranks.reshape(-1, math.prod(ranks.shape[len(rest):])).tolist()
 
     def members(self, axes: Axes) -> list:

@@ -1,10 +1,19 @@
-"""The check every raw kernel wrapper makes before it launches: a raw
+"""The checks every raw kernel wrapper makes before it launches: a raw
 wrapper's output has no ``grad_fn``, so a gradient through it would be lost
-without a word."""
+without a word; and a tensor given to a kernel lies on the card or is
+traced (``traced``)."""
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+
+def traced(t) -> bool:
+    """A tensor that has a shape and no storage: a fake tensor of a traced
+    program (the dry run) or a ``meta`` tensor.  The kernels' operators
+    give such tensors their outputs' shapes and launch nothing."""
+    return t.is_meta or isinstance(t, FakeTensor)
 
 
 def needs_grad(*tensors) -> bool:

@@ -14,6 +14,12 @@ head stride is not a multiple of 16 bytes (what a TMA tensor map and a
 16-byte load take) is copied into a new contiguous tensor.  A copy, not a
 change of route.
 
+Each launch is an operator, ``torch.ops.repro_torch.flash_attention`` (and
+``flash_attention_lse``): its CUDA implementation is the launch, its shape
+function answers for fake and ``meta`` tensors, so the dry run traces
+through it with no card.  ``flash_cost`` counts one call's FLOPs and
+bytes, and ``flash_bound_ms`` turns them into its least time on the card.
+
 Training goes through ``FlashAttention``, a ``torch.autograd.Function``
 whose forward is the kernel with its log-sum-exp (``flash_attention_lse_cuda``)
 on the card and ``ref.flash_attention_fwd_lse`` on the CPU, and whose
@@ -29,8 +35,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._grad import check_no_grad
+from repro_torch.kernels import build, hopper, ref
+from repro_torch.kernels._grad import check_no_grad, traced
 
 #: launches of the kernels since the count was last set to 0 (both routes)
 LAUNCHES = 0
@@ -56,18 +62,22 @@ def _fn():
     return _FN
 
 
+def _check_device(name, q, k, v):
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or not (t.is_cuda or traced(t)):
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, q on {q.device}")
+
+
 def _check(q, k, v):
+    """Type and shape checks -> (B, Sq, Sk, H, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not isinstance(t, torch.Tensor) or not t.is_cuda:
-            raise ValueError(f"flash_attention_cuda: {name} must be a CUDA tensor")
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention_cuda: {name} is {t.dtype}; q, k and "
                             "v must all be float32 or all bfloat16")
         if t.dim() != 4:
             raise ValueError(f"flash_attention_cuda: {name} must be (B, S, H, D)")
-        if t.device != q.device:
-            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, q "
-                             f"on {q.device}")
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if tuple(k.shape) != (B, Sk, H, D) or tuple(v.shape) != (B, Sk, H, D):
@@ -118,6 +128,7 @@ def _readable(t):
 def _launch(q, k, v, causal, scale, with_lse: bool):
     """One launch -> (o, lse or None); lse (B,H,Sq) float32 when asked."""
     global LAUNCHES, WGMMA_LAUNCHES, TF32_LAUNCHES
+    _check_device("flash_attention_cuda", q, k, v)
     B, Sq, Sk, H, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -143,13 +154,45 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
     return o, lse
 
 
+# The launches as operators of the ``repro_torch`` namespace: a CUDA tensor
+# takes the kernel (``_launch``), a traced one (a fake or ``meta`` tensor)
+# the shape function, so a program that reaches the kernel can be traced
+# with no card (``launch.dryrun``) and a dispatch mode sees each launch as
+# one operator (``launch.cost``).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float? scale) -> Tensor")
+_LIB.define("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float? scale) -> (Tensor, Tensor)")
+_LIB.impl("flash_attention",
+          lambda q, k, v, causal, scale: _launch(q, k, v, causal, scale, False)[0],
+          "CUDA")
+_LIB.impl("flash_attention_lse",
+          lambda q, k, v, causal, scale: _launch(q, k, v, causal, scale, True),
+          "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_shape(q, k, v, causal, scale):
+    _check(q, k, v)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_lse", lib=_LIB)
+def _flash_lse_shape(q, k, v, causal, scale):
+    B, Sq, _, H, _ = _check(q, k, v)
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
     """The kernel on CUDA tensors; the arguments of
     ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type.  It
     has no gradient: inputs that require one go through ``FlashAttention``
     (``ops.flash_attention`` sends them there)."""
     check_no_grad("flash_attention_cuda", q, k, v, route="ops.flash_attention")
-    return _launch(q, k, v, causal, scale, False)[0]
+    _check_device("flash_attention_cuda", q, k, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), _scale(scale))
 
 
 def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
@@ -159,7 +202,41 @@ def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
     stores (m2 + log2(max(l, 1e-30))) * ln 2."""
     check_no_grad("flash_attention_lse_cuda", q, k, v,
                   route="ops.flash_attention")
-    return _launch(q, k, v, causal, scale, True)
+    _check_device("flash_attention_lse_cuda", q, k, v)
+    return torch.ops.repro_torch.flash_attention_lse(q, k, v, bool(causal),
+                                                     _scale(scale))
+
+
+def _scale(scale):
+    return None if scale is None else float(scale)
+
+
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """The (query, key) pairs a causal mask keeps, query i seeing keys
+    0..i: the sum over i < Sq of min(i + 1, Sk)."""
+    if Sq <= Sk:
+        return Sq * (Sq + 1) // 2
+    return Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+
+
+def flash_cost(B, Sq, Sk, H, D, causal, elem_bytes):
+    """(FLOPs, bytes) of one call: the two products' multiply-adds over
+    the (query, key) pairs the mask keeps, and q, k, v read once and o
+    written once (the log-sum-exp, B*H*Sq float32, left out)."""
+    pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
+    return 4.0 * B * H * pairs * D, elem_bytes * B * H * D * (2 * Sq + 2 * Sk)
+
+
+def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False):
+    """Least time for one call on the card (``hopper.bound_ms`` of
+    ``flash_cost``): bf16 at the tensor cores' bf16 peak, float32 at the
+    3xTF32 rate (three TF32 products per float32 product, 495 / 3
+    TFLOP/s), or with ``ffma`` at the float32 rate outside the tensor
+    cores, the bound of the float32 FFMA kernel the 3xTF32 one replaced."""
+    flops, n_bytes = flash_cost(B, Sq, Sk, H, D, causal, elem_bytes)
+    peak = (hopper.BF16_FLOPS if elem_bytes == 2 else hopper.F32_FLOPS if ffma
+            else hopper.TF32_FLOPS / 3)
+    return hopper.bound_ms(flops, n_bytes, peak)
 
 
 class FlashAttention(torch.autograd.Function):

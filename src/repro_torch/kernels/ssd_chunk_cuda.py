@@ -9,6 +9,9 @@ so a chunk's slice of a whole-sequence tensor is passed as it is; a tensor
 whose last dimension is not contiguous is copied first.  B and C may have
 head stride 0: ``models/ssd.py`` hands one group's (B,S,N) tensor to all of
 its heads as an ``expand``ed view, and the kernel reads it as it lies.
+The launch is an operator, ``torch.ops.repro_torch.ssd_chunk``, with a
+shape function for fake and ``meta`` tensors (the dry run's trace);
+``ssd_chunk_cost`` and ``ssd_bound_ms`` count one chunk's work.
 
 Training goes through ``SsdChunk``, a ``torch.autograd.Function`` whose
 forward is the kernel on the card and ``ref.ssd_chunk_ref`` on the CPU and
@@ -25,8 +28,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
-from repro_torch.kernels._grad import check_no_grad
+from repro_torch.kernels import build, hopper, ref
+from repro_torch.kernels._grad import check_no_grad, traced
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -61,21 +64,27 @@ def _fn():
     return _FN
 
 
-def _check(x, dt, A, B_in, C_in, state):
-    """Device, type and shape checks -> (B, Q, H, P, N).  Strides are not
-    checked: the kernel reads x, dt, B and C through theirs, and B_in and
-    C_in may have head stride 0 (one group's rows for every head)."""
-    named = (("x", x), ("dt", dt), ("A", A), ("B_in", B_in), ("C_in", C_in),
-             ("state", state))
-    for name, t in named:
-        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+_NAMES = ("x", "dt", "A", "B_in", "C_in", "state")
+
+
+def _check_device(x, dt, A, B_in, C_in, state):
+    for name, t in zip(_NAMES, (x, dt, A, B_in, C_in, state)):
+        if not isinstance(t, torch.Tensor) or not (t.is_cuda or traced(t)):
             raise ValueError(f"ssd_chunk_cuda: {name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_chunk_cuda: {name} is {t.dtype}, expected "
-                            "float32")
         if t.device != x.device:
             raise ValueError(f"ssd_chunk_cuda: {name} is on {t.device}, x on "
                              f"{x.device}")
+
+
+def _check(x, dt, A, B_in, C_in, state):
+    """Type and shape checks -> (B, Q, H, P, N).  Strides are not
+    checked: the kernel reads x, dt, B and C through theirs, and B_in and
+    C_in may have head stride 0 (one group's rows for every head)."""
+    named = tuple(zip(_NAMES, (x, dt, A, B_in, C_in, state)))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_chunk_cuda: {name} is {t.dtype}, expected "
+                            "float32")
     if x.dim() != 4:
         raise ValueError("ssd_chunk_cuda: x must be (B, Q, H, P)")
     Bb, Q, H, P = x.shape
@@ -96,16 +105,9 @@ def _check(x, dt, A, B_in, C_in, state):
     return Bb, Q, H, P, N
 
 
-def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
-    """The kernel on float32 CUDA tensors; the arguments of
-    ``ref.ssd_chunk_ref``.  Returns (y (B,Q,H,P), new_state (B,H,P,N)),
-    float32 and contiguous.  Any (batch, row, head) strides are taken,
-    head stride 0 for B_in and C_in included.  It has no gradient: inputs
-    that require one go through ``SsdChunk`` (``ops.ssd_chunk`` sends them
-    there)."""
+def _launch(x, dt, A, B_in, C_in, state):
     global LAUNCHES
-    check_no_grad("ssd_chunk_cuda", x, dt, A, B_in, C_in, state,
-                  route="ops.ssd_chunk")
+    _check_device(x, dt, A, B_in, C_in, state)
     Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
     x, dt, B_in, C_in = (t if t.stride(-1) == 1 else t.contiguous()
                          for t in (x, dt, B_in, C_in))
@@ -124,6 +126,61 @@ def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
         raise RuntimeError(f"ssd_chunk kernel launch failed (code {err})")
     LAUNCHES += 1
     return y, new_state
+
+
+# The launch as an operator of the ``repro_torch`` namespace: a CUDA tensor
+# takes the kernel, a traced one (fake or ``meta``) the shape function
+# (see ``flash_attention_cuda``).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_chunk(Tensor x, Tensor dt, Tensor A, Tensor B_in, Tensor C_in, "
+            "Tensor state) -> (Tensor, Tensor)")
+_LIB.impl("ssd_chunk", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_chunk", lib=_LIB)
+def _ssd_chunk_shape(x, dt, A, B_in, C_in, state):
+    Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
+    return (torch.empty((Bb, Q, H, P), dtype=torch.float32, device=x.device),
+            torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device))
+
+
+def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
+    """The kernel on float32 CUDA tensors; the arguments of
+    ``ref.ssd_chunk_ref``.  Returns (y (B,Q,H,P), new_state (B,H,P,N)),
+    float32 and contiguous.  Any (batch, row, head) strides are taken,
+    head stride 0 for B_in and C_in included.  It has no gradient: inputs
+    that require one go through ``SsdChunk`` (``ops.ssd_chunk`` sends them
+    there)."""
+    check_no_grad("ssd_chunk_cuda", x, dt, A, B_in, C_in, state,
+                  route="ops.ssd_chunk")
+    _check_device(x, dt, A, B_in, C_in, state)
+    return torch.ops.repro_torch.ssd_chunk(x, dt, A, B_in, C_in, state)
+
+
+def ssd_chunk_cost(B, Q, H, P, N, groups=None):
+    """(FLOPs, bytes) of one chunk (float32): x, dt, A and the state read
+    once, y and the new state written once, and B and C read once per head
+    (``groups=None``) or once per group; the lower-triangle score products
+    (once per head, or once per (batch, group)), the output products, the
+    state term and the state update."""
+    bc_heads = H if groups is None else groups
+    n_bytes = 4 * (B * Q * H * (2 * P + 1) + 2 * B * Q * bc_heads * N + H
+                   + 2 * B * H * P * N)
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * B * (bc_heads * tri * N + H * tri * P + 2 * H * Q * P * N)
+    return flops, n_bytes
+
+
+def ssd_bound_ms(B, Q, H, P, N, groups=None):
+    """Least time for one chunk on the card (``hopper.bound_ms`` of
+    ``ssd_chunk_cost``).  With ``groups=None`` (B and C read once per head,
+    what the FFMA kernel of the first port was given) the operations run
+    at the float32 peak outside the tensor cores (that kernel's bound);
+    with groups at the 3xTF32 rate, three TF32 products per float32
+    product on the tensor cores (495 / 3 TFLOP/s)."""
+    flops, n_bytes = ssd_chunk_cost(B, Q, H, P, N, groups)
+    peak = hopper.F32_FLOPS if groups is None else hopper.TF32_FLOPS / 3
+    return hopper.bound_ms(flops, n_bytes, peak)
 
 
 class SsdChunk(torch.autograd.Function):

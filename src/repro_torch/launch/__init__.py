@@ -4,9 +4,11 @@ the distribution layer — ``mesh`` (``DeviceMesh`` meshes with the JAX axis
 names, the device-free ``MeshShape``, ``init_world_of_one``), ``sharding``
 (the divisibility-aware ``Policy``, ``DecodePlan``, ``NamedSharding``) and
 ``elastic`` (``slice_mesh``, ``reshard_state``, ``ElasticTrial``: a
-checkpoint restored onto another mesh) — and ``roofline`` (the simulated
-pool's rates, constants only).  The JAX package's dry run, its HLO cost
-walk and the rest of its ``roofline`` are not ported yet (ROADMAP)."""
+checkpoint restored onto another mesh) — ``roofline`` (the simulated
+pool's rates, the H100's, and the three-term roofline of the dry run's
+artifacts), ``cost`` (the per-device cost of a traced program, the
+counterpart of the JAX package's HLO walk) and ``dryrun`` (one rank's
+program of every cell traced on fake tensors of a fake world)."""
 
 from repro_torch.launch.elastic import (ElasticTrial, reshard_state, slice_mesh,
                                         slice_shape, state_shardings)

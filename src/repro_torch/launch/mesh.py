@@ -7,7 +7,11 @@ carries DP/FSDP, ``model`` TP/SP/EP, and ``pod`` (the multi-pod mesh) pure
 DP.  ``MeshShape`` is the device-free mesh that a ``Policy`` plans on
 (16x16 and 2x16x16 without 256 ranks).  ``init_world_of_one`` starts a
 process group of one rank for a caller that has none (one card: NCCL; the
-CPU: gloo).
+CPU: gloo).  ``init_fake_world`` starts a world of N ranks on PyTorch's
+"fake" backend in one process, as rank 0, whose collectives return at
+once: on it the meshes are built without a card (no ``resolve_device``)
+and a program is traced on fake tensors (``launch.dryrun``), as the JAX
+package's dry run fakes its fleet with host devices.
 """
 
 from __future__ import annotations
@@ -20,15 +24,18 @@ from repro_torch.collectives import MeshShape, axis_names
 from repro_torch.device import resolve_device
 
 __all__ = ["MeshShape", "make_production_mesh", "make_small_mesh",
-           "device_mesh", "data_axes_of", "model_axis_of", "init_world_of_one"]
+           "device_mesh", "data_axes_of", "model_axis_of", "init_world_of_one",
+           "init_fake_world", "fake_world"]
 
 
 def device_mesh(shape, axes, device_type: str = "cuda") -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` over ranks 0..prod(shape)-1 of the
     default process group, row-major (rank r at the coordinates of r in
     ``shape``, as ``jax.make_mesh`` places devices).  Every rank of the
-    group calls it; ranks past the mesh get no coordinate."""
-    dev = resolve_device(device_type)
+    group calls it; ranks past the mesh get no coordinate.  On a fake world
+    (``init_fake_world``) the device type is taken as it is: no card is
+    asked for."""
+    dev = torch.device(device_type) if fake_world() else resolve_device(device_type)
     n = 1
     for s in shape:
         n *= int(s)
@@ -87,3 +94,21 @@ def init_world_of_one(device="cuda") -> bool:
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                             world_size=1, **kw)
     return True
+
+
+def fake_world() -> bool:
+    """The default process group runs on the "fake" backend."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
+def init_fake_world(n: int) -> None:
+    """Start a default process group of ``n`` ranks on the "fake" backend
+    (``torch.testing._internal.distributed.fake_pg``), this process rank
+    0: every collective returns at once and moves nothing.  Refuses when a
+    group is running.  End it with ``dist.destroy_process_group()``."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a process group is running ({dist.get_backend()}, "
+                           f"{dist.get_world_size()} ranks); the fake world "
+                           "needs the default group to itself")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(n))

@@ -14,18 +14,26 @@ with ``policy = Policy(cfg, mesh, "decode")``: every rank is given the
 whole batch and the whole (replicated) parameters; it prefills its batch
 slice (``plan.b_axes``) replicated, cuts the cache to its shard as
 ``Policy.cache_shardings`` lays it out (sequence over ``plan.seq_axes``, KV
-heads or head_dim over ``model``), decodes through the shard-aware path
-and gathers the tokens of the whole batch.  The cache's sequence
-(``max_len``) must split evenly over the sequence axes.  The transformer
-families (dense, vlm, moe, MLA) decode on a mesh; ssm, hybrid and audio
-raise.
+heads or head_dim over ``model``; the SSM state over heads or head dim
+and the conv windows over channels, where they split), decodes through
+the shard-aware path, which splits each product over the mesh
+(``models.tp``: a rank computes its heads', channels' and hidden units'
+share), and gathers the tokens of the whole batch.  The
+cache's sequence (``max_len``) must split evenly over the sequence axes.
+Every family decodes on a mesh: the transformer families (dense, vlm, moe,
+MLA), mamba2 (ssm), zamba2 (hybrid: the mamba stacks and the shared
+attention block) and whisper (audio: its cross cache cut by the same
+plan).
 
 The prefill also runs sharded: ``Server(cfg, params,
 ctx=Policy(cfg, mesh, "prefill").ctx())`` places the parameters by that
 policy (each rank keeps its blocks) and each prompt batch by its
 ``batch_shardings``, and ``prefill`` runs the model as the policy's rules
 lay it out, for every family, returning ``DTensor`` logits and cache.
-``generate`` takes the decode ctx above; under the prefill ctx it raises.
+``generate`` under the prefill ctx prefills sharded, gathers the logits,
+the cache and the parameters whole and decodes the whole batch on every
+rank with no mesh (the function the JAX ``Server`` computes under any
+ctx).
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import torch
 from repro_torch.collectives import all_gather_ordered
 from repro_torch.device import resolve_device
 from repro_torch.checkpoint.checkpointer import leaf_paths
-from repro_torch.launch.sharding import (Policy, local_block, map_with_path, place,
-                                         place_batch)
+from repro_torch.launch.sharding import (Policy, full_state, local_block,
+                                         map_with_path, place, place_batch)
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model
 
@@ -60,10 +68,6 @@ class Server:
                        is None else None)
         if self.policy is not None:
             self.params = place(params, self.policy.param_shardings(params))
-        if self.ctx.sharded_decode and cfg.family not in ("dense", "vlm", "moe"):
-            raise NotImplementedError(
-                f"{cfg.family} decode on a mesh: the port shards the transformer "
-                "families' caches only (ROADMAP A12)")
 
     def prefill(self, tokens, frames=None, patch_embeds=None):
         """(last-position logits (B,1,V), cache padded to ``max_len``);
@@ -93,16 +97,11 @@ class Server:
                                                self.ctx)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
 
-    @torch.inference_mode()
     def generate(self, batch: dict, max_new_tokens: int = 32):
         """batch: prefill inputs ({'tokens': (B, S_prompt)}, numpy or a
         tensor, and whisper's ``frames`` or pixtral's ``patch_embeds``, a
         tensor).  Returns (B, max_new_tokens) int32 greedy continuations,
         on the server's device."""
-        if self.policy is not None:
-            raise NotImplementedError(
-                "generate on a mesh decodes under Policy(cfg, mesh, 'decode')"
-                ".ctx(decode=True, batch=B); this server's ctx is for the prefill")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         frames, patches = (None if batch.get(k) is None else
                            torch.as_tensor(batch[k], device=self.device)
@@ -113,6 +112,14 @@ class Server:
         if prompt_len + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {prompt_len} + {max_new_tokens} new tokens "
                              f"exceeds max_len {self.max_len}")
+        if self.policy is not None:
+            return self._generate_gathered(tokens, frames, patches, prompt_len,
+                                           max_new_tokens)
+        with torch.inference_mode():
+            return self._generate(tokens, frames, patches, prompt_len,
+                                  max_new_tokens)
+
+    def _generate(self, tokens, frames, patches, prompt_len, max_new_tokens):
         b_axes = self.ctx.decode_plan.b_axes if self.ctx.sharded_decode else None
         if b_axes:
             tokens, frames, patches = (None if t is None else self._batch_slice(t)
@@ -120,15 +127,35 @@ class Server:
         logits, cache = self.prefill(tokens, frames, patches)
         if self.ctx.sharded_decode:
             cache = self._shard_cache(cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        out = [tok]
-        for i in range(max_new_tokens - 1):
-            tok, cache = self.step(cache, tok, prompt_len + i)
-            out.append(tok)
-        out = torch.cat(out, dim=1).to(torch.int32)
+        out = self._decode(logits, cache, self.params, self.ctx, prompt_len,
+                           max_new_tokens)
         if b_axes:
             out = all_gather_ordered(out, self.ctx.groups, b_axes, 0)
         return out
+
+    def _generate_gathered(self, tokens, frames, patches, prompt_len,
+                           max_new_tokens):
+        """Under a prefill ctx on a mesh: the sharded prefill, its logits,
+        cache and the parameters gathered whole, then the whole batch
+        decoded on every rank with no mesh."""
+        logits, cache = self.prefill(tokens, frames, patches)
+        with torch.no_grad():
+            logits = logits.full_tensor()
+            cache, params = full_state(cache), full_state(self.params)
+        with torch.inference_mode():
+            return self._decode(logits, cache, params,
+                                null_ctx(kernels=self.ctx.kernels), prompt_len,
+                                max_new_tokens)
+
+    def _decode(self, logits, cache, params, ctx, prompt_len, max_new_tokens):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self.model.decode_step(params, cache, tok,
+                                                   prompt_len + i, ctx)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32)
 
     def _batch_slice(self, t):
         """This rank's rows of a whole batch (the plan's batch axes)."""

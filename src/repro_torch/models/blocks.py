@@ -11,12 +11,13 @@ stacks them along a leading L axis and loops over it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.collectives import P, all_gather_ordered, axis_index
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, mla, moe, ssd
+from repro_torch.models import layers, mla, moe, ssd, tp
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +125,13 @@ def attn_prefill(h, p, cfg, ctx, positions):
 def attn_decode(h, p, cfg, ctx, cache, pos: int):
     """h (B,1,D); cache {k, v} (B,S,KV,Dh) or MLA's {c_kv, k_rope}, updated
     in place; pos int.  Under a decode plan on a mesh (``ctx.sharded_decode``)
-    h is this rank's batch slice and the cache its shard."""
+    h is this rank's batch slice and the cache its shard: tensor-parallel
+    over the rank's KV heads where the plan splits them
+    (``_tp_attn_decode``), else through ``_distributed_decode``."""
     if cfg.use_mla:
         return mla.mla_decode(h, p, cfg, cache, pos, ctx)
+    if _tp_heads(cfg, ctx) is not None:
+        return _tp_attn_decode(h, p, cfg, ctx, cache, pos), cache
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
     q, k_new, v_new = attn_lib.qkv_project(h, p, cfg, positions)
@@ -149,7 +154,9 @@ def _distributed_decode(q, k_new, v_new, cache, pos: int, ctx):
     every rank; each keeps its own heads or head_dim slice, the rank whose
     sequence slice holds ``pos`` writes the new K/V, and the output's heads
     or head_dim are gathered back over the model axis.  A plan without
-    sequence axes (mode "local") makes no sequence collective."""
+    sequence axes (mode "local") makes no sequence collective.  With
+    ``k_new`` None nothing is written (whisper's cross cache, read at the
+    last position)."""
     plan, mesh, groups, m = ctx.decode_plan, ctx.mesh, ctx.groups, ctx.model_axis
     seq = tuple(plan.seq_axes)
     scale = q.shape[-1] ** -0.5                     # the whole head's
@@ -158,16 +165,80 @@ def _distributed_decode(q, k_new, v_new, cache, pos: int, ctx):
     if q_dim is not None:
         n, i = ctx.axis_size(m), axis_index(mesh, m)
         q = q.narrow(q_dim, i * (q.shape[q_dim] // n), q.shape[q_dim] // n)
-        w = k_new.shape[kv_dim] // n
-        k_new, v_new = k_new.narrow(kv_dim, i * w, w), v_new.narrow(kv_dim, i * w, w)
+        if k_new is not None:
+            w = k_new.shape[kv_dim] // n
+            k_new, v_new = k_new.narrow(kv_dim, i * w, w), v_new.narrow(kv_dim, i * w, w)
     start = attn_lib.seq_shard_start(mesh, seq, cache["k"].shape[1] * ctx.axis_size(seq))
-    attn_lib.cache_update(cache, k_new, v_new, pos, shard_start=start)
+    if k_new is not None:
+        attn_lib.cache_update(cache, k_new, v_new, pos, shard_start=start)
     o = attn_lib.distributed_decode_attention(
         q, cache["k"], cache["v"], pos, groups.group(seq) if seq else None, start,
         scale=scale, hd_group=groups.group(m) if plan.kv_axis == "HD" else None)
     if q_dim is not None:
         o = all_gather_ordered(o, groups, m, q_dim)
     return o
+
+
+def _tp_heads(cfg, ctx):
+    """This rank's KV heads where the decode runs tensor-parallel over
+    them (a plan on a mesh whose cache splits its KV heads over the model
+    axis), else None."""
+    if not (ctx.sharded_decode and ctx.decode_plan.kv_axis == "model"):
+        return None
+    return tp.split(cfg.n_kv_heads, ctx)
+
+
+def _tp_attn_decode(h, p, cfg, ctx, cache, pos: int, rope: bool = True,
+                    write: bool = True):
+    """Attention decode on this rank's KV heads (``models.tp``): q, and
+    with ``write`` the new K/V, projected for those heads only and written
+    to this rank's cache shard (``cache`` {k, v}), the flash-decode combine
+    over the plan's sequence axes (``attn_lib.distributed_decode_attention``),
+    and the out-projection's partial sums reduced over the model axis.
+    ``write`` False reads the cache at ``pos`` (whisper's cross cache)."""
+    B = h.shape[0]
+    kvs = _tp_heads(cfg, ctx)
+    kv, dh = kvs.stop - kvs.start, cfg.head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    qs = slice(kvs.start * g * dh, kvs.stop * g * dh)
+    ks = slice(kvs.start * dh, kvs.stop * dh)
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
+
+    def project(w, b, sl, norm, n):
+        t = tp.cols(h, p[w], ctx, sl)
+        if cfg.qkv_bias:
+            t = t + p[b][sl]
+        t = t.reshape(B, 1, n, dh)
+        if cfg.qk_norm and norm:
+            t = layers.rms_norm(t, p[norm], cfg.norm_eps)
+        return layers.apply_rope(t, positions, cfg.rope_theta) if rope and norm else t
+
+    q = project("wq", "bq", qs, "q_norm", kv * g).reshape(B, 1, kv, g, dh)
+    seq = tuple(ctx.decode_plan.seq_axes)
+    start = attn_lib.seq_shard_start(ctx.mesh, seq,
+                                     cache["k"].shape[1] * ctx.axis_size(seq))
+    if write:
+        k = project("wk", "bk", ks, "k_norm", kv)
+        v = project("wv", "bv", ks, None, kv)
+        attn_lib.cache_update(cache, k, v, pos, shard_start=start)
+    o = attn_lib.distributed_decode_attention(
+        q, cache["k"], cache["v"], pos, ctx.groups.group(seq) if seq else None, start,
+        scale=dh ** -0.5)
+    return tp.rows(o.reshape(B, 1, kv * g * dh), p["wo"], ctx, qs)
+
+
+def _mlp_decode(h, p, gated: bool, ctx):
+    """``layers.mlp`` of a decode step: on a mesh tensor-parallel over its
+    hidden units (``models.tp``) where they split over the model axis."""
+    fs = tp.split(p["w_up"].shape[1], ctx) if ctx.sharded_decode else None
+    if fs is None:
+        return layers.mlp(h, p, gated)
+    up = tp.cols(h, p["w_up"], ctx, fs)
+    if gated:
+        act = F.silu(tp.cols(h, p["w_gate"], ctx, fs)) * up
+    else:
+        act = F.gelu(up, approximate="tanh")
+    return tp.rows(act, p["w_down"], ctx, fs)
 
 
 def _add(x, delta, ctx):
@@ -226,6 +297,9 @@ def block_decode(x, p, cfg, ctx, cache, pos: int):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn_decode(h, p["attn"], cfg, ctx, cache, pos)
     x = x + a
+    if "mlp" in p:
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + _mlp_decode(h, p["mlp"], cfg.gated_mlp, ctx), cache
     delta, _ = _ffn(x, p, cfg, ctx)
     return x + delta, cache
 
@@ -348,24 +422,45 @@ def dec_block_prefill(x, p, cfg, ctx, positions, enc_out):
 
 def dec_block_decode(x, p, cfg, ctx, cache, pos: int):
     """h (B,1,D); cache {k, v, xk, xv}: the self K/V updated in place at
-    ``pos``, the cross K/V read whole."""
+    ``pos``, the cross K/V read whole.  Under a decode plan on a mesh
+    (``ctx.sharded_decode``) both caches are this rank's shards, cut by the
+    same plan, and the cross K/V is read by the same log-sum-exp combine
+    as the self K/V, at the frames' last position, with no write: on the
+    rank's heads, tensor-parallel (``_tp_attn_decode``), where the plan
+    splits the KV heads, else through ``_distributed_decode``; the MLP is
+    tensor-parallel where its hidden units split (``_mlp_decode``)."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    self_cache = {"k": cache["k"], "v": cache["v"]}
+    cross = {"k": cache["xk"], "v": cache["xv"]}
     h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
-    q, k_new, v_new = attn_lib.qkv_project(h, p["self_attn"], cfg, positions,
-                                           rope=False)
-    self_cache = attn_lib.cache_update({"k": cache["k"], "v": cache["v"]},
-                                       k_new, v_new, pos)
-    o = attn_lib.decode_attention(q, self_cache, pos)
-    x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
+    if _tp_heads(cfg, ctx) is not None:
+        x = x + _tp_attn_decode(h, p["self_attn"], cfg, ctx, self_cache, pos,
+                                rope=False)
+        h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
+        Se = cache["xk"].shape[1] * ctx.axis_size(tuple(ctx.decode_plan.seq_axes))
+        x = x + _tp_attn_decode(h, p["cross_attn"], cfg, ctx, cross, Se - 1,
+                                rope=False, write=False)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+        q, k_new, v_new = attn_lib.qkv_project(h, p["self_attn"], cfg, positions,
+                                               rope=False)
+        if ctx.sharded_decode:
+            o = _distributed_decode(q, k_new, v_new, self_cache, pos, ctx)
+        else:
+            self_cache = attn_lib.cache_update(self_cache, k_new, v_new, pos)
+            o = attn_lib.decode_attention(q, self_cache, pos)
+        x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
 
-    h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
-    kv, dh = cfg.n_kv_heads, cfg.head_dim
-    qx = (h @ p["cross_attn"]["wq"]).reshape(B, 1, kv, cfg.n_heads // kv, dh)
-    Se = cache["xk"].shape[1]
-    o = attn_lib.decode_attention(qx, {"k": cache["xk"], "v": cache["xv"]}, Se - 1)
-    x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
+        h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
+        kv, dh = cfg.n_kv_heads, cfg.head_dim
+        qx = (h @ p["cross_attn"]["wq"]).reshape(B, 1, kv, cfg.n_heads // kv, dh)
+        if ctx.sharded_decode:
+            Se = cache["xk"].shape[1] * ctx.axis_size(tuple(ctx.decode_plan.seq_axes))
+            o = _distributed_decode(qx, None, None, cross, Se - 1, ctx)
+        else:
+            o = attn_lib.decode_attention(qx, cross, cache["xk"].shape[1] - 1)
+        x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
 
     h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.mlp(h, p["mlp"], False)
+    x = x + _mlp_decode(h, p["mlp"], False, ctx)
     return x, cache

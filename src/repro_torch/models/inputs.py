@@ -1,8 +1,14 @@
-"""Concrete sample batches (the port of
-``repro.models.inputs.sample_train_batch``; the abstract ``*_shapes``
-helpers belong to the dry-run and are not ported).  The same generator
+"""Input construction (the port of ``repro.models.inputs``): abstract
+stand-ins for the dry run, tensors on the ``meta`` device that carry a
+shape and a type and no storage (the JAX package's ``ShapeDtypeStruct``s;
+token ids and labels are int64, the port's index type, where the JAX
+package's are int32), and concrete sample batches.  The same generator
 state gives the same tokens, patch embeddings and frames as the JAX
-package's function."""
+package's ``sample_train_batch``.
+
+Modality frontends are stubs: whisper takes precomputed frame embeddings
+(B, enc_seq_len, d_model), pixtral precomputed patch embeddings
+(B, n_patches, d_model); both are inputs, not parameters."""
 
 from __future__ import annotations
 
@@ -10,7 +16,49 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.context import null_ctx
 from repro_torch.models.layers import dtype_of
+
+_META = torch.device("meta")
+
+
+def _abstract(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=_META)
+
+
+def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Abstract train batch: {tokens, labels [, frames | patch_embeds]}."""
+    dt = dtype_of(cfg)
+    n_text = seq - (cfg.n_patches if cfg.family == "vlm" else 0)
+    d = {"tokens": _abstract((batch, n_text), torch.int64),
+         "labels": _abstract((batch, seq), torch.int64)}
+    if cfg.family == "vlm":
+        d["patch_embeds"] = _abstract((batch, cfg.n_patches, cfg.d_model), dt)
+    if cfg.family == "audio":
+        d["frames"] = _abstract((batch, cfg.enc_seq_len, cfg.d_model), dt)
+    return d
+
+
+def prefill_batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    d = train_batch_shapes(cfg, batch, seq)
+    d.pop("labels")
+    return d
+
+
+def decode_input_shapes(cfg: ModelConfig, batch: int, seq: int):
+    """(tokens, cache, pos) abstract inputs of ``Model.decode_step``.  The
+    cache is what the port's own ``Model.prefill`` returns on ``meta``
+    tensors of the prompt (the JAX package's ``eval_shape`` of its
+    prefill): always the model code's structure, nothing allocated.  The
+    prefill takes the kernels' routes (``kernels="cuda"``), whose
+    operators give their shapes on ``meta`` tensors in one call a chunk."""
+    from repro_torch.models.model import Model, _param_shapes
+
+    with torch.no_grad():
+        _, cache = Model(cfg).prefill(_param_shapes(cfg),
+                                      prefill_batch_shapes(cfg, batch, seq),
+                                      null_ctx(kernels="cuda"))
+    return _abstract((batch, 1), torch.int64), cache, _abstract((), torch.int64)
 
 
 def sample_train_batch(rng: np.random.Generator, cfg: ModelConfig, batch: int,

@@ -31,15 +31,17 @@ the backward) while grad mode is on.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, tp
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
@@ -131,6 +133,10 @@ class Model:
         norm = layers.layer_norm if cfg.family == "audio" else layers.rms_norm
         x = ctx.gather_seq(norm(x, params["ln_f"], cfg.norm_eps))
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
+        if ctx.sharded_decode:
+            # the decode's logits on a mesh: the product split over d_model
+            ds = tp.split(cfg.d_model, ctx)
+            return tp.cols(x, w, ctx) if ds is None else tp.rows(x[..., ds], w, ctx, ds)
         return ctx.constrain(x @ w, role)
 
     def _encode(self, params, batch, ctx):
@@ -258,7 +264,7 @@ class Model:
         cfg = self.cfg
         ctx = ctx or null_ctx()
         x, positions = self._embed_inputs(params, batch, ctx)
-        stack = lambda cs: tree_map(lambda *xs: torch.stack(xs), *cs)  # noqa: E731
+        stack = lambda cs: tree_map(lambda *xs: _stack(xs), *cs)  # noqa: E731
         if cfg.family in ("dense", "vlm", "moe"):
             cache = {}
             for name, key, depth in self._block_stacks():
@@ -336,6 +342,22 @@ class Model:
         return self._unembed(params, x, ctx), cache
 
 
+def _stack(xs):
+    """``torch.stack`` of the layers' cache leaves along a new leading dim;
+    ``DTensor`` leaves (the sharded prefill's) by their local blocks, the
+    placements moved one dim on (DTensor's own ``stack`` fails on some
+    placements in the torch of the card's machine)."""
+    x0 = xs[0]
+    if not isinstance(x0, DTensor):
+        return torch.stack(xs)
+    mesh, pl = x0.device_mesh, x0.placements
+    local = torch.stack([x.redistribute(mesh, pl).to_local() for x in xs])
+    shape = (len(xs),) + tuple(x0.shape)
+    return DTensor.from_local(
+        local, mesh, [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl],
+        run_check=False, shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 2
 
 
@@ -355,15 +377,28 @@ def _pad_cache_to(cache, cache_len: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# analytic accounting (params / model flops) from shapes: nothing allocated
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _param_shapes(cfg):
+    """The parameter tree ``Model.init`` makes on the ``meta`` device: the
+    JAX package's leaf names and shapes, no storage (grok-1 has 314 B
+    parameters)."""
+    return Model(cfg).init(None, device="meta")
+
+
 def count_params_analytic(cfg, active_only: bool = False) -> int:
-    """Parameter count from the shapes ``Model.init`` makes on the ``meta``
-    device (nothing allocated); whisper's encoder stack and its position
-    table are in it.  ``active_only``: the parameters a token touches, the
-    routed experts counted at ``experts_per_tok / n_experts`` of their
-    size.  As in the JAX package, "routed" is every leaf under a key
-    ``w_gate``, ``w_up`` or ``w_down`` in ``moe_layers``, and so includes
-    the shared experts' MLP, which has the same names."""
-    params = Model(cfg).init(None, device="meta")
+    """Parameter count from the shapes of ``_param_shapes``; whisper's
+    encoder stack and its position table are in it.  ``active_only``: the
+    parameters a token touches, the routed experts counted at
+    ``experts_per_tok / n_experts`` of their size.  As in the JAX package,
+    "routed" is every leaf under a key ``w_gate``, ``w_up`` or ``w_down``
+    in ``moe_layers``, and so includes the shared experts' MLP, which has
+    the same names."""
+    params = _param_shapes(cfg)
     total = sum(t.numel() for t in tree_leaves(params))
     if active_only and cfg.n_experts > 0:
         routed = sum(t.numel() for name in ("w_gate", "w_up", "w_down")
@@ -372,6 +407,31 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
         frac = cfg.experts_per_tok / cfg.n_experts
         total = total - routed + int(routed * frac)
     return total
+
+
+def matmul_param_count(cfg) -> int:
+    """Parameters that take part in a token's products (MoE: the active
+    ones; the embedding gather left out; a tied unembedding counted once,
+    as a product)."""
+    total = count_params_analytic(cfg, active_only=True)
+    total -= sum(t.numel() for t in tree_leaves(_param_shapes(cfg)["embed"]))
+    if cfg.tie_embeddings:
+        total += cfg.d_model * cfg.vocab_size
+    return total
+
+
+def model_flops(cfg, shape, kind: Optional[str] = None) -> float:
+    """MODEL_FLOPS = 6 N_active D (train) / 2 N_active D (inference), the
+    attention scores left out (the 6ND convention; the roofline's
+    MODEL / counted ratio shows them).  Whisper adds its encoder over the
+    frames (not on a decode step)."""
+    kind = kind or shape.kind
+    mult = 6.0 if kind == "train" else 2.0
+    fl = mult * matmul_param_count(cfg) * shape.tokens
+    if cfg.is_encoder_decoder and kind != "decode":
+        enc_n = sum(t.numel() for t in tree_leaves(_param_shapes(cfg)["enc_layers"]))
+        fl += mult * enc_n * cfg.enc_seq_len * shape.global_batch
+    return fl
 
 
 def _find(tree, name):

@@ -26,7 +26,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.collectives import (P, axis_index, grad_as_forward, local_map_summed,
                                      to_placements)
 from repro_torch.kernels import ops as kops
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 
 def init_ssd(gen, cfg, device):
@@ -163,14 +163,15 @@ def _project(x, p, cfg):
     return (x @ p["wz"], x @ p["wx"], x @ p["wB"], x @ p["wC"], x @ p["wdt"])
 
 
-def _finish(y, x4, z, p, cfg):
-    """Skip + gate + norm + out-projection.  y float32 (B,S,H,P)."""
+def _finish(y, x4, z, p, cfg, out=None):
+    """Skip + gate + norm + out-projection (``out``, by default the product
+    with ``p["wo"]``).  y float32 (B,S,H,P)."""
     Bb, S = y.shape[:2]
     y = y + p["D_skip"][None, None, :, None] * x4.to(torch.float32)
     y = grad_as_forward(y.reshape(Bb, S, cfg.ssm_d_inner)).to(z.dtype)
     y = y * F.silu(z)
     y = layers.rms_norm(y, p["gate_norm"], cfg.norm_eps)
-    return y @ p["wo"]
+    return y @ p["wo"] if out is None else out(y)
 
 
 def _broadcast_groups(t, cfg, heads=None):
@@ -311,7 +312,11 @@ def _sharded_scan(x4, dt, A, B_r, C_r, cfg, ctx):
 
 
 def mamba_decode(x, p, cfg, cache, ctx):
-    """One-token decode.  x (B,1,D); cache from init_ssm_cache."""
+    """One-token decode.  x (B,1,D); cache from init_ssm_cache.  Under a
+    decode plan on a mesh (``ctx.sharded_decode``) x is this rank's batch
+    rows and the cache its shard (``_sharded_decode``)."""
+    if ctx is not None and ctx.sharded_decode:
+        return _sharded_decode(x, p, cfg, cache, ctx)
     Bb = x.shape[0]
     h, pd = cfg.ssm_nheads, cfg.ssm_headdim
     f32 = torch.float32
@@ -331,3 +336,85 @@ def mamba_decode(x, p, cfg, cache, ctx):
     y = torch.einsum("bhpn,bhn->bhp", state, Ch.to(f32))[:, None]    # (B,1,H,P)
     out = _finish(y, x4, z, p, cfg)
     return out, {"state": state, "conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C}
+
+
+def _sharded_decode(x, p, cfg, cache, ctx):
+    """``mamba_decode`` on this rank's shard of the cache, as
+    ``launch.sharding.Policy.cache_shardings`` lays it out over the model
+    axis: the SSM state's heads where they split over it, else its head
+    dim where that splits, else the whole state; each conv window's
+    channels where they split.  (The batch is already this rank's rows.)
+
+    Where the heads split, the mixer is tensor-parallel (``models.tp``): z,
+    x and dt are projected for the rank's heads only, x's conv runs on
+    their channels, the state update on their state, the gated norm's
+    mean square is summed over the model axis and the out-projection's
+    partial sums reduced; B and C, which every head reads, are projected
+    whole.  Otherwise z, x, B, C and dt are projected whole (as
+    ``blocks._distributed_decode`` computes q), each conv runs on the
+    rank's channels of its window and is gathered, the state update on
+    the rank's head-dim slice or the whole state, and y is gathered whole
+    before ``_finish``.  -> (out, the new shard of each cache leaf)."""
+    from repro_torch.collectives import all_gather_ordered
+
+    Bb = x.shape[0]
+    h, pd = cfg.ssm_nheads, cfg.ssm_headdim
+    f32 = torch.float32
+    m, groups = ctx.model_axis, ctx.groups
+    i = axis_index(ctx.mesh, m)
+    st = cache["state"]
+    hs = tp.split(h, ctx) if st.shape[1] < h else None     # the rank's heads
+    cs = slice(hs.start * pd, hs.stop * pd) if hs is not None else None
+
+    def conv(t, window, q, local=False):
+        """The conv on the rank's channels where the window is cut to them
+        (its last dim shorter than the whole), gathered whole after unless
+        ``local`` (t is already the rank's channels)."""
+        c = window.shape[-1]
+        if c == t.shape[-1] and not local:
+            return conv_decode(t, window, q)
+        sl = slice(i * c, (i + 1) * c)
+        y, new = conv_decode(t if local else t[..., sl], window,
+                             {"w": q["w"][sl], "b": q["b"][sl]})
+        return (y if local else all_gather_ordered(y, groups, m, 2)), new
+
+    z = tp.cols(x, p["wz"], ctx, cs)
+    xs = tp.cols(x, p["wx"], ctx, cs)
+    B_r, C_r = tp.cols(x, p["wB"], ctx), tp.cols(x, p["wC"], ctx)
+    dt_r = tp.cols(x, p["wdt"], ctx, hs)
+    xs, conv_x = conv(xs, cache["conv_x"], p["conv_x"], local=hs is not None)
+    B_r, conv_B = conv(B_r, cache["conv_B"], p["conv_B"])
+    C_r, conv_C = conv(C_r, cache["conv_C"], p["conv_C"])
+    xs, B_r, C_r = F.silu(xs), F.silu(B_r), F.silu(C_r)
+    q = {k: (p[k] if hs is None else p[k][hs]) for k in ("dt_bias", "A_log", "D_skip")}
+    dt, A = _dt_A(dt_r, q)
+    dt = dt[:, 0]                                                     # (B,Hl)
+    hl = h if hs is None else hs.stop - hs.start
+    x4 = xs.reshape(Bb, 1, hl, pd)
+    heads = None if hs is None else (hs.start, hl)
+    Bh = _broadcast_groups(B_r, cfg, heads)[:, 0].to(f32)             # (B,Hl,N)
+    Ch = _broadcast_groups(C_r, cfg, heads)[:, 0].to(f32)
+    xd = (x4[:, 0] * dt[..., None]).to(f32)                           # (B,Hl,P)
+    a = torch.exp(dt * A)                                             # (B,Hl)
+    split_p = hs is None and st.shape[2] < pd
+    if split_p:
+        w = st.shape[2]
+        xd = xd[:, :, i * w:(i + 1) * w]
+    state = st * a[:, :, None, None] + torch.einsum("bhp,bhn->bhpn", xd, Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    new_cache = {"state": state, "conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C}
+    if hs is None:
+        if split_p:
+            y = all_gather_ordered(y, groups, m, 2)
+        out = _finish(y[:, None], x4, z, p, cfg,
+                      out=lambda t: tp.cols(t, p["wo"], ctx))
+        return out, new_cache
+    # _finish on the rank's channels: the gated norm's mean square summed
+    y = y[:, None] + q["D_skip"][None, None, :, None] * x4.to(f32)
+    y = (y.reshape(Bb, 1, hl * pd).to(z.dtype) * F.silu(z)).to(f32)
+    ss = torch.sum(torch.square(y), dim=-1, keepdim=True)
+    ss = tp.model_sum(ss, ctx)
+    y = y * torch.rsqrt(ss / cfg.ssm_d_inner + cfg.norm_eps)
+    y = (y * p["gate_norm"]["scale"][cs].to(f32)).to(z.dtype)
+    return tp.rows(y, p["wo"], ctx, cs), new_cache
+

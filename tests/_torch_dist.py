@@ -277,3 +277,78 @@ def sharded_worker(rank, mesh_shape, cases):
         res["seconds"] = time.perf_counter() - t0
         out[case["name"]] = res
     return out
+
+
+def dryrun_cell(arch, shape, mesh_shape=(2, 4)):
+    """The port's dry run of one cell in this process: a fake world of
+    prod(mesh_shape) ranks (this process rank 0), the small (data, model)
+    mesh on it, ``launch.dryrun.trace_cell`` -> (artifact, {kernel
+    operator: calls}).  Meant for a child process of its own."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import init_fake_world, make_small_mesh
+
+    init_fake_world(int(np.prod(mesh_shape)))
+    try:
+        mesh = make_small_mesh(mesh_shape, device_type="cpu")
+        art, counter = trace_cell(arch, shape, mesh)
+        ops = {name: counter.launches(name)
+               for name in ("flash_attention", "flash_attention_lse", "ssd_chunk")}
+        return art, ops
+    finally:
+        dist.destroy_process_group()
+
+
+def ssm_decode_worker(rank, mesh_shape, cases, steps, max_len):
+    """The port's ``Server`` on a (data, model) mesh of ``mesh_shape`` over
+    every rank, for each case (a dict: ``name``, ``arch`` and config
+    ``overrides``, JAX weights ``params`` and prompt ``tokens`` as numpy,
+    whisper's ``frames``, the plan's ``batch``: B, or None for the
+    "distributed" plan): the tokens ``generate`` gives under ``Policy(cfg,
+    mesh, "decode").ctx(decode=True, batch=batch)``, with no mesh and, with
+    ``prefill_ctx``, under ``Policy(cfg, mesh, "prefill").ctx()``; the
+    prefill and ``steps - 1`` decode steps replayed on the generated
+    tokens (every step's last-position logits of this rank's batch rows)
+    and this rank's block of every cache leaf after them."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models.model import params_from_numpy
+
+    mesh = make_small_mesh(mesh_shape, device_type="cpu")
+    out = {}
+    for case in cases:
+        cfg = _case_cfg(case)
+        params = params_from_numpy(cfg, case["params"], device="cpu")
+        tokens = case["tokens"]
+        frames = (None if case.get("frames") is None
+                  else torch.from_numpy(np.array(case["frames"])))
+        batch = {"tokens": tokens, "frames": frames}
+        ctx = Policy(cfg, mesh, "decode").ctx(decode=True, batch=case["batch"])
+        srv = Server(cfg, params, ctx=ctx, max_len=max_len, device="cpu")
+        gen = srv.generate(batch, steps)
+        plan = ctx.decode_plan
+        with torch.inference_mode():
+            toks, fed, fr = torch.as_tensor(tokens).long(), gen.long(), frames
+            if plan.b_axes:
+                toks, fed = srv._batch_slice(toks), srv._batch_slice(fed)
+                fr = None if fr is None else srv._batch_slice(fr)
+            logits, cache = srv.prefill(toks, fr)
+            cache = srv._shard_cache(cache)
+            lgs = [logits[:, -1]]
+            for i in range(steps - 1):
+                lg, cache = srv.model.decode_step(params, cache, fed[:, i:i + 1],
+                                                  tokens.shape[1] + i, ctx)
+                lgs.append(lg[:, -1])
+        res = {"tokens": gen, "logits": torch.stack(lgs, 1),
+               "plan": (plan.b_axes, plan.kv_axis, plan.seq_axes, plan.mode),
+               "cache": {p: t.clone() for p, t in leaf_paths(cache)},
+               "plain_tokens": Server(cfg, params, max_len=max_len,
+                                      device="cpu").generate(batch, steps)}
+        if case.get("prefill_ctx"):
+            pre = Server(cfg, params, ctx=Policy(cfg, mesh, "prefill").ctx(),
+                         max_len=max_len, device="cpu")
+            res["prefill_ctx_tokens"] = pre.generate(batch, steps)
+        out[case["name"]] = res
+    return out

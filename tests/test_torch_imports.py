@@ -61,7 +61,10 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.models.context", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.blocks",
             "repro_torch.models.ssd", "repro_torch.models.model",
-            "repro_torch.optim.optimizers"} <= set(names.split())
+            "repro_torch.optim.optimizers",
+            # the dry-run family
+            "repro_torch.launch.cost", "repro_torch.launch.dryrun",
+            "repro_torch.models.inputs", "repro_torch.kernels.hopper"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

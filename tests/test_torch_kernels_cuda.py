@@ -1111,3 +1111,70 @@ def test_sharded_deepseek_prefill_runs_the_ep_body_as_the_no_mesh_prefill(one_ca
     got, _ = Server(cfg, params, ctx=ctx, max_len=32, device="cuda").prefill(tokens)
     want, _ = Server(cfg, params, max_len=32, device="cuda").prefill(tokens)
     assert (got.full_tensor() - want).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_operators_match_plain_and_their_shape_functions(dtype, card):
+    """The launches as ``torch.library`` operators on the card: each
+    operator equals its plain version, adds one launch, and its shape
+    function gives fake copies of the inputs outputs of the real outputs'
+    shapes, types and devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (_randn(gen, 2, 96, 4, 64, device=card, dtype=dtype) for _ in range(3))
+    ssd = _ssd_inputs(gen, 2, 64, 4, 16, 16, card)
+    ops_ = torch.ops.repro_torch
+    n0 = kfa.LAUNCHES, kss.LAUNCHES
+    with torch.no_grad():
+        o = ops_.flash_attention(q, k, v, True, None)
+        o2, lse = ops_.flash_attention_lse(q, k, v, False, 0.25)
+        y, st = ops_.ssd_chunk(*ssd)
+    torch.cuda.synchronize()
+    assert (kfa.LAUNCHES - n0[0], kss.LAUNCHES - n0[1]) == (2, 1)
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 3e-5
+    assert (o.float() - ref.flash_attention_ref(q, k, v, True).float()).abs().max() <= tol
+    ro, rl = ref.flash_attention_fwd_lse(q, k, v, False, 0.25)
+    assert (o2.float() - ro.float()).abs().max() <= tol
+    assert (lse - rl).abs().max() <= 1e-4
+    ry, rs = ref.ssd_chunk_ref(*ssd)
+    assert (y - ry).abs().max() <= 1e-4 * ry.abs().max()
+    assert (st - rs).abs().max() <= 1e-4 * rs.abs().max()
+    mode = FakeTensorMode()
+    fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+    fs = [mode.from_tensor(t) for t in ssd]
+    with mode:
+        fakes = [ops_.flash_attention(fq, fk, fv, True, None),
+                 *ops_.flash_attention_lse(fq, fk, fv, False, 0.25),
+                 *ops_.ssd_chunk(*fs)]
+    for f, r in zip(fakes, (o, o2, lse, y, st)):
+        assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)
+    assert (kfa.LAUNCHES - n0[0], kss.LAUNCHES - n0[1]) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b", "whisper-base"])
+def test_ssm_hybrid_audio_decode_on_the_one_card_mesh(arch, one_card_mesh):
+    """The reduced float32 model served on the one-card mesh under the
+    decode policy's "local" and "distributed" plans, and under a prefill
+    policy's ctx: the no-mesh tokens."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, cfg.enc_seq_len, cfg.d_model, device="cuda") * 0.02
+    want = Server(cfg, params, max_len=24, device="cuda").generate(batch, 8)
+    policy = Policy(cfg, one_card_mesh, "decode")
+    for b in (2, None):
+        ctx = policy.ctx(decode=True, batch=b)
+        got = Server(cfg, params, ctx=ctx, max_len=24, device="cuda").generate(batch, 8)
+        assert torch.equal(got, want), ctx.decode_plan
+    ctx = Policy(cfg, one_card_mesh, "prefill").ctx()
+    got = Server(cfg, params, ctx=ctx, max_len=24, device="cuda").generate(batch, 8)
+    assert torch.equal(got, want)
