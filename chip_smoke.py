@@ -3,7 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only elastic    # the build, then the distribution layer
     python3 chip_smoke.py --only tp         # the build, then the sharded forward
-    python3 chip_smoke.py --only a12        # the build, the mesh decode, the dry run
+    python3 chip_smoke.py --only a12        # the build, the mesh decode, the dry run,
+                                            # the chunked MLA attention
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -1355,11 +1356,19 @@ def serve_phases(torch) -> tuple:
     cases += [(2, s, sk, 4, d, torch.float32, c) for d in kfa.HEAD_DIMS
               for s in (1, 200, 333) for sk in (s, s + 37)
               for c in (True, False)]
+    # a rank's block of queries against the whole sequence's keys (the
+    # data-parallel-only layout's sequence split): the causal mask offset by
+    # the block's first position, Sq < Sk, in both types
+    # (B, Sq, Sk, H, D, dtype, q_offset)
+    off_cases = [(2, sq, sk, 4, d, dt, off) for dt in (torch.bfloat16, torch.float32)
+                 for d in (64, 128) for sq, sk, off in
+                 ((200, 800, 137), (200, 800, 600), (64, 2048, 1984), (333, 512, 179),
+                  (128, 1024, 0))]
     flash_err = {"float32": 0.0, "bfloat16": 0.0}
 
-    def check_flash(q, k, v, causal, what, scale=None):
-        o = kfa.flash_attention_cuda(q, k, v, causal, scale)
-        want = ref.flash_attention_ref(q, k, v, causal, scale)
+    def check_flash(q, k, v, causal, what, scale=None, q_offset=0):
+        o = kfa.flash_attention_cuda(q, k, v, causal, scale, q_offset)
+        want = ref.flash_attention_ref(q, k, v, causal, scale, q_offset)
         torch.cuda.synchronize()
         e = (o.float() - want.float()).abs().max().item()
         tol = FLASH_TOL[names[q.dtype]]
@@ -1373,6 +1382,11 @@ def serve_phases(torch) -> tuple:
         q = randn(b_, s_, h_, d_, dtype=dt)
         k, v = (randn(b_, sk_, h_, d_, dtype=dt) for _ in range(2))
         check_flash(q, k, v, causal, f"B={b_} Sq={s_} Sk={sk_} H={h_} D={d_}")
+    for b_, s_, sk_, h_, d_, dt, off in off_cases:
+        q = randn(b_, s_, h_, d_, dtype=dt)
+        k, v = (randn(b_, sk_, h_, d_, dtype=dt) for _ in range(2))
+        check_flash(q, k, v, True, f"B={b_} Sq={s_} Sk={sk_} H={h_} D={d_} "
+                    f"q_offset={off}", q_offset=off)
     # strided views: q sliced in S and H, v a (B, H, S, D) tensor transposed,
     # and the model's own layout (attention.py's q, k, v of one projection)
     for dt in (torch.bfloat16, torch.float32):
@@ -1386,18 +1400,19 @@ def serve_phases(torch) -> tuple:
         check_flash(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True,
                     "q, k, v slices of one (B, S, 3, H, D) tensor")
     n_wg, n_tf = kfa.WGMMA_LAUNCHES - wg0, kfa.TF32_LAUNCHES - tf0
-    n_bf16 = sum(1 for c in cases if c[5] == torch.bfloat16) + 3
-    n_f32 = len(cases) + 6 - n_bf16
+    n_bf16 = sum(1 for c in cases + off_cases if c[5] == torch.bfloat16) + 3
+    n_f32 = len(cases) + len(off_cases) + 6 - n_bf16
     if (n_wg, n_tf) != (n_bf16, n_f32):
         fail(f"the bf16 cases launched the bf16 kernel {n_wg} times (want "
              f"{n_bf16}), the float32 cases the 3xTF32 kernel {n_tf} times "
              f"(want {n_f32})")
-    print(f"{len(cases) + 6} cases (zamba2's prefill B={B} S={S} H={H} D={D} "
-          f"and {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} H={p3.n_heads} "
-          f"D={p3.d_model // p3.n_heads} in both types, causal and not; at D "
-          f"in {kfa.HEAD_DIMS} bf16 with S in (1, 200, 333, 512) and f32 with "
-          f"S in (1, 200, 333), Sk = S and S + 37; strided views in both "
-          f"types): max abs err f32 {flash_err['float32']:.3g} (tol "
+    print(f"{len(cases) + len(off_cases) + 6} cases (zamba2's prefill B={B} "
+          f"S={S} H={H} D={D} and {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} "
+          f"H={p3.n_heads} D={p3.d_model // p3.n_heads} in both types, causal "
+          f"and not; at D in {kfa.HEAD_DIMS} bf16 with S in (1, 200, 333, 512) "
+          f"and f32 with S in (1, 200, 333), Sk = S and S + 37; "
+          f"{len(off_cases)} causal with a query offset, Sq < Sk; strided views "
+          f"in both types): max abs err f32 {flash_err['float32']:.3g} (tol "
           f"{FLASH_TOL['float32']}), bf16 {flash_err['bfloat16']:.3g} (tol "
           f"{FLASH_TOL['bfloat16']}); every bf16 case ran the bf16 wgmma "
           f"kernel ({n_wg} launches), every f32 case the 3xTF32 wgmma kernel "
@@ -3647,9 +3662,12 @@ def serve_family(torch, arch, gen_seed=0):
         split = moe_split_us(torch, cfg, h2, lp)
         parts = [k for k in split if k not in ("capacity", "tokens")]
         total = sum(split[k] or 0.0 for k in parts)
+        # a part whose trace the profiler saw no launch of is None (§7 of
+        # PERF.md: the profiler now and then misses launches)
         print(f"one MoE layer's card time at the prefill (capacity "
               f"{split['capacity']} of {split['tokens']} tokens): "
-              + ", ".join(f"{k} {split[k]:.1f} us ({100 * (split[k] or 0) / total:.1f}%)"
+              + ", ".join(f"{k} not seen by the profiler" if split[k] is None else
+                          f"{k} {split[k]:.1f} us ({100 * split[k] / total:.1f}%)"
                           for k in parts))
         res["moe_dropped_share"] = shares
         res["moe_layer_us"] = split
@@ -3842,7 +3860,7 @@ def family_phases(torch) -> dict:
         scale = mla._scale(cfg)
 
         def plain():
-            return mla.latent_attention(q, kk, vv, True, scale)
+            return mla.latent_attention(q, kk, vv, True, scale, null_ctx())
         qt, kt, vt = q.transpose(1, 2), kk[:, None], vv[:, None]
 
         def sdpa():
@@ -4114,8 +4132,6 @@ def elastic_phases(torch) -> dict:
         from torch.profiler import ProfilerActivity, profile
         with torch.inference_mode():
             lg, cache = srv.prefill(dev_tok)
-            if srv.ctx.sharded_decode:
-                cache = srv._shard_cache(cache)
             logits = [lg[:, -1].float()]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4480,6 +4496,185 @@ MESH_DECODE_F32_TOL = 1e-5
 MESH_DECODE_BF16_TOL = 2.0 ** -6
 # the dry run's predicted peak against the measured one (PERF.md §6)
 DRYRUN_PEAK_BAND = (0.8, 1.25)
+# MLA's chunked attention against its naive version (float32): the forward
+# of its largest magnitude, each gradient of its largest
+MLA_CHUNK_S, MLA_CHUNK_B = 2048, 2
+MLA_CHUNK_FWD_TOL, MLA_CHUNK_GRAD_TOL = 1e-5, 1e-4
+
+
+def mla_chunked_phase(torch) -> dict:
+    """deepseek-v2's absorbed attention (128 query heads on one shared key
+    head 576 wide and value head 512 wide, causal, float32) at S = 2048, B
+    = 2: the chunked route the model takes (``attention.plain_attention``
+    over two 1024-key chunks, the JAX package's flash VJP) against
+    ``naive_attention`` on the same inputs, forward and the q, k and v
+    gradients, with each path's peak memory and CUDA-events ms of a
+    forward and backward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mla
+
+    phase("MLA's chunked attention against its naive version (deepseek-v2's "
+          "absorbed shapes, float32)")
+    t0 = time.perf_counter()
+    cfg = get_config("deepseek-v2-236b")
+    H, R, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    B, S, chunk, scale = MLA_CHUNK_B, MLA_CHUNK_S, 1024, mla._scale(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q0 = torch.randn(B, S, 1, H, R + qr, device="cuda", generator=gen)
+    k0 = torch.randn(B, S, 1, R + qr, device="cuda", generator=gen)
+    v0 = k0[..., :R].clone()
+    do = torch.randn(B, S, 1, H, R, device="cuda", generator=gen)
+    paths = {
+        "chunked": lambda q, k, v: attn_lib.plain_attention(q, k, v, True, chunk,
+                                                            scale=scale),
+        "naive": lambda q, k, v: attn_lib.naive_attention(q, k, v, True, scale=scale)}
+    res, got = {}, {}
+    for name, fn in paths.items():
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+
+        def run():
+            o = fn(q, k, v)
+            return (o,) + torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got[name] = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(run, iters=5, warmup=1)
+        res[name] = {"peak_gb": peak / 1e9, "ms": ms}
+    errs = {}
+    for i, what in enumerate(("o", "dq", "dk", "dv")):
+        a, b = got["chunked"][i], got["naive"][i]
+        errs[what] = ((a - b).abs().max() / b.abs().max()).item()
+    ok = (errs["o"] <= MLA_CHUNK_FWD_TOL
+          and max(errs["dq"], errs["dk"], errs["dv"]) <= MLA_CHUNK_GRAD_TOL)
+    print(f"(B, S, H, Dk, Dv) = {(B, S, H, R + qr, R)}, causal, {S // chunk} key "
+          f"chunks of {chunk}: chunked against naive, of the largest: forward "
+          f"{errs['o']:.3g} (tol {MLA_CHUNK_FWD_TOL}), dq {errs['dq']:.3g}, dk "
+          f"{errs['dk']:.3g}, dv {errs['dv']:.3g} (tol {MLA_CHUNK_GRAD_TOL}); "
+          f"forward + backward: chunked {res['chunked']['ms']:.2f} ms, peak "
+          f"{res['chunked']['peak_gb']:.3f} GB; naive {res['naive']['ms']:.2f} ms, "
+          f"peak {res['naive']['peak_gb']:.3f} GB (max_memory_allocated above the "
+          f"inputs)")
+    if not ok:
+        fail(f"MLA's chunked attention differs from the naive one: {errs}")
+    del got
+    torch.cuda.empty_cache()
+    res.update({"errors": errs, "wall_s": time.perf_counter() - t0,
+                "shape": {"B": B, "S": S, "H": H, "Dk": R + qr, "Dv": R,
+                          "chunk": chunk}})
+    print(f"the chunked MLA phase: {res['wall_s']:.1f} s")
+    return res
+
+
+def attribute_decode(torch, c, params, local, srv, dev_tok, fr, fed, S) -> dict:
+    """Where the mesh decode (``srv``) parts from the no-mesh one
+    (``local``): every cache leaf after the prefill, then each decode step
+    fed the same token on both paths, the hidden state after each layer
+    (the outputs of ``blocks.block_decode``, ``mamba_decode`` and
+    ``dec_block_decode`` in the order the model calls them) until the
+    first difference; there, the layer rerun on the same input and cache
+    (a copy of the no-mesh path's from before the step) on both paths,
+    part by part, names the op."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import blocks, layers
+    from repro_torch.models.model import _row, tree_map
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    with torch.inference_mode():
+        _, c0 = local.prefill(dev_tok, fr)
+        _, c1 = srv.prefill(dev_tok, fr)
+    mesh_leaves = dict(leaf_paths(c1))
+    leaf = {p: (t.float() - mesh_leaves[p].float()).abs().max().item()
+            for p, t in leaf_paths(c0)}
+    differ = {p: d for p, d in leaf.items() if d > 0}
+    print(f"  attribution: after the prefill {len(differ)} of {len(leaf)} cache leaves "
+          f"differ{'' if not differ else ': ' + str(differ)}")
+    names = ("block_decode", "mamba_decode", "dec_block_decode")
+    real = {n: getattr(blocks, n) for n in names}
+    found = None
+    try:
+        for i in range(fed.shape[1] - 1):
+            before = clone(c0)
+            rec = {}
+            for key, path_srv, cache in (("local", local, c0), ("mesh", srv, c1)):
+                seen = rec[key] = []
+
+                def wrap(n):
+                    def f(x, *a, **k):
+                        y = real[n](x, *a, **k)
+                        seen.append((n, x.clone(), y[0].clone()))
+                        return y
+                    return f
+                for n in names:
+                    setattr(blocks, n, wrap(n))
+                with torch.inference_mode():
+                    path_srv.model.decode_step(path_srv.params, cache, fed[:, i:i + 1],
+                                               S + i, path_srv.ctx)
+                for n in names:
+                    setattr(blocks, n, real[n])
+            count = {}
+            for (n, x0, y0), (_, x1, y1) in zip(rec["local"], rec["mesh"]):
+                j = count[n] = count.get(n, -1) + 1
+                d = (y0.float() - y1.float()).abs().max().item()
+                if d > 0:
+                    found = {"step": i, "layer": f"{n} #{j}", "hidden_diff": d,
+                             "input_diff": (x0.float() - x1.float()).abs().max().item(),
+                             "x": x0, "cache": before}
+                    break
+            if found:
+                break
+    finally:
+        for n in names:
+            setattr(blocks, n, real[n])
+    if found is None:
+        print(f"  attribution: no layer's output differs over "
+              f"{fed.shape[1] - 1} decode steps")
+        return {"cache_leaves_differ": len(differ), "first": None}
+    n, j = found["layer"].split(" #")
+    j = int(j)
+    ops = {}
+    x, pos = found["x"], S + found["step"]
+    if n == "block_decode" and c.family == "hybrid":
+        p, cache = params["shared_block"], _row(found["cache"]["attn"], j)
+        with torch.inference_mode():
+            h = layers.rms_norm(x, p["ln1"], c.norm_eps)
+            a = [blocks.attn_decode(h, p["attn"], c, ctx, clone(cache), pos)[0]
+                 for ctx in (local.ctx, srv.ctx)]
+            ops["blocks.attn_decode"] = (a[0].float() - a[1].float()).abs().max().item()
+            # its attention op on one q and cache: the softmax before the
+            # product against the flash-decode combine
+            B = x.shape[0]
+            q, kn, vn = attn_lib.qkv_project(h, p["attn"], c, torch.full(
+                (B, 1), pos, dtype=torch.int64, device=x.device))
+            kc = attn_lib.cache_update(clone(cache), kn, vn, pos)
+            plan = srv.ctx.decode_plan
+            seq = tuple(plan.seq_axes)
+            o0 = attn_lib.decode_attention(q, kc, pos)
+            o1 = attn_lib.distributed_decode_attention(
+                q, kc["k"], kc["v"], pos, srv.ctx.groups.group(seq) if seq else None, 0,
+                scale=c.head_dim ** -0.5)
+            ops["attention.decode_attention vs distributed_decode_attention"] = (
+                (o0.float() - o1.float()).abs().max().item())
+            x2 = x + a[0]
+            h2 = layers.rms_norm(x2, p["ln2"], c.norm_eps)
+            m = [blocks._mlp_decode(h2, p["mlp"], c.gated_mlp, ctx, c.d_ff)
+                 for ctx in (local.ctx, srv.ctx)]
+            ops["blocks._mlp_decode"] = (m[0].float() - m[1].float()).abs().max().item()
+    first = {k: v for k, v in found.items() if k not in ("x", "cache")}
+    print(f"  attribution: the first difference at decode step {first['step']}, "
+          f"after {first['layer']}: the hidden state {first['hidden_diff']:.4g} apart "
+          f"(its input {first['input_diff']:.4g}); that layer's parts on the same "
+          f"input and cache: {ops or 'not broken down'}")
+    return {"cache_leaves_differ": len(differ), "first": first, "ops": ops}
+
+
 
 
 def mesh_decode_phases(torch) -> dict:
@@ -4613,9 +4808,12 @@ def mesh_decode_phases(torch) -> dict:
                       f"{MESH_DECODE_BF16_TOL:.4g}); prefill launches (flash, "
                       f"ssd_chunk) {n_mesh} against {n_local} with no mesh; generate "
                       f"{ms:.1f} ms against {gen_ms:.1f}")
+                attr = None
                 if dt == "bfloat16":
                     print(f"  bf16 tokens on the mesh {tok[0, :16].tolist()} ..., no "
                           f"mesh {tok0[0, :16].tolist()} ...")
+                    attr = attribute_decode(torch, c, params, local, srv, dev_tok, fr,
+                                            fed, S)
                 if n_mesh != n_local:
                     fail(f"{arch} {dt} {mode}: the mesh prefill launched {n_mesh}, "
                          f"the no-mesh one {n_local}")
@@ -4629,7 +4827,8 @@ def mesh_decode_phases(torch) -> dict:
                              "tokens_equal": same, "tokens": tok0.numel(),
                              "last_logit_rel_err": lerr, "sub_block_rel_err": serr,
                              "attn_block_rel_err": aerr,
-                             "prefill_launches": n_mesh, "generate_ms": ms}
+                             "prefill_launches": n_mesh, "generate_ms": ms,
+                             "attribution": attr}
                 del srv
             pre = Server(c, params, ctx=Policy(c, mesh, "prefill").ctx(),
                          max_len=max_len, device="cuda")
@@ -4660,8 +4859,6 @@ def _replay_last(torch, srv, dev_tok, frames, fed, prompt):
     last, on ``srv``'s path: the last step's last-position logits, float32."""
     with torch.inference_mode():
         lg, cache = srv.prefill(dev_tok, frames)
-        if srv.ctx.sharded_decode:
-            cache = srv._shard_cache(cache)
         for i in range(fed.shape[1] - 1):
             lg, cache = srv.model.decode_step(srv.params, cache, fed[:, i:i + 1],
                                               prompt + i, srv.ctx)
@@ -4856,7 +5053,8 @@ def main() -> None:
             measured = mesh_train_step(torch)
             child = start_dryrun_child()
             alone = {"mesh_decode": mesh_decode_phases(torch),
-                     "dryrun": dryrun_phase(torch, measured, child)}
+                     "dryrun": dryrun_phase(torch, measured, child),
+                     "mla_chunked": mla_chunked_phase(torch)}
         else:
             alone = elastic_phases(torch) if only == "elastic" else tp_phases(torch)
         print(smi)
@@ -5194,6 +5392,7 @@ def main() -> None:
         a: r["float32"]["local"]["prefill_launches"][1]
         for a, r in mesh_decode.items() if a != "wall_s"}
     dry = dryrun_phase(torch, tp["flash"]["tp"]["steps"]["mesh"], child)
+    mla_chunked_phase(torch)
     flash_row["dryrun_ops"] = dry["flash_ops"]
     ssd_row["dryrun_ops"] = dry["ssd_ops"]
     print(f"the whole script: {time.perf_counter() - T_START:.1f} s")

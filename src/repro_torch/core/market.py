@@ -427,7 +427,7 @@ class ScalarLedger:
     """Reference ledger: one ``Allocation`` object per row, eager records.
 
     Retained behind ``SpotMarket(ledger="scalar")`` as the equivalence pin
-    for the columnar fast path (the port reads no environment flag)."""
+    for the columnar fast path (the port reads no environment flag for it)."""
 
     kind = "scalar"
 

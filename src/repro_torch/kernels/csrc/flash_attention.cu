@@ -7,7 +7,9 @@
 //   K/V first)  ->  o (B,Sq,H,D) in q's type,
 //   o = softmax(scale * q.k^T [masked]) . v
 //
-// with the causal mask qpos >= kpos (no offset) when `causal`; masked
+// with the causal mask q_off + qpos >= kpos when `causal` (q_off >= 0 is the
+// global position of q's first row, a rank's sequence block against the
+// whole sequence's keys; 0 for the whole sequence); masked
 // scores are -1e30 and the row sum is floored at 1e-30 before the
 // division, as in the TPU kernel.  D is 16, 32, 64, 96 or 128 (a template
 // parameter: zamba2 and the dense configs have 64 or 128, phi3-mini 96,
@@ -209,10 +211,11 @@ __device__ __forceinline__ void mma3_pv(float (&d)[N], const uint32_t* ph, const
 }
 
 // K tiles a causal block of q rows [q0, q0 + rows) needs: up to its last
-// row's diagonal
-__device__ __forceinline__ int tiles_for(int q0, int rows, int Sq, int Sk, int causal) {
+// row's diagonal, shifted by the rows' offset q_off
+__device__ __forceinline__ int tiles_for(int q0, int rows, int Sq, int Sk, int causal,
+                                         int q_off) {
   const int n = (Sk + BN - 1) / BN;
-  return causal ? min(n, (min(q0 + rows, Sq) - 1) / BN + 1) : n;
+  return causal ? min(n, (min(q0 + rows, Sq) - 1 + q_off) / BN + 1) : n;
 }
 
 template <int D>
@@ -221,7 +224,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ v, float* __restrict__ o,
                             float* __restrict__ lse, int Sq, int Sk, int H, int n_qt,
                             Strides sq, Strides sk, Strides sv, Strides so, float scale_log2,
-                            int causal) {
+                            int causal, int q_off) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   // q_full; k_full[s], v_full[s]; k_empty[s][w], v_empty[s][w]: an empty
@@ -240,7 +243,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * C::BM;    // most K tiles first
-  const int n_kt = tiles_for(q0, C::BM, Sq, Sk, causal);
+  const int n_kt = tiles_for(q0, C::BM, Sq, Sk, causal, q_off);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -276,7 +279,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
     int n_kw[C::WG];   // K tiles each warpgroup reads
 #pragma unroll
     for (int w = 0; w < C::WG; ++w)
-      n_kw[w] = q0 + w * WG_Q < Sq ? tiles_for(q0 + w * WG_Q, WG_Q, Sq, Sk, causal) : 0;
+      n_kw[w] = q0 + w * WG_Q < Sq ? tiles_for(q0 + w * WG_Q, WG_Q, Sq, Sk, causal, q_off)
+                                  : 0;
     auto wait_empty = [&](uint64_t* empty, int t, int st) {
 #pragma unroll
       for (int w = 0; w < C::WG; ++w)
@@ -320,7 +324,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int qw = q0 + wg * WG_Q;
   if (qw >= Sq) return;                    // the last block's rows may end early
-  const int n_t = tiles_for(qw, WG_Q, Sq, Sk, causal);
+  const int n_t = tiles_for(qw, WG_Q, Sq, Sk, causal, q_off);
   const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
   const int cq = (lane % 4) * 2;           // its first column in each 8-column group
   float oacc[C::OREG];
@@ -355,7 +359,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
   float a0 = 1.f, a1 = 1.f;
   auto softmax = [&](int t) {
     const int k0 = t * BN;
-    const bool edge = k0 + BN > Sk || qw + WG_Q > Sq || (causal && k0 + BN - 1 > qw);
+    const bool edge = k0 + BN > Sk || qw + WG_Q > Sq || (causal && k0 + BN - 1 > qw + q_off);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
@@ -363,7 +367,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
       if (edge) {
         const int j = k0 + (r / 4) * 8 + cq + (r % 2);
         const int i = qw + row0 + ((r % 4) >= 2 ? 8 : 0);
-        if (j >= Sk || i >= Sq || (causal && j > i)) x = NEG_INF;
+        if (j >= Sk || i >= Sq || (causal && j > i + q_off)) x = NEG_INF;
       }
       sc[r] = x;
       if ((r % 4) < 2) mx0 = fmaxf(mx0, x);
@@ -459,7 +463,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, int causal, int device, cudaStream_t stream) {
+           float scale, int causal, int q_off, int device, cudaStream_t stream) {
   // 16-byte loads: 16-byte-aligned bases and strides of whole float4s
   const void* ptrs[] = {q, k, v, o};
   const Strides strides[] = {sq, sk, sv, so};
@@ -481,24 +485,29 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   kern<<<grid, Cfg<D>::THREADS, smem, stream>>>((const float*)q, (const float*)k,
                                                 (const float*)v, (float*)o, lse, (int)Sq,
                                                 (int)Sk, (int)H, (int)n_qt, sq, sk, sv, so,
-                                                scale * LOG2E, causal);
+                                                scale * LOG2E, causal, q_off);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
              int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, int causal, int dev, cudaStream_t st) {
+             Strides so, float scale, int causal, int q_off, int dev, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 32:
-      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 64:
-      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 96:
-      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     default: return -1;
   }
 }
@@ -663,7 +672,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
-                             int Sq, int Sk, int H, int n_qt, float scale_log2, int causal) {
+                             int Sq, int Sk, int H, int n_qt, float scale_log2, int causal,
+                             int q_off) {
   using C = Cfg<D>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -680,7 +690,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * BM;    // most K tiles first
   int n_kt = (Sk + BN - 1) / BN;
-  if (causal) n_kt = min(n_kt, (min(q0 + BM, Sq) - 1) / BN + 1);
+  if (causal) n_kt = min(n_kt, (min(q0 + BM, Sq) - 1 + q_off) / BN + 1);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -765,7 +775,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto softmax = [&](int t) {
     const int k0 = t * BN;
     // scores in log2 units, masked; row max over the row's four threads
-    const bool edge = k0 + BN > Sk || q0 + BM > Sq || (causal && k0 + BN - 1 > q0);
+    const bool edge = k0 + BN > Sk || q0 + BM > Sq || (causal && k0 + BN - 1 > q0 + q_off);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
@@ -773,7 +783,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (edge) {
         const int j = k0 + (r / 4) * 8 + cq + (r % 2);
         const int i = q0 + row0 + ((r % 4) >= 2 ? 8 : 0);
-        if (j >= Sk || i >= Sq || (causal && j > i)) v = NEG_INF;
+        if (j >= Sk || i >= Sq || (causal && j > i + q_off)) v = NEG_INF;
       }
       sc[r] = v;
       if ((r % 4) < 2) mx0 = fmaxf(mx0, v);
@@ -944,7 +954,7 @@ int cached_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, int causal, int device, cudaStream_t stream) {
+           float scale, int causal, int q_off, int device, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   int rc;
   if ((rc = cached_map(&tq, q, B, Sq, H, D, sq)) != 0) return rc;
@@ -964,24 +974,29 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (B * H > 0x7fffffff || n_qt > 65535) return -1;
   const dim3 grid((unsigned)(B * H), (unsigned)n_qt);
   kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, to, lse, (int)Sq, (int)Sk, (int)H,
-                                        (int)n_qt, scale * LOG2E, causal);
+                                        (int)n_qt, scale * LOG2E, causal, q_off);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
              int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, int causal, int dev, cudaStream_t st) {
+             Strides so, float scale, int causal, int q_off, int dev, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 32:
-      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 64:
-      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 96:
-      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, dev, st);
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
+                         st);
     default: return -1;
   }
 }
@@ -998,16 +1013,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // 16-byte loads; the wrapper copies such tensors first).  Strides are in
 // elements: (batch, sequence, head) for each of q, k, v and o.  `lse` is
 // null or a contiguous float32 (B, H, Sq) tensor that receives each row's
-// log-sum-exp.  float32 runs the 3xTF32 kernel, bfloat16 the bf16 one.
+// log-sum-exp.  `q_off` (>= 0, read only when `causal`) is the global
+// position of q's first row under the causal mask.  float32 runs the 3xTF32
+// kernel, bfloat16 the bf16 one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
                                    int64_t D, int64_t qb, int64_t qs, int64_t qh, int64_t kb,
                                    int64_t ks, int64_t kh, int64_t vb, int64_t vs,
                                    int64_t vh, int64_t ob, int64_t os, int64_t oh,
-                                   float scale, int causal, int dtype, int device,
-                                   void* stream) {
+                                   float scale, int causal, int q_off, int dtype,
+                                   int device, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || B > 65535 || H > 65535 ||
-      Sq > ((int64_t)1 << 30) || Sk > ((int64_t)1 << 30))
+      Sq > ((int64_t)1 << 30) || Sk > ((int64_t)1 << 30) || q_off < 0 ||
+      q_off > ((int64_t)1 << 30))
     return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1015,9 +1033,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   if (dtype == 0)
-    return tf32::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device,
-                          st);
+    return tf32::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, q_off,
+                          device, st);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, device, st);
+    return tc::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, q_off,
+                        device, st);
   return -2;
 }

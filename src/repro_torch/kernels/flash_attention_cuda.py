@@ -56,7 +56,7 @@ def _fn():
     if _FN is None:
         fn = build.load("flash_attention").flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 17
-                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -70,7 +70,7 @@ def _check_device(name, q, k, v):
             raise ValueError(f"{name}: {arg} is on {t.device}, q on {q.device}")
 
 
-def _check(q, k, v):
+def _check(q, k, v, q_offset: int = 0):
     """Type and shape checks -> (B, Sq, Sk, H, D)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
@@ -89,6 +89,8 @@ def _check(q, k, v):
                          f"the supported {HEAD_DIMS}")
     if Sk == 0:
         raise ValueError("flash_attention_cuda: no keys (Sk = 0)")
+    if not 0 <= q_offset <= 1 << 30:
+        raise ValueError(f"flash_attention_cuda: q_offset {q_offset} outside [0, 2^30]")
     return B, Sq, Sk, H, D
 
 
@@ -125,11 +127,11 @@ def _readable(t):
     return t, st
 
 
-def _launch(q, k, v, causal, scale, with_lse: bool):
+def _launch(q, k, v, causal, scale, with_lse: bool, q_offset: int = 0):
     """One launch -> (o, lse or None); lse (B,H,Sq) float32 when asked."""
     global LAUNCHES, WGMMA_LAUNCHES, TF32_LAUNCHES
     _check_device("flash_attention_cuda", q, k, v)
-    B, Sq, Sk, H, D = _check(q, k, v)
+    B, Sq, Sk, H, D = _check(q, k, v, q_offset)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -142,7 +144,7 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr() if with_lse else None,
-                B, Sq, Sk, H, D, *strides, scale, int(bool(causal)),
+                B, Sq, Sk, H, D, *strides, scale, int(bool(causal)), int(q_offset),
                 _DTYPES[q.dtype], q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {err})")
@@ -161,41 +163,43 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
 # one operator (``launch.cost``).
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
-            "float? scale) -> Tensor")
+            "float? scale, int q_offset=0) -> Tensor")
 _LIB.define("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, "
-            "float? scale) -> (Tensor, Tensor)")
+            "float? scale, int q_offset=0) -> (Tensor, Tensor)")
 _LIB.impl("flash_attention",
-          lambda q, k, v, causal, scale: _launch(q, k, v, causal, scale, False)[0],
-          "CUDA")
+          lambda q, k, v, causal, scale, q_offset=0:
+          _launch(q, k, v, causal, scale, False, q_offset)[0], "CUDA")
 _LIB.impl("flash_attention_lse",
-          lambda q, k, v, causal, scale: _launch(q, k, v, causal, scale, True),
-          "CUDA")
+          lambda q, k, v, causal, scale, q_offset=0:
+          _launch(q, k, v, causal, scale, True, q_offset), "CUDA")
 
 
 @torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
-def _flash_shape(q, k, v, causal, scale):
-    _check(q, k, v)
+def _flash_shape(q, k, v, causal, scale, q_offset=0):
+    _check(q, k, v, q_offset)
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 @torch.library.register_fake("repro_torch::flash_attention_lse", lib=_LIB)
-def _flash_lse_shape(q, k, v, causal, scale):
-    B, Sq, _, H, _ = _check(q, k, v)
+def _flash_lse_shape(q, k, v, causal, scale, q_offset=0):
+    B, Sq, _, H, _ = _check(q, k, v, q_offset)
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True, scale=None):
+def flash_attention_cuda(q, k, v, causal: bool = True, scale=None, q_offset: int = 0):
     """The kernel on CUDA tensors; the arguments of
     ``ref.flash_attention_ref``.  Returns o (B, Sq, H, D) in q's type.  It
     has no gradient: inputs that require one go through ``FlashAttention``
     (``ops.flash_attention`` sends them there)."""
     check_no_grad("flash_attention_cuda", q, k, v, route="ops.flash_attention")
     _check_device("flash_attention_cuda", q, k, v)
-    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), _scale(scale))
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), _scale(scale),
+                                                 int(q_offset))
 
 
-def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
+def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None,
+                             q_offset: int = 0):
     """The kernel writing its log-sum-exp too: (o (B,Sq,H,D) in q's type,
     lse (B,H,Sq) float32), what ``ref.flash_attention_fwd_lse`` returns.
     The kernel keeps its row max m2 in log2 units of the scaled score and
@@ -204,36 +208,38 @@ def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None):
                   route="ops.flash_attention")
     _check_device("flash_attention_lse_cuda", q, k, v)
     return torch.ops.repro_torch.flash_attention_lse(q, k, v, bool(causal),
-                                                     _scale(scale))
+                                                     _scale(scale), int(q_offset))
 
 
 def _scale(scale):
     return None if scale is None else float(scale)
 
 
-def causal_pairs(Sq: int, Sk: int) -> int:
+def causal_pairs(Sq: int, Sk: int, q_offset: int = 0) -> int:
     """The (query, key) pairs a causal mask keeps, query i seeing keys
-    0..i: the sum over i < Sq of min(i + 1, Sk)."""
-    if Sq <= Sk:
-        return Sq * (Sq + 1) // 2
-    return Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+    0..q_offset + i: the sum over i < Sq of min(q_offset + i + 1, Sk)."""
+    def tri(n):                      # sum of 1..n
+        return n * (n + 1) // 2
+    # rows whose diagonal falls inside the keys, then rows that see them all
+    inside = max(0, min(Sq, Sk - q_offset))
+    return tri(q_offset + inside) - tri(q_offset) + (Sq - inside) * Sk
 
 
-def flash_cost(B, Sq, Sk, H, D, causal, elem_bytes):
+def flash_cost(B, Sq, Sk, H, D, causal, elem_bytes, q_offset: int = 0):
     """(FLOPs, bytes) of one call: the two products' multiply-adds over
     the (query, key) pairs the mask keeps, and q, k, v read once and o
     written once (the log-sum-exp, B*H*Sq float32, left out)."""
-    pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
+    pairs = causal_pairs(Sq, Sk, q_offset) if causal else Sq * Sk
     return 4.0 * B * H * pairs * D, elem_bytes * B * H * D * (2 * Sq + 2 * Sk)
 
 
-def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False):
+def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False, q_offset: int = 0):
     """Least time for one call on the card (``hopper.bound_ms`` of
     ``flash_cost``): bf16 at the tensor cores' bf16 peak, float32 at the
     3xTF32 rate (three TF32 products per float32 product, 495 / 3
     TFLOP/s), or with ``ffma`` at the float32 rate outside the tensor
     cores, the bound of the float32 FFMA kernel the 3xTF32 one replaced."""
-    flops, n_bytes = flash_cost(B, Sq, Sk, H, D, causal, elem_bytes)
+    flops, n_bytes = flash_cost(B, Sq, Sk, H, D, causal, elem_bytes, q_offset)
     peak = (hopper.BF16_FLOPS if elem_bytes == 2 else hopper.F32_FLOPS if ffma
             else hopper.TF32_FLOPS / 3)
     return hopper.bound_ms(flops, n_bytes, peak)
@@ -244,21 +250,21 @@ class FlashAttention(torch.autograd.Function):
     ``use_kernel`` the kernel and its lse, else
     ``ref.flash_attention_fwd_lse``), saving (q, k, v, lse); the
     backward ``ref.flash_attention_bwd`` over key chunks of ``chunk`` (None:
-    one chunk).  No fallback: a kernel that cannot run raises."""
+    one chunk), the causal mask offset by ``q_offset`` in both.  No
+    fallback: a kernel that cannot run raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, chunk, use_kernel):
+    def forward(ctx, q, k, v, causal, scale, chunk, use_kernel, q_offset=0):
         if use_kernel:
-            o, lse = flash_attention_lse_cuda(q, k, v, causal, scale)
+            o, lse = flash_attention_lse_cuda(q, k, v, causal, scale, q_offset)
         else:
-            o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk)
+            o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk, q_offset)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.causal, ctx.scale, ctx.chunk = causal, scale, chunk
+        ctx.args = (causal, scale, chunk, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, ctx.causal,
-                                             ctx.scale, ctx.chunk)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None

@@ -83,17 +83,19 @@ def _mode(t, force):
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None, chunk=None,
-                    force: str | None = None):
+                    force: str | None = None, q_offset: int = 0):
     """Attention over (B, S, H, D) with shared H -> (B, Sq, H, D) in q's
-    type.  force: None (by device) | 'ref' | 'cuda'.  Inputs that need a
-    gradient take ``FlashAttention`` (unless ``force='ref'``), whose
+    type, the causal mask offset by ``q_offset`` (q's first row's global
+    position).  force: None (by device) | 'ref' | 'cuda'.  Inputs that
+    need a gradient take ``FlashAttention`` (unless ``force='ref'``), whose
     backward runs over key chunks of ``chunk`` (None: one chunk)."""
     mode = _mode(q, force)
     if force != "ref" and needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, scale, chunk, mode == "cuda")
+        return FlashAttention.apply(q, k, v, causal, scale, chunk, mode == "cuda",
+                                    q_offset)
     if mode == "ref":
-        return ref.flash_attention_ref(q, k, v, causal, scale)
-    return flash_attention_cuda(q, k, v, causal, scale)
+        return ref.flash_attention_ref(q, k, v, causal, scale, q_offset)
+    return flash_attention_cuda(q, k, v, causal, scale, q_offset)
 
 
 def ssd_chunk(x, dt, A, B_in, C_in, state, force: str | None = None):

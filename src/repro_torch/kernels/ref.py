@@ -146,18 +146,19 @@ def soa_step_fused_ref(obs, lens, m0, first, ewma, next_k, row_rep,
     return m, seg
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None, q_offset: int = 0):
     """Plain softmax attention, what ``flash_attention_pallas`` computes.
     q (B,Sq,H,D); k, v (B,Sk,H,D) with the same H.  Scores, softmax and the
     product are float32; the output comes back in q's type.  The causal
-    mask is qpos >= kpos with no offset; masked scores are -1e30."""
+    mask is q_offset + qpos >= kpos (``q_offset`` the global position of
+    q's first row; the Pallas kernel's is 0); masked scores are -1e30."""
     f32 = torch.float32
     D = q.shape[-1]
     Sq, Sk = q.shape[1], k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
     if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
+        mask = (torch.arange(Sq, device=q.device)[:, None] + q_offset
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = torch.where(mask, s, torch.full((), -1e30, dtype=f32, device=q.device))
     p = torch.softmax(s, dim=-1)
@@ -173,27 +174,38 @@ def _key_chunk(Sk: int, chunk) -> int:
     return c if c > 0 and Sk % c == 0 else Sk
 
 
+def _grouped(q, k, v):
+    """q (B,Sq,H,D) with k, v (B,Sk,H,D) as the grouped layout, q
+    (B,Sq,H,1,D); a grouped q (B,Sq,KV,G,D) as it is."""
+    return q if q.dim() == 5 else q[:, :, :, None]
+
+
 def flash_attention_fwd_lse(q, k, v, causal: bool = True, scale=None,
-                            chunk=None):
+                            chunk=None, q_offset: int = 0):
     """Flash forward that also returns the log-sum-exp, the port of the JAX
     package's ``models.attention._chunked_fwd`` (the forward of its custom
     VJP): an online softmax over key chunks of ``chunk`` in float32.
-    q (B,Sq,H,D); k, v (B,Sk,H,D) -> (o (B,Sq,H,D) in q's type, lse (B,H,Sq)
-    float32), lse = m + log(max(l, 1e-30)) in natural units of
-    s = scale * q.k."""
+    q (B,Sq,H,D); k (B,Sk,H,D), v (B,Sk,H,Dv) -> (o (B,Sq,H,Dv) in q's type,
+    lse (B,H,Sq) float32), lse = m + log(max(l, 1e-30)) in natural units of
+    s = scale * q.k.  Also the grouped layout: q (B,Sq,KV,G,D) against k
+    (B,Sk,KV,D), v (B,Sk,KV,Dv), each K/V head read once for its G query
+    heads -> (o (B,Sq,KV,G,Dv), lse (B,KV,G,Sq)).  ``q_offset``: the global
+    position of q's first row under the causal mask (key positions start
+    at 0)."""
     f32 = torch.float32
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
+    q5 = _grouped(q, k, v)
+    B, Sq, KV, G, D = q5.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     c = _key_chunk(Sk, chunk)
-    q32 = q.to(f32) * scale
-    qpos = torch.arange(Sq, device=q.device)
+    q32 = q5.to(f32) * scale
+    qpos = torch.arange(Sq, device=q.device) + q_offset
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
-    m = torch.full((B, H, Sq), -1e30, dtype=f32, device=q.device)
-    l = torch.zeros((B, H, Sq), dtype=f32, device=q.device)
-    acc = torch.zeros((B, H, Sq, v.shape[-1]), dtype=f32, device=q.device)
+    m = torch.full((B, KV, G, Sq), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, Dv), dtype=f32, device=q.device)
     for start in range(0, Sk, c):
-        s = torch.einsum("bqhd,bchd->bhqc", q32, k[:, start:start + c].to(f32))
+        s = torch.einsum("bqkgd,bckd->bkgqc", q32, k[:, start:start + c].to(f32))
         if causal:
             kpos = start + torch.arange(c, device=q.device)
             s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
@@ -202,15 +214,17 @@ def flash_attention_fwd_lse(q, k, v, causal: bool = True, scale=None,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhqc,bchd->bhqd", p, v[:, start:start + c].to(f32))
+            "bkgqc,bckd->bkgqd", p, v[:, start:start + c].to(f32))
         m = m_new
-    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    o = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
-    return o.transpose(1, 2).to(q.dtype), lse
+    if q.dim() == 4:
+        o, lse = o[:, :, :, 0], lse[:, :, 0]
+    return o.to(q.dtype), lse
 
 
 def flash_attention_bwd(q, k, v, lse, do, causal: bool = True, scale=None,
-                        chunk=None):
+                        chunk=None, q_offset: int = 0):
     """The flash backward, the port of the JAX package's
     ``models.attention._flash_bwd_rule``, in float32: per key chunk
     p = exp(s - lse), dv = p^T.do, dp = do.v^T, ds = p * (dp - D) * scale,
@@ -224,27 +238,31 @@ def flash_attention_bwd(q, k, v, lse, do, causal: bool = True, scale=None,
     to far below |o|, and sum(ds) must vanish for it to, which this D makes
     hold whatever the forward's rounding.  q, do (B,Sq,H,D); k, v
     (B,Sk,H,D); lse (B,H,Sq) float32 -> (dq, dk, dv), each in its input's
-    type."""
+    type; or the grouped layout of ``flash_attention_fwd_lse`` (q, do
+    (B,Sq,KV,G,.), k, v (B,Sk,KV,.), lse (B,KV,G,Sq)), v's width Dv free.
+    Each pass holds one (Sq, chunk) tile of probabilities at a time."""
     f32 = torch.float32
-    B, Sq, H, Dh = q.shape
+    q5 = _grouped(q, k, v)
+    B, Sq, KV, G, Dh = q5.shape
     Sk = k.shape[1]
+    lse5 = lse if q.dim() == 5 else lse[:, :, None]
     scale = scale if scale is not None else Dh ** -0.5
     c = _key_chunk(Sk, chunk)
-    q32 = q.to(f32)
-    do32 = do.to(f32).transpose(1, 2)                        # (B,H,Sq,D)
-    qpos = torch.arange(Sq, device=q.device)
+    q32 = q5.to(f32)
+    do32 = _grouped(do, k, v).to(f32).permute(0, 2, 3, 1, 4)    # (B,KV,G,Sq,Dv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
     neg = torch.full((), -1e30, dtype=f32, device=q.device)
 
     def chunk_terms(start):
         """(k, p, dp) of the key chunk at ``start``."""
         k32 = k[:, start:start + c].to(f32)
         v32 = v[:, start:start + c].to(f32)
-        s = torch.einsum("bqhd,bchd->bhqc", q32 * scale, k32)
+        s = torch.einsum("bqkgd,bckd->bkgqc", q32 * scale, k32)
         if causal:
             kpos = start + torch.arange(c, device=q.device)
             s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
-        p = torch.exp(s - lse[..., None])                     # (B,H,Sq,C)
-        return k32, p, torch.einsum("bhqd,bchd->bhqc", do32, v32)
+        p = torch.exp(s - lse5[..., None])                    # (B,KV,G,Sq,C)
+        return k32, p, torch.einsum("bkgqd,bckd->bkgqc", do32, v32)
 
     starts = range(0, Sk, c)
     terms = [chunk_terms(0)] if c == Sk else map(chunk_terms, starts)
@@ -253,15 +271,17 @@ def flash_attention_bwd(q, k, v, lse, do, causal: bool = True, scale=None,
         pdp = pdp + torch.sum(p * dp, dim=-1)
         psum = psum + torch.sum(p, dim=-1)
     Dsum = pdp / psum
-    dq = torch.zeros((B, Sq, H, Dh), dtype=f32, device=q.device)
+    dq = torch.zeros((B, Sq, KV, G, Dh), dtype=f32, device=q.device)
     dks, dvs = [], []
     for start in starts:
         k32, p, dp = terms[0] if c == Sk else chunk_terms(start)
-        dvs.append(torch.einsum("bhqc,bhqd->bchd", p, do32))
+        dvs.append(torch.einsum("bkgqc,bkgqd->bckd", p, do32))
         ds = p * (dp - Dsum[..., None]) * scale
-        dq = dq + torch.einsum("bhqc,bchd->bqhd", ds, k32)
-        dks.append(torch.einsum("bhqc,bqhd->bchd", ds, q32))
+        dq = dq + torch.einsum("bkgqc,bckd->bqkgd", ds, k32)
+        dks.append(torch.einsum("bkgqc,bqkgd->bckd", ds, q32))
     dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+    if q.dim() == 4:
+        dq = dq[:, :, :, 0]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -31,7 +31,8 @@ Loops are the port's Python loops, so each iteration is counted as it runs
 
 With ``memory=True`` the counter also keeps the live bytes of every
 storage it sees made (and of those handed to ``track``), each rounded up
-to the CUDA caching allocator's 512-byte blocks, and their peak: the
+to the CUDA caching allocator's 512-byte blocks (a ``meta`` tensor has
+no storage on the device and counts nothing), and their peak: the
 per-device peak of ``torch.cuda.max_memory_allocated`` that the traced
 program would reach, with no allocation made.
 """
@@ -116,7 +117,8 @@ def _kernel_flops(func, args) -> float:
     if name in ("flash_attention", "flash_attention_lse"):
         q, k = args[0], args[1]
         B, Sq, H, D = q.shape
-        return flash_cost(B, Sq, k.shape[1], H, D, args[3], q.element_size())[0]
+        q_offset = args[5] if len(args) > 5 else 0
+        return flash_cost(B, Sq, k.shape[1], H, D, args[3], q.element_size(), q_offset)[0]
     if name == "ssd_chunk":
         x, B_in = args[0], args[3]
         Bb, Q, H, P = x.shape
@@ -168,6 +170,8 @@ class CostCounter(TorchDispatchMode):
         return n
 
     def _alloc(self, t) -> int:
+        if t.device.type == "meta":      # shapes only: no device memory
+            return 0
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:

@@ -5,19 +5,22 @@ For every (architecture x input shape x mesh) cell the JAX package lowers
 and compiles the step on fake host devices and reads XLA's memory and cost
 analyses.  The port traces the step instead: on a fake world
 (``launch.mesh.init_fake_world``, the "fake" process-group backend, this
-process rank 0 of 256 or 512) under ``FakeTensorMode``, the model, the
-``Policy``'s placements of the parameters, optimizer state and batch (rank
-0's blocks, as ``DTensor``s) and the step run on fake tensors, through
-``launch.cost.CostCounter``:
+process the last rank of 256 or 512, whose work sets the step's time)
+under ``FakeTensorMode``, the model, the ``Policy``'s placements of the
+parameters, optimizer state and batch (that rank's blocks, as
+``DTensor``s) and the step run on fake tensors, through
+``launch.cost.CostCounter``.
 
   * train: ``launch.train.make_train_step`` (``Model.loss``, its gradients,
     the AdamW update) under ``policy.ctx()``;
   * prefill: ``Model.prefill`` under ``policy.ctx()``;
   * decode: ``Model.decode_step`` under ``policy.ctx(decode=True,
     batch=B)``, the shard-aware decode of ``Server`` on a mesh: the
-    parameters whole on every rank (each product split over the mesh by
-    ``models.tp``), the batch and the cache cut to the rank's shard by
-    the plan (``Policy.cache_shardings``).
+    parameters cut to the rank's blocks by ``Policy.param_shardings`` (each
+    product split over the mesh by ``models.tp``), the batch and the cache
+    cut to the rank's shard by the plan (``Policy.cache_shardings``), as
+    the JAX package lowers its decode with ``in_shardings=(param_sh,
+    cache_sh, ...)``.
 
 The hand-written kernels are reached through their operators
 (``torch.ops.repro_torch.*``), whose shape functions answer for fake
@@ -209,7 +212,8 @@ def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None
         elif shape.kind == "decode":
             plan = ctx.decode_plan
             cache_sh = dict(leaf_paths(policy.cache_shardings(cache_meta, plan)))
-            params = _fake_local(params_meta, lambda p, x: (None,) * x.dim(), mesh)
+            param_specs = dict(leaf_paths(param_sh))
+            params = _fake_local(params_meta, lambda p, x: param_specs[p].spec, mesh)
             cache = _fake_local(cache_meta, lambda p, x: cache_sh[p].spec, mesh)
             b = (plan.b_axes,) if plan.b_axes else (None,)
             tokens = _fake_local({"t": tokens_meta}, lambda p, x: b + (None,), mesh)["t"]

@@ -8,7 +8,7 @@ DP.  ``MeshShape`` is the device-free mesh that a ``Policy`` plans on
 (16x16 and 2x16x16 without 256 ranks).  ``init_world_of_one`` starts a
 process group of one rank for a caller that has none (one card: NCCL; the
 CPU: gloo).  ``init_fake_world`` starts a world of N ranks on PyTorch's
-"fake" backend in one process, as rank 0, whose collectives return at
+"fake" backend in one process, as its last rank, whose collectives return at
 once: on it the meshes are built without a card (no ``resolve_device``)
 and a program is traced on fake tensors (``launch.dryrun``), as the JAX
 package's dry run fakes its fleet with host devices.
@@ -103,12 +103,18 @@ def fake_world() -> bool:
 
 def init_fake_world(n: int) -> None:
     """Start a default process group of ``n`` ranks on the "fake" backend
-    (``torch.testing._internal.distributed.fake_pg``), this process rank
-    0: every collective returns at once and moves nothing.  Refuses when a
-    group is running.  End it with ``dist.destroy_process_group()``."""
+    (``torch.testing._internal.distributed.fake_pg``), this process the
+    last rank, ``n - 1``: every collective returns at once and moves
+    nothing.  The last rank because the ranks' programs differ only where
+    the data-parallel-only layout splits the sequence over the model axis,
+    and there the causal attention of the last model rank's block sees
+    every key, of the first only its own: the last rank's work sets the
+    step's time.  Refuses when a group is running.  End it with
+    ``dist.destroy_process_group()``."""
     if dist.is_initialized():
         raise RuntimeError(f"a process group is running ({dist.get_backend()}, "
                            f"{dist.get_world_size()} ranks); the fake world "
                            "needs the default group to itself")
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(n))
+    dist.init_process_group("fake", store=FakeStore(), rank=int(n) - 1,
+                            world_size=int(n))

@@ -10,16 +10,27 @@ Pixtral's takes the stub patch embeddings (``patch_embeds``), which come
 ahead of the prompt and take its first ``n_patches`` positions.
 
 On a mesh, ``Server(cfg, params, ctx=policy.ctx(decode=True, batch=B))``
-with ``policy = Policy(cfg, mesh, "decode")``: every rank is given the
-whole batch and the whole (replicated) parameters; it prefills its batch
-slice (``plan.b_axes``) replicated, cuts the cache to its shard as
-``Policy.cache_shardings`` lays it out (sequence over ``plan.seq_axes``, KV
-heads or head_dim over ``model``; the SSM state over heads or head dim
-and the conv windows over channels, where they split), decodes through
-the shard-aware path, which splits each product over the mesh
-(``models.tp``: a rank computes its heads', channels' and hidden units'
-share), and gathers the tokens of the whole batch.  The
-cache's sequence (``max_len``) must split evenly over the sequence axes.
+with ``policy = Policy(cfg, mesh, "decode")``: the caller gives every rank
+the whole batch and the whole parameters, and each rank keeps only its
+block of every parameter, as ``policy.param_shardings`` lays them out
+(the tensor-parallel dim over ``model``, the other over the FSDP axis;
+the JAX package lowers its decode with those ``in_shardings``), in
+storage of its own, so that the caller's whole tensors can be freed.
+``Server.params`` are those blocks.  The prefill runs sharded from them,
+no weight gathered whole: the blocks as ``DTensor``s of the policy's
+placements (views), the whole batch placed by ``policy.batch_shardings``
+and the model laid out by the same policy's forward rules
+(``policy.ctx()``), as the JAX package prefills from its sharded
+parameters; then a rank keeps its rows of the logits (``plan.b_axes``)
+and its shard of the cache, as ``Policy.cache_shardings`` lays it out
+(sequence over ``plan.seq_axes``, KV heads or head_dim over ``model``;
+the SSM state over heads or head dim and the conv windows over channels,
+where they split).  It decodes through the shard-aware path, whose every
+product takes the rank's block of its weight (``models.tp``: a rank
+computes its heads', channels', hidden units' and experts' share, an
+FSDP block gathered before its product or contracted in place), and
+gathers the tokens of the whole batch.  The cache's sequence
+(``max_len``) must split evenly over the sequence axes.
 Every family decodes on a mesh: the transformer families (dense, vlm, moe,
 MLA), mamba2 (ssm), zamba2 (hybrid: the mamba stacks and the shared
 attention block) and whisper (audio: its cross cache cut by the same
@@ -42,11 +53,13 @@ from typing import Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.collectives import all_gather_ordered
 from repro_torch.device import resolve_device
 from repro_torch.checkpoint.checkpointer import leaf_paths
-from repro_torch.launch.sharding import (Policy, full_state, local_block,
-                                         map_with_path, place, place_batch)
+from repro_torch.launch.sharding import (full_state, local_block, map_with_path,
+                                         place, place_batch)
 from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model
 
@@ -68,27 +81,54 @@ class Server:
                        is None else None)
         if self.policy is not None:
             self.params = place(params, self.policy.param_shardings(params))
+        elif self.ctx.sharded_decode:
+            self.params = self._param_blocks(params)
 
     def prefill(self, tokens, frames=None, patch_embeds=None):
         """(last-position logits (B,1,V), cache padded to ``max_len``);
         ``frames`` (B, enc_seq_len, D), whisper's, and ``patch_embeds``
-        (B, n_patches, D), pixtral's, on the server's device.
+        (B, n_patches, D), pixtral's, on the server's device.  Under a
+        decode ctx on a mesh the inputs are the whole batch, and the
+        result this rank's rows of the logits and its shard of the cache.
         Serving takes no gradient: the kernels run as they do in
         ``generate``, whatever the weights' ``requires_grad`` (under
         ``no_grad`` on a mesh: DTensors do not take inference mode)."""
-        with torch.no_grad() if self.policy is not None else torch.inference_mode():
-            return self._prefill(tokens, frames, patch_embeds)
-
-    def _prefill(self, tokens, frames, patch_embeds):
         batch = {"tokens": tokens}
         if frames is not None:
             batch["frames"] = frames
         if patch_embeds is not None:
             batch["patch_embeds"] = patch_embeds
         if self.policy is not None:
-            batch = place_batch(batch, self.policy)
-        return self.model.prefill(self.params, batch, self.ctx,
-                                  cache_len=self.max_len)
+            with torch.no_grad():
+                return self.model.prefill(self.params, place_batch(batch, self.policy),
+                                          self.ctx, cache_len=self.max_len)
+        if self.ctx.sharded_decode:
+            with torch.inference_mode(False), torch.no_grad():
+                return self._prefill_blocks(batch)
+        with torch.inference_mode():
+            return self.model.prefill(self.params, batch, self.ctx,
+                                      cache_len=self.max_len)
+
+    def _prefill_blocks(self, batch):
+        """The decode ctx's prefill: the whole batch through the decode
+        policy's sharded forward (``policy.ctx()``) on the rank's blocks as
+        ``DTensor``s (views of them, nothing gathered), then this rank's
+        rows of the logits and its shard of the cache."""
+        policy, mesh = self.ctx.policy, self.ctx.mesh
+        ctx = policy.ctx(batch=batch["tokens"].shape[0])
+        ctx.kernels = self.ctx.kernels
+
+        def placed(path, t):
+            pl, shape, stride = self._layout[path]
+            return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                      stride=stride)
+        logits, cache = self.model.prefill(map_with_path(placed, self.params),
+                                           place_batch(batch, policy), ctx,
+                                           cache_len=self.max_len)
+        logits = logits.full_tensor()
+        if self.ctx.decode_plan.b_axes:
+            logits = self._batch_slice(logits)
+        return logits, self._shard_cache(cache)
 
     @torch.inference_mode()
     def step(self, cache, tok, pos: int):
@@ -121,12 +161,7 @@ class Server:
 
     def _generate(self, tokens, frames, patches, prompt_len, max_new_tokens):
         b_axes = self.ctx.decode_plan.b_axes if self.ctx.sharded_decode else None
-        if b_axes:
-            tokens, frames, patches = (None if t is None else self._batch_slice(t)
-                                       for t in (tokens, frames, patches))
         logits, cache = self.prefill(tokens, frames, patches)
-        if self.ctx.sharded_decode:
-            cache = self._shard_cache(cache)
         out = self._decode(logits, cache, self.params, self.ctx, prompt_len,
                            max_new_tokens)
         if b_axes:
@@ -157,22 +192,36 @@ class Server:
             out.append(tok)
         return torch.cat(out, dim=1).to(torch.int32)
 
+    def _param_blocks(self, params):
+        """This rank's block of every parameter under the decode policy, in
+        storage of its own (a block that is the whole tensor, on a mesh of
+        one card, keeps the caller's storage); each one's placements, whole
+        shape and contiguous stride kept (``_layout``) for the prefill."""
+        shardings = dict(leaf_paths(self.ctx.policy.param_shardings(params)))
+        self._layout = {}
+
+        def cut(path, t):
+            sh = shardings[path]
+            self._layout[path] = (sh.placements, t.shape,
+                                  torch.empty(t.shape, device="meta").stride())
+            b = local_block(t, sh.spec, self.ctx.mesh)
+            if b.shape == t.shape and t.is_contiguous():
+                return t
+            return b.clone(memory_format=torch.contiguous_format)
+        return map_with_path(cut, params)
+
     def _batch_slice(self, t):
         """This rank's rows of a whole batch (the plan's batch axes)."""
         return local_block(t, (tuple(self.ctx.decode_plan.b_axes),), self.ctx.mesh)
 
     def _shard_cache(self, cache):
-        """A prefill's cache (this rank's batch rows, whole sequence and
-        heads) cut to this rank's shard, as ``Policy.cache_shardings`` lays
-        it out; the batch dim is already this rank's.  Each leaf is copied
-        to storage of its own, so the whole cache is freed."""
-        sh = Policy(self.cfg, self.ctx.mesh, "decode").cache_shardings(
-            cache, self.ctx.decode_plan)
-        flat = dict(leaf_paths(sh))
+        """The sharded prefill's cache (``DTensor`` leaves) moved to this
+        rank's shard, as ``Policy.cache_shardings`` lays it out, in storage
+        of its own."""
+        flat = dict(leaf_paths(self.ctx.policy.cache_shardings(
+            cache, self.ctx.decode_plan)))
 
         def cut(path, t):
-            spec = list(flat[path].spec)
-            spec[1] = None                        # (L, B, ...): B is local
-            return local_block(t, spec, self.ctx.mesh).clone(
+            return t.redistribute(self.ctx.mesh, flat[path].placements).to_local().clone(
                 memory_format=torch.contiguous_format)
         return map_with_path(cut, cache)

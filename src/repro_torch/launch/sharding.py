@@ -301,9 +301,17 @@ class Policy:
     def ctx(self, decode: bool = False, batch: Optional[int] = None) -> ModelCtx:
         """The ModelCtx of this policy.  On a ``DeviceMesh`` the process
         groups that the decode plan reduces over are built here, on every
-        rank in the same order."""
+        rank in the same order.  ``batch`` is the global batch: under
+        ``decode`` it sizes the plan; otherwise a batch that the data axes
+        do not divide (as ``batch_shardings`` leaves it), or a batch of one
+        (a dim of one sharded, even over one rank, cannot be flattened with
+        the sequence on a ``DTensor``), leaves every rule's batch dim
+        whole."""
         cfg = self.cfg
         B_axes = self.data_axes
+        if not decode and batch is not None and (batch == 1
+                                                 or not _div(batch, self.dsize)):
+            B_axes = None
         m = self.model_axis
         rules = {}
         if not decode:

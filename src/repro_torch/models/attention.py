@@ -19,6 +19,12 @@ gradients of the K/V heads that GQA repeats are summed by autograd of
 cache, or, on a mesh, over this rank's shard of it
 (``distributed_decode_attention``: the JAX package's ``shard_map``
 flash-decode, its ``pmax`` / ``psum`` as all-reduces over process groups).
+A rank's block of queries against the whole sequence's keys takes the
+kernel with the causal mask offset by the block's first position
+(``q_offset``).  Attention that the kernel cannot take (MLA's shared
+576-wide key and 512-wide value) runs ``plain_attention``: the JAX
+package's chunked flash VJP or its naive path, chosen as the reference's
+``attention.attention`` chooses, plain.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.distributed as dist
 
 from repro_torch.collectives import axis_index, axis_size, replicate_like
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -102,20 +109,62 @@ def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
     return o.to(q.dtype)
 
 
+class ChunkedAttention(torch.autograd.Function):
+    """The JAX package's ``flash_attention_vjp``, plain: the forward an
+    online softmax over key chunks that keeps (o, lse)
+    (``ref.flash_attention_fwd_lse``), the backward recomputing each chunk's
+    probabilities from lse (``ref.flash_attention_bwd``), so neither pass
+    holds more than one (Sq, chunk) score tile.  q (B,Sq,KV,G,Dk); k
+    (B,Sk,KV,Dk), v (B,Sk,KV,Dv), each K/V head read once for its G query
+    heads (never repeated per head), Dk and Dv free -> (B,Sq,KV,G,Dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk, q_offset, scale):
+        o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk, q_offset)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.args = (causal, scale, chunk, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        causal, scale, chunk, q_offset = ctx.args
+        dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, causal, scale, chunk,
+                                             q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def plain_attention(q, k, v, causal: bool, chunk: int, q_offset: int = 0,
+                    use_chunked: bool = True, scale: Optional[float] = None):
+    """Plain attention routed as the JAX package's ``attention.attention``:
+    ``ChunkedAttention`` over key chunks of ``chunk`` where ``use_chunked``,
+    Sk >= chunk and chunk divides Sk, else ``naive_attention``.  The layouts
+    are ``ChunkedAttention``'s (v's width free); ``q_offset`` is the global
+    position of q's first row under the causal mask."""
+    Sk = k.shape[1]
+    if use_chunked and Sk >= chunk and Sk % chunk == 0:
+        s = float(scale if scale is not None else q.shape[-1] ** -0.5)
+        return ChunkedAttention.apply(q, k, v, causal, min(chunk, Sk), q_offset, s)
+    return naive_attention(q, k, v, causal, q_offset, scale=scale)
+
+
 def attention(q, k, v, causal: bool, scale: Optional[float] = None,
-              kernels: Optional[str] = None, chunk: Optional[int] = None):
+              kernels: Optional[str] = None, chunk: Optional[int] = None,
+              q_offset: int = 0):
     """Full-sequence attention through ``kops.flash_attention``.
-    q (B,S,KV,G,Dh); k, v (B,S,KV,Dh) -> (B,S,KV,G,Dh) in q's type.  K/V are
-    expanded to the H = KV * G query heads first (the kernel's layout, as
-    ``flash_attention.py`` asks of GQA callers); ``kernels`` is
+    q (B,Sq,KV,G,Dh); k, v (B,Sk,KV,Dh) -> (B,Sq,KV,G,Dh) in q's type.  K/V
+    are expanded to the H = KV * G query heads first (the kernel's layout,
+    as ``flash_attention.py`` asks of GQA callers); ``kernels`` is
     ``ModelCtx.kernels``, ``chunk`` its ``attn_chunk`` (the backward's key
-    chunk)."""
+    chunk); ``q_offset`` the global position of q's first row under the
+    causal mask (a rank's sequence block against the whole keys)."""
     B, S, KV, G, Dh = q.shape
     q4 = q.reshape(B, S, KV * G, Dh)
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    o = kops.flash_attention(q4, k, v, causal, scale, chunk=chunk, force=kernels)
+    o = kops.flash_attention(q4, k, v, causal, scale, chunk=chunk, force=kernels,
+                             q_offset=q_offset)
     return o.reshape(B, S, KV, G, Dh)
 
 
@@ -180,11 +229,14 @@ def distributed_decode_attention(q, k_shard, v_shard, pos: int, seq_group,
     q (B,1,KV,G,Dh) the same on every rank of ``seq_group``; k/v shards
     (B,S_loc,KV,Dh'); ``shard_start``: this shard's first global cache slot.
     One MAX all-reduce and two SUM all-reduces over ``seq_group`` implement
-    an exact log-sum-exp combine (``seq_group`` None: one shard, no
-    collective).  When the head_dim is additionally split over the model
-    axis (``hd_group``), the partial scores are SUM-reduced over it before
-    the softmax; ``scale`` is then the full head's, which the caller
-    passes.  -> (B,1,KV,G,Dv') in q's type."""
+    an exact log-sum-exp combine, the sum normalized after the product
+    (``seq_group`` None: one shard, no collective, and the softmax before
+    the product, ``decode_attention``'s order: the JAX package's decode
+    under a plan without sequence axes runs ``decode_attention``).  When
+    the head_dim is additionally split over the model axis (``hd_group``),
+    the partial scores are SUM-reduced over it before the softmax;
+    ``scale`` is then the full head's, which the caller passes.  ->
+    (B,1,KV,G,Dv') in q's type."""
     Dh = q.shape[-1]
     S_loc = k_shard.shape[1]
     scale = scale if scale is not None else Dh ** -0.5
@@ -194,16 +246,20 @@ def distributed_decode_attention(q, k_shard, v_shard, pos: int, seq_group,
         dist.all_reduce(s, op=dist.ReduceOp.SUM, group=hd_group)
     gpos = shard_start + torch.arange(S_loc, device=q.device)
     s = torch.where(gpos <= pos, s, torch.full((), NEG_INF, dtype=f32, device=q.device))
+    if seq_group is None:
+        # one shard of the sequence: ``decode_attention``'s arithmetic (the
+        # softmax before the product), as the JAX package's decode computes
+        # under a plan with no sequence axes
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v_shard.to(f32)).to(q.dtype)
 
     m = torch.amax(s, dim=-1)                                   # (B,KV,G,1)
-    if seq_group is not None:
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=seq_group)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=seq_group)
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v_shard.to(f32))
-    if seq_group is not None:
-        dist.all_reduce(l, op=dist.ReduceOp.SUM, group=seq_group)
-        dist.all_reduce(o, op=dist.ReduceOp.SUM, group=seq_group)
+    dist.all_reduce(l, op=dist.ReduceOp.SUM, group=seq_group)
+    dist.all_reduce(o, op=dist.ReduceOp.SUM, group=seq_group)
     o = o / torch.clamp(l, min=1e-30)[..., None]                # (B,KV,G,1,Dv)
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)                 # (B,1,KV,G,Dv)
 

@@ -5,16 +5,23 @@ The port of ``repro.models.blocks``.  Each block provides ``init_*``, a
 full-sequence ``*_fwd``, a ``*_prefill`` (returns a decode cache) and a
 ``*_decode`` (one token); whisper's encoder block has the forward only.
 Blocks are pure functions over per-layer parameter dicts; ``model.py``
-stacks them along a leading L axis and loops over it.
+stacks them along a leading L axis and loops over it.  Each body is
+written once: on the whole sequence (plain tensors, or DTensors laid out
+by the policy's rules) and, under the data-parallel-only layout whose
+sequence splits over the model axis, on each rank's sequence block
+(``_by_block``: the same body with a ``_Seq``, the sequence mixers
+gathering their inputs whole).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch import collectives as C
 from repro_torch.collectives import P, all_gather_ordered, axis_index
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mla, moe, ssd, tp
@@ -64,19 +71,22 @@ def _mode(ctx) -> str:
     return ctx.rules.get("attn_mode", "kv")
 
 
-def _sharded_attention(q, k, v, cfg, ctx, causal):
-    """-> the attention output with its heads merged, (B, S, H*Dh).
+def _sharded_attention(q, k, v, cfg, ctx, causal, q_offset: int = 0):
+    """-> the attention output with its heads merged, (B, Sq, H*Dh).
 
     The policy's attention layout (``launch.sharding``): "kv" shards the KV
     heads; "expand" repeats K/V to the full H heads and then shards H (each
     shard holds only its own heads' copies); "replicate" leaves the heads
-    whole.  Off a mesh this is ``attn_lib.attention``.  On a mesh q, k and
-    v are DTensors, placed here by the mode's rules, and the flash kernel
-    runs on each rank's local (B_loc, S, H_loc, Dh) under ``local_map``;
-    its gradients come back with the inputs' placements."""
+    whole.  Off a mesh, and on a rank's sequence block (plain tensors,
+    ``q_offset`` the block's first position), this is
+    ``attn_lib.attention``.  On a mesh q, k and v are DTensors, placed here
+    by the mode's rules, and the flash kernel runs on each rank's local
+    (B_loc, S, H_loc, Dh) under ``local_map``; its gradients come back
+    with the inputs' placements."""
     if not isinstance(q, DTensor):
         return attn_lib.merge_heads(attn_lib.attention(
-            q, k, v, causal=causal, kernels=ctx.kernels, chunk=ctx.attn_chunk), cfg)
+            q, k, v, causal=causal, kernels=ctx.kernels, chunk=ctx.attn_chunk,
+            q_offset=q_offset), cfg)
     mode = _mode(ctx)
     if mode == "expand":
         # q arrives (B, S, H, Dh); repeat first, then shard H (attn_kv4)
@@ -106,19 +116,33 @@ def _sharded_attention(q, k, v, cfg, ctx, causal):
                      device_mesh=ctx.mesh)(q, k, v)
 
 
-def attn_fwd(h, p, cfg, ctx, positions, causal=True):
-    """Normed input -> attention output (full sequence)."""
+def _self_attention(h, p, cfg, ctx, positions, seq, causal=True, rope=True):
+    """Self-attention of the normed input ``h`` -> (out (B, S, D), k, v),
+    k and v those of h's own positions.  With ``seq`` (a ``_Seq``) h is a
+    rank's sequence block: its queries, at their global positions, attend
+    to the whole sequence's keys and values, gathered over the model axis;
+    ``seq`` None: h is the whole sequence (plain, or a DTensor laid out by
+    the policy's rules)."""
+    if seq is not None:
+        positions = positions[seq.offset:seq.offset + h.shape[1]]
+    q, k, v = _qkv(h, p, cfg, ctx, positions, rope=rope)
+    kw, vw = (k, v) if seq is None else (seq.gather(k), seq.gather(v))
+    o = _sharded_attention(q, kw, vw, cfg, ctx, causal,
+                           q_offset=0 if seq is None else seq.offset)
+    return o @ p["wo"], k, v
+
+
+def attn_fwd(h, p, cfg, ctx, positions, causal=True, seq=None):
+    """Normed input -> attention output (``_self_attention``)."""
     if cfg.use_mla:
         return mla.mla_train(ctx.gather_seq(h), p, cfg, positions, ctx)
-    q, k, v = _qkv(h, p, cfg, ctx, positions)
-    return _sharded_attention(q, k, v, cfg, ctx, causal) @ p["wo"]
+    return _self_attention(h, p, cfg, ctx, positions, seq, causal)[0]
 
 
-def attn_prefill(h, p, cfg, ctx, positions):
+def attn_prefill(h, p, cfg, ctx, positions, seq=None):
     if cfg.use_mla:
         return mla.mla_prefill(ctx.gather_seq(h), p, cfg, positions, ctx)
-    q, k, v = _qkv(h, p, cfg, ctx, positions)
-    out = _sharded_attention(q, k, v, cfg, ctx, causal=True) @ p["wo"]
+    out, k, v = _self_attention(h, p, cfg, ctx, positions, seq)
     return out, {"k": k, "v": v}  # the cache stays KV-compact
 
 
@@ -134,13 +158,42 @@ def attn_decode(h, p, cfg, ctx, cache, pos: int):
         return _tp_attn_decode(h, p, cfg, ctx, cache, pos), cache
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
-    q, k_new, v_new = attn_lib.qkv_project(h, p, cfg, positions)
     if ctx.sharded_decode:
+        q, k_new, v_new = _decode_qkv(h, p, cfg, ctx, positions)
         o = _distributed_decode(q, k_new, v_new, cache, pos, ctx)
-    else:
-        cache = attn_lib.cache_update(cache, k_new, v_new, pos)
-        o = attn_lib.decode_attention(q, cache, pos)
+        return _out_proj(o, p, cfg, ctx, h.shape[-1]), cache
+    q, k_new, v_new = attn_lib.qkv_project(h, p, cfg, positions)
+    cache = attn_lib.cache_update(cache, k_new, v_new, pos)
+    o = attn_lib.decode_attention(q, cache, pos)
     return attn_lib.merge_heads(o, cfg) @ p["wo"], cache
+
+
+def _out_proj(o, p, cfg, ctx, D: int):
+    """The attention output (whole heads) through the rank's block of
+    ``wo`` (``tp.rows_whole``)."""
+    return tp.rows_whole(attn_lib.merge_heads(o, cfg), p["wo"], ctx,
+                         tp.spec(ctx, "wo", (cfg.n_heads * cfg.head_dim, D)))
+
+
+def _decode_qkv(h, p, cfg, ctx, positions, rope: bool = True):
+    """``attn_lib.qkv_project`` of a decode step on a mesh, q, k and v
+    whole: each product through ``tp.cols`` (the rank's block of the
+    weight's columns, the outputs gathered over the model axis)."""
+    B, D = h.shape[0], h.shape[-1]
+    h_, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def project(w, b, n, norm, heads):
+        t = tp.cols(h, p[w], ctx, tp.spec(ctx, w, (D, n)))
+        if cfg.qkv_bias:
+            t = t + p[b]
+        t = t.reshape(B, 1, heads, dh)
+        if cfg.qk_norm and norm:
+            t = layers.rms_norm(t, p[norm], cfg.norm_eps)
+        return layers.apply_rope(t, positions, cfg.rope_theta) if rope and norm else t
+
+    q = project("wq", "bq", h_ * dh, "q_norm", h_).reshape(B, 1, kv, h_ // kv, dh)
+    return (q, project("wk", "bk", kv * dh, "k_norm", kv),
+            project("wv", "bv", kv * dh, None, kv))
 
 
 def _distributed_decode(q, k_new, v_new, cache, pos: int, ctx):
@@ -196,7 +249,7 @@ def _tp_attn_decode(h, p, cfg, ctx, cache, pos: int, rope: bool = True,
     over the plan's sequence axes (``attn_lib.distributed_decode_attention``),
     and the out-projection's partial sums reduced over the model axis.
     ``write`` False reads the cache at ``pos`` (whisper's cross cache)."""
-    B = h.shape[0]
+    B, D = h.shape[0], h.shape[-1]
     kvs = _tp_heads(cfg, ctx)
     kv, dh = kvs.stop - kvs.start, cfg.head_dim
     g = cfg.n_heads // cfg.n_kv_heads
@@ -205,7 +258,8 @@ def _tp_attn_decode(h, p, cfg, ctx, cache, pos: int, rope: bool = True,
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
 
     def project(w, b, sl, norm, n):
-        t = tp.cols(h, p[w], ctx, sl)
+        whole = (cfg.n_heads if w == "wq" else cfg.n_kv_heads) * dh
+        t = tp.cols(h, p[w], ctx, tp.spec(ctx, w, (D, whole)), sl)
         if cfg.qkv_bias:
             t = t + p[b][sl]
         t = t.reshape(B, 1, n, dh)
@@ -224,21 +278,28 @@ def _tp_attn_decode(h, p, cfg, ctx, cache, pos: int, rope: bool = True,
     o = attn_lib.distributed_decode_attention(
         q, cache["k"], cache["v"], pos, ctx.groups.group(seq) if seq else None, start,
         scale=dh ** -0.5)
-    return tp.rows(o.reshape(B, 1, kv * g * dh), p["wo"], ctx, qs)
+    return tp.rows(o.reshape(B, 1, kv * g * dh), p["wo"], ctx,
+                   tp.spec(ctx, "wo", (cfg.n_heads * dh, D)))
 
 
-def _mlp_decode(h, p, gated: bool, ctx):
-    """``layers.mlp`` of a decode step: on a mesh tensor-parallel over its
-    hidden units (``models.tp``) where they split over the model axis."""
-    fs = tp.split(p["w_up"].shape[1], ctx) if ctx.sharded_decode else None
-    if fs is None:
+def _mlp_decode(h, p, gated: bool, ctx, d_ff: int):
+    """``layers.mlp`` of a decode step (``d_ff`` hidden units): on a mesh
+    tensor-parallel over them (``models.tp``) where they split over the
+    model axis, else each product from the rank's blocks of the weights."""
+    if not ctx.sharded_decode:
         return layers.mlp(h, p, gated)
-    up = tp.cols(h, p["w_up"], ctx, fs)
+    D = h.shape[-1]
+    fs = tp.split(d_ff, ctx)
+    up = tp.cols(h, p["w_up"], ctx, tp.spec(ctx, "w_up", (D, d_ff)), fs)
     if gated:
-        act = F.silu(tp.cols(h, p["w_gate"], ctx, fs)) * up
+        act = F.silu(tp.cols(h, p["w_gate"], ctx, tp.spec(ctx, "w_gate", (D, d_ff)),
+                             fs)) * up
     else:
         act = F.gelu(up, approximate="tanh")
-    return tp.rows(act, p["w_down"], ctx, fs)
+    down = tp.spec(ctx, "w_down", (d_ff, D))
+    if fs is None:
+        return tp.rows_whole(act, p["w_down"], ctx, down)
+    return tp.rows(act, p["w_down"], ctx, down)
 
 
 def _add(x, delta, ctx):
@@ -247,6 +308,92 @@ def _add(x, delta, ctx):
     reduce-scattered over the sequence), so that its gradient comes back
     in the product's own layout."""
     return x + ctx.constrain(delta, "residual")
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel-only layout: each rank on its own sequence block
+# ---------------------------------------------------------------------------
+
+
+def _seq_local(ctx, x) -> bool:
+    """The data-parallel-only layout (``ctx.policy.dp_only``: the weights
+    and heads replicated) whose residual splits its sequence over the model
+    axis, with a sequence that splits evenly: each block then runs on the
+    rank's own sequence block (``_by_block``), not on the gathered
+    sequence."""
+    return (isinstance(x, DTensor) and getattr(ctx.policy, "dp_only", False)
+            and ctx.spec("residual")[1] == ctx.model_axis
+            and x.shape[1] % ctx.axis_size(ctx.model_axis) == 0)
+
+
+class _Seq:
+    """A rank's block of the sequence inside ``_on_seq_block``: ``offset``
+    is the global position of its first; ``gather`` makes a (B, S_loc, ...)
+    tensor of the block the whole sequence's, over the model axis (an
+    autograd all-gather: the gradient comes back reduce-scattered)."""
+
+    def __init__(self, ctx, offset):
+        self.ctx, self.offset = ctx, offset
+
+    def gather(self, t):
+        return C.all_gather(t, self.ctx.groups, self.ctx.model_axis, 1)
+
+
+def _on_seq_block(fn, ctx, x, params, extra=(), rest=()):
+    """``fn(x_local, params, *extra, seq)`` on each rank's (B_loc, S_loc, D)
+    block of the residual DTensor ``x`` under ``local_map``, ``seq`` its
+    ``_Seq``: the position-wise products, norms and MLPs on the rank's
+    positions only, the sequence mixers gathering what they need whole over
+    the model axis (``seq.gather``).  The parameters and the ``extra``
+    tensors (whisper's encoder output, its batch as the residual's) enter
+    replicated over the dims that do not shard them, their gradients the
+    sums of the ranks' parts.  ``fn`` returns y, which takes ``x``'s
+    placements, or, where ``rest`` lists its leaves, (y, a tree of
+    tensors: a prefill's cache) whose leaves, in order, take ``x``'s
+    placements ("seq": the rank's sequence block) or the batch's only
+    ("batch").  Where the JAX package's XLA partitions the sequence under
+    the same shardings, the port splits it by hand: torch's DTensor
+    refuses the views that flatten a sharded sequence dim with the
+    batch."""
+    mesh, m = ctx.mesh, ctx.model_axis
+    x_pl = list(x.placements)
+    batch_pl = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                for pl in x_pl]
+    leaves, spec = tree_flatten(params)
+    leaves = [ctx.place(t, P()) for t in leaves]
+    extra = [t.redistribute(mesh, batch_pl) for t in extra]
+    ins = [x_pl] + [list(t.placements) for t in leaves + extra]
+    grads = [x_pl] + [[Partial() if isinstance(xp, Shard) and not isinstance(q, Shard)
+                       else q for xp, q in zip(x_pl, pl)] for pl in ins[1:]]
+    n_p = len(leaves)
+    out_spec = []
+
+    def local(xl, *args):
+        seq = _Seq(ctx, axis_index(mesh, m) * xl.shape[1])
+        out = fn(xl, tree_unflatten(list(args[:n_p]), spec), *args[n_p:], seq)
+        if not rest:
+            return out
+        flat, rest_spec = tree_flatten(out[1])
+        out_spec.append(rest_spec)
+        return (out[0], *flat)
+
+    outs = [x_pl] + [x_pl if r == "seq" else batch_pl for r in rest]
+    res = C.local_map_summed(local, tuple(outs) if rest else x_pl, tuple(ins),
+                             tuple(grads), mesh, ctx.groups)(x, *leaves, *extra)
+    if not rest:
+        return res
+    return res[0], tree_unflatten(list(res[1:]), out_spec[0])
+
+
+def _by_block(fn, ctx, x, params, extra=(), rest=(), split=True):
+    """``fn(x, params, *extra, seq)``, a block body: on each rank's sequence
+    block (``_on_seq_block``) under the data-parallel-only layout whose
+    sequence splits over the model axis (``split`` False: never), else on
+    ``x`` as it is, plain or laid out by the policy's rules, ``seq``
+    None."""
+    if split and _seq_local(ctx, x):
+        return _on_seq_block(fn, ctx, x, params, extra, rest)
+    return fn(x, params, *extra, None)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +415,20 @@ def init_block(gen, cfg, moe_layer: bool, device):
     return p
 
 
+def _attn_half(x, p, cfg, ctx, positions, seq, cache: bool):
+    """The attention half-block (pre-norm, attention, residual add) -> x,
+    or with ``cache`` (x, the prefill's {k, v})."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cache:
+        a, kv = attn_prefill(h, p["attn"], cfg, ctx, positions, seq)
+    else:
+        a = attn_fwd(h, p["attn"], cfg, ctx, positions, seq=seq)
+    x = ctx.constrain(_add(x, a, ctx), "residual")
+    return (x, kv) if cache else x
+
+
 def _ffn(x, p, cfg, ctx):
-    """Second half-block: returns (delta, aux_loss)."""
+    """Second half-block's delta: returns (delta, aux_loss)."""
     h = ctx.gather_seq(layers.rms_norm(x, p["ln2"], cfg.norm_eps))
     if "moe" in p:
         return moe.moe_ffn(h, p["moe"], cfg, ctx)
@@ -277,30 +436,48 @@ def _ffn(x, p, cfg, ctx):
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
+def _ffn_half(x, p, cfg, ctx):
+    """The FFN half-block -> (x, aux): the MLP position-wise, on each rank's
+    sequence block where the sequence splits (``_by_block``); the MoE FFN
+    by its own sharded route."""
+    def body(x, q, seq):
+        delta, aux = _ffn(x, q, cfg, ctx)
+        return ctx.constrain(_add(x, delta, ctx), "residual"), aux
+    if "moe" in p:
+        return body(x, p, None)
+    x = _by_block(lambda x, q, seq: body(x, q, seq)[0], ctx, x,
+                  {"ln2": p["ln2"], "mlp": p["mlp"]})
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _attn_params(p):
+    return {"ln1": p["ln1"], "attn": p["attn"]}
+
+
 def block_fwd(x, p, cfg, ctx, positions):
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = _add(x, attn_fwd(h, p["attn"], cfg, ctx, positions), ctx)
-    x = ctx.constrain(x, "residual")
-    delta, aux = _ffn(x, p, cfg, ctx)
-    return ctx.constrain(_add(x, delta, ctx), "residual"), aux
+    # MLA's attention takes the sequence whole
+    x = _by_block(lambda x, q, seq: _attn_half(x, q, cfg, ctx, positions, seq, False),
+                  ctx, x, _attn_params(p), split=not cfg.use_mla)
+    return _ffn_half(x, p, cfg, ctx)
 
 
 def block_prefill(x, p, cfg, ctx, positions):
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attn_prefill(h, p["attn"], cfg, ctx, positions)
-    x = ctx.constrain(_add(x, a, ctx), "residual")
-    delta, _ = _ffn(x, p, cfg, ctx)
-    return ctx.constrain(_add(x, delta, ctx), "residual"), cache
+    x, cache = _by_block(
+        lambda x, q, seq: _attn_half(x, q, cfg, ctx, positions, seq, True),
+        ctx, x, _attn_params(p), rest=("seq", "seq"), split=not cfg.use_mla)
+    return _ffn_half(x, p, cfg, ctx)[0], cache
 
 
 def block_decode(x, p, cfg, ctx, cache, pos: int):
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn_decode(h, p["attn"], cfg, ctx, cache, pos)
     x = x + a
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "mlp" in p:
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + _mlp_decode(h, p["mlp"], cfg.gated_mlp, ctx), cache
-    delta, _ = _ffn(x, p, cfg, ctx)
+        return x + _mlp_decode(h, p["mlp"], cfg.gated_mlp, ctx, cfg.d_ff), cache
+    if ctx.sharded_decode:
+        return x + moe.moe_decode(h, p["moe"], cfg, ctx), cache
+    delta, _ = moe.moe_ffn(h, p["moe"], cfg, ctx)
     return x + delta, cache
 
 
@@ -315,15 +492,20 @@ def init_mamba(gen, cfg, device):
 
 
 def mamba_fwd(x, p, cfg, ctx):
-    h = ctx.gather_seq(layers.rms_norm(x, p["ln"], cfg.norm_eps))
-    return ctx.constrain(_add(x, ssd.mamba_block(h, p["mixer"], cfg, ctx), ctx),
-                         "residual")
+    return mamba_prefill(x, p, cfg, ctx)[0]
 
 
 def mamba_prefill(x, p, cfg, ctx):
-    h = ctx.gather_seq(layers.rms_norm(x, p["ln"], cfg.norm_eps))
-    y, cache = ssd.mamba_prefill(h, p["mixer"], cfg, ctx)
-    return ctx.constrain(_add(x, y, ctx), "residual"), cache
+    """-> (x, cache).  Under the sequence split (``_by_block``) the norm,
+    the projections, the gate and the out-projection run on the rank's
+    positions, the conv and the SSD scan on the projected inputs gathered
+    whole, and the state and conv windows are the whole sequence's, on
+    every rank."""
+    def body(x, q, seq):
+        h = ctx.gather_seq(layers.rms_norm(x, q["ln"], cfg.norm_eps))
+        y, cache = ssd.mamba_prefill(h, q["mixer"], cfg, ctx, seq)
+        return ctx.constrain(_add(x, y, ctx), "residual"), cache
+    return _by_block(body, ctx, x, p, rest=("batch",) * 4)
 
 
 def mamba_decode(x, p, cfg, ctx, cache):
@@ -349,12 +531,13 @@ def init_enc_block(gen, cfg, device):
 
 def enc_block_fwd(x, p, cfg, ctx, positions):
     """Non-causal self-attention over the frames (no RoPE), then the MLP."""
-    h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p["attn"], cfg, ctx, positions, rope=False)
-    x = _add(x, _sharded_attention(q, k, v, cfg, ctx, causal=False) @ p["attn"]["wo"],
-             ctx)
-    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
-    return ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
+    def body(x, q, seq):
+        h = layers.layer_norm(x, q["ln1"], cfg.norm_eps)
+        x = _add(x, _self_attention(h, q["attn"], cfg, ctx, positions, seq,
+                                    causal=False, rope=False)[0], ctx)
+        h = ctx.gather_seq(layers.layer_norm(x, q["ln2"], cfg.norm_eps))
+        return ctx.constrain(_add(x, layers.mlp(h, q["mlp"], False), ctx), "residual")
+    return _by_block(body, ctx, x, p)
 
 
 def init_dec_block(gen, cfg, device):
@@ -380,44 +563,45 @@ def _cross_kv(enc_out, p, cfg, layout=None):
     return k.reshape(B, Se, kv, dh), v.reshape(B, Se, kv, dh)
 
 
-def _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out):
-    """The decoder block's two attention halves -> (x, self k, self v,
-    cross k, cross v).  Cross-attention is non-causal with Sq != Sk (the
-    prompt against the frames)."""
-    h = layers.layer_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p["self_attn"], cfg, ctx, positions, rope=False)
-    x = _add(x, _sharded_attention(q, k, v, cfg, ctx, causal=True) @ p["self_attn"]["wo"],
-             ctx)
-
-    h = ctx.gather_seq(layers.layer_norm(x, p["ln_x"], cfg.norm_eps))
-    B, S, _ = h.shape
-    kv, dh = cfg.n_kv_heads, cfg.head_dim
-    layout = _proj_layout(ctx, h)
-    qx = h @ p["cross_attn"]["wq"]
-    if layout is not None:
-        qx = layout(qx, "q")
-    qx = qx.reshape(B, S, cfg.n_heads, dh)
-    if not _expand_on_mesh(ctx, h):
-        qx = qx.reshape(B, S, kv, cfg.n_heads // kv, dh)
-    kx, vx = _cross_kv(ctx.gather_seq(enc_out), p["cross_attn"], cfg, layout)
-    x = _add(x, _sharded_attention(qx, kx, vx, cfg, ctx, causal=False)
-             @ p["cross_attn"]["wo"], ctx)
-    return x, k, v, kx, vx
+def _dec_block(x, p, cfg, ctx, positions, enc_out, cache: bool):
+    """Whisper's decoder block: causal self-attention, cross-attention (non
+    causal, Sq != Sk: the prompt against the frames), the MLP -> x, or with
+    ``cache`` (x, {k, v, xk, xv}).  Under the sequence split
+    (``_by_block``) the queries are the rank's positions', the self K/V
+    gathered whole and the cross K/V the whole encoder output's."""
+    def body(x, q, enc, seq):
+        h = layers.layer_norm(x, q["ln1"], cfg.norm_eps)
+        a, k, v = _self_attention(h, q["self_attn"], cfg, ctx, positions, seq,
+                                  rope=False)
+        x = _add(x, a, ctx)
+        h = ctx.gather_seq(layers.layer_norm(x, q["ln_x"], cfg.norm_eps))
+        B, S, _ = h.shape
+        kv, dh = cfg.n_kv_heads, cfg.head_dim
+        layout = _proj_layout(ctx, h)
+        qx = h @ q["cross_attn"]["wq"]
+        if layout is not None:
+            qx = layout(qx, "q")
+        qx = qx.reshape(B, S, cfg.n_heads, dh)
+        if not _expand_on_mesh(ctx, h):
+            qx = qx.reshape(B, S, kv, cfg.n_heads // kv, dh)
+        kx, vx = _cross_kv(ctx.gather_seq(enc), q["cross_attn"], cfg, layout)
+        x = _add(x, _sharded_attention(qx, kx, vx, cfg, ctx, causal=False)
+                 @ q["cross_attn"]["wo"], ctx)
+        h = ctx.gather_seq(layers.layer_norm(x, q["ln2"], cfg.norm_eps))
+        x = ctx.constrain(_add(x, layers.mlp(h, q["mlp"], False), ctx), "residual")
+        return (x, {"k": k, "v": v, "xk": kx, "xv": vx}) if cache else x
+    return _by_block(body, ctx, x, p, extra=(enc_out,),
+                     rest=("seq", "seq", "batch", "batch") if cache else ())
 
 
 def dec_block_fwd(x, p, cfg, ctx, positions, enc_out):
-    x = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)[0]
-    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
-    return ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
+    return _dec_block(x, p, cfg, ctx, positions, enc_out, False)
 
 
 def dec_block_prefill(x, p, cfg, ctx, positions, enc_out):
     """-> (x, cache): the self-attention K/V and the cross K/V, computed
     once here and read by every decode step."""
-    x, k, v, kx, vx = _dec_self_and_cross(x, p, cfg, ctx, positions, enc_out)
-    h = ctx.gather_seq(layers.layer_norm(x, p["ln2"], cfg.norm_eps))
-    x = ctx.constrain(_add(x, layers.mlp(h, p["mlp"], False), ctx), "residual")
-    return x, {"k": k, "v": v, "xk": kx, "xv": vx}
+    return _dec_block(x, p, cfg, ctx, positions, enc_out, True)
 
 
 def dec_block_decode(x, p, cfg, ctx, cache, pos: int):
@@ -442,25 +626,33 @@ def dec_block_decode(x, p, cfg, ctx, cache, pos: int):
                                 rope=False, write=False)
     else:
         positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-        q, k_new, v_new = attn_lib.qkv_project(h, p["self_attn"], cfg, positions,
-                                               rope=False)
+        D = x.shape[-1]
         if ctx.sharded_decode:
+            q, k_new, v_new = _decode_qkv(h, p["self_attn"], cfg, ctx, positions,
+                                          rope=False)
             o = _distributed_decode(q, k_new, v_new, self_cache, pos, ctx)
+            x = x + _out_proj(o, p["self_attn"], cfg, ctx, D)
         else:
+            q, k_new, v_new = attn_lib.qkv_project(h, p["self_attn"], cfg, positions,
+                                                   rope=False)
             self_cache = attn_lib.cache_update(self_cache, k_new, v_new, pos)
             o = attn_lib.decode_attention(q, self_cache, pos)
-        x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
+            x = x + attn_lib.merge_heads(o, cfg) @ p["self_attn"]["wo"]
 
         h = layers.layer_norm(x, p["ln_x"], cfg.norm_eps)
         kv, dh = cfg.n_kv_heads, cfg.head_dim
-        qx = (h @ p["cross_attn"]["wq"]).reshape(B, 1, kv, cfg.n_heads // kv, dh)
         if ctx.sharded_decode:
+            qx = tp.cols(h, p["cross_attn"]["wq"], ctx,
+                         tp.spec(ctx, "wq", (D, cfg.n_heads * dh)))
+            qx = qx.reshape(B, 1, kv, cfg.n_heads // kv, dh)
             Se = cache["xk"].shape[1] * ctx.axis_size(tuple(ctx.decode_plan.seq_axes))
             o = _distributed_decode(qx, None, None, cross, Se - 1, ctx)
+            x = x + _out_proj(o, p["cross_attn"], cfg, ctx, D)
         else:
+            qx = (h @ p["cross_attn"]["wq"]).reshape(B, 1, kv, cfg.n_heads // kv, dh)
             o = attn_lib.decode_attention(qx, cross, cache["xk"].shape[1] - 1)
-        x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
+            x = x + attn_lib.merge_heads(o, cfg) @ p["cross_attn"]["wo"]
 
     h = layers.layer_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _mlp_decode(h, p["mlp"], False, ctx)
+    x = x + _mlp_decode(h, p["mlp"], False, ctx, cfg.d_ff)
     return x, cache

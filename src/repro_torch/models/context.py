@@ -68,9 +68,10 @@ class ModelCtx:
     data_axes: tuple = ("data",)   # ('pod', 'data') on the multi-pod mesh
     fsdp_axis: Optional[str] = "data"
     model_axis: Optional[str] = "model"
-    use_chunked_attn: bool = True  # kept for the JAX package's constructor
-    # key chunk of the flash backward (the JAX package's flash chunk); the
-    # forward runs the flash kernel at every length whatever its value
+    # the JAX package's chunked attention (MLA's plain attention routes by
+    # them as the reference does; the flash kernel's forward runs at every
+    # length whatever their value, ``attn_chunk`` its backward's key chunk)
+    use_chunked_attn: bool = True
     attn_chunk: int = 1024
     remat: str = "full"            # none | full (checkpoint each layer body)
     decode_attn: str = "local"     # local | distributed (LSE-combine over seq shards)

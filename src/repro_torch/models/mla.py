@@ -14,12 +14,15 @@ The port of ``repro.models.mla``, with its two exactly equivalent forms:
   and V (v_head_dim wide).
 
 Neither form runs the flash kernel, by design.  The JAX package computes
-both with ``attention.attention`` (its ``lax.scan`` chunks or the naive
-path: XLA code, no Pallas kernel), and the kernel takes k and v of one
-shape and head dims up to 128 only.  The port computes both with plain
-float32 scores and softmax (``latent_attention``,
-``attention.naive_attention``) on every device; which one runs is decided
-by ``cfg.use_mla`` alone.
+both with ``attention.attention`` (its chunked flash VJP where the key
+length is a multiple of ``ctx.attn_chunk``, else the naive path: XLA code,
+no Pallas kernel), and the kernel takes k and v of one shape and head dims
+up to 128 only.  The port computes both with plain float32 scores and
+softmax routed as the reference routes them
+(``attention.plain_attention``: ``ChunkedAttention`` over key chunks,
+which holds one (S, chunk) score tile at a time in either pass, or
+``naive_attention``) on every device; which form runs is decided by
+``cfg.use_mla`` alone.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Partial, Shard
 
-from repro_torch.collectives import P, local_map_summed
+from repro_torch.collectives import P, all_gather_ordered, local_map_summed
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, tp
 
 
 def init_mla(gen, cfg, device):
@@ -83,13 +86,16 @@ def _absorbed_q(q_nope, q_rope, params):
     return torch.cat([q_lat, q_rope], dim=-1)
 
 
-def latent_attention(q_eff, k_eff, v_eff, causal: bool, scale: float):
+def latent_attention(q_eff, k_eff, v_eff, causal: bool, scale: float, ctx):
     """Attention of H query heads against one shared key head and one shared
     value head, plain: q_eff (B,S,H,Dk), k_eff (B,Sk,Dk), v_eff (B,Sk,Dv) ->
     (B,S,H,Dv) in q's type.  Float32 scores and softmax over the shared head
-    (one group of G = H), the key never repeated per head."""
-    o = attn_lib.naive_attention(q_eff[:, :, None], k_eff[:, :, None],
-                                 v_eff[:, :, None], causal, scale=scale)
+    (one group of G = H), the key never repeated per head; over key chunks
+    of ``ctx.attn_chunk`` where the JAX package chunks them
+    (``attention.plain_attention``)."""
+    o = attn_lib.plain_attention(q_eff[:, :, None], k_eff[:, :, None],
+                                   v_eff[:, :, None], causal, ctx.attn_chunk,
+                                   use_chunked=ctx.use_chunked_attn, scale=scale)
     return o[:, :, 0]
 
 
@@ -139,8 +145,9 @@ def _mla_train_materialized(x, params, cfg, positions, ctx):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, h, qr)], dim=-1)
     o = _on_local_heads(
-        lambda q, k, v: attn_lib.naive_attention(q[:, :, :, None, :], k, v, causal=True,
-                                                 scale=_scale(cfg))[:, :, :, 0],
+        lambda q, k, v: attn_lib.plain_attention(
+            q[:, :, :, None, :], k, v, True, ctx.attn_chunk,
+            use_chunked=ctx.use_chunked_attn, scale=_scale(cfg))[:, :, :, 0],
         q, (k, v), ctx, shared=False)
     return o.reshape(B, S, h * vd) @ params["wo"]
 
@@ -153,7 +160,7 @@ def mla_prefill(x, params, cfg, positions, ctx):
     q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,S,H,R+qr)
     k_eff = torch.cat([c_kv, k_rope], dim=-1)                        # (B,S,R+qr)
     o_lat = _on_local_heads(
-        lambda q, k, v: latent_attention(q, k, v, causal=True, scale=_scale(cfg)),
+        lambda q, k, v: latent_attention(q, k, v, True, _scale(cfg), ctx),
         q_eff, (k_eff, c_kv), ctx, shared=True)
     o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
     out = o.reshape(B, S, cfg.n_heads * cfg.v_head_dim) @ params["wo"]
@@ -171,32 +178,82 @@ def mla_decode(x, params, cfg, cache, pos: int, ctx):
     """One token, absorbed.  x (B,1,D); the compressed cache {c_kv, k_rope}
     updated in place at ``pos`` (the JAX package's jitted step donates it
     and returns a new one).  Under a decode plan on a mesh
-    (``ctx.sharded_decode``) x is this rank's batch slice and the cache its
-    sequence shard: only the rank whose slice holds ``pos`` writes, and the
-    attention combines the shards (``_distributed_mla_decode``)."""
+    (``ctx.sharded_decode``) see ``_sharded_mla_decode``."""
+    if ctx.sharded_decode:
+        return _sharded_mla_decode(x, params, cfg, cache, pos, ctx)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _project_q(x, params, cfg, positions)
     c_new, kr_new = _project_kv_latent(x, params, cfg, positions)
-    start = 0
-    if ctx.sharded_decode:
-        seq = tuple(ctx.decode_plan.seq_axes)
-        start = attn_lib.seq_shard_start(
-            ctx.mesh, seq, cache["c_kv"].shape[1] * ctx.axis_size(seq))
-    i = pos - start
+    _write(cache, c_new, kr_new, pos)
+    q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,1,H,R+qr)
+    kv = {"k": torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None],
+          "v": cache["c_kv"][:, :, None]}
+    o_lat = attn_lib.decode_attention(q_eff[:, :, None], kv, pos,
+                                      scale=_scale(cfg))[:, :, 0]    # (B,1,H,R)
+    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
+    return o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim) @ params["wo"], cache
+
+
+def _write(cache, c_new, kr_new, i: int):
+    """The new token's latent and RoPE key at slot ``i`` of this cache (no
+    write where the slot is not in it)."""
     if 0 <= i < cache["c_kv"].shape[1]:
         cache["c_kv"][:, i:i + 1] = c_new.to(cache["c_kv"].dtype)
         cache["k_rope"][:, i:i + 1] = kr_new.to(cache["k_rope"].dtype)
-    q_eff = _absorbed_q(q_nope, q_rope, params)                      # (B,1,H,R+qr)
-    if ctx.sharded_decode:
-        o_lat = _distributed_mla_decode(q_eff, cache, pos, start, ctx, _scale(cfg))
-    else:
-        kv = {"k": torch.cat([cache["c_kv"], cache["k_rope"]], dim=-1)[:, :, None],
-              "v": cache["c_kv"][:, :, None]}
-        o_lat = attn_lib.decode_attention(q_eff[:, :, None], kv, pos,
-                                          scale=_scale(cfg))[:, :, 0]   # (B,1,H,R)
-    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wkv_b_v"])
-    return o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim) @ params["wo"], cache
+
+
+def _sharded_mla_decode(x, params, cfg, cache, pos: int, ctx):
+    """``mla_decode`` under a decode plan on a mesh: x is this rank's batch
+    rows and the cache its sequence shard (only the rank whose slice holds
+    ``pos`` writes).  Each product takes the rank's block of its weight
+    (``models.tp``): the query, its absorbed
+    nope projection and the output on the rank's heads where they split
+    over the model axis, the absorbed queries then gathered whole over it
+    for the attention, which combines the cache's shards
+    (``_distributed_mla_decode``); the latent and the RoPE key whole."""
+    B, D = x.shape[0], x.shape[-1]
+    h, qk, qr, vd = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim)
+    R = cfg.kv_lora_rank
+    m = ctx.model_axis
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    hs = tp.split(h, ctx)
+    hl = h if hs is None else hs.stop - hs.start
+    Rq = cfg.q_lora_rank
+    cq = layers.rms_norm(tp.cols(x, params["wq_a"], ctx, tp.spec(ctx, "wq_a", (D, Rq))),
+                         params["q_a_norm"], cfg.norm_eps)
+    q = tp.cols(cq, params["wq_b"], ctx, tp.spec(ctx, "wq_b", (Rq, h * (qk + qr))),
+                None if hs is None else slice(hs.start * (qk + qr), hs.stop * (qk + qr)))
+    q = q.reshape(B, 1, hl, qk + qr)
+    q_rope = layers.apply_rope(q[..., qk:], positions, cfg.rope_theta)
+    kv = tp.cols(x, params["wkv_a"], ctx, tp.spec(ctx, "wkv_a", (D, R + qr)))
+    c_new = layers.rms_norm(kv[..., :R], params["kv_a_norm"], cfg.norm_eps)
+    kr_new = layers.apply_rope(kv[..., R:][:, :, None, :], positions,
+                               cfg.rope_theta)[:, :, 0]
+
+    def heads(name, d):
+        """The rank's heads of the (R, H, d) weight ``name`` (its block,
+        whose heads split where ``hs`` does), its R gathered whole."""
+        w = params[name]
+        return tp.whole(w, 0, tp.spec(ctx, name, (R, h, d))[0], ctx)
+
+    q_eff = _absorbed_q(q[..., :qk], q_rope, {"wkv_b_k": heads("wkv_b_k", qk)})
+    if hs is not None:
+        q_eff = all_gather_ordered(q_eff, ctx.groups, m, 2)           # (B,1,H,R+qr)
+    seq = tuple(ctx.decode_plan.seq_axes)
+    start = attn_lib.seq_shard_start(ctx.mesh, seq,
+                                     cache["c_kv"].shape[1] * ctx.axis_size(seq))
+    _write(cache, c_new, kr_new, pos - start)
+    o_lat = _distributed_mla_decode(q_eff, cache, pos, start, ctx, _scale(cfg))
+    if hs is not None:
+        o_lat = o_lat[:, :, hs]
+    o = torch.einsum("bshr,rhk->bshk", o_lat, heads("wkv_b_v", vd))
+    o = o.reshape(B, 1, hl * vd)
+    wo = tp.spec(ctx, "wo", (h * vd, D))
+    if hs is None:
+        return tp.rows_whole(o, params["wo"], ctx, wo), cache
+    return tp.rows(o, params["wo"], ctx, wo), cache
 
 
 def _distributed_mla_decode(q_eff, cache, pos: int, start: int, ctx, scale):

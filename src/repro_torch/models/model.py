@@ -37,9 +37,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.collectives import axis_names, psum
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers, tp
 from repro_torch.models.context import ModelCtx, null_ctx
@@ -131,12 +133,21 @@ class Model:
         decode, "logits_sp" (sequence over it, vocab local) for the loss."""
         cfg = self.cfg
         norm = layers.layer_norm if cfg.family == "audio" else layers.rms_norm
-        x = ctx.gather_seq(norm(x, params["ln_f"], cfg.norm_eps))
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
+        if blocks._seq_local(ctx, x):
+            # each rank's logits of its own positions
+            return ctx.constrain(blocks._on_seq_block(
+                lambda xl, q, _: norm(xl, q["ln"], cfg.norm_eps) @ q["w"], ctx, x,
+                {"ln": params["ln_f"], "w": w}), role)
+        x = ctx.gather_seq(norm(x, params["ln_f"], cfg.norm_eps))
         if ctx.sharded_decode:
-            # the decode's logits on a mesh: the product split over d_model
-            ds = tp.split(cfg.d_model, ctx)
-            return tp.cols(x, w, ctx) if ds is None else tp.rows(x[..., ds], w, ctx, ds)
+            # the decode's logits on a mesh, from the rank's block of the
+            # weight: the tied table's over d_model (row-parallel), the
+            # unembedding's over the vocabulary (column-parallel)
+            D, V = cfg.d_model, cfg.vocab_size
+            if cfg.tie_embeddings:
+                return tp.rows_whole(x, w, ctx, tp.spec(ctx, "embed']['tok", (V, D))[::-1])
+            return tp.cols(x, w, ctx, tp.spec(ctx, "unembed", (D, V)))
         return ctx.constrain(x @ w, role)
 
     def _encode(self, params, batch, ctx):
@@ -244,14 +255,14 @@ class Model:
         x, aux = self._backbone(params, batch, ctx)
         labels = batch["labels"].long()
         # on a mesh (S over the model axis, V local) each rank reduces its
-        # block and the two sums below reduce over the shards
-        logits32 = self._unembed(params, x, ctx, "logits_sp").float()
+        # own block and the two sums are reduced over the shards
+        logits = self._unembed(params, x, ctx, "logits_sp")
         labels = ctx.constrain(labels, "logits_sp")
-        m = (labels >= 0).float()
-        mx = torch.amax(logits32, dim=-1, keepdim=True)
-        lse = torch.log(torch.sum(torch.exp(logits32 - mx.detach()), dim=-1)) + mx[..., 0]
-        gold = torch.gather(logits32, -1, labels.clamp(min=0)[..., None])[..., 0]
-        xe = torch.sum((lse - gold) * m) / torch.clamp(torch.sum(m), min=1.0)
+        if isinstance(logits, DTensor):
+            total, count = _sharded_xent_sums(logits, labels, ctx)
+        else:
+            total, count = _xent_sums(logits, labels)
+        xe = total / torch.clamp(count, min=1.0)
         return xe + aux, {"xent": xe, "aux": aux}
 
     # -------------------------------------------------------------- prefill
@@ -316,6 +327,10 @@ class Model:
             params["embed"], tokens, cfg,
             positions=(torch.full((1,), pos, dtype=torch.int64, device=tokens.device)
                        if cfg.use_abs_pos else None))
+        if ctx.sharded_decode:
+            # the rank's block of the tables (d_model over the model axis)
+            D = tp.spec(ctx, "embed']['tok", (cfg.vocab_size, cfg.d_model))[1]
+            x = tp.whole(x, 2, D, ctx)
         if cfg.family in ("dense", "vlm", "moe"):
             for name, key, depth in self._block_stacks():
                 c = cache if key is None else cache[key]
@@ -342,6 +357,41 @@ class Model:
         return self._unembed(params, x, ctx), cache
 
 
+def _xent_sums(logits, labels):
+    """(the summed cross-entropy over ``labels >= 0``, their count) of a
+    block of logits, float32: the log-sum-exp subtracts a detached row max
+    inside the exp and adds the (not detached) max back, as in the JAX
+    package."""
+    logits32 = logits.float()
+    m = (labels >= 0).float()
+    mx = torch.amax(logits32, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits32 - mx.detach()), dim=-1)) + mx[..., 0]
+    gold = torch.gather(logits32, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.sum((lse - gold) * m), torch.sum(m)
+
+
+def _sharded_xent_sums(logits, labels, ctx):
+    """``_xent_sums`` of DTensor logits (B, S, V) on each rank's local block
+    (``local_map``), the two sums reduced over the mesh dims that split the
+    block: the gradient of the logits stays the rank's block (DTensor's
+    own reductions and gather would make the global float32 gradient whole
+    on every rank)."""
+    mesh = ctx.mesh
+    axes = tuple(n for n, pl in zip(axis_names(mesh), logits.placements)
+                 if isinstance(pl, Shard))
+
+    def local(lg, lab):
+        total, count = _xent_sums(lg, lab)
+        if axes:
+            total, count = psum(total, ctx.groups, axes), psum(count, ctx.groups, axes)
+        return total, count
+
+    rep = [Replicate()] * mesh.ndim
+    return local_map(local, out_placements=(rep, rep),
+                     in_placements=(logits.placements, labels.placements),
+                     device_mesh=mesh)(logits, labels)
+
+
 def _stack(xs):
     """``torch.stack`` of the layers' cache leaves along a new leading dim;
     ``DTensor`` leaves (the sharded prefill's) by their local blocks, the
@@ -355,7 +405,17 @@ def _stack(xs):
     shape = (len(xs),) + tuple(x0.shape)
     return DTensor.from_local(
         local, mesh, [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl],
-        run_check=False, shape=shape, stride=torch.empty(shape, device="meta").stride())
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, computed with no
+    tensor (a traced program would otherwise make one)."""
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= max(int(d), 1)
+    return tuple(reversed(stride))
 
 
 _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 2

@@ -22,8 +22,9 @@ The port of ``repro.models.moe``.  Two routes, as in the JAX package:
     5. the partial outputs are combined by a ``psum_scatter`` over
        ``model`` (``sp``: back to sequence shards) or a ``psum``, and the
        aux loss is averaged over ``model`` and every data axis.
-  The decode's local tensors (the server's shard-aware decode hands each
-  rank its batch slice and the whole weights) take the local math.
+  The decode on a mesh (``moe_decode``: each rank's batch rows and its
+  blocks of the weights, local tensors) runs the same body on them; with
+  no mesh the decode takes the local math.
 
 Every step that decides which tokens an expert keeps is the reference's:
 
@@ -267,6 +268,45 @@ def _moe_sharded(x, params, cfg, ctx, strategy: str):
         same_data=same_data)
     return C.local_map_summed(body, (x_pl, [Replicate()] * len(names)), tuple(pls),
                               tuple(grads), mesh, ctx.groups)(*args)
+
+
+def moe_decode(x, params, cfg, ctx):
+    """``moe_ffn`` of a decode step on a mesh (``ctx.sharded_decode``): x
+    (B_loc, 1, D) is this rank's batch rows, the expert weights its blocks
+    under the decode policy (``moe_weight_specs``).  ``_moe_shard_body``
+    runs on them: under "ep" the rank's
+    experts only (``e_start`` its model index times their count), under
+    "tp" every expert on the rank's slice of their hidden units; the FSDP
+    dims are gathered first, the capacity comes from the rank's tokens, and
+    the partial outputs are summed over the model axis.  The shared
+    experts run tensor-parallel (``blocks``' MLP decode).  -> y (B_loc, 1,
+    D) (the aux loss is a training term)."""
+    from repro_torch.models import tp
+    from repro_torch.models.blocks import _mlp_decode
+
+    strategy = _strategy(cfg, ctx)
+    E, D, Fh = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    m = ctx.model_axis
+
+    def gathered(name, shape):
+        """The rank's block of an expert weight, its FSDP dim gathered
+        whole (the experts, or hidden units, stay the rank's)."""
+        w = params[name]
+        for dim, ax in enumerate(tp.spec(ctx, f"moe']['{name}", shape)):
+            if ax not in (None, m):
+                w = tp.whole(w, dim, ax, ctx)
+        return w
+    wg, wu = (gathered(k, (E, D, Fh)) for k in ("w_gate", "w_up"))
+    wd = gathered("w_down", (E, Fh, D))
+    if strategy != "ep" and tp.split(Fh, ctx) is None:
+        m = None           # the hidden units do not split: every rank all of them
+    y, _ = _moe_shard_body(x, params["router"], wg, wu, wd, cfg=cfg, groups=ctx.groups,
+                           model_axis=m, fsdp_axis=None, data_axes=(),
+                           strategy=strategy, sp=False, same_data=True)
+    if cfg.n_shared_experts > 0:
+        y = y + _mlp_decode(x, params["shared"], True, ctx,
+                            cfg.n_shared_experts * Fh)
+    return y
 
 
 def moe_ffn(x, params, cfg, ctx=None):

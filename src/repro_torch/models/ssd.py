@@ -15,6 +15,7 @@ conv is per segment, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -195,23 +196,24 @@ def _dt_A(dt_r, p):
     return dt, -torch.exp(p["A_log"])
 
 
-def mamba_block(x, p, cfg, ctx):
-    """Full-sequence mamba2 mixer (train/prefill).  x (B,S,D) -> (B,S,D)."""
-    return mamba_prefill(x, p, cfg, ctx)[0]
-
-
-def mamba_prefill(x, p, cfg, ctx):
+def mamba_prefill(x, p, cfg, ctx, seq=None):
     """The mixer over the prompt, and the decode cache: the final SSD state
-    and conv windows holding the last K-1 *pre-activation* projected inputs."""
-    Bb, S, _ = x.shape
+    and conv windows holding the last K-1 *pre-activation* projected inputs.
+    With ``seq`` (``blocks._Seq``) x (B, S_loc, D) is a rank's sequence
+    block of the data-parallel-only layout (local tensors inside
+    ``blocks``' ``local_map``): the projections, the gate, the norm and the
+    out-projection run on the block, the projected conv inputs and dt are
+    gathered whole over the model axis (their gradients reduce-scattered
+    back) for the conv and the SSD scan, which run along the whole
+    sequence; the cache is the whole sequence's."""
+    Bb, S_loc, _ = x.shape
     h, pd = cfg.ssm_nheads, cfg.ssm_headdim
     k = cfg.conv_kernel
     z, xs_raw, B_raw, C_raw, dt_r = _project(x, p, cfg)
-
-    def window(t):
-        w = t[:, max(S - (k - 1), 0):]
-        return F.pad(w, (0, 0, max(k - 1 - S, 0), 0))
-
+    if seq is not None:
+        xs_raw, B_raw, C_raw, dt_r = map(seq.gather, (xs_raw, B_raw, C_raw, dt_r))
+    S = xs_raw.shape[1]
+    window = functools.partial(_window, k=k)
     sharded = isinstance(x, DTensor)
     if sharded:
         # the conv and the scan run along the whole sequence
@@ -243,7 +245,18 @@ def mamba_prefill(x, p, cfg, ctx):
                                kernels=ctx.kernels)
     cache = {"state": state, "conv_x": window(xs_raw),
              "conv_B": window(B_raw), "conv_C": window(C_raw)}
+    if seq is not None:
+        blk = slice(seq.offset, seq.offset + S_loc)
+        y, x4 = y[:, blk], x4[:, blk]
     return _finish(y, x4, z, p, cfg), cache
+
+
+def _window(t, k: int):
+    """The conv window a decode step starts from: the last K-1 positions of
+    ``t`` (B, S, C), zero-padded in front where S < K-1."""
+    S = t.shape[1]
+    w = t[:, max(S - (k - 1), 0):]
+    return F.pad(w, (0, 0, max(k - 1 - S, 0), 0))
 
 
 def _x_spec(ctx) -> P:
@@ -373,15 +386,20 @@ def _sharded_decode(x, p, cfg, cache, ctx):
         c = window.shape[-1]
         if c == t.shape[-1] and not local:
             return conv_decode(t, window, q)
+        # the policy splits the conv's channels as the cache's window: q is
+        # the rank's block of them
         sl = slice(i * c, (i + 1) * c)
-        y, new = conv_decode(t if local else t[..., sl], window,
-                             {"w": q["w"][sl], "b": q["b"][sl]})
+        y, new = conv_decode(t if local else t[..., sl], window, q)
         return (y if local else all_gather_ordered(y, groups, m, 2)), new
 
-    z = tp.cols(x, p["wz"], ctx, cs)
-    xs = tp.cols(x, p["wx"], ctx, cs)
-    B_r, C_r = tp.cols(x, p["wB"], ctx), tp.cols(x, p["wC"], ctx)
-    dt_r = tp.cols(x, p["wdt"], ctx, hs)
+    di, gn, D = cfg.ssm_d_inner, cfg.ssm_groups * cfg.ssm_state, x.shape[-1]
+
+    def proj(name, n, sl=None):
+        return tp.cols(x, p[name], ctx, tp.spec(ctx, name, (D, n)), sl)
+    z, xs = proj("wz", di, cs), proj("wx", di, cs)
+    B_r, C_r = proj("wB", gn), proj("wC", gn)
+    dt_r = proj("wdt", h, hs)
+    wo = tp.spec(ctx, "wo", (di, D))
     xs, conv_x = conv(xs, cache["conv_x"], p["conv_x"], local=hs is not None)
     B_r, conv_B = conv(B_r, cache["conv_B"], p["conv_B"])
     C_r, conv_C = conv(C_r, cache["conv_C"], p["conv_C"])
@@ -407,7 +425,7 @@ def _sharded_decode(x, p, cfg, cache, ctx):
         if split_p:
             y = all_gather_ordered(y, groups, m, 2)
         out = _finish(y[:, None], x4, z, p, cfg,
-                      out=lambda t: tp.cols(t, p["wo"], ctx))
+                      out=lambda t: tp.rows_whole(t, p["wo"], ctx, wo))
         return out, new_cache
     # _finish on the rank's channels: the gated norm's mean square summed
     y = y[:, None] + q["D_skip"][None, None, :, None] * x4.to(f32)
@@ -416,5 +434,5 @@ def _sharded_decode(x, p, cfg, cache, ctx):
     ss = tp.model_sum(ss, ctx)
     y = y * torch.rsqrt(ss / cfg.ssm_d_inner + cfg.norm_eps)
     y = (y * p["gate_norm"]["scale"][cs].to(f32)).to(z.dtype)
-    return tp.rows(y, p["wo"], ctx, cs), new_cache
+    return tp.rows(y, p["wo"], ctx, wo), new_cache
 

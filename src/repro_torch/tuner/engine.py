@@ -53,6 +53,7 @@ import enum
 import heapq
 import itertools
 import math
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -125,6 +126,13 @@ class TrialState:
         return self.stopped
 
 
+def _exact_ticks_default() -> bool:
+    """REPRO_EXACT_TICKS=1 forces the legacy tick loop process-wide (the
+    switch that measures the event-driven fast path against the tick loop),
+    as in the JAX package."""
+    return os.environ.get("REPRO_EXACT_TICKS", "0") not in ("", "0")
+
+
 @dataclasses.dataclass
 class EngineConfig:
     tick_s: float = 10.0
@@ -142,7 +150,7 @@ class EngineConfig:
     deploy_window_s: float = 0.0
     # False (default): event-driven boundary jumping; True: the legacy
     # tick-for-tick Algorithm 1 loop (the two are equivalence-pinned)
-    exact_ticks: bool = False
+    exact_ticks: bool = dataclasses.field(default_factory=_exact_ticks_default)
 
 
 def build_engine(market: SpotMarket, backend: TrialBackend, revpred,

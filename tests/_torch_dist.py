@@ -125,12 +125,11 @@ def decode_worker(rank, cases, steps, max_len):
         with torch.inference_mode():
             toks, fed = torch.as_tensor(tokens).long(), gen.long()
             if ctx.decode_plan.b_axes:
-                toks, fed = srv._batch_slice(toks), srv._batch_slice(fed)
+                fed = srv._batch_slice(fed)
             logits, cache = srv.prefill(toks)
-            cache = srv._shard_cache(cache)
             lgs = [logits[:, -1]]
             for i in range(steps - 1):
-                lg, cache = srv.model.decode_step(params, cache, fed[:, i:i + 1],
+                lg, cache = srv.model.decode_step(srv.params, cache, fed[:, i:i + 1],
                                                   tokens.shape[1] + i, ctx)
                 lgs.append(lg[:, -1])
         plan = ctx.decode_plan
@@ -281,9 +280,10 @@ def sharded_worker(rank, mesh_shape, cases):
 
 def dryrun_cell(arch, shape, mesh_shape=(2, 4)):
     """The port's dry run of one cell in this process: a fake world of
-    prod(mesh_shape) ranks (this process rank 0), the small (data, model)
-    mesh on it, ``launch.dryrun.trace_cell`` -> (artifact, {kernel
-    operator: calls}).  Meant for a child process of its own."""
+    prod(mesh_shape) ranks (this process the last), the small (data, model)
+    mesh on it, ``launch.dryrun.trace_cell`` ->
+    (artifact, {kernel operator: calls}).  Meant for a child process of its
+    own."""
     torch.set_num_threads(1)
     from repro_torch.launch.dryrun import trace_cell
     from repro_torch.launch.mesh import init_fake_world, make_small_mesh
@@ -330,15 +330,13 @@ def ssm_decode_worker(rank, mesh_shape, cases, steps, max_len):
         gen = srv.generate(batch, steps)
         plan = ctx.decode_plan
         with torch.inference_mode():
-            toks, fed, fr = torch.as_tensor(tokens).long(), gen.long(), frames
+            toks, fed = torch.as_tensor(tokens).long(), gen.long()
             if plan.b_axes:
-                toks, fed = srv._batch_slice(toks), srv._batch_slice(fed)
-                fr = None if fr is None else srv._batch_slice(fr)
-            logits, cache = srv.prefill(toks, fr)
-            cache = srv._shard_cache(cache)
+                fed = srv._batch_slice(fed)
+            logits, cache = srv.prefill(toks, frames)
             lgs = [logits[:, -1]]
             for i in range(steps - 1):
-                lg, cache = srv.model.decode_step(params, cache, fed[:, i:i + 1],
+                lg, cache = srv.model.decode_step(srv.params, cache, fed[:, i:i + 1],
                                                   tokens.shape[1] + i, ctx)
                 lgs.append(lg[:, -1])
         res = {"tokens": gen, "logits": torch.stack(lgs, 1),

@@ -5,7 +5,7 @@ the JAX package's loop-aware HLO walk (``repro.launch.hlo_cost``).
   matmul, a scanned loop of 7, a scan of 5 over a scan of 3; the port runs
   the loops in Python): FLOPs equal to ``module_cost``'s.
 * A ``DTensor`` product on a fake (2, 4) world (``init_fake_world``, this
-  process rank 0 of 8, started and ended by a module fixture that fails if
+  process rank 7 of 8, started and ended by a module fixture that fails if
   a group was running) counts one rank's share: 1/8 of the whole product
   when both its dims are split, the whole product when the operands are
   replicated; DTensor's shape propagation at the global shape is not
@@ -206,3 +206,16 @@ def test_kernel_operators_give_the_plain_versions_shapes(device):
     assert c.cost.flops == (flash_cost(B, Sq, Sk, H, D, False, 4)[0]
                             + flash_cost(B, Sq, Sk, H, D, True, 4)[0]
                             + ssd_chunk_cost(B, Q, H, P, N, 1)[0])
+
+
+def test_meta_allocations_add_nothing_to_the_peak():
+    """A ``meta`` tensor made inside the counter (a stride computed from
+    one, as the traced prefill once did) holds no device memory: the peak
+    counts the real storage only."""
+    with FakeTensorMode(), CostCounter(memory=True) as c:
+        a = torch.empty(64, 64)
+        big = torch.empty(32, 32, 32768, 32, 96, device="meta")
+        assert big.stride()[0] == 32 * 32768 * 32 * 96
+        b = a + 1
+    assert c.peak == 2 * 64 * 64 * 4
+    del a, b, big

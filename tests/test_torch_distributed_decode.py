@@ -19,7 +19,15 @@ fake devices, and both packages' decode with no mesh:
   over ``data`` (distributed);
 * deepseek-v2 (MLA), (2, 2), B=1: the compressed cache's sequence over
   ``("data", "model")``, one process group of their product; B=2: batch
-  over ``data``, sequence over ``model``.
+  over ``data``, sequence over ``model`` (its MoE "ep": each rank its
+  experts);
+* grok-1 (MoE "tp": its 4 experts split 2 ways by their hidden units, not
+  by expert), (2, 2), B=1: KV heads over ``model``, the cache sequence
+  over ``data`` (each rank routes the whole batch's tokens, so the
+  experts' capacity is the no-mesh decode's).
+
+Each rank keeps its block of the weights (``Server`` cuts them by
+``Policy.param_shardings``).
 
 Every rank's logits at every step are within 1e-5 (absolute, float32; the
 packages differ by summation order, ~1e-6 seen) of JAX's sharded decode's
@@ -60,6 +68,7 @@ CASES = [
     ("qwen3-32b", (2, 4), 1, (None, "HD", ("data",), "distributed")),
     ("deepseek-v2-236b", (2, 2), 1, (None, None, ("data", "model"), "distributed")),
     ("deepseek-v2-236b", (2, 2), 2, (("data",), None, ("model",), "distributed")),
+    ("grok-1-314b", (2, 2), 1, (None, "model", ("data",), "distributed")),
 ]
 
 
@@ -127,15 +136,23 @@ def _port_local(cfg, params_np, tokens):
     return gen.numpy(), torch.stack(out, 1).numpy()
 
 
+#: cases one spawn of ranks runs (a spawn must end inside ``run_ranks``'
+#: deadline under a loaded host)
+SPAWN_CASES = 3
+
+
 @pytest.fixture(scope="module")
 def port_runs(inputs, tmp_path_factory):
-    """The port's sharded decode of every case, one spawn of ranks for all
-    the cases of a world size: {case id: each rank's result}."""
+    """The port's sharded decode of every case, a spawn of ranks for every
+    ``SPAWN_CASES`` cases of a world size: {case id: each rank's result}."""
     done = {}
 
-    def get(world):
-        cases = [c for c in CASES if np.prod(c[1]) == world]
-        if _id(cases[0]) not in done:
+    def get(case):
+        world = np.prod(case[1])
+        same = [c for c in CASES if np.prod(c[1]) == world]
+        part = same.index(case) // SPAWN_CASES
+        cases = same[part * SPAWN_CASES:(part + 1) * SPAWN_CASES]
+        if _id(case) not in done:
             res = run_ranks(decode_worker, world, tmp_path_factory.mktemp("ranks"),
                             [(a, s, *inputs(a, b)) for a, s, b, _ in cases],
                             STEPS, MAX_LEN)
@@ -160,7 +177,8 @@ def test_sharded_decode_matches_jax(arch, shape, batch, plan, inputs, port_runs)
     ltok, want["port_local"] = _port_local(tcfg, params, tokens)
     np.testing.assert_array_equal(ltok, jtok)
 
-    ranks = port_runs(int(np.prod(shape)))[_id((arch, shape, batch, plan))]
+    case = (arch, shape, batch, plan)
+    ranks = port_runs(case)[_id(case)]
     b_loc = batch // (shape[0] if plan[0] else 1)
     for rank, res in enumerate(ranks):
         assert res["plan"] == plan

@@ -8,6 +8,7 @@ own oracle beside it.  Tolerances are the Pallas kernel's: 3e-5 in float32,
 the card (``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,3 +148,39 @@ def test_readable_copies_what_the_kernels_cannot_read():
             assert got.data_ptr() % 16 == 0 and got.is_contiguous()
             assert strides == [8 * 2 * 16, 2 * 16, 16]
             assert torch.equal(got, bad)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(8, 48, 0), (8, 48, 17), (8, 48, 40),
+                                            (16, 32, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_offset_matches_the_jax_package(Sq, Sk, q_offset, dtype):
+    """A block of queries whose first row sits at ``q_offset`` against the
+    whole sequence's keys: ``ops.flash_attention``'s plain version (the
+    kernel's mask, q_offset + qpos >= kpos) against the JAX package's
+    ``naive_attention`` with the same offset, forward and, through
+    ``FlashAttention``, gradients."""
+    rng = np.random.default_rng(Sq + q_offset)
+    (jq, q), (jk, k), (jv, v) = (_pair(rng, (2, s, 3, 16), dtype)
+                                 for s in (Sq, Sk, Sk))
+    got = ops.flash_attention(q, k, v, True, q_offset=q_offset)
+    want = jattn.naive_attention(jq[:, :, :, None], jk, jv, True, q_offset)[:, :, :, 0]
+    _close(got, want, dtype)
+    if dtype == "float32":
+        q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+        o = ops.flash_attention(q, k, v, True, chunk=16, q_offset=q_offset)
+        (o * o).sum().backward()
+
+        def loss(a, b, c):
+            o = jattn.naive_attention(a[:, :, :, None], b, c, True, q_offset)
+            return (o * o).sum()
+        for g, jg in zip((q.grad, k.grad, v.grad), jax.grad(loss, (0, 1, 2))(jq, jk, jv)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(8, 48, 0), (8, 48, 17), (8, 48, 40),
+                                            (16, 16, 0), (48, 8, 0), (5, 9, 7)])
+def test_causal_pairs_count_the_kept_pairs(Sq, Sk, q_offset):
+    """``causal_pairs`` (the dry run's and the bound's count of a causal
+    call's work) equals the pairs the mask keeps."""
+    keep = (torch.arange(Sq)[:, None] + q_offset >= torch.arange(Sk)[None, :])
+    assert kfa.causal_pairs(Sq, Sk, q_offset) == int(keep.sum())

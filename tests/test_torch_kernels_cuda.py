@@ -244,6 +244,27 @@ def test_flash_attention_f32_kernel_head_dims_and_sq_ne_sk(D, Sq, Sk, causal, ca
     torch.testing.assert_close(o, want, rtol=3e-5, atol=3e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(200, 800, 137), (200, 800, 600),
+                                            (64, 2048, 1984), (333, 512, 179),
+                                            (128, 1024, 0)])
+def test_flash_attention_kernel_causal_offset(Sq, Sk, q_offset, D, dtype, card):
+    """A rank's block of queries against the whole sequence's keys: the
+    causal mask offset by the block's first position, Sq < Sk, both
+    kernels against the plain version."""
+    gen = torch.Generator().manual_seed(Sq + q_offset + D)
+    q = _randn(gen, 2, Sq, 4, D, dtype=dtype, device=card)
+    k, v = (_randn(gen, 2, Sk, 4, D, dtype=dtype, device=card) for _ in range(2))
+    before = kfa.LAUNCHES
+    o = kfa.flash_attention_cuda(q, k, v, True, q_offset=q_offset)
+    assert kfa.LAUNCHES == before + 1
+    want = ref.flash_attention_ref(q, k, v, True, q_offset=q_offset)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
 def _attention_f64(q, k, v, causal):
     """``ref.flash_attention_ref``'s formula in float64."""
     q, k, v = q.double(), k.double(), v.double()

@@ -110,7 +110,8 @@ def test_materialized_form_equals_the_absorbed_form(J):
         o_train = mla.mla_train(torch.from_numpy(x), J.tp, J.tc, pos, ctx)
         o_pre, cache = mla.mla_prefill(torch.from_numpy(x), J.tp, J.tc, pos,
                                        null_ctx(attn_chunk=16))
-        o_default = mla.mla_train(torch.from_numpy(x), J.tp, J.tc, pos, null_ctx())
+        o_default = mla.mla_train(torch.from_numpy(x), J.tp, J.tc, pos,
+                                  null_ctx(attn_chunk=16))
     np.testing.assert_allclose(o_train.numpy(), o_pre.numpy(), rtol=EQUIV_TOL,
                                atol=EQUIV_TOL)
     torch.testing.assert_close(o_default, o_pre, rtol=0, atol=0)
@@ -180,6 +181,58 @@ def test_absorbed_gradients_match_jax_grad(J):
     for i, (a, b) in enumerate(zip(got, want)):
         assert tuple(a.shape) == b.shape, i
         assert np.abs(a.numpy() - b).max() <= GRAD_TOL * max(np.abs(b).max(), 1e-30), i
+
+
+CHUNK = 20
+S_LONG = 4 * CHUNK       # four key chunks: the reference's flash VJP route
+
+
+@pytest.mark.parametrize("materialized", [False, True])
+def test_chunked_route_matches_the_jax_package(J, materialized):
+    """At S = 4 x ``attn_chunk`` both packages route MLA's attention through
+    their chunked flash VJP: the port's output and gradients (the input's
+    and every weight's) against the JAX package's, and, under
+    ``CostCounter(memory=True)``, no tensor of the port's forward and
+    backward has both an S-long query dim and an S-long key dim."""
+    from repro_torch.launch.cost import CostCounter
+    jnp = J.jax.numpy
+    x = _x(6, S_LONG)
+    rules = {"mla_materialized": True} if materialized else {}
+
+    def jloss(p, x):
+        jctx = J.jnull(attn_chunk=CHUNK)
+        jctx.rules = dict(rules)
+        return jnp.sum(J.jmla.mla_train(x, p, J.jc, np.arange(S_LONG), jctx) ** 2)
+
+    jo = J.jmla.mla_train(jnp.asarray(x), J.jp, J.jc, np.arange(S_LONG),
+                          J.jnull(attn_chunk=CHUNK))
+    jgp, jgx = J.jax.grad(jloss, argnums=(0, 1))(J.jp, jnp.asarray(x))
+
+    class Shapes(CostCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            seen.extend(tuple(t.shape) for t in torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            return out
+
+    seen = []
+    p = tree_map(lambda t: t.detach().requires_grad_(True), J.tp)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ctx = ModelCtx(attn_chunk=CHUNK, rules=dict(rules), remat="none")
+    with Shapes(memory=True) as c:
+        out = mla.mla_train(xt, p, J.tc, torch.arange(S_LONG), ctx)
+        got = torch.autograd.grad(torch.sum(out ** 2), [xt] + tree_leaves(p))
+    if not materialized:
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo), rtol=TOL,
+                                   atol=TOL)
+    want = [np.asarray(jgx)] + [np.asarray(g) for g in J.jax.tree.leaves(jgp)]
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert tuple(a.shape) == b.shape, i
+        assert np.abs(a.numpy() - b).max() <= GRAD_TOL * max(np.abs(b).max(), 1e-30), i
+    assert seen and c.peak > 0
+    assert not [s for s in seen if sum(d == S_LONG for d in s) >= 2], \
+        "an (S, S) score tensor was made"
 
 
 # --------------------------------------------------------------- on a card

@@ -7,7 +7,9 @@ mesh of Auto axes over the fake host devices.
 
 Reduced float32 mamba2-130m, zamba2-1.2b and whisper-base, JAX-initialized
 weights carried across by ``params_from_numpy``, 8 prompt tokens and 8
-greedy steps; one spawn of ranks per mesh, (2, 2) and (2, 4).  The cases
+greedy steps on meshes (2, 2) and (2, 4), a spawn of ranks for every
+``SPAWN_CASES`` cases of a mesh (a spawn must end inside ``run_ranks``'
+deadline under a loaded host).  The cases
 cover the "local" plan (the batch over "data") and the "distributed" one
 (``batch=None``: the attention caches' sequence, and whisper's cross
 cache, over "data"), and the three branches of the SSM state's rule on the
@@ -71,6 +73,8 @@ CASES = {
     ],
 }
 IDS = [(shape, c["name"]) for shape, cs in CASES.items() for c in cs]
+#: cases one spawn of ranks runs
+SPAWN_CASES = 3
 
 
 def _inputs(case):
@@ -113,23 +117,25 @@ def _jax_decode(cfg, params, tokens, frames, mesh_shape, batch):
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
-    """{mesh shape: each rank's results}, one spawn of ranks per mesh."""
+    """(shape, case name) -> (each rank's results, the JAX weights), a
+    spawn of ranks for every ``SPAWN_CASES`` cases of a mesh."""
     done, params = {}, {}
 
-    def get(shape):
-        if shape not in done:
+    def get(shape, name):
+        part = [c["name"] for c in CASES[shape]].index(name) // SPAWN_CASES
+        if (shape, part) not in done:
             cases = []
-            for c in CASES[shape]:
+            for c in CASES[shape][part * SPAWN_CASES:(part + 1) * SPAWN_CASES]:
                 cfg, tokens, frames = _inputs(c)
                 key = (c["arch"], tuple(sorted(c.get("overrides", {}).items())))
                 if key not in params:
                     params[key] = init_numpy(cfg)
                 cases.append({**c, "params": params[key], "tokens": tokens,
                               "frames": frames})
-            done[shape] = run_ranks(ssm_decode_worker, int(np.prod(shape)),
-                                    tmp_path_factory.mktemp("ranks"), shape, cases,
-                                    STEPS, MAX_LEN)
-        return done[shape], params
+            done[(shape, part)] = run_ranks(ssm_decode_worker, int(np.prod(shape)),
+                                            tmp_path_factory.mktemp("ranks"), shape,
+                                            cases, STEPS, MAX_LEN)
+        return done[(shape, part)], params
     return get
 
 
@@ -144,7 +150,7 @@ def _close(got, want, what):
 @pytest.mark.parametrize("shape,name", IDS, ids=[f"{s[0]}x{s[1]}-{n}" for s, n in IDS])
 def test_sharded_ssm_decode_matches_jax(shape, name, port_runs):
     case = next(c for c in CASES[shape] if c["name"] == name)
-    ranks, params = port_runs(shape)
+    ranks, params = port_runs(shape, name)
     cfg, tokens, frames = _inputs(case)
     key = (case["arch"], tuple(sorted(case.get("overrides", {}).items())))
     want_toks, want_logits, cache, mesh = _jax_decode(cfg, params[key], tokens, frames,

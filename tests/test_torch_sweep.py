@@ -176,3 +176,25 @@ def test_unported_paths_raise():
             ts.build_revpred(spec, SpotMarket(days=2, seed=1))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ts.SweepRunner()
+
+
+def test_exact_ticks_env_equals_reference(monkeypatch):
+    """``REPRO_EXACT_TICKS=1`` makes both packages' ``EngineConfig``
+    default to the tick-for-tick loop; the sweep under it stays the
+    reference's."""
+    from repro.tuner.engine import EngineConfig as JCfg
+    from repro_torch.tuner.engine import EngineConfig as TCfg
+    monkeypatch.setenv("REPRO_EXACT_TICKS", "1")
+    assert JCfg().exact_ticks is True and TCfg().exact_ticks is True
+    kw = dict(revpred="oracle", theta=0.7, days=2.0, scheduler="spottune")
+    tg = ts.scenario_grid(NAMES[:2], (3,), **kw)
+    assert all(r.engine.cfg.exact_ticks
+               for r in ts.SweepRunner(device="cpu").prepare(tg))
+    want = js.SweepRunner().run(js.scenario_grid(NAMES[:2], (3,), **kw))
+    got = ts.SweepRunner(device="cpu").run(tg)
+    (recs, errs), (want_recs, want_errs) = _records(got), _records(want)
+    assert recs == want_recs
+    for e, w in zip(errs, want_errs):
+        np.testing.assert_allclose(e, w, rtol=0, atol=PRED_ERR_ATOL)
+    monkeypatch.delenv("REPRO_EXACT_TICKS")
+    assert JCfg().exact_ticks is False and TCfg().exact_ticks is False

@@ -10,7 +10,8 @@ Explicit axes, under which the JAX package's ``constrain`` raises), into
 ``artifacts/dryrun_jax_auto/<mesh>/``; the JAX package's own
 ``artifacts/dryrun/`` is not touched.  Then it prints a markdown table, an arch
 a row and a shape a column: the port's traced per-device peak in GB
-against the card's 80 GB, its FLOPs a device, the dominant term of its
+against the card's 80 GB and the JAX package's ``hbm_estimate_bytes``
+beside it, its FLOPs a device, the dominant term of its
 roofline at the H100's rates (``launch.roofline.H100_RATES``), and the
 ratio of its FLOPs a device to the JAX package's count.  Counts from shapes, no card: no time here is a
 measurement.
@@ -75,14 +76,17 @@ def _cell(art, jart, analyze, rates) -> str:
     jflops = jart.get("hlo_flops_per_device")
     ratio = (f"{art['hlo_flops_per_device'] / jflops:.2f}x" if jflops
              else f"JAX {jart.get('error', 'not run')[:40]}")
-    return (f"{peak:.1f}{'!' if peak > 80 else ''} GB, "
+    jmem = jart.get("memory", {}).get("hbm_estimate_bytes")
+    jgb = f" (JAX {jmem / 1e9:.1f})" if jmem else ""
+    return (f"{peak:.1f}{'!' if peak > 80 else ''} GB{jgb}, "
             f"{art['hlo_flops_per_device']:.2e}, "
             f"{analyze(art, rates)['dominant'][:3]}, {ratio}")
 
 
 def table(mesh: str) -> str:
     """One row an arch, one column a shape; a cell is the port's traced
-    peak GB a device ("!" over the card's 80 GB), its FLOPs a device, the
+    peak GB a device ("!" over the card's 80 GB; the JAX package's estimate
+    in brackets), its FLOPs a device, the
     dominant roofline term at the H100's rates, and the FLOPs' ratio to
     the JAX package's count."""
     sys.path.insert(0, str(ROOT / "src"))
