@@ -171,7 +171,8 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    # the seconds since the script started, to attribute its wall by phase
+    print(f"\n== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def cuda_ms(fn, iters: int = 2000, warmup: int = 50) -> float:
@@ -3935,6 +3936,389 @@ def family_phases(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# A15: training of the moe, mla and vlm families on the card at published
+# width, cut in depth, at the configs' own optimizer precision
+# ------------------------------------------------------------------------
+
+# the depth cuts at published width: pixtral-12b 40 -> 4 layers (2.43 B
+# parameters, float32 master: ~16 B a parameter); deepseek-v2 60 -> 2 (the
+# dense first layer and one MoE layer of 160 experts, 5.36 B, moments_fp32:
+# 12 B a parameter)
+A15_LAYERS = {"pixtral-12b": 4, "deepseek-v2-236b": 2}
+A15_BATCH, A15_TEXT = 2, 256     # B x 256 text tokens (pixtral: 1024 patches first)
+A15_LR = 1e-3                    # TRAIN_LR
+A15_REDUCED_TOL = 1e-2           # bf16 training, C4's bound
+# the step's change of a parameter or master leaf (new - old), card against
+# CPU, relative to the CPU's: at lr 1e-3 a leaf moves by ~1e-3 of its norm,
+# which A15_REDUCED_TOL cannot see; a missing update is 1, a reversed one 2,
+# and the bf16 gradients' rounding flips Adam's first update (+-lr) on some
+# elements (the port against the JAX package on the CPU: at most 0.56)
+A15_CHANGE_TOL = 0.75
+
+
+class _FixedBatches:
+    """A Trainer's data: the same batch at every step."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def get_batch(self, step):
+        return self.batch
+
+
+def _norm_rel(a, b) -> float:
+    """|a - b| / |b| over the whole leaf (float64)."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _train_parts(torch, model, opt, state, batch, ctx):
+    """One train step in its three parts, each ended by a synchronise, under
+    the profiler: (new state, loss, card busy ms by part, kernels seen).
+    The state is donated, as the Trainer's step donates it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim.optimizers import tree_leaves, tree_map, tree_unflatten
+
+    spans = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
+        with record_function("train.forward"):
+            loss, _ = model.loss(p, batch, ctx)
+            torch.cuda.synchronize()
+        with record_function("train.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+        loss = float(loss.detach())
+        g = tree_unflatten(state["params"], list(grads))
+        del p, grads
+        with record_function("train.update"):
+            new = opt.update(g, state["opt"], state["params"], donate=True)
+            torch.cuda.synchronize()
+    for e in prof.events():
+        if e.name.startswith("train.") and e.device_type == torch.autograd.DeviceType.CPU:
+            spans[e.name[6:]] = (e.time_range.start, e.time_range.end)
+    kern = device_intervals(prof)
+    busy = {n: busy_us([iv for iv in kern if lo <= iv[0] <= hi]) / 1e3
+            for n, (lo, hi) in spans.items()}
+    return {"params": new[0], "opt": new[1]}, loss, busy, len(kern)
+
+
+def a15_trainer(torch, arch, cfg, B, S):
+    """Profiled bf16 ``Trainer`` steps of ``cfg`` on one fixed batch: a
+    warm-up step, two steps under the profiler (the second measured), one
+    step in its parts (forward, backward, update) -> the numbers, or
+    {"oom": ...} where a step runs out of the card's memory."""
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.launch.train import Trainer, batch_to
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, batch=B, seq=S, lr=A15_LR, seed=0, val_every=1,
+                 device="cuda", draw_on="cuda")
+    tr.data = _FixedBatches(tr.data.get_batch(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves_of(tr.state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves_of(tr.state)) / 1e9
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
+           "opt_precision": cfg.opt_precision, "params": n_params,
+           "state_gb": state_gb, "init_s": init_s, "lr": A15_LR}
+    print(f"{cfg.name}: {cfg.n_layers} layers at published width, {n_params:,} "
+          f"parameters, {cfg.dtype}, opt_precision {cfg.opt_precision}: train "
+          f"state {state_gb:.2f} GB ({state_gb * 1e9 / n_params:.1f} B a parameter), "
+          f"drawn on the card in {init_s:.2f} s; B = {B} x {S} positions, one "
+          f"fixed batch, lr {A15_LR}")
+    before = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    try:
+        t0 = time.perf_counter()
+        tr.run_steps(1)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        wall, seen = profiled(torch, lambda: tr.run_steps(1))
+    except torch.cuda.OutOfMemoryError as err:
+        res["oom"] = {"message": str(err).splitlines()[0][:400],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "steps_done": tr.step}
+        del err
+        print(f"  out of the card's memory in step {tr.step + 1}: peak "
+              f"{res['oom']['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); "
+              f"{res['oom']['message']}")
+        return res
+    busy = busy_us(seen) / 1e6
+    state, loss_parts, part_busy, n_kern = _train_parts(
+        torch, tr.model, tr.optimizer, tr.state,
+        batch_to(tr.data.get_batch(0), "cuda"), tr.ctx)
+    tr.state = None
+    del state
+    steps = tr.step + 1
+    flash = (kfa.LAUNCHES - before[0], kfa.WGMMA_LAUNCHES - before[1])
+    losses = list(tr.metrics_vals) + [loss_parts]
+    res.update({
+        "losses": losses, "warm_step_ms": warm_ms, "step_ms": wall * 1e3,
+        "trainer_step_s": list(tr.step_seconds), "kernels_per_step": len(seen),
+        "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+        "busy_ms_by_part": part_busy, "kernels_in_parts_step": n_kern,
+        "flash_launches_per_step": flash[0] / steps,
+        "wgmma_launches_per_step": flash[1] / steps,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    print(f"  losses over {steps} steps {[round(x, 5) for x in losses]}; a step "
+          f"{wall * 1e3:.2f} ms under the profiler ({warm_ms:.2f} ms the first), "
+          f"{len(seen)} kernels, card busy {busy * 1e3:.2f} ms, idle "
+          f"{100 * res['idle_share']:.2f}%; busy by part (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in part_busy.items())
+          + f"; flash launches a step {res['flash_launches_per_step']:g} "
+          f"(bf16 wgmma {res['wgmma_launches_per_step']:g}); peak "
+          f"{res['peak_gb']:.2f} GB")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"{cfg.name} bf16 training at published width: losses {losses} not "
+             "finite or not falling on a fixed batch")
+    return res
+
+
+def tree_leaves_of(tree):
+    from repro_torch.optim.optimizers import tree_leaves
+    return [t for t in tree_leaves(tree) if hasattr(t, "numel")]
+
+
+def family_train_phases(torch) -> dict:
+    """A15 on the card: pixtral-12b (4 layers, published width) float32
+    Model.loss and its gradients through the kernels (the 3xTF32 flash
+    route at D = 128, the plain backward) against the plain path, then
+    profiled bf16 Trainer steps at its float32 master; deepseek-v2 (2
+    layers: the dense layer and a MoE layer of 160 experts, MLA's chunked
+    backward) in bf16 at moments_fp32, its state reckoned beside the
+    measured peak, its Trainer steps or, where a step runs out of the
+    card's memory, that finding and the loss and gradients alone; the
+    reduced grok-1, deepseek-v2 and pixtral-12b one bf16 Trainer step each
+    at their full configs' optimizer precision, card against CPU.  Returns
+    the phase's fields of the flash rows."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.launch.train import Trainer, batch_to
+    from repro_torch.models.context import null_ctx
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    t_all = time.perf_counter()
+    out = {"flash": {}, "flash_f32": {}}
+    torch.cuda.empty_cache()
+    print(f"card memory held by tensors of earlier phases: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    B = A15_BATCH
+
+    # ----------------------- pixtral-12b float32: loss + grads, kernels/plain
+    arch = "pixtral-12b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=A15_LAYERS[arch])
+    S = A15_TEXT + cfg.n_patches
+    phase(f"A15: {arch} ({cfg.n_layers} layers, float32) Model.loss and its "
+          f"gradients through the kernels against the plain path")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = Model(cfg32)
+    params = model32.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    names = leaf_names(params)
+    batch = batch_to(SyntheticLMDataset(cfg32, B, S, seed=0).get_batch(0), "cuda")
+    ctx = null_ctx(attn_chunk=min(512, S), remat="none")
+
+    def loss_and_grads(ctx):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model32.loss(p, batch, ctx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = kfa.TF32_LAUNCHES
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        return (float(loss.detach()), [g.detach() for g in grads], fwd,
+                (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kfa.WGMMA_LAUNCHES = 0
+    loss_k, g_k, fwd_n, fwd_ms, bwd_ms = loss_and_grads(ctx)
+    bwd_n = kfa.TF32_LAUNCHES
+    loss_r, g_r, _, fwd_ms_r, bwd_ms_r = loss_and_grads(
+        null_ctx(attn_chunk=min(512, S), remat="none", kernels="ref"))
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    errs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(g_k, g_r)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    print(f"B = {B} x {S} positions ({cfg.n_patches} patches, {A15_TEXT} tokens): "
+          f"loss through the kernels {loss_k:.7f}, plain {loss_r:.7f}, relative "
+          f"diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}); worst gradient leaf "
+          f"{names[worst]} {errs[worst]:.3g} of its largest (tol {TRAIN_GRAD_TOL}); "
+          f"finite {finite}; flash launches: forward {fwd_n} on the 3xTF32 route "
+          f"(want {cfg.n_layers}), after the backward {bwd_n} (the backward is "
+          f"plain); wall forward {fwd_ms:.1f} / backward {bwd_ms:.1f} ms through "
+          f"the kernels, {fwd_ms_r:.1f} / {bwd_ms_r:.1f} ms plain")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL and finite
+            and fwd_n == bwd_n == cfg.n_layers == kfa.LAUNCHES):
+        fail(f"{arch} float32 training through the kernels: loss {loss_rel:.3g}, "
+             f"worst leaf {names[worst]} {errs[worst]:.3g}, flash launches "
+             f"{fwd_n} / {bwd_n}")
+    out["flash_f32"]["a15_train"] = {
+        "arch": arch, "layers": cfg.n_layers, "batch": B, "seq": S,
+        "launches_per_forward": fwd_n, "loss_rel": loss_rel,
+        "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_ms_r,
+        "bwd_plain_ms": bwd_ms_r}
+    del params, g_k, g_r, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ bf16 Trainer steps at full width
+    fam = {}
+    phase(f"A15: {arch} ({cfg.n_layers} layers, {cfg.dtype}, float32 master) "
+          f"profiled Trainer steps")
+    fam[arch] = a15_trainer(torch, arch, cfg, B, S)
+    if "oom" in fam[arch]:
+        fail(f"{arch} at {cfg.n_layers} layers ran out of the card's memory")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch = "deepseek-v2-236b"
+    dcfg = dataclasses.replace(get_config(arch), n_layers=A15_LAYERS[arch])
+    phase(f"A15: {arch} ({dcfg.n_layers} layers, {dcfg.dtype}, "
+          f"{dcfg.opt_precision}) profiled Trainer steps")
+    n = sum(t.numel() for t in tree_leaves(Model(dcfg).init(None, device="meta")))
+    reckoned = n * (2 + 4 + 4) / 1e9
+    print(f"state reckoned: {n:,} parameters x (2 B bf16 + 4 + 4 B float32 "
+          f"moments) = {reckoned:.2f} GB; with bf16 gradients "
+          f"{n * 12 / 1e9:.2f} GB before any activation or update temporary")
+    res = a15_trainer(torch, arch, dcfg, B, A15_TEXT)
+    res["state_reckoned_gb"] = reckoned
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "oom" in res:
+        phase(f"A15: {arch} ({dcfg.n_layers} layers, bf16): the loss and its "
+              "gradients alone, profiled (the update is held at the reduced "
+              "config below)")
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(dcfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        batch = batch_to(SyntheticLMDataset(dcfg, B, A15_TEXT, seed=0).get_batch(0),
+                         "cuda")
+        dctx = null_ctx(attn_chunk=min(512, A15_TEXT), remat="none")
+        kept = {}
+
+        def lg():
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss, _ = model.loss(p, batch, dctx)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            kept["loss"] = float(loss.detach())
+            kept["finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
+
+        wall, seen = profiled(torch, lg)
+        busy = busy_us(seen) / 1e6
+        res["loss_and_grads"] = {
+            "loss": kept["loss"], "finite": kept["finite"], "ms": wall * 1e3,
+            "kernels": len(seen), "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"  loss {kept['loss']:.5f}, gradients finite {kept['finite']}; "
+              f"{wall * 1e3:.2f} ms under the profiler, {len(seen)} kernels, card "
+              f"busy {busy * 1e3:.2f} ms, idle {100 * (1 - busy / wall):.2f}%; peak "
+              f"{res['loss_and_grads']['peak_gb']:.2f} GB")
+        if not (math.isfinite(kept["loss"]) and kept["finite"]):
+            fail(f"{arch} bf16 loss and gradients at {dcfg.n_layers} layers not finite")
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    fam[arch] = res
+
+    # --------------------------- the reduced three: card against the CPU
+    phase("A15: the reduced grok-1, deepseek-v2 and pixtral-12b, one Trainer "
+          "step each at the full config's optimizer precision, card against CPU")
+    print("bf16 through the kernels: the loss, parameters and master copy held, "
+          "the moments (the two devices' bf16 gradients) printed; the same bf16 "
+          "step with the card's attention on the plain version (kernels='ref') "
+          "printed, to attribute the moments' spread; the float32 step through "
+          "the kernels: every leaf held. Held: the loss and each leaf "
+          f"|card - CPU| / |CPU| within {A15_REDUCED_TOL}, and the step's change "
+          "of each parameter and master leaf (new - old), |card - CPU| / |CPU| "
+          f"within {A15_CHANGE_TOL}")
+    reduced, bad = {}, []
+    for arch in ("grok-1-314b", "deepseek-v2-236b", "pixtral-12b"):
+        base = dataclasses.replace(get_config(arch, reduced=True),
+                                   opt_precision=get_config(arch).opt_precision)
+        seq = 24 + (base.n_patches if base.family == "vlm" else 0)
+        reduced[arch] = {"opt_precision": base.opt_precision}
+        for run, dtype, kernels in (("bf16", "bfloat16", None),
+                                    ("bf16_plain_attention", "bfloat16", "ref"),
+                                    ("f32", "float32", None)):
+            rc = dataclasses.replace(base, dtype=dtype)
+            states, losses = {}, {}
+            before = kfa.LAUNCHES
+            for dev in ("cuda", "cpu"):
+                tr = Trainer(rc, batch=B, seq=seq, lr=A15_LR, seed=0, val_every=1,
+                             device=dev, ctx=null_ctx(attn_chunk=min(512, seq),
+                                                      remat="none", kernels=kernels))
+                # both devices draw the same weights (on the CPU, from seed 0)
+                start = {p: t.detach().cpu() for p, t in leaf_paths_of(tr.state["params"])}
+                tr.run_steps(1)
+                states[dev], losses[dev] = tr.state, tr.metrics_vals[0]
+            launches = kfa.LAUNCHES - before
+            card = dict(leaf_paths_of(states["cuda"]))
+            errs, change = {}, {}
+            for path, want in leaf_paths_of(states["cpu"]):
+                kind = ("['params']" if path.startswith("['params']")
+                        else path[:path.index("]", 7) + 1])
+                e = _norm_rel(card[path].cpu(), want)
+                if e >= errs.get(kind, (0.0, ""))[0]:
+                    errs[kind] = (e, path)
+                if kind in ("['params']", "['opt']['master']"):
+                    # the master copy started as the parameters cast up
+                    w0 = start[path.removeprefix(kind)].double()
+                    c = _norm_rel(card[path].cpu().double() - w0, want.double() - w0)
+                    if c >= change.get(kind, (0.0, ""))[0]:
+                        change[kind] = (c, path)
+            loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            reduced[arch][run] = {"loss_rel": loss_rel, "flash_launches": launches,
+                                  "worst_norm_rel": {k: v[0] for k, v in errs.items()},
+                                  "worst_leaf": {k: v[1] for k, v in errs.items()},
+                                  "worst_change_rel": {k: v[0] for k, v in change.items()},
+                                  "worst_change_leaf": {k: v[1] for k, v in change.items()}}
+            print(f"  {rc.name} ({rc.opt_precision}) {run}: loss card "
+                  f"{losses['cuda']:.6f}, CPU {losses['cpu']:.6f} ({loss_rel:.3g}); "
+                  f"card flash launches {launches}; worst leaf of each part: "
+                  + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in errs.items())
+                  + "; worst change: "
+                  + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in change.items()))
+            want_fa = 0 if (rc.use_mla or kernels == "ref") else rc.n_layers
+            if launches != want_fa:
+                bad.append(f"{arch} {run} flash launches {launches} (want {want_fa})")
+            if run == "bf16_plain_attention":
+                continue
+            if not loss_rel <= A15_REDUCED_TOL:
+                bad.append(f"{arch} {run} loss {loss_rel:.3g}")
+            held = [k for k in errs if run == "f32" or k in ("['params']",
+                                                               "['opt']['master']")]
+            bad += [f"{arch} {run} {errs[k][1]} {errs[k][0]:.3g}" for k in held
+                    if not errs[k][0] <= A15_REDUCED_TOL]
+            bad += [f"{arch} {run} the change of {v[1]} {v[0]:.3g}"
+                    for v in change.values() if not v[0] <= A15_CHANGE_TOL]
+    if bad:
+        fail(f"the reduced families' step, card against CPU, beyond "
+             f"{A15_REDUCED_TOL} (a leaf) or {A15_CHANGE_TOL} (its change): "
+             + "; ".join(bad))
+    wall = time.perf_counter() - t_all
+    print(f"the A15 training phases: {wall:.1f} s of wall")
+    out["flash"]["a15_train"] = {"families": fam, "reduced_card_vs_cpu": reduced,
+                                 "wall_s": wall}
+    return out
+
+
+def leaf_paths_of(tree):
+    """(key string, tensor) of a state's tensor leaves."""
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    return [(p, t) for p, t in leaf_paths(tree) if hasattr(t, "numel")]
+
+
 ELASTIC_ARCH = "qwen1.5-0.5b"    # hf:Qwen/Qwen1.5-0.5B, published width and depth
 ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 2, 256, 4
 NOTICE_S = 120.0                 # the spot revocation notice (paper §IV-F)
@@ -5007,9 +5391,9 @@ def dryrun_phase(torch, measured: dict, child) -> dict:
 
 def main() -> None:
     only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" else None
-    if sys.argv[1:] and only not in ("elastic", "tp", "a12"):
-        fail(f"arguments {sys.argv[1:]}: none, --only elastic, --only tp or "
-             "--only a12")
+    if sys.argv[1:] and only not in ("elastic", "tp", "a12", "a15"):
+        fail(f"arguments {sys.argv[1:]}: none, --only elastic, --only tp, "
+             "--only a12 or --only a15")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -5047,9 +5431,12 @@ def main() -> None:
         print(f"-- nvcc {stem}.cu ({build.BUILD_SECONDS[stem]:.2f} s):")
         print(log.strip())
     if only is not None:
-        # the distribution layer's, the sharded forward's or the mesh
-        # decode's and the dry run's phases alone, after the build
-        if only == "a12":
+        # the distribution layer's, the sharded forward's, the mesh
+        # decode's and the dry run's, or the families' training phases
+        # alone, after the build
+        if only == "a15":
+            alone = family_train_phases(torch)
+        elif only == "a12":
             measured = mesh_train_step(torch)
             child = start_dryrun_child()
             alone = {"mesh_decode": mesh_decode_phases(torch),
@@ -5372,6 +5759,10 @@ def main() -> None:
     families = family_phases(torch)
     flash_row.update(families["flash"])
     flash_f32_row.update(families["flash_f32"])
+    # their training at published width next, with the card to itself
+    a15 = family_train_phases(torch)
+    flash_row.update(a15["flash"])
+    flash_f32_row.update(a15["flash_f32"])
     # the distribution layer: a NCCL group of one over the card
     elastic = elastic_phases(torch)
     flash_row.update(elastic["flash"])

@@ -32,15 +32,22 @@ Loops are the port's Python loops, so each iteration is counted as it runs
 With ``memory=True`` the counter also keeps the live bytes of every
 storage it sees made (and of those handed to ``track``), each rounded up
 to the CUDA caching allocator's 512-byte blocks (a ``meta`` tensor has
-no storage on the device and counts nothing), and their peak: the
-per-device peak of ``torch.cuda.max_memory_allocated`` that the traced
-program would reach, with no allocation made.
+no storage on the device and counts nothing; ``wait_tensor``, which
+returns its input on a device where the fake kernel makes a copy, counts
+as its input's storage), and their peak: the per-device peak of
+``torch.cuda.max_memory_allocated`` that the traced program would reach,
+with no allocation made.  With ``attribute=True``
+it also remembers, for each storage, the operator that made it, its shape
+and dtype and the innermost line of the port that called it, and
+``live_at_peak()`` lists the storages alive at the peak by those.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import sys
 import weakref
 
 import torch
@@ -147,16 +154,21 @@ class CostCounter(TorchDispatchMode):
     """``with CostCounter() as c: step(...)`` -> ``c.cost`` (a ``Cost``),
     ``c.ops`` (operator -> calls, the kernels' operators among them:
     ``torch.ops.repro_torch.flash_attention.default``, ...), and with
-    ``memory=True`` the live and ``peak`` bytes."""
+    ``memory=True`` the live and ``peak`` bytes (``attribute=True``: and
+    ``live_at_peak()``)."""
 
-    def __init__(self, memory: bool = False):
+    def __init__(self, memory: bool = False, attribute: bool = False):
         super().__init__()
         self.cost = Cost()
         self.ops = collections.Counter()
-        self.memory = memory
+        self.memory = memory or attribute
+        self.attribute = attribute
         self.live = 0
         self.peak = 0
-        self._storages = {}
+        self._storages = {}   # storage id -> [label, bytes, made, freed, holders]
+        self._records = []         # every storage's record (``attribute``)
+        self._tick = 0
+        self._peak_tick = 0
         self._propagating = 0
         self._patched = None
 
@@ -166,10 +178,11 @@ class CostCounter(TorchDispatchMode):
         local blocks) as live, from before the program; -> their bytes."""
         n = 0
         for t in _tensors(tree):
-            n += self._alloc(t.to_local() if isinstance(t, DTensor) else t)
+            n += self._alloc(t.to_local() if isinstance(t, DTensor) else t,
+                             "argument")
         return n
 
-    def _alloc(self, t) -> int:
+    def _alloc(self, t, op=None) -> int:
         if t.device.type == "meta":      # shapes only: no device memory
             return 0
         st = t.untyped_storage()
@@ -177,14 +190,53 @@ class CostCounter(TorchDispatchMode):
         if key in self._storages:
             return 0
         n = -(-st.nbytes() // _BLOCK) * _BLOCK
-        self._storages[key] = n
+        self._tick += 1
+        label = ((op, tuple(t.shape), str(t.dtype).replace("torch.", ""), _caller())
+                 if self.attribute else None)
+        rec = [label, n, self._tick, None, 1]     # ..., storages holding it
+        self._storages[key] = rec
+        if self.attribute:
+            self._records.append(rec)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak, self._peak_tick = self.live, self._tick
         weakref.finalize(st, self._free, key)
         return n
 
+    def _alias(self, src, out):
+        """``out`` counted as the storage of ``src`` (one allocation, alive
+        while either is)."""
+        rec = self._storages.get(id(src.untyped_storage()))
+        st = out.untyped_storage()
+        if rec is None or out.device.type == "meta" or id(st) in self._storages:
+            self._alloc(out, "wait_tensor")
+            return
+        rec[4] += 1
+        self._storages[id(st)] = rec
+        weakref.finalize(st, self._free, id(st))
+
     def _free(self, key):
-        self.live -= self._storages.pop(key, 0)
+        rec = self._storages.pop(key, None)
+        if rec is not None:
+            rec[4] -= 1
+            if rec[4] == 0:
+                self._tick += 1
+                rec[3] = self._tick
+                self.live -= rec[1]
+
+    def live_at_peak(self) -> list:
+        """The storages alive at the peak (``attribute=True``), grouped by
+        (operator, shape, dtype, the port's line that called it): a list of
+        (bytes, count, label), the largest first.  Tracked inputs have the
+        operator "argument"."""
+        groups = collections.defaultdict(lambda: [0, 0])
+        for label, n, made, freed, _ in self._records:
+            if made <= self._peak_tick and (freed is None or freed > self._peak_tick):
+                g = groups[label]
+                g[0] += n
+                g[1] += 1
+        return sorted(((b, c, lab) for lab, (b, c) in groups.items()),
+                      key=lambda r: -r[0])
 
     # ---------------------------------------------------------- dispatch
     def __enter__(self):
@@ -217,8 +269,12 @@ class CostCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         self._count(func, args, kwargs, out)
         if self.memory:
-            for t in _tensors(out):
-                self._alloc(t)
+            if func.overloadpacket.__name__ == "wait_tensor":
+                # returns its input on a device; the fake kernel makes a copy
+                self._alias(args[0], out)
+            else:
+                for t in _tensors(out):
+                    self._alloc(t, func.overloadpacket.__name__)
         return out
 
     def _count(self, func, args, kwargs, out):
@@ -248,3 +304,20 @@ class CostCounter(TorchDispatchMode):
         return sum(n for op, n in self.ops.items()
                    if op.namespace == "repro_torch"
                    and op.overloadpacket.__name__ == name)
+
+
+_PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_HERE = os.path.abspath(__file__)
+
+
+def _caller() -> str:
+    """The innermost frame of the port's code outside this module, as
+    "models/blocks.py:241 _sharded_attention"."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.startswith(_PORT) and path != _HERE:
+            return (f"{os.path.relpath(path, _PORT)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"

@@ -12,7 +12,9 @@ parameters, optimizer state and batch (that rank's blocks, as
 ``launch.cost.CostCounter``.
 
   * train: ``launch.train.make_train_step`` (``Model.loss``, its gradients,
-    the AdamW update) under ``policy.ctx()``;
+    the AdamW update) under ``policy.ctx()``, the state donated, as the
+    JAX package lowers its step with ``donate_argnums=(0,)`` and as the
+    ``Trainer`` runs it;
   * prefill: ``Model.prefill`` under ``policy.ctx()``;
   * decode: ``Model.decode_step`` under ``policy.ctx(decode=True,
     batch=B)``, the shard-aware decode of ``Server`` on a mesh: the
@@ -39,7 +41,8 @@ The artifact has the JAX package's keys:
     ``xla_cost_analysis_*`` repeat them (there is no XLA cost analysis);
   * ``memory``: ``argument_size_in_bytes`` (the step's inputs, this rank's
     blocks), ``output_size_in_bytes``, ``alias_size_in_bytes`` (outputs
-    in the inputs' storage: the decode's cache, updated in place),
+    in the inputs' storage: the decode's cache, updated in place; the
+    train step's donated state, released as the new one is made),
     ``temp_size_in_bytes`` (the peak less the arguments and the outputs
     not in their storage), ``generated_code_size_in_bytes`` (0: nothing is
     compiled), ``peak_memory_in_bytes`` (the counter's peak of live
@@ -66,6 +69,7 @@ import math
 import os
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -162,10 +166,12 @@ def _locals(tree) -> list:
             if isinstance(t, torch.Tensor)]
 
 
-def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None):
+def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None,
+               attribute: bool = False):
     """Trace one cell -> (artifact, the ``CostCounter``), or (artifact, None)
     for a skipped cell.  ``global_batch`` and ``seq_len`` replace the
-    shape's sizes (a cut-down cell)."""
+    shape's sizes (a cut-down cell); ``attribute``: the counter keeps what
+    made each storage (``CostCounter.live_at_peak``)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     B = global_batch or shape.global_batch
@@ -179,7 +185,7 @@ def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None
     model = Model(cfg)
     params_meta = _param_shapes(cfg)
     param_sh = policy.param_shardings(params_meta)
-    counter = CostCounter(memory=True)
+    counter = CostCounter(memory=True, attribute=attribute)
     t0 = time.monotonic()
     # the abstract inputs, on ``meta`` (the decode's cache from the prefill)
     # and the ctx (its process groups planned with no fake mode about)
@@ -195,7 +201,7 @@ def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None
             state = _fake_placed(state_meta, policy.state_shardings(state_meta), mesh)
             batch_meta = inputs_lib.train_batch_shapes(cfg, B, S)
             batch = _fake_placed(batch_meta, policy.batch_shardings(batch_meta), mesh)
-            step = make_train_step(model, opt, ctx)
+            step = make_train_step(model, opt, ctx, donate=True)
             args = (state, batch)
 
             def run():
@@ -225,14 +231,18 @@ def trace_cell(arch: str, shape_name: str, mesh, global_batch=None, seq_len=None
             raise ValueError(shape.kind)
         t_lower = time.monotonic() - t0
         arg_bytes = counter.track(args)
-        arg_storages = {id(t.untyped_storage()) for t in _locals(args)}
+        arg_refs = {id(t.untyped_storage()): (weakref.ref(t.untyped_storage()),
+                                              t.untyped_storage().nbytes())
+                    for t in _locals(args)}
         t0 = time.monotonic()
         with counter:
             out = run()
         t_trace = time.monotonic() - t0
         out_bytes = sum(t.numel() * t.element_size() for t in _locals(out))
         alias = sum(t.untyped_storage().nbytes() for t in _locals(out)
-                    if id(t.untyped_storage()) in arg_storages)
+                    if id(t.untyped_storage()) in arg_refs)
+        # a donated argument's storage, released by the step
+        alias += sum(n for ref, n in arg_refs.values() if ref() is None)
     peak = counter.peak
     mem = {"argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
            "temp_size_in_bytes": max(peak - arg_bytes - out_bytes + alias, 0),

@@ -215,9 +215,12 @@ class Server:
         return local_block(t, (tuple(self.ctx.decode_plan.b_axes),), self.ctx.mesh)
 
     def _shard_cache(self, cache):
-        """The sharded prefill's cache (``DTensor`` leaves) moved to this
-        rank's shard, as ``Policy.cache_shardings`` lays it out, in storage
-        of its own."""
+        """The sharded prefill's cache (``DTensor`` leaves, which
+        ``Model.prefill`` leaves in the plan of the prompt's batch) as this
+        rank's shard under this server's decode plan, in storage of its own.
+        The two plans differ where the server's ctx was made for another
+        batch (``batch=None`` takes the "distributed" plan); where they
+        agree the ``redistribute`` moves nothing."""
         flat = dict(leaf_paths(self.ctx.policy.cache_shardings(
             cache, self.ctx.decode_plan)))
 

@@ -66,17 +66,22 @@ def loss_and_grads(model: Model, params, batch, ctx: ModelCtx):
     return loss, metrics, tree_unflatten(params, grads)
 
 
-def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx) -> Callable:
+def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx,
+                    donate: bool = False) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``: state
     {"params", "opt"}; batch {"tokens", "labels"} (and whisper's
     ``frames``) tensors on the parameters' device, or, on a mesh, the
     state and batch placed by ``ctx.policy``; metrics {"loss", "xent",
     "aux", "lr", "grad_norm"} (tensors, and a float lr).  The given state
-    is not changed."""
+    is not changed; with ``donate`` (an ``adamw`` optimizer) it is
+    consumed, as the JAX package's ``Trainer`` donates it to its jitted
+    step: each of its leaves is released from its dict as the update makes
+    the new one, the dicts left holding ``None``."""
     def train_step(state, batch):
         loss, metrics, grads = loss_and_grads(model, state["params"], batch, ctx)
+        kw = {"donate": True} if donate else {}
         new_params, new_opt, opt_metrics = optimizer.update(
-            grads, state["opt"], state["params"])
+            grads, state["opt"], state["params"], **kw)
         return ({"params": new_params, "opt": new_opt},
                 {"loss": _plain(loss), **{k: _plain(v) for k, v in metrics.items()},
                  **opt_metrics})
@@ -84,11 +89,14 @@ def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx) -> Callab
     return train_step
 
 
-def init_state(model: Model, optimizer: Optimizer, seed: int = 0, device="cuda"):
-    """Fresh parameters from ``torch.Generator().manual_seed(seed)`` (drawn
-    on the CPU, so a seed gives the same weights on every device) and the
-    optimizer's state."""
-    params = model.init(torch.Generator().manual_seed(seed), device=device)
+def init_state(model: Model, optimizer: Optimizer, seed: int = 0, device="cuda",
+               draw_on: str = "cpu"):
+    """Fresh parameters from ``torch.Generator(draw_on).manual_seed(seed)``
+    (drawn on the CPU by default, so a seed gives the same weights on every
+    device; ``draw_on="cuda"`` draws on the card, where a model of billions
+    of parameters initializes in seconds) and the optimizer's state."""
+    params = model.init(torch.Generator(device=draw_on).manual_seed(seed),
+                        device=device)
     return {"params": params, "opt": optimizer.init(params)}
 
 
@@ -107,13 +115,17 @@ class Trainer:
     SpotTune treats one Trainer as one HPT trial; ``run_steps`` advances it
     and returns the validation metric stream the engine and EarlyCurve
     consume.  It runs on the card by default (``device="cuda"``, raising
-    without one); ``device="cpu"`` runs the plain versions."""
+    without one); ``device="cpu"`` runs the plain versions.  Each step
+    consumes the Trainer's state (``make_train_step(..., donate=True)``, as
+    the JAX ``Trainer`` donates it): a state assigned to ``Trainer.state``
+    is read, not changed, and a step that raises leaves the Trainer with
+    no state.  ``draw_on`` is ``init_state``'s."""
 
     def __init__(self, cfg, batch: int, seq: int, lr: float = 3e-3,
                  lr_schedule=None, seed: int = 0,
                  ckpt: Optional[CheckpointManager] = None,
                  val_every: int = 10, ctx: Optional[ModelCtx] = None,
-                 device="cuda"):
+                 device="cuda", draw_on: str = "cpu"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -121,8 +133,10 @@ class Trainer:
                                keep_master=(cfg.opt_precision == "fp32"))
         self.ctx = ctx or null_ctx(attn_chunk=min(512, seq), remat="none")
         self.data = SyntheticLMDataset(cfg, batch, seq, seed=seed)
-        self.step_fn = make_train_step(self.model, self.optimizer, self.ctx)
-        self.state = init_state(self.model, self.optimizer, seed, self.device)
+        self.step_fn = make_train_step(self.model, self.optimizer, self.ctx,
+                                       donate=True)
+        self.state = init_state(self.model, self.optimizer, seed, self.device,
+                                draw_on)
         self.policy = self.ctx.policy if self.ctx.sharded else None
         if self.policy is not None:
             self.state = place_state(self.state, self.policy)
@@ -141,7 +155,11 @@ class Trainer:
             if self.policy is not None:
                 batch = place_batch(batch, self.policy)
             t0 = time.perf_counter()
-            self.state, m = self.step_fn(self.state, batch)
+            # the step takes dicts of its own (the leaves shared): the
+            # donation empties those, and the Trainer's reference goes
+            state, self.state = tree_map(lambda t: t, self.state), None
+            self.state, m = self.step_fn(state, batch)
+            del state
             loss = float(m["loss"])              # waits for the step
             self.step_seconds.append(time.perf_counter() - t0)
             self.step += 1

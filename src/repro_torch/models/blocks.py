@@ -315,15 +315,19 @@ def _add(x, delta, ctx):
 # ---------------------------------------------------------------------------
 
 
+def _seq_split(ctx, x) -> bool:
+    """``x`` a residual ``DTensor`` whose sequence splits evenly over the
+    model axis."""
+    return (isinstance(x, DTensor) and ctx.spec("residual")[1] == ctx.model_axis
+            and x.shape[1] % ctx.axis_size(ctx.model_axis) == 0)
+
+
 def _seq_local(ctx, x) -> bool:
     """The data-parallel-only layout (``ctx.policy.dp_only``: the weights
     and heads replicated) whose residual splits its sequence over the model
-    axis, with a sequence that splits evenly: each block then runs on the
-    rank's own sequence block (``_by_block``), not on the gathered
-    sequence."""
-    return (isinstance(x, DTensor) and getattr(ctx.policy, "dp_only", False)
-            and ctx.spec("residual")[1] == ctx.model_axis
-            and x.shape[1] % ctx.axis_size(ctx.model_axis) == 0)
+    axis (``_seq_split``): each block then runs on the rank's own sequence
+    block (``_by_block``), not on the gathered sequence."""
+    return getattr(ctx.policy, "dp_only", False) and _seq_split(ctx, x)
 
 
 class _Seq:

@@ -32,6 +32,7 @@ the backward) while grad mode is on.
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -41,7 +42,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.collectives import axis_names, psum
+from repro_torch.checkpoint.checkpointer import leaf_paths
+from repro_torch.collectives import P, axis_names, psum
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers, tp
 from repro_torch.models.context import ModelCtx, null_ctx
@@ -130,11 +132,18 @@ class Model:
     def _unembed(self, params, x, ctx, role: str = "logits"):
         """The final norm and the unembedding, the logits laid out by
         ``role``: "logits" (vocab over the model axis) for prefill and
-        decode, "logits_sp" (sequence over it, vocab local) for the loss."""
+        decode, "logits_sp" (sequence over it, vocab local) for the loss.
+        The loss's, and under the data-parallel-only layout every role's,
+        are each rank's logits of its own sequence block through the whole
+        weight (``blocks._on_seq_block``), as the JAX package's program
+        computes them in the "logits_sp" layout: no rank holds the whole
+        sequence's logits, nor moves them from the vocabulary's split to
+        the sequence's."""
         cfg = self.cfg
         norm = layers.layer_norm if cfg.family == "audio" else layers.rms_norm
         w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
-        if blocks._seq_local(ctx, x):
+        if blocks._seq_local(ctx, x) or (role == "logits_sp"
+                                         and blocks._seq_split(ctx, x)):
             # each rank's logits of its own positions
             return ctx.constrain(blocks._on_seq_block(
                 lambda xl, q, _: norm(xl, q["ln"], cfg.norm_eps) @ q["w"], ctx, x,
@@ -271,11 +280,18 @@ class Model:
         """Process the prompt; return (last-position logits, decode cache).
 
         ``cache_len``: KV-cache capacity (>= prompt length); sequence-indexed
-        cache leaves are right-padded to it so decode has free slots."""
+        cache leaves are right-padded to it so decode has free slots.  On a
+        mesh under a policy (``ctx.policy``) each layer's cache leaves its
+        layer in the decode plan's layout for this batch
+        (``Policy.cache_shardings``), as the JAX package lowers its prefill
+        with ``out_shardings`` of that layout: no rank holds a layer's
+        cache whole past its layer."""
         cfg = self.cfg
         ctx = ctx or null_ctx()
         x, positions = self._embed_inputs(params, batch, ctx)
         stack = lambda cs: tree_map(lambda *xs: _stack(xs), *cs)  # noqa: E731
+        plan = _cache_plan(ctx, x)
+        out = lambda c: _layer_cache(c, ctx, plan, cache_len)  # noqa: E731
         if cfg.family in ("dense", "vlm", "moe"):
             cache = {}
             for name, key, depth in self._block_stacks():
@@ -283,14 +299,14 @@ class Model:
                 for i in range(depth):
                     x, c = blocks.block_prefill(x, _row(params[name], i), cfg, ctx,
                                                 positions)
-                    caches.append(c)
+                    caches.append(out(c))
                 cache[key] = stack(caches)
             cache = cache.get(None, cache)
         elif cfg.family == "ssm":
             caches = []
             for i in range(cfg.n_layers):
                 x, c = blocks.mamba_prefill(x, _row(params["layers"], i), cfg, ctx)
-                caches.append(c)
+                caches.append(out(c))
             cache = stack(caches)
         elif cfg.family == "audio":
             enc_out = self._encode(params, batch, ctx)
@@ -298,7 +314,7 @@ class Model:
             for i in range(cfg.n_layers):
                 x, c = blocks.dec_block_prefill(x, _row(params["dec_layers"], i),
                                                 cfg, ctx, positions, enc_out)
-                caches.append(c)
+                caches.append(out(c))
             cache = stack(caches)
         else:
             m_caches, a_caches = [], []
@@ -306,13 +322,11 @@ class Model:
                 for i in range(lo, hi):
                     x, c = blocks.mamba_prefill(x, _row(params["mamba_layers"], i),
                                                 cfg, ctx)
-                    m_caches.append(c)
+                    m_caches.append(out(c))
                 x, c = blocks.block_prefill(x, params["shared_block"], cfg, ctx,
                                             positions)
-                a_caches.append(c)
+                a_caches.append(out(c))
             cache = {"mamba": stack(m_caches), "attn": stack(a_caches)}
-        if cache_len is not None:
-            cache = _pad_cache_to(cache, cache_len)
         return self._unembed(params, ctx.gather_seq(x)[:, -1:], ctx), cache
 
     # --------------------------------------------------------------- decode
@@ -418,23 +432,33 @@ def _contiguous_stride(shape) -> tuple:
     return tuple(reversed(stride))
 
 
-_SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 2
+_SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 1
 
 
-def _pad_cache_to(cache, cache_len: int):
-    """Right-pad sequence-indexed cache leaves (stacked layout (L, B, S, ...))
-    to ``cache_len`` with zeros.  SSM states, conv windows and the cross
-    K/V (``xk``, ``xv``) untouched."""
-    out = {}
-    for key, val in cache.items():
-        if isinstance(val, dict):
-            out[key] = _pad_cache_to(val, cache_len)
-        elif key in _SEQ_CACHE_KEYS and cache_len > val.shape[2]:
-            pad = [0, 0] * (val.dim() - 3) + [0, cache_len - val.shape[2]]
-            out[key] = F.pad(val, pad)
-        else:
-            out[key] = val
-    return out
+def _cache_plan(ctx, x):
+    """The decode plan whose layout the prefill's cache takes: under a
+    policy on a mesh (``x`` a ``DTensor``), the policy's plan for x's
+    batch; else None."""
+    if ctx.policy is None or not isinstance(x, DTensor):
+        return None
+    return ctx.policy.decode_plan(x.shape[0])
+
+
+def _layer_cache(cache, ctx, plan, cache_len: Optional[int]):
+    """One layer's prefill cache (a dict of leaves (B, S, ...) or (B, ...))
+    as the decode takes it: the sequence-indexed leaves right-padded with
+    zeros to ``cache_len`` (SSM states, conv windows and the cross K/V
+    ``xk``, ``xv`` untouched), then, under ``plan``, each leaf moved to the
+    plan's layout of its stacked leaf with the layer dim left out."""
+    if cache_len is not None:
+        cache = {k: (F.pad(v, [0, 0] * (v.dim() - 2) + [0, cache_len - v.shape[1]])
+                     if k in _SEQ_CACHE_KEYS and cache_len > v.shape[1] else v)
+                 for k, v in cache.items()}
+    if plan is None:
+        return cache
+    stacked = {k: SimpleNamespace(shape=(1, *v.shape)) for k, v in cache.items()}
+    specs = dict(leaf_paths(ctx.policy.cache_shardings(stacked, plan)))
+    return {k: ctx.place(v, P(*specs[f"[{k!r}]"].spec[1:])) for k, v in cache.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,12 @@ so that a step agrees with the reference's to float32 rounding.  The
 moments are float32; with ``keep_master`` a float32 master copy of the
 parameters is kept and updated, and the parameters are cast from it.
 ``update`` is functional: it returns new tensors and changes none it was
-given.
+given.  ``adamw``'s ``update(..., donate=True)`` is the eager counterpart
+of the JAX package's ``donate_argnums`` on its train step: the same
+arithmetic, each given leaf of the gradients, the moments, the master
+copy and the parameters released from its dict or list as the update
+takes it, so that the step holds the old state and one leaf's
+temporaries, not two states.  The trees given are left holding ``None``.
 
 On a mesh the leaves are ``DTensor``s (``launch.sharding.place_state``):
 the gradients placed like their parameters and the moments and master
@@ -53,17 +58,19 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure and key order whose leaves, taken in
     ``tree_leaves`` order, are ``leaves``."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def fill(t):
-        if isinstance(t, dict):
-            filled = {k: fill(t[k]) for k in sorted(t)}
-            return {k: filled[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return [fill(x) for x in t]
-        return next(it)
 
-    return fill(tree)
+def _fill(t, it):
+    # module-level, not a recursive closure: a closure that calls itself is
+    # a reference cycle, which would keep ``it`` and so every leaf alive
+    # until the garbage collector runs
+    if isinstance(t, dict):
+        filled = {k: _fill(t[k], it) for k in sorted(t)}
+        return {k: filled[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return [_fill(x, it) for x in t]
+    return next(it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +124,37 @@ def global_norm(grads):
 def clip_by_global_norm(grads, max_norm: float):
     """-> (grads scaled by min(1, max_norm / |grads|), |grads|)."""
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: on_local(lambda x: (x.float() * scale).to(x.dtype), g),
-                    grads), gn
+    scale = _clip_scale(gn, max_norm)
+    return tree_map(lambda g: _scaled(g, scale), grads), gn
+
+
+def _clip_scale(gn, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def _scaled(g, scale):
+    return on_local(lambda x: (x.float() * scale).to(x.dtype), g)
+
+
+def _leaf_map(fn, *trees, release: bool = False):
+    """``tree_map(fn, *trees)``; with ``release`` each leaf is set to
+    ``None`` in its dict or list once ``fn`` has taken it (a tuple's
+    leaves are not released)."""
+    t0 = trees[0]
+    if not release or not isinstance(t0, (dict, list)):
+        return tree_map(fn, *trees)
+    keys = list(t0) if isinstance(t0, dict) else range(len(t0))
+    out = {} if isinstance(t0, dict) else [None] * len(t0)
+    for k in keys:
+        sub = [t[k] for t in trees]
+        if isinstance(sub[0], (dict, list, tuple)):
+            out[k] = _leaf_map(fn, *sub, release=True)
+            continue
+        for t in trees:
+            t[k] = None
+        out[k] = fn(*sub)
+        del sub
+    return out
 
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
@@ -141,11 +176,12 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         return state
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, donate: bool = False):
         step = state["step"] + 1
-        gn = None
+        gn = scale = None
         if grad_clip is not None:
-            grads, gn = clip_by_global_norm(grads, grad_clip)
+            gn = global_norm(grads)
+            scale = _clip_scale(gn, grad_clip)
         lr_t = sched(step)
         # b ** step in float32, as the reference raises a weak-typed b to a
         # float32 step
@@ -162,12 +198,19 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             p32 = p.detach().float()
             return m, v, p32 - lr_t * (u + weight_decay * p32)
 
-        out = tree_map(lambda *ts: on_local(upd, *ts), grads, state["m"], state["v"],
-                       ref)
-        new_m, new_v, new32 = (tree_map(lambda _, o: o[i], grads, out)
-                               for i in range(3))
-        new_params = tree_map(lambda p, n: on_local(lambda x: x.to(p.dtype), n),
-                              params, new32)
+        def one(g, m, v, r, p):
+            if scale is not None:
+                g = _scaled(g, scale)
+            m, v, n32 = on_local(upd, g, m, v, r)
+            # no float32 copy of every parameter kept without a master
+            return (m, v, n32 if keep_master else None,
+                    on_local(lambda x: x.to(p.dtype), n32))
+
+        out = _leaf_map(one, grads, state["m"], state["v"], ref, params,
+                        release=donate)
+        # ``grads`` gives the structure (its leaves None where released)
+        new_m, new_v, new32, new_params = (tree_map(lambda _, o: o[i], grads, out)
+                                           for i in range(4))
         new_state = {"step": step, "m": new_m, "v": new_v}
         if keep_master:
             new_state["master"] = new32

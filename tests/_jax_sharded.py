@@ -125,10 +125,27 @@ def prefill_logits(cfg, params_np, batch_np, mesh_shape=None, thr: float = 1e9):
     if mesh_shape is None:
         return np.asarray(jax.jit(lambda p, b: model.prefill(p, b)[0])(params_np,
                                                                        batch_np))
+    return prefill(cfg, params_np, batch_np, mesh_shape, thr)[0]
+
+
+def prefill(cfg, params_np, batch_np, mesh_shape, thr: float = 1e9):
+    """``Model.prefill`` under ``Policy(cfg, mesh, "prefill",
+    dp_only_threshold=thr).ctx()``, jitted as the JAX package's dry run
+    lowers it (the policy's ``in_shardings``, the cache's ``out_shardings``
+    from ``policy.cache_shardings`` of the decode plan for the batch) ->
+    (the last-position logits, the cache as a ``flat`` dict)."""
+    model = Model(cfg)
     mesh = mesh_of(mesh_shape)
     policy = Policy(cfg, mesh, "prefill", dp_only_threshold=thr)
     ctx = policy.ctx()
-    fn = jax.jit(lambda p, b: model.prefill(p, b, ctx)[0],
-                 in_shardings=(policy.param_shardings(params_np),
-                               policy.batch_shardings(batch_np)))
-    return np.asarray(fn(params_np, batch_np))
+    plan = policy.decode_plan(batch_np["tokens"].shape[0])
+
+    def step(p, b):
+        return model.prefill(p, b, ctx)
+
+    _, cache_shapes = jax.eval_shape(step, params_np, batch_np)
+    fn = jax.jit(step, in_shardings=(policy.param_shardings(params_np),
+                                     policy.batch_shardings(batch_np)),
+                 out_shardings=(None, policy.cache_shardings(cache_shapes, plan)))
+    logits, cache = fn(params_np, batch_np)
+    return np.asarray(logits), flat(cache)

@@ -195,7 +195,9 @@ def sharded_worker(rank, mesh_shape, cases):
       (rank 0) the gradients whole;
     * "prefill": ``Server(cfg, params, ctx=Policy(cfg, mesh, "prefill",
       dp_only_threshold=thr).ctx()).prefill`` -> the last-position logits
-      whole;
+      whole, (rank 0) every cache leaf whole, and the cache leaves whose
+      placements are not those ``Policy.cache_shardings`` gives them under
+      the policy's decode plan for the batch;
     * "steps": ``make_train_step`` on ``place_state`` of the initial
       {params, AdamW state}, one step per batch of ``batches`` -> this
       rank's blocks of the final state and (rank 0) its params whole;
@@ -237,11 +239,19 @@ def sharded_worker(rank, mesh_shape, cases):
         elif case["kind"] == "prefill":
             batch = _batch(case["batch"])
             batch.pop("labels", None)
-            ctx = Policy(cfg, mesh, "prefill", dp_only_threshold=thr).ctx()
-            srv = Server(cfg, params, ctx=ctx, max_len=case["max_len"], device="cpu")
-            logits, _ = srv.prefill(batch["tokens"], batch.get("frames"),
-                                    batch.get("patch_embeds"))
+            policy = Policy(cfg, mesh, "prefill", dp_only_threshold=thr)
+            srv = Server(cfg, params, ctx=policy.ctx(), max_len=case["max_len"],
+                         device="cpu")
+            logits, cache = srv.prefill(batch["tokens"], batch.get("frames"),
+                                        batch.get("patch_embeds"))
             res["logits"] = logits.full_tensor()
+            want = dict(leaf_paths(policy.cache_shardings(
+                cache, policy.decode_plan(batch["tokens"].shape[0]))))
+            res["misplaced"] = [path for path, t in leaf_paths(cache)
+                                if list(t.placements) != list(want[path].placements)]
+            whole = full_state(cache)
+            if rank == 0:
+                res["cache"] = dict(leaf_paths(whole))
         elif case["kind"] == "trainer":
             from repro_torch.checkpoint import CheckpointManager, LocalObjectStore
             from repro_torch.launch.train import Trainer

@@ -219,3 +219,37 @@ def test_meta_allocations_add_nothing_to_the_peak():
         b = a + 1
     assert c.peak == 2 * 64 * 64 * 4
     del a, b, big
+
+
+def test_live_at_peak_names_the_operators_alive_at_the_peak():
+    """``attribute=True``: the storages alive at the peak, grouped by the
+    operator, shape, dtype and line that made them; a storage freed before
+    the peak is not among them."""
+    with FakeTensorMode(), CostCounter(attribute=True) as c:
+        a = torch.empty(64, 64)
+        gone = a * 2
+        del gone
+        b = torch.cat([a, a])             # 2 x 64 x 64
+        d = b.exp()                       # the peak: a, b, d alive
+        del b
+    rows = c.live_at_peak()
+    assert c.peak == 64 * 64 * 4 * (1 + 2 + 2)
+    assert sum(n for n, _, _ in rows) == c.peak
+    got = {(op, shape, dtype): (n, count) for n, count, (op, shape, dtype, _) in rows}
+    assert got == {("empty", (64, 64), "float32"): (64 * 64 * 4, 1),
+                   ("cat", (128, 64), "float32"): (2 * 64 * 64 * 4, 1),
+                   ("exp", (128, 64), "float32"): (2 * 64 * 64 * 4, 1)}
+    del a, d
+
+
+def test_a_collectives_wait_counts_as_its_input(mesh):
+    """``wait_tensor`` returns its input on a device (its fake kernel makes
+    a copy): a gather made whole and waited for holds one buffer, alive
+    while either tensor is."""
+    x = _dt(mesh, (4, 8), [Replicate(), Shard(0)], (16, 8))
+    with FakeTensorMode(allow_non_fake_inputs=True), CostCounter(memory=True) as c:
+        y = x.redistribute(mesh, [Replicate(), Replicate()]).to_local()
+        assert tuple(y.shape) == (16, 8)
+    assert c.ops[torch.ops._c10d_functional.wait_tensor.default] >= 1
+    assert c.peak == 16 * 8 * 4
+    del y

@@ -20,8 +20,12 @@ are).  Counts from shapes, no time.
 * The traced peak at most ``PEAK_RATIO`` times the JAX package's
   ``hbm_estimate_bytes``: qwen1.5-0.5b's train step (the sharded loss's
   gradient stays each rank's block), deepseek-v2-236b's prefill (MLA's
-  attention over key chunks) and grok-1-314b's decode (the rank's blocks
-  of the weights).
+  attention over key chunks), grok-1-314b's decode (the rank's blocks
+  of the weights), and, under the tensor-parallel rules with K/V heads that
+  do not split the model axis ("expand"), qwen3-32b's prefill (each
+  layer's cache in the decode plan's layout as it is made) and
+  pixtral-12b's train step (the loss's logits of each rank's sequence
+  block, never moved from the vocabulary's split to the sequence's).
 """
 
 import concurrent.futures as cf
@@ -43,12 +47,14 @@ FLOPS_CELLS = [("grok-1-314b", "decode_32k"), ("deepseek-v2-236b", "decode_32k")
                ("pixtral-12b", "decode_32k"), ("qwen1.5-0.5b", "prefill_32k"),
                ("whisper-base", "prefill_32k"), ("mamba2-130m", "prefill_32k")]
 PEAK_CELLS = [("qwen1.5-0.5b", "train_4k"), ("deepseek-v2-236b", "prefill_32k"),
-              ("grok-1-314b", "decode_32k")]
+              ("grok-1-314b", "decode_32k"), ("qwen3-32b", "prefill_32k"),
+              ("pixtral-12b", "train_4k")]
 # longest first, so that the four children finish together
-CELLS = [("deepseek-v2-236b", "prefill_32k"), ("deepseek-v2-236b", "decode_32k"),
-         ("qwen1.5-0.5b", "prefill_32k"), ("grok-1-314b", "decode_32k"),
-         ("mamba2-130m", "prefill_32k"), ("pixtral-12b", "decode_32k"),
-         ("qwen1.5-0.5b", "train_4k"), ("whisper-base", "prefill_32k")]
+CELLS = [("deepseek-v2-236b", "prefill_32k"), ("pixtral-12b", "train_4k"),
+         ("deepseek-v2-236b", "decode_32k"), ("qwen1.5-0.5b", "prefill_32k"),
+         ("grok-1-314b", "decode_32k"), ("mamba2-130m", "prefill_32k"),
+         ("pixtral-12b", "decode_32k"), ("qwen1.5-0.5b", "train_4k"),
+         ("qwen3-32b", "prefill_32k"), ("whisper-base", "prefill_32k")]
 ROOT = Path(__file__).resolve().parents[1]
 
 _JAX_RUN = """

@@ -1007,6 +1007,58 @@ def test_reduced_moe_and_vlm_models_on_the_card_match_the_cpu(arch, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("run", ["bf16", "f32"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b", "pixtral-12b"])
+def test_reduced_family_train_step_at_the_configs_precision_card_against_cpu(
+        arch, run, card):
+    """One ``Trainer`` step of the reduced model at its full config's
+    optimizer precision (grok-1, deepseek-v2: ``moments_fp32``, no master;
+    pixtral-12b: ``fp32``), on the card against the same step on the CPU
+    from the same weights, through the flash kernel's forward (none for
+    MLA): the loss within 1e-2 relative, each leaf within 1e-2 of its
+    norm, and the step's change of each parameter and master leaf (new -
+    old) within 0.75 of the CPU's (``chip_smoke.py``'s ``A15_CHANGE_TOL``:
+    a missing update is 1).  "bf16" holds the parameters and the master
+    copy; its moments, the two devices' bf16 gradients, part by up to ~14 % of a leaf's norm
+    where the kernel's bf16 rounding meets a cancelling sum or a near-tied
+    route (grok-1's; ~1 % with the card's attention plain).  "f32" (the
+    3xTF32 kernel) holds every leaf, the moments too."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import leaf_paths
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import Trainer
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              opt_precision=get_config(arch).opt_precision,
+                              dtype="float32" if run == "f32" else "bfloat16")
+    seq = 24 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    runs = {}
+    for dev in (card, "cpu"):
+        fa = kfa.LAUNCHES
+        tr = Trainer(cfg, batch=2, seq=seq, lr=1e-3, seed=0, val_every=1, device=dev)
+        start = {p: t.detach().cpu().double() for p, t in leaf_paths(tr.state["params"])}
+        tr.run_steps(1)
+        runs[str(dev)] = (tr.metrics_vals[0], dict(leaf_paths(tr.state)),
+                          kfa.LAUNCHES - fa)
+    (lc, sc, nc), (lh, sh, nh) = runs["cuda"], runs["cpu"]
+    assert nc == (0 if cfg.use_mla else cfg.n_layers) and nh == 0
+    assert ("['opt']['master']" in "".join(sh)) == (cfg.opt_precision == "fp32")
+    assert abs(lc - lh) <= 1e-2 * abs(lh)
+    for path, want in sh.items():
+        if not isinstance(want, torch.Tensor):
+            assert sc[path] == want
+            continue
+        if run == "bf16" and path.startswith(("['opt']['m']", "['opt']['v']")):
+            continue
+        got = sc[path].cpu().double()
+        assert (got - want.double()).norm() <= 1e-2 * want.double().norm(), path
+        if path.startswith(("['params']", "['opt']['master']")):
+            # the master copy started as the parameters cast up
+            w0 = start[path.removeprefix("['opt']['master']").removeprefix("['params']")]
+            dw = want.double() - w0
+            assert (got - w0 - dw).norm() <= 0.75 * dw.norm(), (path, "change")
+
+
+@pytest.mark.cuda
 def test_restore_onto_the_one_card_nccl_mesh_and_decode(card, tmp_path):
     """The reduced qwen1.5-0.5b trained two steps on the card, saved,
     restored through ``ElasticTrial.restore_onto`` onto ``slice_mesh()`` of

@@ -17,6 +17,28 @@ forward within the reference test's 2e-4 and 3e-4
 ``capacity_factor = n_experts`` as there); greedy tokens equal.  bf16:
 logits within 5 % of their largest magnitude (the packages round bf16 at
 different places).
+
+One train step at the full config's optimizer precision (grok-1 and
+deepseek-v2 ``moments_fp32``: bf16 parameters and float32 moments, no
+master; pixtral-12b ``fp32``: a float32 master), ``make_train_step`` with
+``adamw(keep_master=cfg.opt_precision == "fp32")`` against the JAX
+package's on the same weights and batch, lr 1e-3 (``chip_smoke.py``'s
+training lr).  In float32 the loss, the new parameters, both moments and
+the master copy agree within 1e-2 of each leaf's largest magnitude
+(measured before this bound was set: moments ~3e-6, parameters ~6e-4,
+where Adam's first update of a near-zero gradient, +-lr whatever its size,
+flips sign between the two summation orders).  In bf16 the loss agrees
+within 1e-2 relative (C4's bound) and the new parameters and the master
+copy within 1e-2 of each leaf's norm; at lr 1e-3 that bound cannot see the
+update, so the step's change of each of those leaves (new - old) is held
+against the JAX package's change, |port - JAX| within 0.75 of |JAX| (a
+missing update is 1, a reversed one 2; measured before the bound was set:
+at most 0.56, deepseek-v2's dense ``ln1`` scale, where the bf16
+gradients' rounding flips the sign of Adam's first update, +-lr, on some
+elements).  The moments are not held in bf16: they are the two packages'
+bf16 gradients, which part by 10-31 % of a leaf's norm, about as far as
+the JAX package's own bf16 step lies from its float32 step
+(``tools/bf16_step_spread.py``).
 """
 
 import dataclasses
@@ -29,23 +51,31 @@ import torch
 import _torch_port  # noqa: F401  (one intra-op thread)
 
 from repro.configs.base import get_config as jget
+from repro.launch.train import make_train_step as jmake_train_step
 from repro.launch.serve import Server as JServer
 from repro.models.context import null_ctx as jnull
 from repro.models.inputs import sample_train_batch as jsample
 from repro.models.model import Model as JModel
+from repro.optim import adamw as jadamw
 from repro_torch.configs.base import get_config as tget
 from repro_torch.launch.serve import Server as TServer
-from repro_torch.launch.train import batch_to
+from repro_torch.checkpoint.checkpointer import leaf_paths
+from repro_torch.launch.train import batch_to, make_train_step
 from repro_torch.models.context import null_ctx
 from repro_torch.models.inputs import sample_train_batch
 from repro_torch.models.model import Model as TModel
 from repro_torch.models.model import params_from_numpy
+from repro_torch.optim import adamw
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 ARCHS = ["deepseek-v2-236b", "grok-1-314b", "pixtral-12b"]
 LOGIT_TOL, LOSS_RTOL, GRAD_TOL = 1e-4, 1e-5, 1e-3
 PREFILL_TOL, DECODE_TOL, BF16_REL_TOL = 2e-4, 3e-4, 5e-2
 B, S, MAX_LEN, STEPS = 2, 24, 40, 8
+# the full configs' optimizer precision (tests below set it on the reduced)
+OPT_PRECISION = {"deepseek-v2-236b": "moments_fp32", "grok-1-314b": "moments_fp32",
+                 "pixtral-12b": "fp32"}
+STEP_TOL, STEP_LR, STEP_CHANGE_TOL = 1e-2, 1e-3, 0.75
 
 
 def _flat(tree, prefix=""):
@@ -287,3 +317,68 @@ def test_decode_matches_full_forward(arch):
         lg_dec, _ = m.decode_step(tp, cache, batch["tokens"][:, -1:], S - 1, ctx)
     np.testing.assert_allclose(lg_dec[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+# --------------------------------------------- one step, the configs' optimizer
+
+
+def _one_step(arch, dtype):
+    """One train step of both packages on the reduced ``arch`` in
+    ``dtype`` at its full config's ``opt_precision``, from the same JAX
+    weights and batch -> (JAX state and metrics as ``flat``-style numpy
+    dicts keyed like the port's ``leaf_paths``, the port's, and the
+    weights both started from, keyed as the new parameters)."""
+    prec = OPT_PRECISION[arch]
+    assert tget(arch).opt_precision == jget(arch).opt_precision == prec
+    jc, tc, jp, tp = _pair(arch, dtype, opt_precision=prec)
+    n = S + (tc.n_patches if tc.family == "vlm" else 0)
+    batch = sample_train_batch(np.random.default_rng(13), tc, B, n)
+    jo = jadamw(STEP_LR, keep_master=(prec == "fp32"))
+    to = adamw(STEP_LR, keep_master=(tc.opt_precision == "fp32"))
+    jstate, jm = jax.jit(jmake_train_step(JModel(jc), jo, jnull(attn_chunk=8,
+                                                                remat="none")))(
+        {"params": jp, "opt": jo.init(jp)}, _jbatch(batch))
+    tstate, tm = make_train_step(TModel(tc), to, null_ctx(attn_chunk=8, remat="none"))(
+        {"params": tp, "opt": to.init(tp)}, batch_to(batch, "cpu"))
+    want = {jax.tree_util.keystr(p): np.asarray(x, np.float64)
+            for p, x in jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    got = {p: t.detach().double().numpy() for p, t in leaf_paths(tstate)
+           if isinstance(t, torch.Tensor)}
+    old = {jax.tree_util.keystr(p): np.asarray(x, np.float64)
+           for p, x in jax.tree_util.tree_flatten_with_path({"params": jp})[0]}
+    return want, float(jm["loss"]), got, float(tm["loss"]), tstate, old
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_train_step_at_the_configs_optimizer_precision(arch, dtype):
+    want, jloss, got, tloss, tstate, old = _one_step(arch, dtype)
+    master = OPT_PRECISION[arch] == "fp32"
+    assert ("master" in tstate["opt"]) == master
+    assert all(t.dtype == torch.float32 for t in tree_leaves(tstate["opt"]["m"]))
+    assert tstate["params"]["embed"]["tok"].dtype == getattr(torch, dtype)
+    assert set(got) == {p for p in want if not p.endswith("['step']")}
+    assert abs(tloss - jloss) <= STEP_TOL * abs(jloss), (tloss, jloss)
+    held = ("['params']", "['opt']['master']")
+    if dtype == "float32":
+        held += ("['opt']['m']", "['opt']['v']")
+    bad = []
+    for path, w in want.items():
+        if not path.startswith(held):
+            continue
+        if dtype == "float32":
+            err, scale = np.abs(got[path] - w).max(), np.abs(w).max()
+        else:
+            err, scale = np.linalg.norm(got[path] - w), np.linalg.norm(w)
+        if not (got[path].shape == w.shape and err <= STEP_TOL * max(scale, 1e-30)):
+            bad.append((path, float(err / max(scale, 1e-30))))
+        if dtype == "bfloat16":
+            # the master copy started as the parameters cast up
+            w0 = old["['params']" + path.removeprefix("['opt']['master']")
+                     .removeprefix("['params']")]
+            dw = np.linalg.norm(w - w0)
+            if not (dw > 0 and np.linalg.norm((got[path] - w0) - (w - w0))
+                    <= STEP_CHANGE_TOL * dw):
+                bad.append((path, "change", float(np.linalg.norm(got[path] - w)
+                                                  / max(dw, 1e-30))))
+    assert not bad, bad

@@ -27,7 +27,12 @@ Limits, set before the first run: the loss within 1e-5 relative of JAX's
 sharded loss; every gradient leaf within 1e-4 of its largest magnitude,
 whole and as each rank's local block against JAX's ``addressable_shards``
 at the same mesh coordinates (same shape); prefill's last-position logits
-under ``Policy(cfg, mesh, "prefill")`` within 1e-4 of JAX's.
+under ``Policy(cfg, mesh, "prefill")`` within 1e-4 of JAX's, and every
+leaf of its cache within 1e-4 of the larger of 1 and JAX's leaf's largest
+magnitude, each placed as ``Policy.cache_shardings`` lays it out under the
+decode plan for the batch (JAX's prefill returns its cache in that layout,
+``out_shardings``).  The prefill cases include qwen3-32b under the TP
+rules, whose K/V heads do not split the model axis ("expand").
 """
 
 import functools
@@ -69,6 +74,7 @@ PREFILL = {
     "whisper-prefill": ((2, 4), "whisper-base", {}, 0),
     "pixtral-prefill": ((2, 4), "pixtral-12b", {}, 0),
     "internlm-prefill-2x2": ((2, 2), "internlm2-20b", {}, 1e9),
+    "qwen3-expand-prefill": ((2, 4), "qwen3-32b", {}, 0),
 }
 
 
@@ -164,12 +170,35 @@ def test_local_gradient_blocks_match_jax_shards(name, port_runs):
     assert (sharded > 0) == (thr == 0)    # DP-only replicates every leaf
 
 
-@pytest.mark.parametrize("name", list(PREFILL))
-def test_sharded_prefill_matches_jax(name, port_runs):
+@functools.lru_cache(maxsize=None)
+def _jax_prefill(name):
     mesh, arch, ov, thr = PREFILL[name]
     cfg, p, b = _inputs(arch, tuple(ov.items()))
-    batch = {k: v for k, v in b.items() if k != "labels"}
-    want = J.prefill_logits(cfg, p, batch, mesh, thr)
+    return J.prefill(cfg, p, {k: v for k, v in b.items() if k != "labels"}, mesh, thr)
+
+
+@pytest.mark.parametrize("name", list(PREFILL))
+def test_sharded_prefill_matches_jax(name, port_runs):
+    mesh = PREFILL[name][0]
+    want = _jax_prefill(name)[0]
     got = port_runs(mesh)[0][name]["logits"].numpy()
     assert got.shape == want.shape
     assert float(np.max(np.abs(got - want))) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("name", list(PREFILL))
+def test_sharded_prefill_cache_matches_jax_in_the_plans_layout(name, port_runs):
+    """Every cache leaf within 1e-4 of the largest |value| of JAX's, and
+    on every rank each leaf placed as ``Policy.cache_shardings`` lays it
+    out (the layout the JAX package's prefill returns its cache in)."""
+    runs = port_runs(PREFILL[name][0])
+    want = _jax_prefill(name)[1]
+    got = runs[0][name]["cache"]
+    assert set(got) == set(want)
+    bad = [path for path in want
+           if not (tuple(got[path].shape) == want[path].shape
+                   and float(np.max(np.abs(got[path].double().numpy() - want[path])))
+                   <= LOGIT_TOL * max(float(np.max(np.abs(want[path]))), 1.0))]
+    assert not bad, bad
+    assert all(not r[name]["misplaced"] for r in runs), [r[name]["misplaced"]
+                                                         for r in runs]

@@ -325,6 +325,31 @@ def test_train_step_reports_the_references_metrics():
     assert all(not p.requires_grad for p in tree_leaves(new["params"]))
 
 
+@pytest.mark.parametrize("keep_master", [True, False])
+def test_donated_step_equals_the_functional_step(keep_master):
+    """``make_train_step(..., donate=True)`` (the Trainer's, as the JAX
+    Trainer donates its state) computes the functional step's numbers,
+    bit for bit, and leaves the given state's dicts holding None."""
+    tc = tget("qwen1.5-0.5b", reduced=True)
+    assert tc.dtype == "bfloat16"
+    opt = adamw(3e-3, keep_master=keep_master)
+    params = TModel(tc).init(torch.Generator().manual_seed(5), device="cpu")
+    batch = batch_to(TData(tc, BATCH, SEQ, seed=4).get_batch(0), "cpu")
+    ctx = null_ctx(attn_chunk=CHUNK, remat="none")
+    state = {"params": params, "opt": opt.init(params)}
+    copy = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, state)
+    want, wm = make_train_step(TModel(tc), opt, ctx)(state, batch)
+    got, gm = make_train_step(TModel(tc), opt, ctx, donate=True)(copy, batch)
+    assert set(got["opt"]) == set(want["opt"]) == ({"step", "m", "v", "master"}
+                                                   if keep_master else {"step", "m", "v"})
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+    assert float(gm["grad_norm"]) == float(wm["grad_norm"])
+    assert all(x is None for x in tree_leaves(copy["params"]) + tree_leaves(
+        {k: v for k, v in copy["opt"].items() if k != "step"}))
+    assert all(isinstance(x, torch.Tensor) for x in tree_leaves(state["params"]))
+
+
 def test_entry_points_default_to_the_card_and_check_their_flags():
     cfg = tget("zamba2-1.2b", reduced=True)
     if not torch.cuda.is_available():

@@ -15,6 +15,11 @@ beside it, its FLOPs a device, the dominant term of its
 roofline at the H100's rates (``launch.roofline.H100_RATES``), and the
 ratio of its FLOPs a device to the JAX package's count.  Counts from shapes, no card: no time here is a
 measurement.
+
+With ``--base ROOT`` (another checkout whose port dry run has been run,
+e.g. the parent commit's ``git archive``) it prints instead a line a cell:
+the port's traced peak and FLOPs a device in both checkouts, the change of
+the peak, and both peaks and FLOPs against the JAX package's.
 """
 
 from __future__ import annotations
@@ -108,15 +113,46 @@ def table(mesh: str) -> str:
     return "\n".join(lines)
 
 
+def _port_arts(root: Path, mesh: str) -> dict:
+    d = root / "artifacts" / "dryrun_torch" / mesh
+    return {(a["arch"], a["shape"]): a for a in
+            (json.loads(p.read_text()) for p in sorted(d.glob("*.json")))}
+
+
+def against(mesh: str, base: Path) -> str:
+    """One line a traced cell: peak GB here and in ``base``, their ratio,
+    the peak and FLOPs a device against the JAX package's."""
+    new, old = _port_arts(ROOT, mesh), _port_arts(base, mesh)
+    lines = ["arch shape: peak GB (base GB, new/base) | peak/JAX (base) | "
+             "FLOPs/JAX (base)"]
+    for key in sorted(new):
+        a, b = new[key], old.get(key, {})
+        if a.get("skipped") or "memory" not in a or "memory" not in b:
+            continue
+        jpath = JAX_DIR / mesh / f"{key[0]}__{key[1]}.json"
+        jart = json.loads(jpath.read_text()) if jpath.exists() else {}
+        jhbm = jart.get("memory", {}).get("hbm_estimate_bytes")
+        jfl = jart.get("hlo_flops_per_device")
+        pa, pb = a["memory"]["peak_memory_in_bytes"], b["memory"]["peak_memory_in_bytes"]
+        fa, fb = a["hlo_flops_per_device"], b["hlo_flops_per_device"]
+        rj = (f"{pa / jhbm:.3f}x ({pb / jhbm:.3f}x)" if jhbm else "no JAX")
+        fj = (f"{fa / jfl:.3f}x ({fb / jfl:.3f}x)" if jfl else "no JAX")
+        lines.append(f"{key[0]} {key[1]}: {pa / 1e9:.3f} GB ({pb / 1e9:.3f} GB, "
+                     f"{pa / pb:.3f}) | {rj} | {fj}")
+    return "\n".join(lines)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="single", choices=sorted(SIZES))
     ap.add_argument("--run", action="store_true",
                     help="run both dry runs first (the JAX one on the CPU)")
+    ap.add_argument("--base", type=Path, default=None,
+                    help="another checkout's root: compare its port artifacts")
     args = ap.parse_args()
     if args.run:
         run(args.mesh)
-    print(table(args.mesh))
+    print(table(args.mesh) if args.base is None else against(args.mesh, args.base))
 
 
 if __name__ == "__main__":
