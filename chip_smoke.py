@@ -58,15 +58,21 @@ drives the port's two paths through them:
   route).
 * the model's training path: flash attention's log-sum-exp (both
   routes) against the plain one and the kernels' autograd Functions
-  (``FlashAttention``, ``SsdChunk``: kernel forwards, plain backwards)
-  against autograd of the plain forwards; float32 zamba2-1.2b at full width
+  (``FlashAttention``, ``SsdChunk``: kernel forwards and backwards)
+  against autograd of the plain forwards; the backward kernels
+  (``flash_attention_bwd``, ``ssd_chunk_bwd``) against the plain backwards
+  at every flash head dim, ragged, offset and GQA shape, both types, and
+  the SSD chunk's training shapes, each call repeated bitwise; float32
+  zamba2-1.2b at full width
   (B = 2, S = 512), one ``Model.loss`` and its gradients through the
-  kernels (7 flash and 76 ssd_chunk launches) and through the plain
+  kernels (7 flash and 76 ssd_chunk launches, and as many backward kernel
+  calls) and through the plain
   versions, every leaf compared; the config's bf16 with a float32 master,
   5 steps of ``make_train_step`` with ``adamw`` (ms a step, peak memory,
-  launches a step, the card's idle share and the backward's share of its
-  busy time under the profiler); the plain backwards timed at the training
-  shapes beside SDPA's backward and their bounds; ``Trainer`` on the card
+  launches a step, the backward kernels' 7 and 76 a step and no call of a
+  plain backward, the card's idle share and the backward's share of its
+  busy time under the profiler); the backward kernels timed at the training
+  shapes beside the plain backwards, SDPA's backward and their bounds; ``Trainer`` on the card
   against the CPU on the reduced zamba2 and qwen1.5-0.5b, a checkpoint
   restart on the card, and the full-width state's checkpoint size against
   fig12's store rates;
@@ -2440,35 +2446,129 @@ def leaf_names(tree, prefix=""):
     return [prefix]
 
 
-def flash_bwd_bound_ms(B, S, H, D, elem_bytes):
-    """Least time for the flash backward (causal, Sq = Sk = S): q, k, v, o
-    and do read once, lse read once, dq, dk and dv written once; against
-    five products over the (query, key) pairs the mask keeps (S = QK^T
-    recomputed, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) at the
-    forward row's rate (bf16 on the tensor cores, float32 at the 3xTF32
-    rate)."""
-    n_bytes = elem_bytes * B * H * D * 8 * S + 4 * B * H * S
-    pairs = S * (S + 1) // 2
-    flops = 10.0 * B * H * pairs * D
-    peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_TF32_FLOPS / 3
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def flash_bwd_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, q_offset=0):
+    """Least time for the flash backward (the package's
+    ``flash_attention_cuda.flash_bwd_bound_ms`` of ``flash_bwd_cost``, which
+    the dry run's cost counter also reads): q, k, v, do and lse read once,
+    dq, dk and dv written once, against five products over the (query,
+    key) pairs the mask keeps (S = QK^T recomputed, dV = P^T dO, dP =
+    dO V^T, dQ = dS K, dK = dS^T Q), bf16 on the tensor cores, float32 at
+    the 3xTF32 rate."""
+    from repro_torch.kernels.flash_attention_cuda import flash_bwd_bound_ms as bound
+    return bound(B, Sq, Sk, H, D, causal, elem_bytes, q_offset)
 
 
 def ssd_bwd_bound_ms(B, Q, H, P, N, groups):
-    """Least time for the SSD chunk's backward (float32): the chunk's
-    inputs (B and C once per group) and the outputs' gradients read once,
-    the inputs' gradients written once; against the forward's products
-    recomputed and two gradient products for each, at the 3xTF32 rate."""
-    ins = B * Q * H * (P + 1) + H + 2 * B * Q * groups * N + B * H * P * N
-    outs = B * Q * H * P + B * H * P * N
-    n_bytes = 4 * (2 * ins + outs)
-    tri = Q * (Q + 1) // 2
-    flops = 3 * 2.0 * B * (groups * tri * N + H * tri * P + 2 * H * Q * P * N)
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / (H100_TF32_FLOPS / 3) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the SSD chunk's backward (float32; the package's
+    ``ssd_chunk_cuda.ssd_bwd_bound_ms`` of ``ssd_chunk_bwd_cost``): the
+    chunk's inputs (B and C once per group) and the outputs' gradients read
+    once, the inputs' gradients written once; against the forward's
+    products recomputed and two gradient products for each, at the 3xTF32
+    rate."""
+    from repro_torch.kernels.ssd_chunk_cuda import ssd_bwd_bound_ms as bound
+    return bound(B, Q, H, P, N, groups)
+
+
+# the backward kernels against their plain versions: each gradient within
+# these of its largest magnitude (tests/test_torch_kernels_cuda.py), two
+# calls bitwise equal
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_BWD_TOL = 1e-4
+SSD_BWD_LARGE_DECAY_TOL = 1e-2
+# (B, Sq, Sk, H, D, causal, q_offset, K/V heads expanded to H or None)
+FLASH_BWD_CASES = [(2, 512, 512, 32, 64, True, 0, None),    # zamba2's training shape
+                   (2, 256, 1500, 8, 64, False, 0, None),   # whisper's cross-attention
+                   (1, 200, 237, 4, 96, False, 0, None), (2, 70, 70, 3, 32, True, 0, None),
+                   (2, 1, 38, 4, 16, True, 0, None), (1, 333, 333, 2, 128, True, 0, None),
+                   (1, 64, 256, 2, 64, True, 192, None), (2, 100, 300, 4, 128, True, 37, None),
+                   (2, 1280, 1280, 32, 128, True, 0, 8)]    # pixtral-12b: 32 over 8
+# (B, Q, H, P, N, B/C head stride 0, dt scale, a chunk slice of S = 2Q)
+SSD_BWD_CASES = [(2, 256, 64, 64, 64, True, 1.0, False),    # zamba2's training chunk
+                 (2, 256, 64, 64, 64, False, 1.0, False), (2, 256, 8, 64, 64, True, 1.0, True),
+                 (4, 32, 8, 16, 16, False, 1.0, False),     # the mamba2 trial's
+                 (1, 200, 4, 64, 128, True, 1.0, False), (2, 32, 3, 8, 4, False, 1.0, False),
+                 (2, 64, 3, 16, 8, False, 1000.0, False)]   # dt |A| ~ 100
+
+
+def backward_kernel_checks(torch, randn, leafwise) -> dict:
+    """The backward kernels against their plain versions at FLASH_BWD_CASES
+    and SSD_BWD_CASES (every head dim of the flash forward, causal and not,
+    Sq != Sk with ragged tiles, a query offset, expanded GQA, both types;
+    the SSD chunk's widths of zamba2 and the mamba2 trial, head stride 0
+    and not, a chunk slice, N = 128, dt |A| ~ 100), each call repeated and
+    compared bitwise.  Returns the largest errors."""
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+
+    out = {"flash": {"max_abs_err": 0.0, "max_rel_err": 0.0},
+           "flash_f32": {"max_abs_err": 0.0, "max_rel_err": 0.0},
+           "ssd": {"max_abs_err": 0.0, "max_rel_err": 0.0, "large_decay_rel_err": 0.0}}
+    n0 = kfa.BWD_LAUNCHES, kss.BWD_LAUNCHES
+    for dt, name, key in ((torch.float32, "float32", "flash_f32"),
+                          (torch.bfloat16, "bfloat16", "flash")):
+        for B, Sq, Sk, H, D, causal, q_off, kvh in FLASH_BWD_CASES:
+            q, do = randn(B, Sq, H, D, dtype=dt), randn(B, Sq, H, D, dtype=dt)
+            k, v = (randn(B, Sk, kvh or H, D, dtype=dt) for _ in range(2))
+            if kvh:
+                k, v = (t[:, :, :, None].expand(B, Sk, kvh, H // kvh, D).reshape(B, Sk, H, D)
+                        for t in (k, v))
+            _, lse = kfa.flash_attention_lse_cuda(q, k, v, causal, None, q_off)
+            got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, None, q_off)
+            again = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, None, q_off)
+            want = ref.flash_attention_bwd(q, k, v, lse, do, causal, None, None, q_off)
+            torch.cuda.synchronize()
+            rel = leafwise(got, want)
+            ab = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            what = (f"flash_attention_bwd {name} (B,Sq,Sk,H,D) = {(B, Sq, Sk, H, D)} causal "
+                    f"{causal} q_offset {q_off}" + (f", K/V {kvh} heads expanded" if kvh else ""))
+            print(f"  {what}: of each gradient's largest {rel:.3g} (max abs {ab:.3g}); "
+                  f"repeat bitwise {same}")
+            if not (rel <= BWD_TOL[name] and same):
+                fail(f"{what}: {rel:.3g} of the largest (tol {BWD_TOL[name]}), "
+                     f"bitwise repeat {same}")
+            out[key]["max_rel_err"] = max(out[key]["max_rel_err"], rel)
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"], ab)
+            del q, k, v, do, lse, got, again, want
+    for B, Q, H, P, N, s0, dts, sliced in SSD_BWD_CASES:
+        rows = 2 * Q if sliced else Q
+        x, dy = randn(B, rows, H, P), randn(B, rows, H, P)
+        dt_ = (torch.rand(B, rows, H) * 0.099 + 0.001).cuda() * dts
+        A = -(torch.rand(H) * 1.5 + 0.5).cuda()
+        Bm, Cm = randn(B, rows, H, N), randn(B, rows, H, N)
+        st, dst = randn(B, H, P, N), randn(B, H, P, N)
+        if s0:
+            Bm, Cm = (t[:, :, :1].expand(B, rows, H, N) for t in (Bm, Cm))
+        if sliced:
+            x, dt_, Bm, Cm, dy = (t[:, Q:] for t in (x, dt_, Bm, Cm, dy))
+        args = (x, dt_, A, Bm, Cm, st, dy, dst)
+        got = kss.ssd_chunk_bwd_cuda(*args)
+        again = kss.ssd_chunk_bwd_cuda(*args)
+        want = ref.ssd_chunk_bwd(*args)
+        torch.cuda.synchronize()
+        rel = leafwise(got, want)
+        ab = max((g - w).abs().max().item() for g, w in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        tol = SSD_BWD_TOL if dts == 1.0 else SSD_BWD_LARGE_DECAY_TOL
+        what = (f"ssd_chunk_bwd (B,Q,H,P,N) = {(B, Q, H, P, N)}" + (", B/C head stride 0"
+                if s0 else "") + (", a chunk slice of S = 2Q" if sliced else "")
+                + (f", dt x {dts:g}" if dts != 1.0 else ""))
+        print(f"  {what}: of each gradient's largest {rel:.3g} (max abs {ab:.3g}, tol "
+              f"{tol}); finite {finite}; repeat bitwise {same}")
+        if not (rel <= tol and same and finite):
+            fail(f"{what}: {rel:.3g} of the largest (tol {tol}), finite {finite}, bitwise "
+                 f"repeat {same}")
+        if dts == 1.0:
+            out["ssd"]["max_rel_err"] = max(out["ssd"]["max_rel_err"], rel)
+            out["ssd"]["max_abs_err"] = max(out["ssd"]["max_abs_err"], ab)
+        else:
+            out["ssd"]["large_decay_rel_err"] = rel
+    print(f"{2 * len(FLASH_BWD_CASES)} flash and {len(SSD_BWD_CASES)} SSD backward cases "
+          f"agree with the plain backwards and repeat bitwise ({kfa.BWD_LAUNCHES - n0[0]} "
+          f"and {kss.BWD_LAUNCHES - n0[1]} calls)")
+    return out
 
 
 def model_train_phases(torch) -> dict:
@@ -2568,6 +2668,10 @@ def model_train_phases(torch) -> dict:
             fail(f"{key}: the Function's gradients are {err:.3g} of the largest "
                  "from autograd of the plain forward")
 
+    phase("the backward kernels (flash_attention_bwd, ssd_chunk_bwd) against their "
+          "plain versions")
+    bwd_err = backward_kernel_checks(torch, randn, leafwise)
+
     # --------------------------- float32 zamba2 at full width: loss + grads
     phase(f"main path: {TRAIN_ARCH} (float32) Model.loss and its gradients at "
           f"full width, through the kernels and through the plain versions")
@@ -2592,14 +2696,17 @@ def model_train_phases(torch) -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = (kfa.TF32_LAUNCHES, kss.LAUNCHES)
+        bwd0 = (kfa.BWD_LAUNCHES, kss.BWD_LAUNCHES)
         grads = torch.autograd.grad(loss, tree_leaves(p))
+        counts = counts + (kfa.BWD_LAUNCHES - bwd0[0], kss.BWD_LAUNCHES - bwd0[1])
         torch.cuda.synchronize()
         return (float(loss.detach()), [g.detach() for g in grads], counts,
                 (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
 
     kfa.LAUNCHES = kfa.TF32_LAUNCHES = kfa.WGMMA_LAUNCHES = kss.LAUNCHES = 0
-    loss_k, g_k, fwd_counts, fwd_ms, bwd_ms = loss_and_grads(
+    loss_k, g_k, counts_k, fwd_ms, bwd_ms = loss_and_grads(
         null_ctx(attn_chunk=min(512, S), remat="none"))
+    fwd_counts, bwd_kernels = counts_k[:2], counts_k[2:]
     bwd_counts = (kfa.TF32_LAUNCHES, kss.LAUNCHES)
     loss_r, g_r, _, fwd_ms_r, bwd_ms_r = loss_and_grads(
         null_ctx(attn_chunk=min(512, S), remat="none", kernels="ref"))
@@ -2618,23 +2725,27 @@ def model_train_phases(torch) -> dict:
           f"every gradient finite: {finite}")
     print(f"launches: forward flash {fwd_counts[0]} (3xTF32 route, want {want_fa}), "
           f"ssd_chunk {fwd_counts[1]} (want {cfg.n_layers} x {-(-S // Q)} = "
-          f"{want_ss}); after the backward {bwd_counts} (the backwards are plain); "
+          f"{want_ss}); after the backward {bwd_counts}; backward kernels flash "
+          f"{bwd_kernels[0]}, ssd_chunk {bwd_kernels[1]} (want {(want_fa, want_ss)}); "
           f"wall: forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms through the "
           f"kernels, {fwd_ms_r:.1f} / {bwd_ms_r:.1f} ms plain")
-    if fwd_counts != (want_fa, want_ss) or bwd_counts != fwd_counts:
+    if (fwd_counts != (want_fa, want_ss) or bwd_counts != fwd_counts
+            or bwd_kernels != (want_fa, want_ss)):
         fail(f"the float32 training forward launched (flash 3xTF32, ssd_chunk) "
              f"{fwd_counts} (want {(want_fa, want_ss)}), {bwd_counts} after the "
-             f"backward")
+             f"backward, whose kernels launched {bwd_kernels}")
     if not (loss_rel <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL and finite):
         fail(f"float32 {TRAIN_ARCH} training through the kernels: loss {loss_rel:.3g} "
              f"relative, worst leaf {names[worst]} {errs[worst]:.3g}")
     out["flash_f32"]["train"] = {
         "arch": cfg32.name, "batch": B, "seq": S, "launches_per_forward": fwd_counts[0],
+        "bwd_launches_per_backward": bwd_kernels[0],
         "loss_kernels": loss_k, "loss_plain": loss_r, "loss_rel": loss_rel,
         "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_ms_r,
         "bwd_plain_ms": bwd_ms_r}
     out["ssd"]["train_f32_launches_per_forward"] = fwd_counts[1]
+    out["ssd"]["train_f32_bwd_launches_per_backward"] = bwd_kernels[1]
     del params, g_k, g_r
     torch.cuda.empty_cache()
 
@@ -2652,16 +2763,26 @@ def model_train_phases(torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kss.LAUNCHES = 0
+    kfa.BWD_LAUNCHES = kss.BWD_LAUNCHES = 0
     losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_calls = []            # calls of the plain backwards: none on the card
+    real_bwd = ref.flash_attention_bwd, ref.ssd_chunk_bwd
+    ref.flash_attention_bwd = lambda *a, **k: (plain_calls.append("flash")
+                                               or real_bwd[0](*a, **k))
+    ref.ssd_chunk_bwd = lambda *a, **k: plain_calls.append("ssd") or real_bwd[1](*a, **k)
+    try:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ref.flash_attention_bwd, ref.ssd_chunk_bwd = real_bwd
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fa_step, ss_step = kfa.WGMMA_LAUNCHES / TRAIN_STEPS, kss.LAUNCHES / TRAIN_STEPS
+    fa_bwd_step, ss_bwd_step = kfa.BWD_LAUNCHES / TRAIN_STEPS, kss.BWD_LAUNCHES / TRAIN_STEPS
     ms_step = sum(step_ms[-3:]) / 3
     state_bytes = tree_bytes(state)
     print(f"losses {[round(x, 5) for x in losses]} on the repeated batch (lr "
@@ -2670,13 +2791,19 @@ def model_train_phases(torch) -> dict:
           f"tokens/s); peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)"
           f"; train state {state_bytes / 1e9:.3f} GB")
     print(f"launches a step: flash_attention {fa_step:g} (bf16 wgmma route, want "
-          f"{want_fa}), ssd_chunk {ss_step:g} (want {want_ss})")
+          f"{want_fa}), ssd_chunk {ss_step:g} (want {want_ss}); backward kernels "
+          f"flash_attention_bwd {fa_bwd_step:g}, ssd_chunk_bwd {ss_bwd_step:g}; calls of "
+          f"the plain backwards {len(plain_calls)}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"bf16 training: losses {losses}: not finite, or step "
              f"{TRAIN_STEPS}'s not below step 1's")
     if (fa_step, ss_step) != (want_fa, want_ss) or kfa.LAUNCHES != kfa.WGMMA_LAUNCHES:
         fail(f"bf16 training launched flash {kfa.LAUNCHES} ({kfa.WGMMA_LAUNCHES} "
              f"wgmma) and ssd_chunk {kss.LAUNCHES} times in {TRAIN_STEPS} steps")
+    if (fa_bwd_step, ss_bwd_step) != (want_fa, want_ss) or plain_calls:
+        fail(f"bf16 training launched the backward kernels {kfa.BWD_LAUNCHES} and "
+             f"{kss.BWD_LAUNCHES} times in {TRAIN_STEPS} steps (want {want_fa} and "
+             f"{want_ss} a step) and called the plain backwards {len(plain_calls)} times")
 
     phase(f"{TRAIN_ARCH} bf16 train step under torch.profiler")
     seen = []
@@ -2734,10 +2861,12 @@ def model_train_phases(torch) -> dict:
         "seq": S, "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
         "ms_per_step": ms_step, "peak_memory_gb": peak_gb,
         "state_bytes": state_bytes, "launches_per_step": fa_step,
+        "bwd_launches_per_step": fa_bwd_step,
         "kernels_per_step_seen": len(seen), "busy_ms": busy * 1e3,
         "wall_ms": prof_wall * 1e3, "idle_share": idle,
         "busy_ms_by_part": part_busy, "backward_share_of_busy": bwd_share}
     out["ssd"]["train_launches_per_step"] = ss_step
+    out["ssd"]["train_bwd_launches_per_step"] = ss_bwd_step
 
     phase(f"the full-width train state against fig12's store rates "
           f"(ThrottledStore; not written)")
@@ -2758,11 +2887,15 @@ def model_train_phases(torch) -> dict:
     torch.cuda.empty_cache()
 
     # ------------------------------- the backwards' card time (rows 4b, 5b)
-    phase("the plain backwards at the training shapes (CUDA events, card time)")
+    phase("the backward kernels at the training shapes beside the plain backwards "
+          "and SDPA's (CUDA events, card time)")
     bwd = {}
     for dt, name in ((torch.bfloat16, "flash"), (torch.float32, "flash_f32")):
         q, k, v, do = (randn(B, S, H, D, dtype=dt) for _ in range(4))
         o, lse = kfa.flash_attention_lse_cuda(q, k, v, True)
+
+        def fk():
+            return kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True)
 
         def fb():
             return ref.flash_attention_bwd(q, k, v, lse, do, True, None, S)
@@ -2778,47 +2911,97 @@ def model_train_phases(torch) -> dict:
         lib = sdpa_bwd()
         lib_err = max((a.float() - b.transpose(1, 2).float()).abs().max().item()
                       for a, b in zip(got, lib))
-        bound, by = flash_bwd_bound_ms(B, S, H, D, q.element_size())
-        r = {"ms": cuda_ms(fb, iters=50, warmup=5),
+        bound, by = flash_bwd_bound_ms(B, S, S, H, D, True, q.element_size())
+        r = {"ms": cuda_ms(fk, iters=50, warmup=5),
+             "plain_ms": cuda_ms(fb, iters=20, warmup=3),
              "library_ms": cuda_ms(sdpa_bwd, iters=50, warmup=5),
-             "device_us": device_us_per_call(fb, iters=10, warmup=2,
-                                             what=f"of the flash backward, {name}"),
+             "device_us": device_us_per_call(fk, iters=20, warmup=3,
+                                             what=f"of the flash backward kernels, {name}"),
+             "plain_device_us": device_us_per_call(fb, iters=10, warmup=2,
+                                                   what=f"of the plain flash backward, {name}"),
              "library_device_us": device_us_per_call(
                  sdpa_bwd, iters=10, warmup=2,
                  what=f"of scaled_dot_product_attention's backward, {name}"),
              "bound_ms": bound, "bound_by": by, "library_err": lib_err,
              "launches_per_step": want_fa,
+             "max_abs_err": bwd_err[name]["max_abs_err"],
+             "max_rel_err": bwd_err[name]["max_rel_err"],
              "shape": {"B": B, "S": S, "H": H, "D": D, "dtype": str(dt)[6:],
-                       "causal": True, "chunk": S},
+                       "causal": True},
              "library": "torch.autograd.grad of scaled_dot_product_attention"}
-        print(f"flash backward {str(dt)[6:]} (B,S,H,D) = {(B, S, H, D)}: "
-              f"{r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
-              f"SDPA's backward {r['library_ms']:.4f} ms, {r['library_device_us']} "
-              f"us (max abs diff from the plain backward {lib_err:.3g}); bound "
-              f"{bound:.4g} ms ({by}); {want_fa} a step")
+        print(f"flash backward {str(dt)[6:]} (B,S,H,D) = {(B, S, H, D)}: kernels "
+              f"{r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; plain "
+              f"{r['plain_ms']:.4f} ms, {r['plain_device_us']} us; SDPA's backward "
+              f"{r['library_ms']:.4f} ms, {r['library_device_us']} us (max abs diff from "
+              f"the plain backward {lib_err:.3g}); bound {bound:.4g} ms ({by}); "
+              f"{want_fa} a step")
         bwd[name] = r
         del q, k, v, do, o, lse, qt, kt, vt, ot, dot
     ssd_args = [t.detach() for t in args]
     dy, dst = dy.detach(), dst.detach()
 
+    def sk():
+        return kss.ssd_chunk_bwd_cuda(*ssd_args, dy, dst)
+
     def sb():
         return ref.ssd_chunk_bwd(*ssd_args, dy, dst)
 
     bound, by = ssd_bwd_bound_ms(B, Q, SH, SP, SN, cfg.ssm_groups)
-    r = {"ms": cuda_ms(sb, iters=30, warmup=3),
-         "device_us": device_us_per_call(sb, iters=10, warmup=2,
-                                         what="of the SSD chunk's backward"),
+    r = {"ms": cuda_ms(sk, iters=50, warmup=5),
+         "plain_ms": cuda_ms(sb, iters=20, warmup=3),
+         "device_us": device_us_per_call(sk, iters=20, warmup=3,
+                                         what="of the SSD chunk's backward kernel"),
+         "plain_device_us": device_us_per_call(sb, iters=10, warmup=2,
+                                               what="of the SSD chunk's plain backward"),
          "bound_ms": bound, "bound_by": by, "library_ms": None,
          "launches_per_step": want_ss,
+         "max_abs_err": bwd_err["ssd"]["max_abs_err"],
+         "max_rel_err": bwd_err["ssd"]["max_rel_err"],
+         "large_decay_rel_err": bwd_err["ssd"]["large_decay_rel_err"],
          "shape": {"B": B, "Q": Q, "H": SH, "P": SP, "N": SN, "dtype": "float32",
                    "bc_head_stride": int(ssd_args[3].stride(2))}}
     print(f"ssd_chunk backward (B,Q,H,P,N) = {(B, Q, SH, SP, SN)}, B/C head stride "
-          f"0: {r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
-          f"bound {bound:.4g} ms ({by}); {want_ss} a step; no PyTorch call "
-          f"computes it")
+          f"0: kernel {r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card "
+          f"time; plain {r['plain_ms']:.4f} ms, {r['plain_device_us']} us; bound "
+          f"{bound:.4g} ms ({by}); {want_ss} a step; no PyTorch call computes it")
     bwd["ssd"] = r
     for key in ("flash", "flash_f32", "ssd"):
         out[key]["backward"] = bwd[key]
+    # the backward kernels' rows of the kernels line; launches: the bf16
+    # train steps' (the counts set to 0 before them)
+    fb, f32b = bwd["flash"], bwd["flash_f32"]
+    out["rows"] = [{
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cuh",
+        "replaces": "src/repro/models/attention.py:202 (_flash_bwd_rule, XLA code "
+                    "under flash_attention_vjp, :187-240; no Pallas kernel)",
+        "kernel": "flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (tf32 wgmma; bf16 "
+                  "operands exact, float32 3xTF32), one call",
+        "launches": fa_bwd_step * TRAIN_STEPS, "launches_per_step": fa_bwd_step,
+        "steps": TRAIN_STEPS, "max_abs_err": fb["max_abs_err"],
+        "max_rel_err": fb["max_rel_err"], "tol_rel": BWD_TOL["bfloat16"],
+        "ms": fb["ms"], "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+        "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
+        "library": fb["library"], "device_us": fb["device_us"],
+        "plain_device_us": fb["plain_device_us"],
+        "library_device_us": fb["library_device_us"], "shape": fb["shape"],
+        "f32": {"max_abs_err": f32b["max_abs_err"], "max_rel_err": f32b["max_rel_err"],
+                "tol_rel": BWD_TOL["float32"], "ms": f32b["ms"],
+                "plain_ms": f32b["plain_ms"], "bound_ms": f32b["bound_ms"],
+                "bound_by": f32b["bound_by"], "library_ms": f32b["library_ms"],
+                "device_us": f32b["device_us"], "plain_device_us": f32b["plain_device_us"],
+                "library_device_us": f32b["library_device_us"],
+                "launches_per_f32_backward": bwd_kernels[0]},
+    }, {
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cuh",
+        "replaces": "src/repro/models/ssd.py:136-139 (autodiff of "
+                    "jax.checkpoint(_chunk_scan_step), XLA code; no Pallas kernel)",
+        "launches": ss_bwd_step * TRAIN_STEPS, "launches_per_step": ss_bwd_step,
+        "steps": TRAIN_STEPS, "launches_per_f32_backward": bwd_kernels[1],
+        **{k: v for k, v in bwd["ssd"].items() if k != "launches_per_step"},
+        "tol_rel": SSD_BWD_TOL, "tol_rel_large_decay": SSD_BWD_LARGE_DECAY_TOL,
+    }]
 
     # ------------------------------- Trainer: card against CPU, restart
     phase("Trainer on the card against the CPU (reduced configs, float32), "
@@ -4138,9 +4321,9 @@ def family_train_phases(torch) -> dict:
         return (float(loss.detach()), [g.detach() for g in grads], fwd,
                 (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
 
-    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kfa.WGMMA_LAUNCHES = 0
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.BWD_LAUNCHES = 0
     loss_k, g_k, fwd_n, fwd_ms, bwd_ms = loss_and_grads(ctx)
-    bwd_n = kfa.TF32_LAUNCHES
+    bwd_n, bwd_kernels = kfa.TF32_LAUNCHES, kfa.BWD_LAUNCHES
     loss_r, g_r, _, fwd_ms_r, bwd_ms_r = loss_and_grads(
         null_ctx(attn_chunk=min(512, S), remat="none", kernels="ref"))
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
@@ -4153,17 +4336,19 @@ def family_train_phases(torch) -> dict:
           f"diff {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}); worst gradient leaf "
           f"{names[worst]} {errs[worst]:.3g} of its largest (tol {TRAIN_GRAD_TOL}); "
           f"finite {finite}; flash launches: forward {fwd_n} on the 3xTF32 route "
-          f"(want {cfg.n_layers}), after the backward {bwd_n} (the backward is "
-          f"plain); wall forward {fwd_ms:.1f} / backward {bwd_ms:.1f} ms through "
+          f"(want {cfg.n_layers}), after the backward {bwd_n}, backward kernel calls "
+          f"{bwd_kernels}; wall forward {fwd_ms:.1f} / backward {bwd_ms:.1f} ms through "
           f"the kernels, {fwd_ms_r:.1f} / {bwd_ms_r:.1f} ms plain")
     if not (loss_rel <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL and finite
-            and fwd_n == bwd_n == cfg.n_layers == kfa.LAUNCHES):
+            and fwd_n == bwd_n == cfg.n_layers == kfa.LAUNCHES == bwd_kernels
+            and kfa.BWD_LAUNCHES == bwd_kernels):
         fail(f"{arch} float32 training through the kernels: loss {loss_rel:.3g}, "
              f"worst leaf {names[worst]} {errs[worst]:.3g}, flash launches "
-             f"{fwd_n} / {bwd_n}")
+             f"{fwd_n} / {bwd_n}, backward kernel calls {bwd_kernels}")
     out["flash_f32"]["a15_train"] = {
         "arch": arch, "layers": cfg.n_layers, "batch": B, "seq": S,
-        "launches_per_forward": fwd_n, "loss_rel": loss_rel,
+        "launches_per_forward": fwd_n, "bwd_launches_per_backward": bwd_kernels,
+        "loss_rel": loss_rel,
         "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_plain_ms": fwd_ms_r,
         "bwd_plain_ms": bwd_ms_r}
@@ -4209,8 +4394,10 @@ def family_train_phases(torch) -> dict:
 
         def lg():
             p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            n0 = kfa.LAUNCHES, kfa.BWD_LAUNCHES
             loss, _ = model.loss(p, batch, dctx)
             grads = torch.autograd.grad(loss, tree_leaves(p))
+            kept["flash"] = (kfa.LAUNCHES - n0[0], kfa.BWD_LAUNCHES - n0[1])
             kept["loss"] = float(loss.detach())
             kept["finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
 
@@ -4226,6 +4413,9 @@ def family_train_phases(torch) -> dict:
               f"{res['loss_and_grads']['peak_gb']:.2f} GB")
         if not (math.isfinite(kept["loss"]) and kept["finite"]):
             fail(f"{arch} bf16 loss and gradients at {dcfg.n_layers} layers not finite")
+        if kept["flash"] != (0, 0):
+            fail(f"{arch}: MLA's attention reached the flash kernels {kept['flash']}")
+        res["loss_and_grads"]["flash_launches"] = kept["flash"]
         del params, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4654,12 +4844,11 @@ def tp_phases(torch) -> dict:
     mesh = make_small_mesh((1, 1), device_type="cuda")
     print(f"mesh: {mesh} (started the group here: {started})")
 
-    def counts():
-        return kfa.LAUNCHES, kss.LAUNCHES
+    def counts():      # forward flash and ssd_chunk, then their backward kernels
+        return kfa.LAUNCHES, kss.LAUNCHES, kfa.BWD_LAUNCHES, kss.BWD_LAUNCHES
 
     def since(c0):
-        c1 = counts()
-        return c1[0] - c0[0], c1[1] - c0[1]
+        return tuple(a - b for a, b in zip(counts(), c0))
 
     # ------------------------------------------- (a) zamba2, float32 check
     cfg = get_config(TRAIN_ARCH)
@@ -4681,7 +4870,7 @@ def tp_phases(torch) -> dict:
     placed = place(params, policy.param_shardings(params))
     pbatch = place_batch(batch, policy)
     plain_ctx = null_ctx(remat=ctx.remat, attn_chunk=ctx.attn_chunk)
-    want_fwd = (model.n_shared_invocations, cfg.n_layers * -(-S // cfg.ssm_chunk))
+    want_fwd = (model.n_shared_invocations, cfg.n_layers * -(-S // cfg.ssm_chunk), 0, 0)
     fwd_counts = {}
     for name, p, b, c in (("mesh", placed, pbatch, ctx), ("no mesh", params, batch,
                                                           plain_ctx)):
@@ -4711,14 +4900,16 @@ def tp_phases(torch) -> dict:
           f"{loss_rel:.3g} (tol {TP_LOSS_RTOL}); worst gradient leaf "
           f"{names[worst]} {errs[worst]:.3g} of its largest (tol {TP_GRAD_TOL}), "
           f"{len(errs)} leaves")
-    print(f"launches (flash, ssd_chunk): a forward {fwd_counts['mesh']} on the mesh, "
+    print(f"launches (flash, ssd_chunk, flash_attention_bwd, ssd_chunk_bwd): a forward "
+          f"{fwd_counts['mesh']} on the mesh, "
           f"{fwd_counts['no mesh']} with no mesh (want {want_fwd}); a loss and its "
           f"gradients under remat 'full' (the forward recomputed in the backward) "
           f"{step_counts_m} on the mesh, {step_counts_p} with no mesh; wall "
           f"{ms_m:.1f} / {ms_p:.1f} ms")
     if fwd_counts["mesh"] != want_fwd or fwd_counts["no mesh"] != want_fwd \
-            or step_counts_m != step_counts_p:
-        fail("the sharded path did not launch the kernels the no-mesh path does")
+            or step_counts_m != step_counts_p or step_counts_m[2:] != want_fwd[:2]:
+        fail("the sharded path did not launch the kernels the no-mesh path does, or "
+             "not one backward kernel call a forward one")
     if not (loss_rel <= TP_LOSS_RTOL and errs[worst] <= TP_GRAD_TOL):
         fail(f"float32 sharded training: loss {loss_rel:.3g} relative, worst leaf "
              f"{names[worst]} {errs[worst]:.3g}")
@@ -4729,7 +4920,8 @@ def tp_phases(torch) -> dict:
         "loss_rel": loss_rel, "worst_leaf": names[worst], "worst_leaf_err": errs[worst],
         "loss_and_grads_ms": ms_m, "loss_and_grads_ms_no_mesh": ms_p}
     out["ssd"]["tp"] = {"launches_per_forward": fwd_counts["mesh"][1],
-                        "launches_per_loss_and_grads": step_counts_m[1]}
+                        "launches_per_loss_and_grads": step_counts_m[1],
+                        "bwd_launches_per_loss_and_grads": step_counts_m[3]}
     del params, placed, grads_m, grads_p, results
     torch.cuda.empty_cache()
 
@@ -4760,6 +4952,7 @@ def tp_phases(torch) -> dict:
         busy = busy_us(seen) / 1e6
         return {"ms": ms, "ms_step": sum(ms) / len(ms), "peak_gb": peak,
                 "flash_per_step": n[0] / TP_STEPS, "ssd_per_step": n[1] / TP_STEPS,
+                "flash_bwd_per_step": n[2] / TP_STEPS, "ssd_bwd_per_step": n[3] / TP_STEPS,
                 "kernels_per_step": len(seen), "idle": 1 - busy / walls[-1],
                 "profiled_wall_ms": walls[-1] * 1e3, "losses": list(tr.metrics_vals)}
 
@@ -4780,7 +4973,8 @@ def tp_phases(torch) -> dict:
     for name, r in steps.items():
         print(f"{name}: step ms {[round(x, 1) for x in r['ms']]}, {r['ms_step']:.2f} "
               f"ms a step; kernels a step {r['kernels_per_step']} (profiled), flash "
-              f"{r['flash_per_step']:g}, ssd_chunk {r['ssd_per_step']:g}; card idle "
+              f"{r['flash_per_step']:g}, ssd_chunk {r['ssd_per_step']:g} (backward "
+              f"kernels {r['flash_bwd_per_step']:g}, {r['ssd_bwd_per_step']:g}); card idle "
               f"{100 * r['idle']:.2f}% of a profiled step ({r['profiled_wall_ms']:.1f} "
               f"ms); peak {r['peak_gb']:.2f} GB ({r['base_gb']:.2f} GB allocated "
               f"before the Trainer); losses "
@@ -4791,8 +4985,8 @@ def tp_phases(torch) -> dict:
           f"{m['kernels_per_step'] - p['kernels_per_step']:+d} kernels a step")
     if not all(math.isfinite(x) for r in steps.values() for x in r["losses"]):
         fail("bf16 Trainer losses not finite")
-    if (m["flash_per_step"], m["ssd_per_step"]) != (p["flash_per_step"], p["ssd_per_step"]) \
-            or m["flash_per_step"] <= 0 or m["ssd_per_step"] <= 0:
+    launched = ("flash_per_step", "ssd_per_step", "flash_bwd_per_step", "ssd_bwd_per_step")
+    if [m[k] for k in launched] != [p[k] for k in launched] or min(m[k] for k in launched) <= 0:
         fail("the sharded bf16 step launched other kernels than the no-mesh step")
     out["flash"]["tp"] = {"arch": cfg.name, "batch": B, "seq": S, "steps": steps,
                           "launches_per_step": m["flash_per_step"]}
@@ -5273,12 +5467,14 @@ def mesh_train_step(torch) -> dict:
     tr.run_steps(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    c0 = kfa.LAUNCHES, kss.LAUNCHES
+    c0 = kfa.LAUNCHES, kss.LAUNCHES, kfa.BWD_LAUNCHES, kss.BWD_LAUNCHES
     tr.run_steps(1)
     torch.cuda.synchronize()
     r = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9, "base_gb": base / 1e9,
          "ms_step": tr.step_seconds[-1] * 1e3,
-         "flash_per_step": kfa.LAUNCHES - c0[0], "ssd_per_step": kss.LAUNCHES - c0[1]}
+         "flash_per_step": kfa.LAUNCHES - c0[0], "ssd_per_step": kss.LAUNCHES - c0[1],
+         "flash_bwd_per_step": kfa.BWD_LAUNCHES - c0[2],
+         "ssd_bwd_per_step": kss.BWD_LAUNCHES - c0[3]}
     del tr
     torch.cuda.empty_cache()
     if started:
@@ -5303,7 +5499,8 @@ def dryrun_child() -> None:
         art, counter = trace_cell(TRAIN_ARCH, "train_4k", mesh,
                                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
         ops = {n: counter.launches(n)
-               for n in ("flash_attention", "flash_attention_lse", "ssd_chunk")}
+               for n in ("flash_attention", "flash_attention_lse", "ssd_chunk",
+                         "flash_attention_bwd", "ssd_chunk_bwd")}
         print(json.dumps({"artifact": art, "ops": ops, "device": mesh.device_type,
                           "wall_s": time.perf_counter() - t0}))
     finally:
@@ -5327,8 +5524,8 @@ def start_dryrun_child():
 def dryrun_phase(torch, measured: dict, child) -> dict:
     """The dry run against the card: the port's ``trace_cell`` of the
     zamba2-1.2b train step in the child ``start_dryrun_child`` started.
-    Its flash and ssd_chunk operators
-    must equal the launches the card counted for the step (``measured``:
+    Its flash and ssd_chunk operators and their backwards' must equal the
+    launches the card counted for the step (``measured``:
     ``tp_phases``' mesh Trainer, or ``mesh_train_step``), and its
     predicted per-device peak must fall within ``DRYRUN_PEAK_BAND`` of the
     step's measured peak above the memory allocated before its Trainer.
@@ -5362,8 +5559,10 @@ def dryrun_phase(torch, measured: dict, child) -> dict:
     row = analyze(art, H100_RATES)
     print(f"traced on fake {res['device']} tensors in {res['wall_s']:.1f} s (the "
           f"child's wall {wall:.1f} s, beside the mesh decode): operators flash {flash} ({ops}), ssd_chunk "
-          f"{ops['ssd_chunk']}; the card counted {measured['flash_per_step']:g} and "
-          f"{measured['ssd_per_step']:g} a step")
+          f"{ops['ssd_chunk']}, flash_attention_bwd {ops['flash_attention_bwd']}, "
+          f"ssd_chunk_bwd {ops['ssd_chunk_bwd']}; the card counted "
+          f"{measured['flash_per_step']:g}, {measured['ssd_per_step']:g}, "
+          f"{measured['flash_bwd_per_step']:g} and {measured['ssd_bwd_per_step']:g} a step")
     print(f"peak: predicted {pred_gb:.3f} GB ({art['memory']}); measured "
           f"{measured['peak_gb']:.3f} GB, of which {measured['base_gb']:.3f} GB "
           f"allocated before the Trainer: the step's {step_gb:.3f} GB; ratio "
@@ -5374,14 +5573,17 @@ def dryrun_phase(torch, measured: dict, child) -> dict:
           f"FLOPs {art['hlo_flops_per_device']:.4e}, bytes "
           f"{art['hlo_bytes_per_device']:.4e}; the measured step "
           f"{measured['ms_step']:.1f} ms")
-    if (flash, ops["ssd_chunk"]) != (measured["flash_per_step"],
-                                     measured["ssd_per_step"]):
-        fail(f"the traced step's operators ({flash}, {ops['ssd_chunk']}) differ from "
-             f"the card's launches ({measured['flash_per_step']}, "
-             f"{measured['ssd_per_step']})")
+    traced = (flash, ops["ssd_chunk"], ops["flash_attention_bwd"], ops["ssd_chunk_bwd"])
+    card = (measured["flash_per_step"], measured["ssd_per_step"],
+            measured["flash_bwd_per_step"], measured["ssd_bwd_per_step"])
+    if traced != card:
+        fail(f"the traced step's operators (flash, ssd_chunk and their backwards) "
+             f"{traced} differ from the card's launches {card}")
     if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
         fail(f"the predicted peak is {ratio:.3f}x the measured one")
-    return {"flash_ops": flash, "ssd_ops": ops["ssd_chunk"], "predicted_peak_gb": pred_gb,
+    return {"flash_ops": flash, "ssd_ops": ops["ssd_chunk"],
+            "flash_bwd_ops": ops["flash_attention_bwd"], "ssd_bwd_ops": ops["ssd_chunk_bwd"],
+            "predicted_peak_gb": pred_gb,
             "measured_step_peak_gb": step_gb, "peak_ratio": ratio,
             "roofline_ms": {k: row[k] * 1e3 for k in ("t_compute_s", "t_memory_s",
                                                        "t_collective_s")},
@@ -5747,6 +5949,7 @@ def main() -> None:
         (flash_f32_row if "_f32_" in key else flash_row)[key] = val
     # the model's training path next: it needs the card's memory to itself
     train = model_train_phases(torch)
+    bwd_rows = train.pop("rows")
     flash_row.update(train["flash"])
     flash_f32_row.update(train["flash_f32"])
     ssd_row.update(train["ssd"])
@@ -5786,10 +5989,13 @@ def main() -> None:
     mla_chunked_phase(torch)
     flash_row["dryrun_ops"] = dry["flash_ops"]
     ssd_row["dryrun_ops"] = dry["ssd_ops"]
+    bwd_rows[0]["dryrun_ops"] = dry["flash_bwd_ops"]
+    bwd_rows[1]["dryrun_ops"] = dry["ssd_bwd_ops"]
     print(f"the whole script: {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
-                                  soa_row, flash_row, flash_f32_row, ssd_row]}))
+                                  soa_row, flash_row, flash_f32_row, ssd_row,
+                                  *bwd_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

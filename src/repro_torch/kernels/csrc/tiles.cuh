@@ -1,0 +1,257 @@
+// The 64 x 64 tiles of the port's backward kernels (flash_attention_bwd.cuh,
+// ssd_chunk_bwd.cuh), on hopper.cuh's 3xTF32 kit.
+//
+// Every operand a backward product reads from shared memory is a "unit":
+// 64 rows by 64 K-major columns in the 128-byte-swizzled layout tf32 wgmma
+// reads (hopper.cuh's sw_off with R = 64), its tf32 hi part at +0 and its
+// lo part at +UNIT_HALF.  A tensor wider than 64 columns is cut into
+// 64-column chunks, a unit each, and a product over it runs one chunk at a
+// time; a narrower one is padded with zero columns (the product's k steps
+// past its width are skipped).  A unit is filled from global memory by
+//   RowTile: element (r, k) = src[r * ld + k] * scale(r), 64 rows as they
+//            lie (the A or B operand of a product over the columns);
+//   ColTile: element (r, slot of jj) = src[jj * ld + r] * scale(jj), the
+//            transpose, with the K index jj permuted inside each 8-wide k
+//            step (even jj in slots 0-3, odd jj in 4-7): the B operand of a
+//            product whose A is a register tile in the accumulator layout
+//            (pack_a applies the same permutation), or both operands of a
+//            product over rows; with PERM = false in its natural order, the
+//            B operand of a product whose A is a RowTile.
+// Sources are float32 or bfloat16 (16-byte or 8-byte loads; a bf16 value
+// is exact in TF32, so its unit has no lo part and the products skip the
+// terms that would read it).  Outputs of every product are m64n64 float32
+// accumulators: a thread holds rows g and g + 8 of its warp's 16 (g =
+// lane / 4) and, in each 8-column group, the columns 2 (lane % 4) and
+// 2 (lane % 4) + 1.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int UROWS = 64;                      // rows of a unit
+constexpr int UNIT_HALF = UROWS * 64 * 4;      // bytes of a unit's hi (or lo) part
+constexpr int UNIT = 2 * UNIT_HALF;            // bytes of a unit
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// four bf16 values from k (8-byte loads where `vec`), widened exactly
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int k, int cols, bool vec) {
+  if (vec) {
+    if (k >= cols) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + k));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+  }
+  float4 v;
+  v.x = k < cols ? __bfloat162float(row[k]) : 0.f;
+  v.y = k + 1 < cols ? __bfloat162float(row[k + 1]) : 0.f;
+  v.z = k + 2 < cols ? __bfloat162float(row[k + 2]) : 0.f;
+  v.w = k + 3 < cols ? __bfloat162float(row[k + 3]) : 0.f;
+  return v;
+}
+
+// the values stored, split into hi and lo (LO), or as they are (a bf16
+// source: tf32(x) = x, lo = 0)
+template <bool LO>
+__device__ __forceinline__ void put4(uint8_t* unit, uint32_t off, float4 v) {
+  if constexpr (LO)
+    store_split<Round::cvt>(unit, unit + UNIT_HALF, off, v);
+  else
+    *reinterpret_cast<float4*>(unit + off) = v;
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+struct NoScale {
+  __device__ __forceinline__ float operator()(int) const { return 1.f; }
+};
+
+// A RowTile filled by NP threads; a thread takes 4 consecutive columns of a
+// row, eight neighbouring threads one 128-byte row (hopper.cuh's Rows).
+template <int NP, bool LO>
+struct RowTile {
+  static constexpr int U = UROWS * 16 / NP;
+  float4 v[U];
+
+  // rows < `rows` and columns < `cols` of src, else 0; scale(r) for r < rows
+  template <typename T, typename S>
+  __device__ __forceinline__ void load(const T* src, int64_t ld, int rows, int cols, bool vec,
+                                       S scale, int ptid) {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * NP, r = u / 16, k = (u % 16) * 4;
+      v[m] = r < rows ? scale4(load4(src + (int64_t)r * ld, k, cols, vec), scale(r))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* unit, int ptid) const {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * NP;
+      put4<LO>(unit, sw_off(u / 16, (u % 16) * 4, UROWS), v[m]);
+    }
+  }
+};
+
+// A ColTile filled by NP threads: a thread takes a 4 x 4 block, rows
+// 4g..4g+3 of the unit (one load along r per source row jj) and the
+// 16-byte chunk c of slots 4c..4c+3, which hold jj = 8 (c / 2) + 2 q +
+// (c % 2), q = 0..3 (hopper.cuh's Cols), or jj = 4c + q without PERM.
+template <int NP, bool LO, bool PERM = true>
+struct ColTile {
+  static constexpr int G = UROWS / 4;
+  static constexpr int U = G * 16 / NP;
+  float4 v[U][4];
+
+  // source rows jj < `rows` and columns r < `cols`, else 0; scale(jj)
+  template <typename T, typename S>
+  __device__ __forceinline__ void load(const T* src, int64_t ld, int rows, int cols, bool vec,
+                                       S scale, int ptid) {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * NP, g = u % G, c = u / G;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int jj = PERM ? 8 * (c >> 1) + (c & 1) + 2 * q : 4 * c + q;
+        v[m][q] = jj < rows ? scale4(load4(src + (int64_t)jj * ld, 4 * g, cols, vec), scale(jj))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* unit, int ptid) const {
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int u = ptid + m * NP, g = u % G, c = u / G;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = (i + g) & 3;   // this thread's i-th row of its group
+        float4 o;
+        o.x = get(v[m][0], q);
+        o.y = get(v[m][1], q);
+        o.z = get(v[m][2], q);
+        o.w = get(v[m][3], q);
+        put4<LO>(unit, sw_off(4 * g + q, 4 * c, UROWS), o);
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------------- products
+
+// d (64 x 64) += A . B^T over `ks` 8-wide k steps, both units in shared
+// memory (addresses a, b); the lo terms of an operand without lo skipped
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b, int ks) {
+  for (int kk = 0; kk < ks; ++kk) {
+    const uint64_t ah = desc_k(a, kk, UROWS), bh = desc_k(b, kk, UROWS);
+    if constexpr (ALO) wgmma_tf32_ss_n64(d, desc_k(a + UNIT_HALF, kk, UROWS), bh);
+    if constexpr (BLO) wgmma_tf32_ss_n64(d, ah, desc_k(b + UNIT_HALF, kk, UROWS));
+    wgmma_tf32_ss_n64(d, ah, bh);
+  }
+}
+
+// d (64 x 64) += A . B^T over 64 K, A split in registers (pack_a), B a unit
+template <bool BLO>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&ah)[32],
+                                       const uint32_t (&al)[32], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t bh = desc_k(b, kk, UROWS);
+    wgmma_tf32_rs_n64(d, al + 4 * kk, bh);
+    if constexpr (BLO) wgmma_tf32_rs_n64(d, ah + 4 * kk, desc_k(b + UNIT_HALF, kk, UROWS));
+    wgmma_tf32_rs_n64(d, ah + 4 * kk, bh);
+  }
+}
+
+// an accumulator tile split into tf32 A fragments, the K index permuted
+// inside each 8-wide k step as ColTile stages it: a thread holds columns
+// 2t, 2t+1 of each 8 and A slot t takes column 2t, slot t + 4 column
+// 2t + 1.  Fragment order: (row, t), (row + 8, t), (row, t + 4),
+// (row + 8, t + 4).
+__device__ __forceinline__ void pack_a(const float (&v)[32], uint32_t (&ah)[32],
+                                       uint32_t (&al)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    split(v[4 * kk + 0], ah[4 * kk + 0], al[4 * kk + 0]);
+    split(v[4 * kk + 2], ah[4 * kk + 1], al[4 * kk + 1]);
+    split(v[4 * kk + 1], ah[4 * kk + 2], al[4 * kk + 2]);
+    split(v[4 * kk + 3], ah[4 * kk + 3], al[4 * kk + 3]);
+  }
+}
+
+// accumulator element r's row (0..63) and column (0..63) in its tile
+__device__ __forceinline__ int acc_row(int warp, int lane, int r) {
+  return warp * 16 + lane / 4 + ((r % 4) >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int acc_col(int lane, int r) {
+  return (r / 4) * 8 + (lane % 4) * 2 + (r % 2);
+}
+
+// the sum over the four threads of an accumulator row
+__device__ __forceinline__ float row_sum4(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// ----------------------------------------------------------------- rings
+//
+// Units stream from the producer warpgroup to the consumers through a ring
+// of ST slots in shared memory, in one fixed order both sides walk: a full
+// barrier a slot (the producers' arrivals) and an empty barrier a slot
+// (every consumer thread's arrival, whether or not its warpgroup reads the
+// unit: a warpgroup that skips a unit still waits for it to be full before
+// it gives it back, so no arrival lands on a later fill of the slot).
+
+template <int ST>
+struct RingOut {   // the producers' side
+  uint64_t* full;
+  uint64_t* empty;
+  uint8_t* slots;
+  int n;
+  __device__ __forceinline__ uint8_t* acquire() {
+    const int s = n % ST;
+    mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+    return slots + s * UNIT;
+  }
+  __device__ __forceinline__ void publish() {
+    fence_async_shared();
+    mbar_arrive(&full[n % ST]);
+    ++n;
+  }
+};
+
+template <int ST>
+struct RingIn {    // a consumer's side
+  uint64_t* full;
+  uint64_t* empty;
+  uint8_t* slots;
+  int n;
+  // the slot of the next unit, once it is full
+  __device__ __forceinline__ int take() {
+    const int s = n % ST;
+    mbar_wait(&full[s], (n / ST) & 1);
+    ++n;
+    return s;
+  }
+  __device__ __forceinline__ uint32_t addr(int s) const { return smem_u32(slots + s * UNIT); }
+  __device__ __forceinline__ void give(int s) { mbar_arrive(&empty[s]); }
+  __device__ __forceinline__ void skip() { give(take()); }
+};
+
+// the consumer warpgroup's own barrier (0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+}  // namespace

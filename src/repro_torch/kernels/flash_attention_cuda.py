@@ -23,10 +23,16 @@ bytes, and ``flash_bound_ms`` turns them into its least time on the card.
 Training goes through ``FlashAttention``, a ``torch.autograd.Function``
 whose forward is the kernel with its log-sum-exp (``flash_attention_lse_cuda``)
 on the card and ``ref.flash_attention_fwd_lse`` on the CPU, and whose
-backward is the plain ``ref.flash_attention_bwd`` (the JAX package's
-backward is XLA code, ``models.attention._flash_bwd_rule``, not a Pallas
-kernel).  ``ops.flash_attention`` takes it when a gradient is needed; the
-raw wrappers refuse inputs that require one.
+backward is ``csrc/flash_attention_bwd.cuh`` on the card (built as
+``flash_attention_bwd.cu`` for float32 and ``flash_attention_bwd_bf16.cu``
+for bfloat16; ``flash_attention_bwd_cuda``, the operator
+``torch.ops.repro_torch.flash_attention_bwd``: a dq pass and a dk/dv pass,
+3xTF32 ``wgmma``; see its header) and ``ref.flash_attention_bwd`` on the
+CPU.  The JAX package's backward is XLA code
+(``models.attention._flash_bwd_rule``), not a Pallas kernel.
+``ops.flash_attention`` takes the Function when a gradient is needed; the
+raw forward wrappers refuse inputs that require one.  ``flash_bwd_cost``
+and ``flash_bwd_bound_ms`` count the backward's work.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build, hopper, ref
 from repro_torch.kernels._grad import check_no_grad, traced
@@ -44,11 +51,16 @@ LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 #: of those, launches of the float32 kernel (3xTF32 ``wgmma``)
 TF32_LAUNCHES = 0
+#: calls of the backward kernels (one call: the dq pass and the dk/dv pass)
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are built for (96: phi3-mini's 3072 / 32)
 HEAD_DIMS = (16, 32, 64, 96, 128)
 _FN = None
+#: the backward's libraries, one a type (compiled in parallel)
+_BWD_STEMS = {torch.float32: "flash_attention_bwd", torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_FNS = {}
 
 
 def _fn():
@@ -62,8 +74,19 @@ def _fn():
     return _FN
 
 
-def _check_device(name, q, k, v):
-    for arg, t in (("q", q), ("k", k), ("v", v)):
+def _bwd_fn(dtype):
+    fn = _BWD_FNS.get(dtype)
+    if fn is None:
+        fn = build.load(_BWD_STEMS[dtype]).flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 17
+                       + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD_FNS[dtype] = fn
+    return fn
+
+
+def _check_device(name, q, k, v, *more):
+    for arg, t in (("q", q), ("k", k), ("v", v), *more):
         if not isinstance(t, torch.Tensor) or not (t.is_cuda or traced(t)):
             raise ValueError(f"{name}: {arg} must be a CUDA tensor")
         if t.device != q.device:
@@ -211,6 +234,73 @@ def flash_attention_lse_cuda(q, k, v, causal: bool = True, scale=None,
                                                      _scale(scale), int(q_offset))
 
 
+def _check_bwd(q, k, v, lse, dout, q_offset):
+    """The forward's checks, and do of q's shape and type, lse (B, H, Sq)
+    float32 -> (B, Sq, Sk, H, D)."""
+    B, Sq, Sk, H, D = _check(q, k, v, q_offset)
+    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd_cuda: do is {tuple(dout.shape)} "
+                         f"{dout.dtype}, q {tuple(q.shape)} {q.dtype}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: lse is {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected {(B, H, Sq)} float32")
+    return B, Sq, Sk, H, D
+
+
+def _launch_bwd(q, k, v, lse, dout, causal, scale, q_offset: int = 0):
+    """One call of the backward kernels -> (dq, dk, dv), new contiguous
+    tensors of q's type."""
+    global BWD_LAUNCHES
+    _check_device("flash_attention_bwd_cuda", q, k, v, ("lse", lse), ("do", dout))
+    B, Sq, Sk, H, D = _check_bwd(q, k, v, lse, dout, q_offset)
+    q, k, v, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, dout))
+    lse = lse.contiguous()
+    if B == 0 or Sq == 0 or H == 0:
+        return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
+                torch.zeros(k.shape, dtype=q.dtype, device=q.device),
+                torch.zeros(v.shape, dtype=q.dtype, device=q.device))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    scale = float(scale if scale is not None else D ** -0.5)
+    (q, sq), (k, sk), (v, sv), (dout, sd) = (_readable(t) for t in (q, k, v, dout))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                    lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), B, Sq, Sk, H, D, *sq, *sk, *sv, *sd, scale,
+                    int(bool(causal)), int(q_offset), _DTYPES[q.dtype], q.device.index,
+                    stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed (code {err})")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
+            "bool causal, float? scale, int q_offset=0) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_bwd", _launch_bwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd", lib=_LIB)
+def _flash_bwd_shape(q, k, v, lse, dout, causal, scale, q_offset=0):
+    _check_bwd(q, k, v, lse, dout, q_offset)
+    return tuple(torch.empty(t.shape, dtype=q.dtype, device=q.device) for t in (q, k, v))
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, causal: bool = True, scale=None,
+                             q_offset: int = 0):
+    """The backward kernels on CUDA tensors; the arguments of
+    ``ref.flash_attention_bwd`` without its ``chunk`` (which only the plain
+    version's loop reads) -> (dq, dk, dv), contiguous, in q's type.  q, k,
+    v and do (B, S, H, D) share H (GQA callers expand K/V, and the expand's
+    autograd sums dk and dv over the group); lse (B, H, Sq) float32 as the
+    forward stores it."""
+    _check_device("flash_attention_bwd_cuda", q, k, v, ("lse", lse), ("do", do))
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, lse, do, bool(causal),
+                                                     _scale(scale), int(q_offset))
+
+
 def _scale(scale):
     return None if scale is None else float(scale)
 
@@ -245,13 +335,35 @@ def flash_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, ffma=False, q_offset: in
     return hopper.bound_ms(flops, n_bytes, peak)
 
 
+def flash_bwd_cost(B, Sq, Sk, H, D, causal, elem_bytes, q_offset: int = 0):
+    """(FLOPs, bytes) of one backward call: five products over the (query,
+    key) pairs the mask keeps (S = Q.K^T recomputed, dV = P^T.dO, dP =
+    dO.V^T, dQ = dS.K, dK = dS^T.Q), and q, k, v, do and lse read once, dq,
+    dk and dv written once.  The kernels' own work is more (S and dP also in
+    the D pass, S in both warpgroups of the dk/dv pass): the bound counts
+    what the function needs, not what this design does."""
+    pairs = causal_pairs(Sq, Sk, q_offset) if causal else Sq * Sk
+    return (10.0 * B * H * pairs * D,
+            elem_bytes * B * H * D * (3 * Sq + 4 * Sk) + 4 * B * H * Sq)
+
+
+def flash_bwd_bound_ms(B, Sq, Sk, H, D, causal, elem_bytes, q_offset: int = 0):
+    """Least time for one backward call on the card (``hopper.bound_ms`` of
+    ``flash_bwd_cost``): bf16 at the tensor cores' bf16 peak, float32 at
+    the 3xTF32 rate."""
+    flops, n_bytes = flash_bwd_cost(B, Sq, Sk, H, D, causal, elem_bytes, q_offset)
+    peak = hopper.BF16_FLOPS if elem_bytes == 2 else hopper.TF32_FLOPS / 3
+    return hopper.bound_ms(flops, n_bytes, peak)
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with a gradient: the forward by device (with
     ``use_kernel`` the kernel and its lse, else
-    ``ref.flash_attention_fwd_lse``), saving (q, k, v, lse); the
-    backward ``ref.flash_attention_bwd`` over key chunks of ``chunk`` (None:
-    one chunk), the causal mask offset by ``q_offset`` in both.  No
-    fallback: a kernel that cannot run raises."""
+    ``ref.flash_attention_fwd_lse``), saving (q, k, v, lse); the backward
+    the same way (the backward kernels, ``flash_attention_bwd_cuda``, or
+    ``ref.flash_attention_bwd`` over key chunks of ``chunk``, None: one
+    chunk), the causal mask offset by ``q_offset`` in both.  No fallback: a
+    kernel that cannot run raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, chunk, use_kernel, q_offset=0):
@@ -261,10 +373,16 @@ class FlashAttention(torch.autograd.Function):
             o, lse = ref.flash_attention_fwd_lse(q, k, v, causal, scale, chunk, q_offset)
         ctx.save_for_backward(q, k, v, lse)
         ctx.args = (causal, scale, chunk, q_offset)
+        ctx.use_kernel = use_kernel
         return o
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, *ctx.args)
+        causal, scale, chunk, q_offset = ctx.args
+        if ctx.use_kernel:
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, lse, do, causal, scale, q_offset)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd(q, k, v, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None, None, None

@@ -6,7 +6,7 @@ fallback from the kernel to the plain version.  ``force="ref"`` runs the
 plain version on any device, for tests and ``chip_smoke.py``; it trains by
 autograd of the plain version.  Otherwise inputs that need a gradient take
 the kernel's autograd Function (``LstmStack``, ``FlashAttention``,
-``SsdChunk``), whose forward is the kernel on the card.
+``SsdChunk``), whose forward and backward are kernels on the card.
 """
 
 from __future__ import annotations

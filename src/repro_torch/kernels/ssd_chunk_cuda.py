@@ -15,11 +15,15 @@ shape function for fake and ``meta`` tensors (the dry run's trace);
 
 Training goes through ``SsdChunk``, a ``torch.autograd.Function`` whose
 forward is the kernel on the card and ``ref.ssd_chunk_ref`` on the CPU and
-whose backward, ``ref.ssd_chunk_bwd``, recomputes the plain chunk from the
-saved inputs and differentiates it (the JAX package trains through
-``jax.checkpoint`` of its ``_chunk_scan_step``, not through the Pallas
-kernel).  ``ops.ssd_chunk`` takes it when a gradient is needed; the raw
-wrapper refuses inputs that require one.
+whose backward recomputes the chunk from the saved inputs: on the card
+``csrc/ssd_chunk_bwd.cuh`` (built as ``ssd_chunk_bwd.cu`` for N <= 64 and
+``ssd_chunk_bwd_n128.cu`` above; ``ssd_chunk_bwd_cuda``, the operator
+``torch.ops.repro_torch.ssd_chunk_bwd``; see its header), on the CPU
+``ref.ssd_chunk_bwd``, the plain chunk differentiated by autograd (the JAX
+package trains through ``jax.checkpoint`` of its ``_chunk_scan_step``, not
+through the Pallas kernel).  ``ops.ssd_chunk`` takes the Function when a
+gradient is needed; the raw forward wrapper refuses inputs that require
+one.  ``ssd_chunk_bwd_cost`` and ``ssd_bwd_bound_ms`` count the backward.
 """
 
 from __future__ import annotations
@@ -27,16 +31,20 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build, hopper, ref
 from repro_torch.kernels._grad import check_no_grad, traced
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
+#: launches of the backward kernel
+BWD_LAUNCHES = 0
 
 MAX_P, MAX_N = 64, 128
 SMEM_LIMIT = 232448          # bytes of shared memory a block may have (H100)
 _FN = None
+_BWD_FNS = {}
 
 
 def ssd_chunk_smem_bytes(Q: int, N: int) -> int:
@@ -53,6 +61,16 @@ def ssd_chunk_smem_bytes(Q: int, N: int) -> int:
             + 4 * ((Q + 3) // 4 * 4 + 12))
 
 
+def ssd_chunk_bwd_smem_bytes(Q: int, N: int) -> int:
+    """Shared memory of one backward block (``smem_bytes`` in
+    ``csrc/ssd_chunk_bwd.cuh``): 1 KiB of alignment slack, the outer units
+    (N / 64 chunks of B_j and xbar_j) and the ring's three, 32 KiB each, and
+    four per-row float arrays of Q (rounded up to 4) with the scans' 400
+    floats."""
+    ncn = 1 if N <= 64 else 2
+    return 1024 + 32768 * (ncn + 1 + 3) + 4 * (4 * ((Q + 3) // 4 * 4) + 256 + 128 + 16)
+
+
 def _fn():
     global _FN
     if _FN is None:
@@ -64,11 +82,25 @@ def _fn():
     return _FN
 
 
+def _bwd_fn(N: int):
+    """The backward's entry for state width N: one library for N <= 64,
+    one for 64 < N <= 128 (compiled in parallel)."""
+    stem = "ssd_chunk_bwd" if N <= 64 else "ssd_chunk_bwd_n128"
+    fn = _BWD_FNS.get(stem)
+    if fn is None:
+        fn = build.load(stem).ssd_chunk_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int64] * 20
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BWD_FNS[stem] = fn
+    return fn
+
+
 _NAMES = ("x", "dt", "A", "B_in", "C_in", "state")
 
 
-def _check_device(x, dt, A, B_in, C_in, state):
-    for name, t in zip(_NAMES, (x, dt, A, B_in, C_in, state)):
+def _check_device(x, dt, A, B_in, C_in, state, *more):
+    for name, t in (*zip(_NAMES, (x, dt, A, B_in, C_in, state)), *more):
         if not isinstance(t, torch.Tensor) or not (t.is_cuda or traced(t)):
             raise ValueError(f"ssd_chunk_cuda: {name} must be a CUDA tensor")
         if t.device != x.device:
@@ -144,6 +176,76 @@ def _ssd_chunk_shape(x, dt, A, B_in, C_in, state):
             torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device))
 
 
+def _check_bwd(x, dt, A, B_in, C_in, state, dy, dstate):
+    """The forward's checks, dy (B,Q,H,P) and dstate (B,H,P,N) float32, and
+    the backward's shared memory -> (B, Q, H, P, N)."""
+    Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
+    for name, t, want in (("dy", dy, (Bb, Q, H, P)), ("dstate", dstate, (Bb, H, P, N))):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"ssd_chunk_bwd_cuda: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}, expected {want} float32")
+    if ssd_chunk_bwd_smem_bytes(Q, N) > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk_bwd_cuda: Q={Q} needs "
+                         f"{ssd_chunk_bwd_smem_bytes(Q, N)} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} a block may have")
+    return Bb, Q, H, P, N
+
+
+def _launch_bwd(x, dt, A, B_in, C_in, state, dy, dstate):
+    """One backward launch -> (dx, ddt, dA, dB, dC, dstate_in): dB and dC
+    per head (B,Q,H,N), dA the per-(batch, head) partials summed over the
+    batch after the launch."""
+    global BWD_LAUNCHES
+    _check_device(x, dt, A, B_in, C_in, state, ("dy", dy), ("dstate", dstate))
+    Bb, Q, H, P, N = _check_bwd(x, dt, A, B_in, C_in, state, dy, dstate)
+    x, dt, B_in, C_in, dy = (t if t.stride(-1) == 1 else t.contiguous()
+                             for t in (x, dt, B_in, C_in, dy))
+    A, state, dstate = A.contiguous(), state.contiguous(), dstate.contiguous()
+    dev = x.device
+    empty = min(Bb, Q, H, P, N) == 0          # nothing to launch: zero gradients
+    dx, ddt, dB, dC, dst, dA_part = (
+        (torch.zeros if empty else torch.empty)(shape, dtype=torch.float32, device=dev)
+        for shape in ((Bb, Q, H, P), (Bb, Q, H), (Bb, Q, H, N), (Bb, Q, H, N),
+                      (Bb, H, P, N), (Bb, H)))
+    if empty:
+        return dx, ddt, dA_part.sum(0), dB, dC, dst
+    strides = [s for t in (x, dt, B_in, C_in, dy) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_fn(N)(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+                    C_in.data_ptr(), state.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
+                    dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                    dst.data_ptr(), dA_part.data_ptr(), Bb, Q, H, P, N, *strides,
+                    dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed (code {err})")
+    BWD_LAUNCHES += 1
+    return dx, ddt, dA_part.sum(0), dB, dC, dst
+
+
+_LIB.define("ssd_chunk_bwd(Tensor x, Tensor dt, Tensor A, Tensor B_in, Tensor C_in, "
+            "Tensor state, Tensor dy, Tensor dstate) -> (Tensor, Tensor, Tensor, Tensor, "
+            "Tensor, Tensor)")
+_LIB.impl("ssd_chunk_bwd", _launch_bwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_chunk_bwd", lib=_LIB)
+def _ssd_chunk_bwd_shape(x, dt, A, B_in, C_in, state, dy, dstate):
+    Bb, Q, H, P, N = _check_bwd(x, dt, A, B_in, C_in, state, dy, dstate)
+    return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                 for shape in ((Bb, Q, H, P), (Bb, Q, H), (H,), (Bb, Q, H, N),
+                               (Bb, Q, H, N), (Bb, H, P, N)))
+
+
+def ssd_chunk_bwd_cuda(x, dt, A, B_in, C_in, state, dy, dstate):
+    """The backward kernel on float32 CUDA tensors; the arguments of
+    ``ref.ssd_chunk_bwd`` without ``needs`` (the kernel computes every
+    gradient) -> (dx, ddt, dA, dB, dC, dstate_in), each of its input's
+    shape, contiguous; dB and dC per head even where B_in and C_in have head
+    stride 0 (the expand's autograd sums them)."""
+    _check_device(x, dt, A, B_in, C_in, state, ("dy", dy), ("dstate", dstate))
+    return torch.ops.repro_torch.ssd_chunk_bwd(x, dt, A, B_in, C_in, state, dy, dstate)
+
+
 def ssd_chunk_cuda(x, dt, A, B_in, C_in, state):
     """The kernel on float32 CUDA tensors; the arguments of
     ``ref.ssd_chunk_ref``.  Returns (y (B,Q,H,P), new_state (B,H,P,N)),
@@ -183,22 +285,49 @@ def ssd_bound_ms(B, Q, H, P, N, groups=None):
     return hopper.bound_ms(flops, n_bytes, peak)
 
 
+def ssd_chunk_bwd_cost(B, Q, H, P, N, groups=None):
+    """(FLOPs, bytes) of one backward chunk (float32): the chunk's inputs
+    (B and C once per head, ``groups=None``, or once per group) and the
+    outputs' gradients read once, the inputs' gradients written once;
+    the forward's products (``ssd_chunk_cost``) recomputed and two gradient
+    products for each.  The kernel computes the score products per head and
+    both orientations of M and L: the bound counts what the function needs."""
+    bc = H if groups is None else groups
+    ins = B * Q * H * (P + 1) + H + 2 * B * Q * bc * N + B * H * P * N
+    outs = B * Q * H * P + B * H * P * N
+    return 3 * ssd_chunk_cost(B, Q, H, P, N, groups)[0], 4 * (2 * ins + outs)
+
+
+def ssd_bwd_bound_ms(B, Q, H, P, N, groups=None):
+    """Least time for one backward chunk on the card (``hopper.bound_ms`` of
+    ``ssd_chunk_bwd_cost``) at the 3xTF32 rate."""
+    flops, n_bytes = ssd_chunk_bwd_cost(B, Q, H, P, N, groups)
+    return hopper.bound_ms(flops, n_bytes, hopper.TF32_FLOPS / 3)
+
+
 class SsdChunk(torch.autograd.Function):
     """One SSD chunk with a gradient: the forward by device (with
     ``use_kernel`` the kernel, else ``ref.ssd_chunk_ref``), saving only its
     inputs (B_in and C_in as the views they are, head stride 0 kept); the
-    backward ``ref.ssd_chunk_bwd``.  No fallback: a kernel that cannot run
-    raises."""
+    backward the same way (``ssd_chunk_bwd_cuda``, else
+    ``ref.ssd_chunk_bwd``), None for an input that needs no gradient.  No
+    fallback: a kernel that cannot run raises."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_in, C_in, state, use_kernel):
         fwd = ssd_chunk_cuda if use_kernel else ref.ssd_chunk_ref
         y, new_state = fwd(x, dt, A, B_in, C_in, state)
         ctx.save_for_backward(x, dt, A, B_in, C_in, state)
+        ctx.use_kernel = use_kernel
         return y, new_state
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy, dstate):
-        grads = ref.ssd_chunk_bwd(*ctx.saved_tensors, dy, dstate,
-                                  needs=ctx.needs_input_grad[:6])
+        needs = ctx.needs_input_grad[:6]
+        if ctx.use_kernel:
+            grads = ssd_chunk_bwd_cuda(*ctx.saved_tensors, dy, dstate)
+            grads = tuple(g if n else None for g, n in zip(grads, needs))
+        else:
+            grads = ref.ssd_chunk_bwd(*ctx.saved_tensors, dy, dstate, needs=needs)
         return (*grads, None)

@@ -8,7 +8,8 @@ one rank runs and counts, as ``hlo_cost.module_cost`` does:
   * flops: every matrix product (``mm``, ``addmm``, ``bmm``,
     ``baddbmm``) at 2 |out| |contraction| (``hlo_cost._dot_flops``), and
     each hand-written kernel's operator at its own count
-    (``flash_attention_cuda.flash_cost``, ``ssd_chunk_cuda.ssd_chunk_cost``);
+    (``flash_attention_cuda.flash_cost`` and ``flash_bwd_cost``,
+    ``ssd_chunk_cuda.ssd_chunk_cost`` and ``ssd_chunk_bwd_cost``);
   * bytes: operands + result of each operator that materializes one (views,
     factories of uninitialized storage and waits move none); a kernel's
     operator is one operator, as the HLO walk counts a fusion at its call
@@ -56,8 +57,8 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.kernels.flash_attention_cuda import flash_cost
-from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_cost
+from repro_torch.kernels.flash_attention_cuda import flash_bwd_cost, flash_cost
+from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_bwd_cost, ssd_chunk_cost
 
 aten = torch.ops.aten
 
@@ -126,11 +127,18 @@ def _kernel_flops(func, args) -> float:
         B, Sq, H, D = q.shape
         q_offset = args[5] if len(args) > 5 else 0
         return flash_cost(B, Sq, k.shape[1], H, D, args[3], q.element_size(), q_offset)[0]
-    if name == "ssd_chunk":
+    if name == "flash_attention_bwd":
+        q, k = args[0], args[1]
+        B, Sq, H, D = q.shape
+        q_offset = args[7] if len(args) > 7 else 0
+        return flash_bwd_cost(B, Sq, k.shape[1], H, D, args[5], q.element_size(),
+                              q_offset)[0]
+    if name in ("ssd_chunk", "ssd_chunk_bwd"):
         x, B_in = args[0], args[3]
         Bb, Q, H, P = x.shape
         groups = 1 if B_in.stride(2) == 0 else H
-        return ssd_chunk_cost(Bb, Q, H, P, B_in.shape[-1], groups)[0]
+        cost = ssd_chunk_cost if name == "ssd_chunk" else ssd_chunk_bwd_cost
+        return cost(Bb, Q, H, P, B_in.shape[-1], groups)[0]
     return 0.0
 
 

@@ -303,7 +303,8 @@ def dryrun_cell(arch, shape, mesh_shape=(2, 4)):
         mesh = make_small_mesh(mesh_shape, device_type="cpu")
         art, counter = trace_cell(arch, shape, mesh)
         ops = {name: counter.launches(name)
-               for name in ("flash_attention", "flash_attention_lse", "ssd_chunk")}
+               for name in ("flash_attention", "flash_attention_lse", "ssd_chunk",
+                            "flash_attention_bwd", "ssd_chunk_bwd")}
         return art, ops
     finally:
         dist.destroy_process_group()

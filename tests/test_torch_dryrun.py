@@ -13,8 +13,8 @@ process compiles the JAX ones).
   ``model_flops`` values (equal), each cell's FLOPs a device within
   0.75-1.33x of ``hlo_flops_per_device``, and each traced kernel
   operator's calls against the model's structure (under remat "full" a
-  training step runs every layer's forward twice; a decode step runs no
-  kernel).
+  training step runs every layer's forward twice and its backward, on the
+  backward kernels, once; a decode step runs no kernel).
 * Printed, not gated: memory and collectives (XLA:CPU widens bf16 to f32
   and fuses; the port's memory is its traced peak).
 
@@ -80,17 +80,21 @@ def test_dryrun_cell_matches_jax(arch, shape, runs):
     sp = SHAPES[shape]
     assert FLOPS_BAND[0] <= ratio <= FLOPS_BAND[1], ratio
     if sp.kind == "train":
+        # each layer's backward once, on the backward kernels
         if cfg.family == "ssm":
             chunks = sp.seq_len // cfg.ssm_chunk
             assert ops == {"flash_attention": 0, "flash_attention_lse": 0,
-                           "ssd_chunk": 2 * cfg.n_layers * chunks}
+                           "ssd_chunk": 2 * cfg.n_layers * chunks,
+                           "flash_attention_bwd": 0, "ssd_chunk_bwd": cfg.n_layers * chunks}
         else:
             assert ops == {"flash_attention": 0, "flash_attention_lse": 2 * cfg.n_layers,
-                           "ssd_chunk": 0}
+                           "ssd_chunk": 0, "flash_attention_bwd": cfg.n_layers,
+                           "ssd_chunk_bwd": 0}
     else:
         # a decode step runs no kernel: its attention and state update are
         # plain PyTorch
-        assert ops == {"flash_attention": 0, "flash_attention_lse": 0, "ssd_chunk": 0}
+        assert ops == {"flash_attention": 0, "flash_attention_lse": 0, "ssd_chunk": 0,
+                       "flash_attention_bwd": 0, "ssd_chunk_bwd": 0}
     mem = art["memory"]
     assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] > 0
     assert mem["hbm_estimate_bytes"] == mem["peak_memory_in_bytes"]

@@ -798,7 +798,9 @@ def test_flash_attention_function_gradients_match_autograd_of_plain(
     o = ops.flash_attention(q, k, v, causal, chunk=chunk)
     assert kfa.LAUNCHES == before + 1
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    before = kfa.BWD_LAUNCHES
     got = torch.autograd.grad(o, (q, k, v), do)
+    assert kfa.BWD_LAUNCHES == before + 1          # the backward kernels, once
     o2 = ops.flash_attention(q, k, v, causal, force="ref")
     want = torch.autograd.grad(o2, (q, k, v), do)
     torch.cuda.synchronize()
@@ -821,11 +823,143 @@ def test_ssd_chunk_function_gradients_match_autograd_of_plain(B, Q, H, P, N, str
     y, new = ops.ssd_chunk(*args)
     assert kss.LAUNCHES == before + 1
     assert type(y.grad_fn).__name__ == "SsdChunkBackward"
+    before = kss.BWD_LAUNCHES
     got = torch.autograd.grad((y, new), leaves, (dy, dst))
+    assert kss.BWD_LAUNCHES == before + 1          # the backward kernel, once
     y2, new2 = ops.ssd_chunk(*args, force="ref")
     want = torch.autograd.grad((y2, new2), leaves, (dy, dst))
     torch.cuda.synchronize()
     _leafwise(got, want, FN_GRAD_TOL[torch.float32])
+
+
+# The backward kernels against their plain versions: each gradient within
+# these of its largest magnitude (bf16 gradients come out in bf16), and two
+# calls on the same inputs bitwise equal (no atomics).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_TOL = 1e-4
+SSD_BWD_LARGE_DECAY_TOL = 1e-2      # dt |A| ~ 100: as LARGE_DECAY_TOL above
+
+
+def _flash_bwd_case(gen, B, Sq, Sk, H, D, causal, q_offset, dtype, device, kv_heads=None):
+    q, do = (_randn(gen, B, Sq, H, D, dtype=dtype, device=device) for _ in range(2))
+    kvh = kv_heads or H
+    k, v = (_randn(gen, B, Sk, kvh, D, dtype=dtype, device=device) for _ in range(2))
+    if kv_heads:                      # GQA: K/V expanded to the query heads
+        k, v = (t[:, :, :, None].expand(B, Sk, kvh, H // kvh, D).reshape(B, Sk, H, D)
+                for t in (k, v))
+    _, lse = kfa.flash_attention_lse_cuda(q, k, v, causal, None, q_offset)
+    return q, k, v, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset,kv_heads", [
+    (2, 512, 512, 32, 64, True, 0, None),       # zamba2-1.2b's training shape
+    (2, 256, 1500, 8, 64, False, 0, None),      # whisper-base's cross-attention
+    (1, 200, 237, 4, 96, False, 0, None), (2, 70, 70, 3, 32, True, 0, None),
+    (2, 1, 38, 4, 16, True, 0, None), (1, 333, 333, 2, 128, True, 0, None),
+    (1, 64, 256, 2, 64, True, 192, None),       # a sequence block at q_offset
+    (2, 100, 300, 4, 128, True, 37, None),
+    (2, 1280, 1280, 32, 128, True, 0, 8)])      # pixtral-12b: 32 heads over 8
+def test_flash_attention_bwd_kernel_matches_plain(B, Sq, Sk, H, D, causal, q_offset,
+                                                  kv_heads, dtype, card):
+    gen = torch.Generator().manual_seed(Sq + Sk + D)
+    q, k, v, lse, do = _flash_bwd_case(gen, B, Sq, Sk, H, D, causal, q_offset, dtype, card,
+                                       kv_heads)
+    before = kfa.BWD_LAUNCHES
+    got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, None, q_offset)
+    assert kfa.BWD_LAUNCHES == before + 1
+    again = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, None, q_offset)
+    want = ref.flash_attention_bwd(q, k, v, lse, do, causal, None, None, q_offset)
+    torch.cuda.synchronize()
+    _leafwise(got, want, BWD_TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_reads_strided_views(card):
+    """q, k, v and do as views of one (B, S, 4, H, D) tensor (a fused
+    projection's layout) give what their contiguous copies give."""
+    gen = torch.Generator().manual_seed(12)
+    qkvd = _randn(gen, 2, 96, 4, 3, 32, device=card)
+    q, k, v, do = qkvd.unbind(2)
+    _, lse = kfa.flash_attention_lse_cuda(q, k, v, True)
+    got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True)
+    want = kfa.flash_attention_bwd_cuda(*(t.contiguous() for t in (q, k, v)), lse,
+                                        do.contiguous(), True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,H,P,N,stride0,dt_scale,sliced", [
+    (2, 256, 64, 64, 64, True, 1.0, False),     # zamba2-1.2b's training chunk
+    (2, 256, 64, 64, 64, False, 1.0, False),
+    (2, 256, 8, 64, 64, True, 1.0, True),       # a chunk slice of S = 2Q
+    (4, 32, 8, 16, 16, False, 1.0, False),      # the mamba2 trial's chunk
+    (1, 200, 4, 64, 128, True, 1.0, False),     # mamba2-130m's state width
+    (2, 32, 3, 8, 4, False, 1.0, False),
+    (2, 64, 3, 16, 8, False, 1000.0, False)])   # dt |A| ~ 100
+def test_ssd_chunk_bwd_kernel_matches_plain(B, Q, H, P, N, stride0, dt_scale, sliced, card):
+    gen = torch.Generator().manual_seed(Q + H + N)
+    rows = 2 * Q if sliced else Q
+    x, dt, A, Bm, Cm, st = _ssd_inputs(gen, B, rows, H, P, N, card, dt_scale=dt_scale)
+    dy = _randn(gen, B, rows, H, P, device=card)
+    dst = _randn(gen, B, H, P, N, device=card)
+    if stride0:
+        Bm, Cm = (t[:, :, :1].expand(B, rows, H, N) for t in (Bm, Cm))
+    if sliced:
+        sl = slice(Q, 2 * Q)
+        x, dt, Bm, Cm, dy = (t[:, sl] for t in (x, dt, Bm, Cm, dy))
+    args = (x, dt, A, Bm, Cm, st, dy, dst)
+    before = kss.BWD_LAUNCHES
+    got = kss.ssd_chunk_bwd_cuda(*args)
+    assert kss.BWD_LAUNCHES == before + 1
+    again = kss.ssd_chunk_bwd_cuda(*args)
+    want = ref.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    _leafwise(got, want, SSD_BWD_TOL if dt_scale == 1.0 else SSD_BWD_LARGE_DECAY_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_zamba2_bf16_train_step_runs_the_backward_kernels(card):
+    """The reduced zamba2 in bf16 (float32 master), one make_train_step
+    step: one flash backward a shared-attention invocation and one SSD
+    backward a (Mamba layer, chunk), no plain backward."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.train import batch_to, make_train_step
+    from repro_torch.models.context import null_ctx
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True), dtype="bfloat16")
+    B, S = 2, 64
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = adamw(1e-3, keep_master=True)
+    step = make_train_step(model, opt, null_ctx(remat="none"))
+    batch = batch_to(SyntheticLMDataset(cfg, B, S, seed=0).get_batch(0), "cuda")
+    calls = []
+    real = ref.flash_attention_bwd, ref.ssd_chunk_bwd
+    n0 = kfa.BWD_LAUNCHES, kss.BWD_LAUNCHES, kfa.LAUNCHES, kss.LAUNCHES
+    try:
+        ref.flash_attention_bwd = lambda *a, **k: calls.append("flash") or real[0](*a, **k)
+        ref.ssd_chunk_bwd = lambda *a, **k: calls.append("ssd") or real[1](*a, **k)
+        state = {"params": params, "opt": opt.init(params)}
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        ref.flash_attention_bwd, ref.ssd_chunk_bwd = real
+    want_fa = model.n_shared_invocations
+    want_ss = cfg.n_layers * -(-S // cfg.ssm_chunk)
+    assert (kfa.LAUNCHES - n0[2], kss.LAUNCHES - n0[3]) == (want_fa, want_ss)
+    assert (kfa.BWD_LAUNCHES - n0[0], kss.BWD_LAUNCHES - n0[1]) == (want_fa, want_ss)
+    assert calls == [] and bool(torch.isfinite(m["loss"]))
 
 
 @pytest.mark.cuda
