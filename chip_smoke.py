@@ -72,7 +72,9 @@ drives the port's two paths through them:
   launches a step, the backward kernels' 7 and 76 a step and no call of a
   plain backward, the card's idle share and the backward's share of its
   busy time under the profiler); the backward kernels timed at the training
-  shapes beside the plain backwards, SDPA's backward and their bounds; ``Trainer`` on the card
+  shapes beside the plain backwards, SDPA's backward and their bounds, the
+  bf16 flash backward also at pixtral-12b's and whisper-base's encoder
+  shapes beside SDPA's; ``Trainer`` on the card
   against the CPU on the reduced zamba2 and qwen1.5-0.5b, a checkpoint
   restart on the card, and the full-width state's checkpoint size against
   fig12's store rates;
@@ -2965,6 +2967,38 @@ def model_train_phases(torch) -> dict:
           f"time; plain {r['plain_ms']:.4f} ms, {r['plain_device_us']} us; bound "
           f"{bound:.4g} ms ({by}); {want_ss} a step; no PyTorch call computes it")
     bwd["ssd"] = r
+    # the bf16 flash backward at pixtral-12b's and whisper-base's encoder
+    # shapes, beside SDPA's backward (PERF.md row 4b)
+    shapes = {}
+    for name, (mb, ml, mh, md, mc) in (("pixtral-12b", (2, 1280, 32, 128, True)),
+                                       ("whisper-base encoder", (2, 1500, 8, 64, False))):
+        q, k, v, do = (randn(mb, ml, mh, md, dtype=torch.bfloat16) for _ in range(4))
+        _, lse = kfa.flash_attention_lse_cuda(q, k, v, mc)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=mc)
+        dot = do.transpose(1, 2)
+
+        def fk():
+            return kfa.flash_attention_bwd_cuda(q, k, v, lse, do, mc)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        bound, by = flash_bwd_bound_ms(mb, ml, ml, mh, md, mc, 2)
+        r = {"ms": cuda_ms(fk, iters=20, warmup=3),
+             "device_us": device_us_per_call(fk, iters=10, warmup=2,
+                                             what=f"of the flash backward kernels, {name}"),
+             "library_device_us": device_us_per_call(
+                 sdpa_bwd, iters=10, warmup=2,
+                 what=f"of scaled_dot_product_attention's backward, {name}"),
+             "bound_ms": bound, "bound_by": by,
+             "shape": {"B": mb, "S": ml, "H": mh, "D": md, "dtype": "bfloat16", "causal": mc}}
+        print(f"flash backward bfloat16 {name} (B,S,H,D) = {(mb, ml, mh, md)} causal {mc}: "
+              f"kernels {r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
+              f"SDPA's backward {r['library_device_us']} us; bound {bound:.4g} ms ({by})")
+        shapes[name] = r
+        del q, k, v, do, lse, qt, kt, vt, ot, dot
+    bwd["flash"]["shapes"] = shapes
     for key in ("flash", "flash_f32", "ssd"):
         out[key]["backward"] = bwd[key]
     # the backward kernels' rows of the kernels line; launches: the bf16
@@ -2975,10 +3009,12 @@ def model_train_phases(torch) -> dict:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cuh",
         "replaces": "src/repro/models/attention.py:202 (_flash_bwd_rule, XLA code "
                     "under flash_attention_vjp, :187-240; no Pallas kernel)",
-        "kernel": "flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (tf32 wgmma; bf16 "
-                  "operands exact, float32 3xTF32), one call",
+        "kernel": "flash_bwd_dq_kernel + flash_bwd_dkdv_kernel, one call: bf16 on bf16 "
+                  "wgmma fed by TMA (p and dS as bf16 hi + lo, no transposed copy, S once "
+                  "in the dk/dv pass), float32 on 3xTF32 tf32 wgmma (operands split by "
+                  "truncation)",
         "launches": fa_bwd_step * TRAIN_STEPS, "launches_per_step": fa_bwd_step,
-        "steps": TRAIN_STEPS, "max_abs_err": fb["max_abs_err"],
+        "steps": TRAIN_STEPS, "shapes": fb["shapes"], "max_abs_err": fb["max_abs_err"],
         "max_rel_err": fb["max_rel_err"], "tol_rel": BWD_TOL["bfloat16"],
         "ms": fb["ms"], "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
@@ -2997,6 +3033,10 @@ def model_train_phases(torch) -> dict:
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cuh",
         "replaces": "src/repro/models/ssd.py:136-139 (autodiff of "
                     "jax.checkpoint(_chunk_scan_step), XLA code; no Pallas kernel)",
+        "kernel": "ssd_bwd_tile_kernel (a block per 64-row tile, head and batch; 3xTF32 "
+                  "wgmma, operands split by truncation, full tiles loaded with no "
+                  "predicates) + ssd_bwd_finish_kernel (the cross-tile sums in a fixed "
+                  "order), one call",
         "launches": ss_bwd_step * TRAIN_STEPS, "launches_per_step": ss_bwd_step,
         "steps": TRAIN_STEPS, "launches_per_f32_backward": bwd_kernels[1],
         **{k: v for k, v in bwd["ssd"].items() if k != "launches_per_step"},

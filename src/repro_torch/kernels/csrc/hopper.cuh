@@ -87,18 +87,21 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
-// tf32(x), round to nearest with ties away from zero, two ways to the same
-// bits: the conversion instruction (cvt.rna.tf32.f32), or two integer
-// operations (half a tf32 ulp added to the magnitude, the 13 low bits
-// cleared).  Which is faster depends on the kernel's mix of instructions
-// (PERF.md: the integer form for flash attention, the instruction for the
-// SSD chunk), so the kernel chooses.
-enum class Round { cvt, bits };
+// tf32(x), three ways.  cvt and bits round to nearest with ties away from
+// zero, to the same bits: the conversion instruction (cvt.rna.tf32.f32), or
+// two integer operations (half a tf32 ulp added to the magnitude, the 13 low
+// bits cleared).  trunc clears the 13 low bits (toward zero).  Which is
+// faster depends on the kernel's mix of instructions (PERF.md: the integer
+// forms for flash attention and the backward kernels, the instruction for
+// the SSD chunk's forward), so the kernel chooses.
+enum class Round { cvt, bits, trunc };
 
 template <Round RND = Round::cvt>
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   if constexpr (RND == Round::bits) {
     return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  } else if constexpr (RND == Round::trunc) {
+    return __float_as_uint(x) & 0xFFFFE000u;
   } else {
     uint32_t r;
     asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -106,11 +109,22 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   }
 }
 
-// x = hi + lo + (~2^-22 |x|), both tf32
+// x = hi + lo + e, hi = tf32(x): |e| ~2^-22 |x| (cvt), 2^-21 (bits), 2^-20
+// (trunc).  The tensor core reads a tf32 operand's top 19 bits and drops
+// the 13 low ones (truncation), so the integer forms hand it lo = x - hi
+// unconverted, at no cost.  A NaN x gives a NaN hi: the rounding's carry
+// would take CUDA's canonical NaN (0x7fffffff) into the sign and make it a
+// zero, so bits keeps it apart; trunc cannot carry.
 template <Round RND = Round::cvt>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32<RND>(x);
-  lo = to_tf32<RND>(x - __uint_as_float(hi));
+  if constexpr (RND == Round::bits) {
+    if (x != x) hi = __float_as_uint(x) | 0x00400000u;
+  }
+  if constexpr (RND == Round::cvt)
+    lo = to_tf32<RND>(x - __uint_as_float(hi));
+  else
+    lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // Byte offset of element (r, k) of an R-row tile stored K-major for wgmma:

@@ -6,8 +6,8 @@
 // reads (hopper.cuh's sw_off with R = 64), its tf32 hi part at +0 and its
 // lo part at +UNIT_HALF.  A tensor wider than 64 columns is cut into
 // 64-column chunks, a unit each, and a product over it runs one chunk at a
-// time; a narrower one is padded with zero columns (the product's k steps
-// past its width are skipped).  A unit is filled from global memory by
+// time; a narrower one is padded with zero columns (a product may skip the
+// k steps past its width).  A unit is filled from global memory by
 //   RowTile: element (r, k) = src[r * ld + k] * scale(r), 64 rows as they
 //            lie (the A or B operand of a product over the columns);
 //   ColTile: element (r, slot of jj) = src[jj * ld + r] * scale(jj), the
@@ -17,16 +17,16 @@
 //            (pack_a applies the same permutation), or both operands of a
 //            product over rows; with PERM = false in its natural order, the
 //            B operand of a product whose A is a RowTile.
-// Sources are float32 or bfloat16 (16-byte or 8-byte loads; a bf16 value
-// is exact in TF32, so its unit has no lo part and the products skip the
-// terms that would read it).  Outputs of every product are m64n64 float32
+// Sources are float32, read with 16-byte loads where their alignment allows
+// (a tile's loads issued together, not one behind each branch).  Products
+// run on both halves of each operand (3xTF32), every operand split by
+// truncation (put4, pack_a).  Outputs of every product are m64n64 float32
 // accumulators: a thread holds rows g and g + 8 of its warp's 16 (g =
 // lane / 4) and, in each 8-column group, the columns 2 (lane % 4) and
 // 2 (lane % 4) + 1.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,30 +42,30 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// four bf16 values from k (8-byte loads where `vec`), widened exactly
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int k, int cols, bool vec) {
-  if (vec) {
-    if (k >= cols) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + k));
-    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+// four floats of a row from column k, 0 past `cols` or where the row is not
+// `ok`; with VEC one 16-byte load, issued whatever the predicates from an
+// address that is valid (the tile's first element, `safe`).  VEC is a
+// template argument and no load sits behind a branch, so a thread's loads
+// of a tile issue together (a runtime choice a load serialised them)
+template <bool VEC>
+__device__ __forceinline__ float4 load4_or0(const float* row, const float* safe, bool ok, int k,
+                                            int cols) {
+  ok = ok && k < cols;
+  if constexpr (VEC) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(ok ? row + k : safe));
+    return ok ? x : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    return ok ? load4(row, k, cols, false) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float4 v;
-  v.x = k < cols ? __bfloat162float(row[k]) : 0.f;
-  v.y = k + 1 < cols ? __bfloat162float(row[k + 1]) : 0.f;
-  v.z = k + 2 < cols ? __bfloat162float(row[k + 2]) : 0.f;
-  v.w = k + 3 < cols ? __bfloat162float(row[k + 3]) : 0.f;
-  return v;
 }
 
-// the values stored, split into hi and lo (LO), or as they are (a bf16
-// source: tf32(x) = x, lo = 0)
-template <bool LO>
+// the values stored, split into tf32 hi and lo by truncation (hopper.cuh's
+// Round::trunc, two instructions a value).  The producers' instructions set
+// the backward kernels' pace: the conversion instruction took 4x the time
+// of the rest of a unit's staging, and rounding by integer operations made
+// the whole SSD backward 10 % slower than truncating (PERF.md)
 __device__ __forceinline__ void put4(uint8_t* unit, uint32_t off, float4 v) {
-  if constexpr (LO)
-    store_split<Round::cvt>(unit, unit + UNIT_HALF, off, v);
-  else
-    *reinterpret_cast<float4*>(unit + off) = v;
+  store_split<Round::trunc>(unit, unit + UNIT_HALF, off, v);
 }
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
@@ -78,27 +78,44 @@ struct NoScale {
 
 // A RowTile filled by NP threads; a thread takes 4 consecutive columns of a
 // row, eight neighbouring threads one 128-byte row (hopper.cuh's Rows).
-template <int NP, bool LO>
+template <int NP>
 struct RowTile {
   static constexpr int U = UROWS * 16 / NP;
   float4 v[U];
 
-  // rows < `rows` and columns < `cols` of src, else 0; scale(r) for r < rows
-  template <typename T, typename S>
-  __device__ __forceinline__ void load(const T* src, int64_t ld, int rows, int cols, bool vec,
+  // rows < `rows` and columns < `cols` of src, else 0, row r scaled by
+  // scale(r) (called for rows < `rows` only, else for row 0); 16-byte
+  // loads where `vec`, with no predicates where the tile is full
+  template <typename S>
+  __device__ __forceinline__ void load(const float* src, int64_t ld, int rows, int cols, bool vec,
                                        S scale, int ptid) {
+    if (vec && rows >= UROWS && cols >= 64)
+      load_as<true, true>(src, ld, rows, cols, scale, ptid);
+    else if (vec)
+      load_as<true, false>(src, ld, rows, cols, scale, ptid);
+    else
+      load_as<false, false>(src, ld, rows, cols, scale, ptid);
+  }
+  template <bool VEC, bool FULL, typename S>
+  __device__ __forceinline__ void load_as(const float* src, int64_t ld, int rows, int cols,
+                                          S scale, int ptid) {
 #pragma unroll
     for (int m = 0; m < U; ++m) {
       const int u = ptid + m * NP, r = u / 16, k = (u % 16) * 4;
-      v[m] = r < rows ? scale4(load4(src + (int64_t)r * ld, k, cols, vec), scale(r))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (FULL) {
+        v[m] = scale4(__ldg(reinterpret_cast<const float4*>(src + (int64_t)r * ld + k)), scale(r));
+      } else {
+        const bool ok = r < rows;
+        const int rr = ok ? r : 0;
+        v[m] = scale4(load4_or0<VEC>(src + (int64_t)rr * ld, src, ok, k, cols), scale(rr));
+      }
     }
   }
   __device__ __forceinline__ void store(uint8_t* unit, int ptid) const {
 #pragma unroll
     for (int m = 0; m < U; ++m) {
       const int u = ptid + m * NP;
-      put4<LO>(unit, sw_off(u / 16, (u % 16) * 4, UROWS), v[m]);
+      put4(unit, sw_off(u / 16, (u % 16) * 4, UROWS), v[m]);
     }
   }
 };
@@ -107,40 +124,63 @@ struct RowTile {
 // 4g..4g+3 of the unit (one load along r per source row jj) and the
 // 16-byte chunk c of slots 4c..4c+3, which hold jj = 8 (c / 2) + 2 q +
 // (c % 2), q = 0..3 (hopper.cuh's Cols), or jj = 4c + q without PERM.
-template <int NP, bool LO, bool PERM = true>
+// Neighbouring threads take neighbouring chunks c of one row group: a
+// warp's load reads 32 bytes of each of 16 source rows, and the eight
+// threads of a store phase write one unit row's eight 16-byte chunks, free
+// of bank conflicts, each element in its place with no selection at run
+// time.
+template <int NP, bool PERM = true>
 struct ColTile {
   static constexpr int G = UROWS / 4;
   static constexpr int U = G * 16 / NP;
   float4 v[U][4];
 
-  // source rows jj < `rows` and columns r < `cols`, else 0; scale(jj)
-  template <typename T, typename S>
-  __device__ __forceinline__ void load(const T* src, int64_t ld, int rows, int cols, bool vec,
+  // source rows jj < `rows` and columns r < `cols`, else 0, row jj scaled
+  // by scale(jj) (called for rows < `rows` only, else for row 0); 16-byte
+  // loads where `vec`, with no predicates where the tile is full
+  template <typename S>
+  __device__ __forceinline__ void load(const float* src, int64_t ld, int rows, int cols, bool vec,
                                        S scale, int ptid) {
+    if (vec && rows >= UROWS && cols >= 64)
+      load_as<true, true>(src, ld, rows, cols, scale, ptid);
+    else if (vec)
+      load_as<true, false>(src, ld, rows, cols, scale, ptid);
+    else
+      load_as<false, false>(src, ld, rows, cols, scale, ptid);
+  }
+  template <bool VEC, bool FULL, typename S>
+  __device__ __forceinline__ void load_as(const float* src, int64_t ld, int rows, int cols,
+                                          S scale, int ptid) {
 #pragma unroll
     for (int m = 0; m < U; ++m) {
-      const int u = ptid + m * NP, g = u % G, c = u / G;
+      const int u = ptid + m * NP, c = u % 16, g = u / 16;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int jj = PERM ? 8 * (c >> 1) + (c & 1) + 2 * q : 4 * c + q;
-        v[m][q] = jj < rows ? scale4(load4(src + (int64_t)jj * ld, 4 * g, cols, vec), scale(jj))
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (FULL) {
+          v[m][q] = scale4(__ldg(reinterpret_cast<const float4*>(src + (int64_t)jj * ld + 4 * g)),
+                           scale(jj));
+        } else {
+          const bool ok = jj < rows;
+          const int rr = ok ? jj : 0;
+          v[m][q] = scale4(load4_or0<VEC>(src + (int64_t)rr * ld, src, ok, 4 * g, cols),
+                           scale(rr));
+        }
       }
     }
   }
   __device__ __forceinline__ void store(uint8_t* unit, int ptid) const {
 #pragma unroll
     for (int m = 0; m < U; ++m) {
-      const int u = ptid + m * NP, g = u % G, c = u / G;
+      const int u = ptid + m * NP, c = u % 16, g = u / 16;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int q = (i + g) & 3;   // this thread's i-th row of its group
         float4 o;
-        o.x = get(v[m][0], q);
-        o.y = get(v[m][1], q);
-        o.z = get(v[m][2], q);
-        o.w = get(v[m][3], q);
-        put4<LO>(unit, sw_off(4 * g + q, 4 * c, UROWS), o);
+        o.x = get(v[m][0], i);
+        o.y = get(v[m][1], i);
+        o.z = get(v[m][2], i);
+        o.w = get(v[m][3], i);
+        put4(unit, sw_off(4 * g + i, 4 * c, UROWS), o);
       }
     }
   }
@@ -149,26 +189,25 @@ struct ColTile {
 // ------------------------------------------------------------- products
 
 // d (64 x 64) += A . B^T over `ks` 8-wide k steps, both units in shared
-// memory (addresses a, b); the lo terms of an operand without lo skipped
-template <bool ALO, bool BLO>
+// memory (addresses a, b): lo.hi, hi.lo, hi.hi a k step
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b, int ks) {
+#pragma unroll
   for (int kk = 0; kk < ks; ++kk) {
     const uint64_t ah = desc_k(a, kk, UROWS), bh = desc_k(b, kk, UROWS);
-    if constexpr (ALO) wgmma_tf32_ss_n64(d, desc_k(a + UNIT_HALF, kk, UROWS), bh);
-    if constexpr (BLO) wgmma_tf32_ss_n64(d, ah, desc_k(b + UNIT_HALF, kk, UROWS));
+    wgmma_tf32_ss_n64(d, desc_k(a + UNIT_HALF, kk, UROWS), bh);
+    wgmma_tf32_ss_n64(d, ah, desc_k(b + UNIT_HALF, kk, UROWS));
     wgmma_tf32_ss_n64(d, ah, bh);
   }
 }
 
 // d (64 x 64) += A . B^T over 64 K, A split in registers (pack_a), B a unit
-template <bool BLO>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&ah)[32],
                                        const uint32_t (&al)[32], uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint64_t bh = desc_k(b, kk, UROWS);
     wgmma_tf32_rs_n64(d, al + 4 * kk, bh);
-    if constexpr (BLO) wgmma_tf32_rs_n64(d, ah + 4 * kk, desc_k(b + UNIT_HALF, kk, UROWS));
+    wgmma_tf32_rs_n64(d, ah + 4 * kk, desc_k(b + UNIT_HALF, kk, UROWS));
     wgmma_tf32_rs_n64(d, ah + 4 * kk, bh);
   }
 }
@@ -182,10 +221,39 @@ __device__ __forceinline__ void pack_a(const float (&v)[32], uint32_t (&ah)[32],
                                        uint32_t (&al)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    split(v[4 * kk + 0], ah[4 * kk + 0], al[4 * kk + 0]);
-    split(v[4 * kk + 2], ah[4 * kk + 1], al[4 * kk + 1]);
-    split(v[4 * kk + 1], ah[4 * kk + 2], al[4 * kk + 2]);
-    split(v[4 * kk + 3], ah[4 * kk + 3], al[4 * kk + 3]);
+    split<Round::trunc>(v[4 * kk + 0], ah[4 * kk + 0], al[4 * kk + 0]);
+    split<Round::trunc>(v[4 * kk + 2], ah[4 * kk + 1], al[4 * kk + 1]);
+    split<Round::trunc>(v[4 * kk + 1], ah[4 * kk + 2], al[4 * kk + 2]);
+    split<Round::trunc>(v[4 * kk + 3], ah[4 * kk + 3], al[4 * kk + 3]);
+  }
+}
+
+// half HF of pack_a: the fragments of k steps 4 HF .. 4 HF + 3 only, for
+// kernels that cannot hold all 64 registers of a split tile
+template <int HF>
+__device__ __forceinline__ void pack_a_half(const float (&v)[32], uint32_t (&ah)[16],
+                                            uint32_t (&al)[16]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int K = 4 * HF + kk;
+    split<Round::trunc>(v[4 * K + 0], ah[4 * kk + 0], al[4 * kk + 0]);
+    split<Round::trunc>(v[4 * K + 2], ah[4 * kk + 1], al[4 * kk + 1]);
+    split<Round::trunc>(v[4 * K + 1], ah[4 * kk + 2], al[4 * kk + 2]);
+    split<Round::trunc>(v[4 * K + 3], ah[4 * kk + 3], al[4 * kk + 3]);
+  }
+}
+
+// d += (A's half HF, pack_a_half) . B over that half's 32 K, B a unit
+template <int HF>
+__device__ __forceinline__ void mma_rs_half(float (&d)[32], const uint32_t (&ah)[16],
+                                            const uint32_t (&al)[16], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int K = 4 * HF + kk;
+    const uint64_t bh = desc_k(b, K, UROWS);
+    wgmma_tf32_rs_n64(d, al + 4 * kk, bh);
+    wgmma_tf32_rs_n64(d, ah + 4 * kk, desc_k(b + UNIT_HALF, K, UROWS));
+    wgmma_tf32_rs_n64(d, ah + 4 * kk, bh);
   }
 }
 

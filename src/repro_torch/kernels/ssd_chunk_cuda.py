@@ -18,7 +18,9 @@ forward is the kernel on the card and ``ref.ssd_chunk_ref`` on the CPU and
 whose backward recomputes the chunk from the saved inputs: on the card
 ``csrc/ssd_chunk_bwd.cuh`` (built as ``ssd_chunk_bwd.cu`` for N <= 64 and
 ``ssd_chunk_bwd_n128.cu`` above; ``ssd_chunk_bwd_cuda``, the operator
-``torch.ops.repro_torch.ssd_chunk_bwd``; see its header), on the CPU
+``torch.ops.repro_torch.ssd_chunk_bwd``: a block per 64-row tile, head and
+batch, then a launch per head and batch that sums the tiles' partials from
+a scratch of ``ssd_chunk_bwd_scratch_floats``; see its header), on the CPU
 ``ref.ssd_chunk_bwd``, the plain chunk differentiated by autograd (the JAX
 package trains through ``jax.checkpoint`` of its ``_chunk_scan_step``, not
 through the Pallas kernel).  ``ops.ssd_chunk`` takes the Function when a
@@ -38,13 +40,13 @@ from repro_torch.kernels._grad import check_no_grad, traced
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
-#: launches of the backward kernel
+#: calls of the backward kernels (one call: the tile launch and the finishing one)
 BWD_LAUNCHES = 0
 
 MAX_P, MAX_N = 64, 128
 SMEM_LIMIT = 232448          # bytes of shared memory a block may have (H100)
 _FN = None
-_BWD_FNS = {}
+_BWD_LIBS = {}
 
 
 def ssd_chunk_smem_bytes(Q: int, N: int) -> int:
@@ -62,13 +64,18 @@ def ssd_chunk_smem_bytes(Q: int, N: int) -> int:
 
 
 def ssd_chunk_bwd_smem_bytes(Q: int, N: int) -> int:
-    """Shared memory of one backward block (``smem_bytes`` in
-    ``csrc/ssd_chunk_bwd.cuh``): 1 KiB of alignment slack, the outer units
-    (N / 64 chunks of B_j and xbar_j) and the ring's three, 32 KiB each, and
-    four per-row float arrays of Q (rounded up to 4) with the scans' 400
-    floats."""
-    ncn = 1 if N <= 64 else 2
-    return 1024 + 32768 * (ncn + 1 + 3) + 4 * (4 * ((Q + 3) // 4 * 4) + 256 + 128 + 16)
+    """Shared memory of one backward tile block at chunk length Q and state
+    width N, as the kernel's library computes it (``smem_bytes`` in
+    ``csrc/ssd_chunk_bwd.cuh``, exported by the library; built on first
+    use, so a card's machine only)."""
+    return int(_bwd_lib(N).ssd_chunk_bwd_smem_bytes(Q))
+
+
+def ssd_chunk_bwd_scratch_floats(Q: int, P: int, N: int) -> int:
+    """Scratch floats of one (batch, head) that the backward's tile blocks
+    write and its finishing launch reads, as the kernel's library computes
+    them (``scratch_floats`` in ``csrc/ssd_chunk_bwd.cuh``)."""
+    return int(_bwd_lib(N).ssd_chunk_bwd_scratch_floats(Q, P, N))
 
 
 def _fn():
@@ -82,18 +89,22 @@ def _fn():
     return _FN
 
 
-def _bwd_fn(N: int):
-    """The backward's entry for state width N: one library for N <= 64,
-    one for 64 < N <= 128 (compiled in parallel)."""
+def _bwd_lib(N: int):
+    """The backward's library for state width N: one for N <= 64, one for
+    64 < N <= 128 (compiled in parallel), its entry and sizes typed."""
     stem = "ssd_chunk_bwd" if N <= 64 else "ssd_chunk_bwd_n128"
-    fn = _BWD_FNS.get(stem)
-    if fn is None:
-        fn = build.load(stem).ssd_chunk_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int64] * 20
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _BWD_FNS[stem] = fn
-    return fn
+    lib = _BWD_LIBS.get(stem)
+    if lib is None:
+        lib = build.load(stem)
+        lib.ssd_chunk_bwd.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int64] * 21
+                                      + [ctypes.c_int, ctypes.c_void_p])
+        lib.ssd_chunk_bwd.restype = ctypes.c_int
+        lib.ssd_chunk_bwd_smem_bytes.argtypes = [ctypes.c_int64]
+        lib.ssd_chunk_bwd_smem_bytes.restype = ctypes.c_int64
+        lib.ssd_chunk_bwd_scratch_floats.argtypes = [ctypes.c_int64] * 3
+        lib.ssd_chunk_bwd_scratch_floats.restype = ctypes.c_int64
+        _BWD_LIBS[stem] = lib
+    return lib
 
 
 _NAMES = ("x", "dt", "A", "B_in", "C_in", "state")
@@ -177,27 +188,29 @@ def _ssd_chunk_shape(x, dt, A, B_in, C_in, state):
 
 
 def _check_bwd(x, dt, A, B_in, C_in, state, dy, dstate):
-    """The forward's checks, dy (B,Q,H,P) and dstate (B,H,P,N) float32, and
-    the backward's shared memory -> (B, Q, H, P, N)."""
+    """The forward's checks, dy (B,Q,H,P) and dstate (B,H,P,N) float32 ->
+    (B, Q, H, P, N).  The backward's shared memory is checked at the launch
+    (``ssd_chunk_bwd_smem_bytes``, from the kernel's library)."""
     Bb, Q, H, P, N = _check(x, dt, A, B_in, C_in, state)
     for name, t, want in (("dy", dy, (Bb, Q, H, P)), ("dstate", dstate, (Bb, H, P, N))):
         if tuple(t.shape) != want or t.dtype != torch.float32:
             raise ValueError(f"ssd_chunk_bwd_cuda: {name} is {tuple(t.shape)} "
                              f"{t.dtype}, expected {want} float32")
-    if ssd_chunk_bwd_smem_bytes(Q, N) > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunk_bwd_cuda: Q={Q} needs "
-                         f"{ssd_chunk_bwd_smem_bytes(Q, N)} bytes of shared memory, "
-                         f"over the {SMEM_LIMIT} a block may have")
     return Bb, Q, H, P, N
 
 
 def _launch_bwd(x, dt, A, B_in, C_in, state, dy, dstate):
-    """One backward launch -> (dx, ddt, dA, dB, dC, dstate_in): dB and dC
-    per head (B,Q,H,N), dA the per-(batch, head) partials summed over the
-    batch after the launch."""
+    """One backward call (a tile launch and a finishing launch, with a
+    scratch of ``ssd_chunk_bwd_scratch_floats`` a (batch, head)) -> (dx,
+    ddt, dA, dB, dC, dstate_in): dB and dC per head (B,Q,H,N), dA the
+    per-(batch, head) partials summed over the batch after the launches."""
     global BWD_LAUNCHES
     _check_device(x, dt, A, B_in, C_in, state, ("dy", dy), ("dstate", dstate))
     Bb, Q, H, P, N = _check_bwd(x, dt, A, B_in, C_in, state, dy, dstate)
+    if min(P, N) > 0 and ssd_chunk_bwd_smem_bytes(Q, N) > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk_bwd_cuda: Q={Q} needs "
+                         f"{ssd_chunk_bwd_smem_bytes(Q, N)} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} a block may have")
     x, dt, B_in, C_in, dy = (t if t.stride(-1) == 1 else t.contiguous()
                              for t in (x, dt, B_in, C_in, dy))
     A, state, dstate = A.contiguous(), state.contiguous(), dstate.contiguous()
@@ -210,12 +223,14 @@ def _launch_bwd(x, dt, A, B_in, C_in, state, dy, dstate):
     if empty:
         return dx, ddt, dA_part.sum(0), dB, dC, dst
     strides = [s for t in (x, dt, B_in, C_in, dy) for s in t.stride()[:3]]
+    scratch = torch.empty(Bb * H * ssd_chunk_bwd_scratch_floats(Q, P, N), dtype=torch.float32,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _bwd_fn(N)(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+    err = _bwd_lib(N).ssd_chunk_bwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
                     C_in.data_ptr(), state.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
                     dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                    dst.data_ptr(), dA_part.data_ptr(), Bb, Q, H, P, N, *strides,
-                    dev.index, stream)
+                    dst.data_ptr(), dA_part.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                    Bb, Q, H, P, N, *strides, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd kernel launch failed (code {err})")
     BWD_LAUNCHES += 1

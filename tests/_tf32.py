@@ -1,10 +1,19 @@
 """TF32 arithmetic emulated in plain torch on the CPU, for the tests that
 hold the precision argument of the port's 3xTF32 kernels (``ssd_chunk``,
-float32 ``flash_attention``).  No path of the port runs it.
+float32 ``flash_attention``, their backwards).  No path of the port runs it.
 
-TF32 rounding is the kernels' ``to_tf32``: round to nearest with ties away
-from zero onto 10 mantissa bits (half a TF32 ulp added to the magnitude,
-the 13 low bits cleared), which is what ``cvt.rna.tf32.f32`` computes."""
+TF32 rounding is the kernels' ``to_tf32`` (``csrc/hopper.cuh``): round to
+nearest with ties away from zero onto 10 mantissa bits (half a TF32 ulp
+added to the magnitude, the 13 low bits cleared), which is what
+``cvt.rna.tf32.f32`` computes, or truncation (the 13 low bits cleared),
+which is also what the tensor core does to the 13 low bits of an operand
+it is handed.  A 3xTF32 product splits each operand into hi and lo as its
+kernel does (``split``):
+
+* ``"rna"``   hi = tf32(x), lo = tf32(x - hi)   (``Round::cvt``: the SSD chunk's forward)
+* ``"bits"``  hi = tf32(x), lo = trunc(x - hi)  (``Round::bits``: the flash forward)
+* ``"trunc"`` hi = trunc(x), lo = trunc(x - hi) (``Round::trunc``: the backward kernels)
+"""
 
 import torch
 
@@ -16,14 +25,23 @@ def tf32(t):
     return u.view(torch.float32)
 
 
-def mm(eq, a, b, terms):
+def trunc(t):
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(t, mode="rna"):
+    """(hi, lo) of ``t`` as a kernel of ``mode`` splits it."""
+    hi = trunc(t) if mode == "trunc" else tf32(t)
+    lo = tf32(t - hi) if mode == "rna" else trunc(t - hi)
+    return hi, lo
+
+
+def mm(eq, a, b, terms, mode="rna"):
     """``torch.einsum(eq, a, b)`` as the kernels compute it: one TF32
-    product (``terms=1``), or each operand split into hi = tf32(x) and
-    lo = tf32(x - hi) and lo.hi + hi.lo + hi.hi summed in float32
-    (``terms=3``)."""
-    ah, bh = tf32(a), tf32(b)
+    product (``terms=1``, of the hi parts), or each operand split (``mode``)
+    and lo.hi + hi.lo + hi.hi summed in float32 (``terms=3``)."""
+    (ah, al), (bh, bl) = split(a, mode), split(b, mode)
     out = torch.einsum(eq, ah, bh)
     if terms == 3:
-        al, bl = tf32(a - ah), tf32(b - bh)
         out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
     return out

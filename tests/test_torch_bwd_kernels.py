@@ -7,15 +7,19 @@
   ``ssd_chunk_bwd`` operator and nothing else, with outputs of the
   gradients' shapes, types and strides; on fake CPU tensors with the kernel
   route (the dry run's trace) autograd reaches the same operators.
-* Precision: ``_flash_bwd_tf32`` and ``_ssd_bwd_tf32`` repeat each kernel's
-  arithmetic in plain torch (``_tf32.py``): the tile order, the flash
-  kernel's D pass, the SSD kernel's dcum (the diagonal of E left out of both
-  its sums) and reverse scan, the TF32 splits (three terms for float32; a
-  bf16 operand is exact in TF32, so its lo term is zero and the 3-term
-  emulation is the kernel's 1- or 2-term product) and the per-(batch, head)
-  dA partials.  Three terms hold the tolerances the kernels are held to on
-  the card (1e-4 of each gradient's largest magnitude; bf16 flash 1e-2; the
-  SSD chunk at dt |A| ~ 100 1e-2); one TF32 product does not hold 1e-4.
+* Precision: ``_flash_bwd_tf32``, ``_flash_bwd_bf16`` and ``_ssd_bwd_tf32``
+  repeat each kernel's arithmetic in plain torch (``_tf32.py``): the tile
+  order, the flash kernels' D pass, the float32 route's TF32 splits (three
+  terms; both kernels truncate, ``Round::trunc``), the bf16 route's exact
+  bf16 products with p and dS split into bf16 hi and lo (two terms; one
+  term does measurably worse), the SSD kernel's tile partition (a block
+  per 64-row tile: its j tile's and i tile's pairs in order, E's column
+  sums per warp), its cross-tile sums in
+  their fixed order, dcum (the diagonal of E left out of both its sums),
+  the reverse scan and the per-(batch, head) dA partials.  They hold the
+  tolerances the kernels are held to on the card (1e-4 of each gradient's
+  largest magnitude; bf16 flash 1e-2; the SSD chunk at dt |A| ~ 100 1e-2);
+  one TF32 product does not hold 1e-4.
 * Cost: ``flash_bwd_cost`` and ``ssd_chunk_bwd_cost`` against the
   ``CostCounter`` count of the plain backwards at two shapes each; the
   differences are stated in the tests.
@@ -32,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 import _torch_port  # noqa: F401  (one intra-op thread)
-from _tf32 import mm
+from _tf32 import mm as _mm
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.kernels import flash_attention_cuda as kfa
@@ -41,6 +45,11 @@ from repro_torch.kernels import ssd_chunk_cuda as kss
 from repro_torch.launch.cost import CostCounter
 
 T = 64                       # rows of the kernels' tiles
+
+
+def mm(eq, a, b, terms):
+    """The backward kernels' tf32 products: operands split by truncation."""
+    return _mm(eq, a, b, terms, "trunc")
 
 
 def _rel(got, want) -> float:
@@ -187,11 +196,21 @@ def test_the_backward_operators_refuse_what_the_kernels_do_not_take():
         kfa.flash_attention_bwd_cuda(q, q, q, torch.zeros(1, 2, 8), q)
 
 
-def test_the_backward_shared_memory_fits_the_configs_chunks():
-    for Q, N in ((256, 64), (256, 128), (32, 16), (2048, 128)):
-        assert kss.ssd_chunk_bwd_smem_bytes(Q, N) <= kss.SMEM_LIMIT
-    assert kss.ssd_chunk_bwd_smem_bytes(256, 64) == 1024 + 5 * 32768 + 4 * (4 * 256 + 400)
-    assert kss.ssd_chunk_bwd_smem_bytes(8000, 64) > kss.SMEM_LIMIT
+@pytest.mark.parametrize("which", ["flash", "ssd"])
+def test_the_plain_backwards_keep_a_nan_of_dy(which):
+    """A NaN in dy (a diverged step) reaches the gradients of the plain
+    backwards, the CPU's route; tests/test_torch_kernels_cuda.py holds the
+    kernels to the same on the card."""
+    if which == "flash":
+        q, k, v, lse, do = _flash_inputs(3, 1, 80, 80, 2, 16)
+        do[0, 37, 1, 5] = float("nan")
+        got = ref.flash_attention_bwd(q, k, v, lse, do, True)
+        assert torch.isnan(got[0][0, 37, 1]).all()           # the query's dq row
+    else:
+        t = _ssd_inputs(4, 1, 70, 2, 8, 4)
+        t[6][0, 50, 1, 3] = float("nan")                     # dy
+        got = ref.ssd_chunk_bwd(*t)
+    assert all(torch.isnan(g).any() for g in got)
 
 
 # ---------------------------------------------- the flash kernels' arithmetic
@@ -242,32 +261,97 @@ def test_flash_3xtf32_holds_1e4_and_1xtf32_does_not(B, Sq, Sk, H, D, causal, q_o
     assert max(_rel(g, w) for g, w in zip(got1, want)) > 1e-4
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset", FLASH_CASES[:2])
+def _bf16_parts(t, terms):
+    """t (float32) as the bf16 route's A fragments, in float32: hi = bf16(t)
+    and lo = bf16(t - hi) (``terms`` 2, lo first as the kernel issues them),
+    or hi alone (1)."""
+    hi = t.to(torch.bfloat16).float()
+    return [hi] if terms == 1 else [(t - hi).to(torch.bfloat16).float(), hi]
+
+
+def _flash_bwd_bf16(q, k, v, lse, do, causal, terms, scale=None, q_offset=0, out=None):
+    """``ref.flash_attention_bwd`` as the bf16 route computes it: S = q.k^T
+    and dP = do.v^T of the bf16 inputs in float32 (bf16 wgmma: exact
+    products), p = exp2(scale log2(e) s - lse log2(e)) masked to 0, the D
+    pass, dS = p (dP - D) scale; dq = dS.k over 64-key tiles, dk = dS^T.q and
+    dv = p^T.do over 64-row q tiles, p and dS each the sum of its bf16 parts
+    (``_bf16_parts``: ``terms`` 2, hi and lo, or 1), a product a part; the
+    outputs rounded to bf16, or to ``out``.  ``terms`` 0: the same function
+    in float64 with nothing rounded, the yardstick of the split."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    sc = scale if scale is not None else D ** -0.5
+    f = torch.float64 if terms == 0 else torch.float32
+    q32, k32, v32, do32 = (t.to(f) for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    l2 = math.log2(math.e)
+    p = torch.exp2(s * (sc * l2) - lse.to(f)[..., None] * l2)
+    if causal:
+        masked = torch.arange(Sk)[None, :] > torch.arange(Sq)[:, None] + q_offset
+        p = torch.where(masked, 0.0, p)
+    dr = (p * dp).sum(-1) / p.sum(-1)
+    ds = p * (dp - dr[..., None]) * sc
+    parts = (lambda t: [t]) if terms == 0 else (lambda t: _bf16_parts(t, terms))
+    dq = torch.zeros(B, Sq, H, D, dtype=f)
+    for k0 in range(0, Sk, T):
+        for part in parts(ds[..., k0:k0 + T]):
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", part, k32[:, k0:k0 + T])
+    dk, dv = torch.zeros(B, Sk, H, D, dtype=f), torch.zeros(B, Sk, H, D, dtype=f)
+    for i0 in range(0, Sq, T):
+        for part in parts(ds[:, :, i0:i0 + T]):
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", part, q32[:, i0:i0 + T])
+        for part in parts(p[:, :, i0:i0 + T]):
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", part, do32[:, i0:i0 + T])
+    return tuple(t.to(out or q.dtype) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset", FLASH_CASES)
 def test_flash_bf16_splits_only_the_float32_operand_and_holds_1e2(B, Sq, Sk, H, D, causal,
                                                                    q_offset):
-    """bf16 inputs: q, k, v and do are exact in TF32 (their lo halves are
-    zero), so S and dP are one TF32 product and the products with p or dS
-    split only those; the bf16 outputs hold 1e-2."""
+    """bf16 inputs, the bf16 route: q, k, v and do enter bf16 wgmma as they
+    are, so S and dP are one exact-product sum; p and dS, float32, are split
+    into bf16 hi and lo, two products each; the bf16 outputs hold 1e-2."""
     q, k, v, lse, do = _flash_inputs(Sq + 7, B, Sq, Sk, H, D, torch.bfloat16,
                                      q_offset=q_offset, causal=causal)
-    assert torch.equal(mm("ij,ij->i", q[0, :, 0].float(), q[0, :, 0].float(), 3),
-                       mm("ij,ij->i", q[0, :, 0].float(), q[0, :, 0].float(), 1))
     want = ref.flash_attention_bwd(q, k, v, lse, do, causal, None, None, q_offset)
-    got = _flash_bwd_tf32(q, k, v, lse, do, causal, 3, q_offset=q_offset)
+    got = _flash_bwd_bf16(q, k, v, lse, do, causal, 2, q_offset=q_offset)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert _rel(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset", FLASH_CASES)
+def test_flash_bf16_one_term_for_p_and_ds_is_worse_than_two(B, Sq, Sk, H, D, causal, q_offset):
+    """Before the outputs' bf16 rounding, against the same function in
+    float64: p and dS as bf16 hi + lo stay within 2e-5 of each gradient's
+    largest; rounded to one bf16 each they miss by more than 20 times that
+    (the split is what keeps them float32-class, as the plain version keeps
+    them in float32)."""
+    q, k, v, lse, do = _flash_inputs(Sq + 11, B, Sq, Sk, H, D, torch.bfloat16,
+                                     q_offset=q_offset, causal=causal)
+    exact = _flash_bwd_bf16(q, k, v, lse, do, causal, 0, q_offset=q_offset, out=torch.float64)
+    two = _flash_bwd_bf16(q, k, v, lse, do, causal, 2, q_offset=q_offset, out=torch.float32)
+    one = _flash_bwd_bf16(q, k, v, lse, do, causal, 1, q_offset=q_offset, out=torch.float32)
+    err2 = max(_rel(g, w) for g, w in zip(two, exact))
+    err1 = max(_rel(g, w) for g, w in zip(one, exact))
+    assert err2 <= 2e-5 and err1 > 20 * err2
 
 
 # ------------------------------------------------- the SSD kernel's arithmetic
 
 def _ssd_bwd_tf32(x, dt, A, B_in, C_in, state, dy, dstate, terms, dcum_by_dots=False):
     """``ref.ssd_chunk_bwd`` as ``ssd_chunk_bwd.cuh`` computes it: G = C.B^T
-    and M = dy.xbar^T as tf32 products, L masked before the exp; dxbar and
-    dB from their state terms, then the i tiles in order; dC from its state
-    term, then the j tiles; dstate_in; dcum from E off the diagonal, the
-    state parts and the new state's terms; da by the reverse scan; the dA
-    partials per (batch, head), summed over the batch."""
+    and M = dy.xbar^T as tf32 products, L masked before the exp; then one
+    block per 64-row tile t: for j tile t, dxbar and dB from their state
+    terms, then the pairs i >= j in order, E's column sums per warp of 16
+    j rows and its row sums; for i tile t, dC from its state term, then the
+    pairs j <= i in order; the tile's part of dstate_in.  The finishing
+    launch: dstate_in from exp(cum_L) dstate and the tiles' parts in tile
+    order; dcum from E's column partials in tile and warp order (E off the
+    diagonal), the row sums, the state parts and the new state's terms; da
+    by the reverse scan; the dA partials per (batch, head), summed over the
+    batch."""
     Bb, Q, H, P = x.shape
     cum = torch.cumsum(dt * A, 1)
     cL = cum[:, -1]
@@ -279,29 +363,43 @@ def _ssd_bwd_tf32(x, dt, A, B_in, C_in, state, dy, dstate, terms, dcum_by_dots=F
     w = torch.exp(cL[:, None] - cum)
     G = mm("bihn,bjhn->bijh", C_in, B_in, terms)
     M = mm("bihp,bjhp->bijh", dy, xbar, terms)
-    dxbar = w[..., None] * mm("bjhn,bhpn->bjhp", B_in, dstate, terms)
-    wdot = (xbar * dxbar).sum(-1)
-    dB = w[..., None] * mm("bjhp,bhpn->bjhn", xbar, dstate, terms)
-    for i0 in range(0, Q, T):
-        sl = slice(i0, i0 + T)
-        dxbar = dxbar + mm("bijh,bihp->bjhp", (L * G)[:, sl], dy[:, sl], terms)
-        dB = dB + mm("bijh,bihn->bjhn", (L * M)[:, sl], C_in[:, sl], terms)
-    dC2 = torch.exp(cum)[..., None] * mm("bihp,bhpn->bihn", dy, state, terms)
-    dC = dC2
-    for j0 in range(0, Q, T):
-        sl = slice(j0, j0 + T)
-        dC = dC + mm("bijh,bjhn->bihn", (L * M)[:, :, sl], B_in[:, sl], terms)
-    dst = torch.exp(cL)[..., None, None] * dstate
-    for i0 in range(0, Q, T):
-        sl = slice(i0, i0 + T)
-        dst = dst + mm("bihp,bihn->bhpn", dy[:, sl],
-                       C_in[:, sl] * torch.exp(cum[:, sl])[..., None], terms)
-    xdx = (dxbar * x).sum(-1)
     E = torch.where((i[:, None] > i[None, :])[None, :, :, None], L * G * M, 0.0)
+    tiles = [slice(t0, min(Q, t0 + T)) for t0 in range(0, Q, T)]
+    dxbar, dB, dC = torch.zeros_like(x), torch.zeros_like(B_in), torch.zeros_like(C_in)
+    col_e = torch.zeros(len(tiles), 4, Bb, Q, H)       # E's column sums a tile and warp
+    parts = []
+    for t, tt in enumerate(tiles):
+        # phase 1, j tile t
+        dxb = w[:, tt, :, None] * mm("bjhn,bhpn->bjhp", B_in[:, tt], dstate, terms)
+        dbj = w[:, tt, :, None] * mm("bjhp,bhpn->bjhn", xbar[:, tt], dstate, terms)
+        for ti in tiles[t:]:
+            dxb = dxb + mm("bijh,bihp->bjhp", (L * G)[:, ti, tt], dy[:, ti], terms)
+            dbj = dbj + mm("bijh,bihn->bjhn", (L * M)[:, ti, tt], C_in[:, ti], terms)
+            for wp in range(4):
+                rows = slice(tt.start + 16 * wp, min(tt.stop, tt.start + 16 * wp + 16))
+                col_e[t, wp, :, ti] = E[:, ti, rows].sum(2)
+        dxbar[:, tt], dB[:, tt] = dxb, dbj
+        # phase 2, i tile t
+        dci = torch.exp(cum[:, tt])[..., None] * mm("bihp,bhpn->bihn", dy[:, tt], state, terms)
+        for tj in tiles[:t + 1]:
+            dci = dci + mm("bijh,bjhn->bihn", (L * M)[:, tt, tj], B_in[:, tj], terms)
+        dC[:, tt] = dci
+        # phase 3
+        parts.append(mm("bihp,bihn->bhpn", dy[:, tt],
+                        C_in[:, tt] * torch.exp(cum[:, tt])[..., None], terms))
+    dst = torch.exp(cL)[..., None, None] * dstate
+    for part in parts:
+        dst = dst + part
+    dC2 = torch.exp(cum)[..., None] * mm("bihp,bhpn->bihn", dy, state, terms)
+    wdot = (xbar * w[..., None] * mm("bjhn,bhpn->bjhp", B_in, dstate, terms)).sum(-1)
+    xdx = (dxbar * x).sum(-1)
     if dcum_by_dots:
         dcum = (C_in * dC).sum(-1) - dt * xdx
     else:
-        dcum = E.sum(2) - E.sum(1) + (C_in * dC2).sum(-1) - wdot
+        row_e = torch.zeros(Bb, Q, H)
+        for t in range(len(tiles)):
+            row_e = row_e + ((col_e[t, 0] + col_e[t, 1]) + col_e[t, 2]) + col_e[t, 3]
+        dcum = row_e - E.sum(1) + (C_in * dC2).sum(-1) - wdot
     extra = wdot.sum(1) + torch.exp(cL) * (dstate * state).sum((-1, -2))
     da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1]) + extra[:, None]
     dA = (da * dt).sum(1).sum(0)                   # (B, H) partials, then over b
@@ -310,6 +408,7 @@ def _ssd_bwd_tf32(x, dt, A, B_in, C_in, state, dy, dstate, terms, dcum_by_dots=F
 
 @pytest.mark.parametrize("B,Q,H,P,N", [(1, 256, 2, 64, 64),    # zamba2's chunk widths
                                        (2, 32, 4, 16, 16),     # the mamba2 trial's
+                                       (1, 130, 2, 32, 16),    # N = 16, a ragged tile
                                        (1, 100, 2, 64, 128)])  # N = 128, a ragged tile
 def test_ssd_3xtf32_holds_1e4_and_1xtf32_does_not(B, Q, H, P, N):
     t = _ssd_inputs(Q + N, B, Q, H, P, N)

@@ -1,8 +1,9 @@
 """The precision argument of the float32 flash-attention kernel (3xTF32).
 
 ``csrc/flash_attention.cu`` runs float32 attention on the tensor cores in
-TF32, each float32 operand split as hi = tf32(x), lo = tf32(x - hi) and
-every product lo.hi + hi.lo + hi.hi summed in float32.  ``_flash_tf32``
+TF32, each float32 operand split as hi = tf32(x) and lo = x - hi, whose
+13 low bits the tensor core drops (``_tf32.py``'s "bits"), and every
+product lo.hi + hi.lo + hi.hi summed in float32.  ``_flash_tf32``
 repeats the kernel's arithmetic in plain torch on the CPU (``_tf32.py``):
 64-key tiles, S = Q.K^T in 8-wide k steps, the scores scaled by
 scale * log2(e) and masked with -1e30, the online softmax with exp2, P's
@@ -19,11 +20,16 @@ import numpy as np
 import pytest
 import torch
 import _torch_port  # noqa: F401  (one intra-op thread)
-from _tf32 import mm
+from _tf32 import mm as _mm
 
 from repro_torch.kernels import ref
 
 TOL = 3e-5                # the float32 contract (tests/test_kernels.py)
+
+
+def mm(eq, a, b, terms):
+    """The forward's products: hi rounded, lo truncated (``Round::bits``)."""
+    return _mm(eq, a, b, terms, "bits")
 BN = 64                   # keys per tile
 # A slot -> key inside an 8-wide k step: slot t takes key 2t, t + 4 key 2t + 1
 SLOT_KEY = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])

@@ -924,6 +924,55 @@ def test_ssd_chunk_bwd_kernel_matches_plain(B, Q, H, P, N, stride0, dt_scale, sl
 
 
 @pytest.mark.cuda
+def test_the_backward_shared_memory_fits_the_configs_chunks(card):
+    """The sizes the wrapper reads from the backward's libraries: the tile
+    block's shared memory fits a block at the configs' chunks (the same at
+    N <= 64 and N = 128), a chunk too long for it raises before a launch,
+    and the scratch is four warps' E column sums, a dstate_in part and one
+    sum a 64-row tile, then three rows."""
+    for Q, N in ((256, 64), (256, 128), (32, 16), (2048, 128)):
+        assert kss.ssd_chunk_bwd_smem_bytes(Q, N) <= kss.SMEM_LIMIT
+    props = torch.cuda.get_device_properties(card)
+    limit = getattr(props, "shared_memory_per_block_optin", kss.SMEM_LIMIT)
+    assert kss.ssd_chunk_bwd_smem_bytes(256, 128) <= limit
+    assert kss.ssd_chunk_bwd_smem_bytes(256, 64) == kss.ssd_chunk_bwd_smem_bytes(256, 128)
+    assert kss.ssd_chunk_bwd_smem_bytes(8704, 64) > kss.SMEM_LIMIT
+    assert kss.ssd_chunk_bwd_scratch_floats(256, 64, 64) == 4 * (4 * 256 + 64 * 64 + 1) + 3 * 256
+    assert kss.ssd_chunk_bwd_scratch_floats(100, 8, 4) == 2 * (4 * 100 + 32 + 1) + 3 * 100
+    gen = torch.Generator().manual_seed(9)
+    x, dt, A, Bm, Cm, st = _ssd_inputs(gen, 1, 8704, 1, 8, 4, card)
+    dy, dst = _randn(gen, 1, 8704, 1, 8, device=card), _randn(gen, 1, 1, 8, 4, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        kss.ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, st, dy, dst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash f32", "flash bf16", "ssd"])
+def test_backward_kernels_keep_a_nan_of_dy(which, card):
+    """A NaN in dy reaches the kernels' gradients as it reaches the plain
+    backwards': their tf32 and bf16 splits keep a NaN a NaN, CUDA's
+    canonical one (0x7fffffff, which rounding by integers would carry into
+    a zero) and its negation among them."""
+    gen = torch.Generator().manual_seed(21)
+    nan = torch.tensor([0x7FFFFFFF, -1], dtype=torch.int32).view(torch.float32)
+    if which.startswith("flash"):
+        dtype = torch.float32 if which == "flash f32" else torch.bfloat16
+        q, k, v, lse, do = _flash_bwd_case(gen, 1, 80, 80, 2, 64, True, 0, dtype, card)
+        do[0, 37, 1, 5], do[0, 60, 0, 9] = nan[0], nan[1]
+        got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True)
+        want = ref.flash_attention_bwd(q, k, v, lse, do, True)
+        assert torch.isnan(got[0][0, 37, 1]).all()
+    else:
+        x, dt, A, Bm, Cm, st = _ssd_inputs(gen, 1, 70, 2, 64, 64, card)
+        dy, dst = _randn(gen, 1, 70, 2, 64, device=card), _randn(gen, 1, 2, 64, 64, device=card)
+        dy[0, 50, 1, 3], dy[0, 10, 0, 7] = nan[0], nan[1]
+        got = kss.ssd_chunk_bwd_cuda(x, dt, A, Bm, Cm, st, dy, dst)
+        want = ref.ssd_chunk_bwd(x, dt, A, Bm, Cm, st, dy, dst)
+    for g, w in zip(got, want):
+        assert torch.isnan(w).any() and torch.isnan(g).any()
+
+
+@pytest.mark.cuda
 def test_zamba2_bf16_train_step_runs_the_backward_kernels(card):
     """The reduced zamba2 in bf16 (float32 master), one make_train_step
     step: one flash backward a shared-attention invocation and one SSD

@@ -1,0 +1,166 @@
+"""Card times of the backward kernels, for one or more checkouts in turn.
+
+    python tools/bwd_kernel_timing.py                      # this checkout
+    python tools/bwd_kernel_timing.py --root OLD --root . --root . --root OLD
+
+Each ``--root`` (a checkout of the repository, such as a ``git archive`` of
+an earlier commit unpacked into ``build/``) runs in a process of its own, in
+the order given, so that two versions are compared on one card in turns.
+Each process builds that checkout's kernels and times, at the training
+path's shapes:
+
+* the flash-attention backward (``flash_attention_bwd_cuda``) in bf16 at
+  zamba2-1.2b's (B=2, S=512, H=32, D=64, causal), pixtral-12b's (B=2,
+  S=1280, H=32, D=128, causal) and whisper-base's encoder (B=2, S=1500,
+  H=8, D=64, not causal) shapes, and in float32 at zamba2-1.2b's;
+* the SSD chunk's backward (``ssd_chunk_bwd_cuda``) at zamba2-1.2b's chunk
+  (B=2, Q=256, H=64, P=N=64, B and C of head stride 0);
+
+each as card time a call (torch.profiler, the kernels' launches only) and
+CUDA-events milliseconds a call, beside its bound (the checkout's
+``flash_bwd_bound_ms`` / ``ssd_bwd_bound_ms``), the plain backward's card
+time and, for flash attention, ``scaled_dot_product_attention``'s backward
+(``torch.autograd.grad``), which no path of the port calls.
+
+It prints the card's name and power limit, one JSON line per checkout and a
+table with one column per run.  It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# name: (B, S, H, D, causal, dtype)
+FLASH = {"zamba2 bf16": (2, 512, 32, 64, True, "bfloat16"),
+         "pixtral bf16": (2, 1280, 32, 128, True, "bfloat16"),
+         "whisper-enc bf16": (2, 1500, 8, 64, False, "bfloat16"),
+         "zamba2 f32": (2, 512, 32, 64, True, "float32")}
+SSD = (2, 256, 64, 64, 64)     # B, Q, H, P, N
+
+
+def _card_us(torch, fn, iters=20, warmup=5):
+    """Card time a call: the sum of the launches the profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters if total else None
+
+
+def _events_ms(torch, fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def measure(root: Path) -> dict:
+    """Every number of one checkout (run in its own process)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ssd_chunk_cuda as kss
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    for name, (B, S, H, D, causal, dt) in FLASH.items():
+        dtype = getattr(torch, dt)
+        q, k, v, do = (randn(B, S, H, D, dtype=dtype) for _ in range(4))
+        _, lse = kfa.flash_attention_lse_cuda(q, k, v, causal)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+
+        def kern():
+            return kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal)
+
+        def plain():
+            return ref.flash_attention_bwd(q, k, v, lse, do, causal, None, S)
+
+        def sdpa():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        bound, by = kfa.flash_bwd_bound_ms(B, S, S, H, D, causal, q.element_size())
+        out[name] = {"card_us": _card_us(torch, kern), "ms": _events_ms(torch, kern),
+                     "plain_card_us": _card_us(torch, plain, iters=5, warmup=2),
+                     "sdpa_card_us": _card_us(torch, sdpa, iters=10, warmup=3),
+                     "bound_us": bound * 1e3, "bound_by": by}
+        del q, k, v, do, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+
+    B, Q, H, P, N = SSD
+    x, dy = randn(B, Q, H, P), randn(B, Q, H, P)
+    dt_ = (torch.rand(B, Q, H, generator=gen) * 0.099 + 0.001).cuda()
+    A = -(torch.rand(H, generator=gen) * 1.5 + 0.5).cuda()
+    Bm, Cm = (randn(B, Q, 1, N).expand(B, Q, H, N) for _ in range(2))
+    st, dst = randn(B, H, P, N), randn(B, H, P, N)
+    args = (x, dt_, A, Bm, Cm, st, dy, dst)
+    bound, by = kss.ssd_bwd_bound_ms(B, Q, H, P, N, 1)
+    out["ssd zamba2"] = {
+        "card_us": _card_us(torch, lambda: kss.ssd_chunk_bwd_cuda(*args)),
+        "ms": _events_ms(torch, lambda: kss.ssd_chunk_bwd_cuda(*args)),
+        "plain_card_us": _card_us(torch, lambda: ref.ssd_chunk_bwd(*args), iters=5, warmup=2),
+        "sdpa_card_us": None, "bound_us": bound * 1e3, "bound_by": by}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", action="append", help="checkout to time (repeatable)")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(measure(Path(args.one).resolve())))
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    runs = []
+    for root in args.root or [str(ROOT)]:
+        proc = subprocess.run([sys.executable, __file__, "--one", root],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            raise SystemExit(f"timing {root} failed")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    print("run: " + " | ".join(Path(r["root"]).name or r["root"] for r in runs))
+    for name in (*FLASH, "ssd zamba2"):
+        for key in ("card_us", "ms", "plain_card_us", "sdpa_card_us", "bound_us"):
+            vals = []
+            for r in runs:
+                v = r[name][key]
+                vals.append("none" if v is None else f"{v:.4f}")
+            print(f"{name + ' ' + key:36s} " + " | ".join(vals))
+    print(smi)
+
+
+if __name__ == "__main__":
+    main()
