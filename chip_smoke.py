@@ -73,8 +73,8 @@ drives the port's two paths through them:
   plain backward, the card's idle share and the backward's share of its
   busy time under the profiler); the backward kernels timed at the training
   shapes beside the plain backwards, SDPA's backward and their bounds, the
-  bf16 flash backward also at pixtral-12b's and whisper-base's encoder
-  shapes beside SDPA's; ``Trainer`` on the card
+  flash backward in bf16 and float32 also at pixtral-12b's and
+  whisper-base's encoder shapes beside SDPA's; ``Trainer`` on the card
   against the CPU on the reduced zamba2 and qwen1.5-0.5b, a checkpoint
   restart on the card, and the full-width state's checkpoint size against
   fig12's store rates;
@@ -154,6 +154,7 @@ and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -2967,12 +2968,15 @@ def model_train_phases(torch) -> dict:
           f"time; plain {r['plain_ms']:.4f} ms, {r['plain_device_us']} us; bound "
           f"{bound:.4g} ms ({by}); {want_ss} a step; no PyTorch call computes it")
     bwd["ssd"] = r
-    # the bf16 flash backward at pixtral-12b's and whisper-base's encoder
-    # shapes, beside SDPA's backward (PERF.md row 4b)
-    shapes = {}
-    for name, (mb, ml, mh, md, mc) in (("pixtral-12b", (2, 1280, 32, 128, True)),
-                                       ("whisper-base encoder", (2, 1500, 8, 64, False))):
-        q, k, v, do = (randn(mb, ml, mh, md, dtype=torch.bfloat16) for _ in range(4))
+    # the flash backward at pixtral-12b's and whisper-base's encoder shapes,
+    # bf16 and float32, beside SDPA's backward in the same type (PERF.md row
+    # 4b)
+    shapes = {"flash": {}, "flash_f32": {}}
+    for (name, (mb, ml, mh, md, mc)), (key, fdt) in itertools.product(
+            (("pixtral-12b", (2, 1280, 32, 128, True)),
+             ("whisper-base encoder", (2, 1500, 8, 64, False))),
+            (("flash", torch.bfloat16), ("flash_f32", torch.float32))):
+        q, k, v, do = (randn(mb, ml, mh, md, dtype=fdt) for _ in range(4))
         _, lse = kfa.flash_attention_lse_cuda(q, k, v, mc)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=mc)
@@ -2984,21 +2988,23 @@ def model_train_phases(torch) -> dict:
         def sdpa_bwd():
             return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
 
-        bound, by = flash_bwd_bound_ms(mb, ml, ml, mh, md, mc, 2)
+        tname = str(fdt)[6:]
+        bound, by = flash_bwd_bound_ms(mb, ml, ml, mh, md, mc, q.element_size())
         r = {"ms": cuda_ms(fk, iters=20, warmup=3),
-             "device_us": device_us_per_call(fk, iters=10, warmup=2,
-                                             what=f"of the flash backward kernels, {name}"),
+             "device_us": device_us_per_call(
+                 fk, iters=10, warmup=2, what=f"of the flash backward kernels, {name} {tname}"),
              "library_device_us": device_us_per_call(
                  sdpa_bwd, iters=10, warmup=2,
-                 what=f"of scaled_dot_product_attention's backward, {name}"),
+                 what=f"of scaled_dot_product_attention's backward, {name} {tname}"),
              "bound_ms": bound, "bound_by": by,
-             "shape": {"B": mb, "S": ml, "H": mh, "D": md, "dtype": "bfloat16", "causal": mc}}
-        print(f"flash backward bfloat16 {name} (B,S,H,D) = {(mb, ml, mh, md)} causal {mc}: "
+             "shape": {"B": mb, "S": ml, "H": mh, "D": md, "dtype": tname, "causal": mc}}
+        print(f"flash backward {tname} {name} (B,S,H,D) = {(mb, ml, mh, md)} causal {mc}: "
               f"kernels {r['ms']:.4f} ms (CUDA events), {r['device_us']} us of card time; "
               f"SDPA's backward {r['library_device_us']} us; bound {bound:.4g} ms ({by})")
-        shapes[name] = r
+        shapes[key][name] = r
         del q, k, v, do, lse, qt, kt, vt, ot, dot
-    bwd["flash"]["shapes"] = shapes
+    bwd["flash"]["shapes"] = shapes["flash"]
+    bwd["flash_f32"]["shapes"] = shapes["flash_f32"]
     for key in ("flash", "flash_f32", "ssd"):
         out[key]["backward"] = bwd[key]
     # the backward kernels' rows of the kernels line; launches: the bf16
@@ -3011,8 +3017,11 @@ def model_train_phases(torch) -> dict:
                     "under flash_attention_vjp, :187-240; no Pallas kernel)",
         "kernel": "flash_bwd_dq_kernel + flash_bwd_dkdv_kernel, one call: bf16 on bf16 "
                   "wgmma fed by TMA (p and dS as bf16 hi + lo, no transposed copy, S once "
-                  "in the dk/dv pass), float32 on 3xTF32 tf32 wgmma (operands split by "
-                  "truncation)",
+                  "in the dk/dv pass), float32 on 3xTF32 tf32 wgmma fed by TMA (raw "
+                  "float32 rows as hi, the producers writing lo and the transposed units "
+                  "from shared memory; S^T once in the dk/dv pass, P^T handed between its "
+                  "warpgroups; two consumer warpgroups over 128 q rows in the dq pass at "
+                  "D <= 64)",
         "launches": fa_bwd_step * TRAIN_STEPS, "launches_per_step": fa_bwd_step,
         "steps": TRAIN_STEPS, "shapes": fb["shapes"], "max_abs_err": fb["max_abs_err"],
         "max_rel_err": fb["max_rel_err"], "tol_rel": BWD_TOL["bfloat16"],
@@ -3027,7 +3036,7 @@ def model_train_phases(torch) -> dict:
                 "bound_by": f32b["bound_by"], "library_ms": f32b["library_ms"],
                 "device_us": f32b["device_us"], "plain_device_us": f32b["plain_device_us"],
                 "library_device_us": f32b["library_device_us"],
-                "launches_per_f32_backward": bwd_kernels[0]},
+                "shapes": f32b["shapes"], "launches_per_f32_backward": bwd_kernels[0]},
     }, {
         "name": "ssd_chunk_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cuh",

@@ -27,7 +27,9 @@
 // rate, 32.6 us at the 3xTF32 rate, against 8.8 us (bf16) of bytes; at
 // pixtral-12b's (B=2, S=1280, H=32, D=128) 67.9 us of bf16 operations.
 // Both routes recompute S and dP in the dq pass (Dr needs every key before
-// any dS), so each does seven products' work where the function needs five.
+// any dS): S and dP in the D pass, S, dP and dQ in the dq pass, S^T, dP^T,
+// dV and dK in the dk/dv pass, nine products' work where the function
+// needs five.
 //
 // bfloat16 (namespace bf16): bf16 wgmma, operands fed by TMA.
 //   S = Q.K^T and dP = dO.V^T are m64n64k16 products of bf16 tiles, exact
@@ -65,18 +67,46 @@
 //
 // float32 (namespace tf32): 3xTF32 on tf32 wgmma.  A float32 operand is
 //   split into hi = x truncated to tf32 and lo = x - hi (hopper.cuh's
-//   Round::trunc, tiles.cuh) and a product is lo.hi + hi.lo + hi.hi; tf32
-//   wgmma reads shared memory K-major
-//   only, so the products over the sequence read transposed copies (K^T,
-//   Q^T, dO^T) that the producers stage (tiles.cuh).  One consumer
-//   warpgroup and one producer warpgroup in the dq pass; two consumer
-//   warpgroups in the dk/dv pass (warpgroup 0 S^T, P^T and dv, warpgroup 1
-//   S^T again, dP^T, dS^T and dk: one accumulator each keeps D = 128 inside
-//   168 registers).  Units of 32 KiB (64 x 64 float32 as tf32 hi and lo);
-//   2 NC resident (NC = 64-column chunks of D: 1 at D <= 64, 2 above) and
-//   a ring of 4 (3 at NC = 2), + 1 KiB of alignment: 193 KiB at D <= 64,
-//   225 KiB above.  One block a SM.
-//
+//   Round::trunc, tiles.cuh) and a product is lo.hi + hi.lo + hi.hi.  Every
+//   operand is a "unit" (tiles.cuh: 64 x 64, hi then lo, K-major).  tf32
+//   wgmma reads shared memory K-major only, so the products over the
+//   sequence read transposed units (K^T, Q^T, dO^T).
+//   Operands arrive by TMA, raw: float32 tensor maps (tma.cuh) land 32
+//   columns x 64 rows a box in exactly sw_off's layout.  The tensor core
+//   reads a tf32 operand's top 19 bits, so a row unit's raw rows are its hi
+//   as they lie and the producer warpgroup writes only lo = x - trunc(x)
+//   (lo_pass).  A transposed unit is built from raw rows in shared memory:
+//   in the dk/dv pass at D <= 64 from its row unit's, in the same pass
+//   (pair_pass); elsewhere from a second TMA of the rows (from L2) into its
+//   own lo half (transpose_unit: hi^T, a barrier of the producers, lo^T).
+//   One producer thread issues the loads, the next unit's ahead of this
+//   unit's pass where its slot is already free.  The units stream through
+//   a ring of slots, each guarded by a landed (TMA), a full (producers) and
+//   an empty (consumers) mbarrier.  The producers also stage each q tile's
+//   lse and Dr rows beside its Q and dO units for the dk/dv pass.
+//   Products run back to back where their operands allow (S and dP), and
+//   each consumer warpgroup waits for its own products before it touches
+//   their registers: ptxas serialised every wgmma of a warpgroup that let
+//   the next tile's products run over its elementwise work.
+//   dq pass: at D <= 64 two consumer warpgroups over 128 q rows, both
+//   reading every K, V and K^T unit (one producer stream for both), the
+//   tensor cores running one's products while the other forms p, dS and
+//   the D sums; above, one over 64 rows.  Q and dO resident, K and V
+//   streamed twice (the D pass, then the dq pass) and K^T once.
+//   dk/dv pass: K and V resident, two consumer warpgroups.  Warpgroup 0
+//   computes S^T = K.Q^T once, forms P^T, hands it to warpgroup 1 through
+//   shared memory (a 16 KiB tile, two at D <= 64, guarded by mbarriers) and
+//   issues dV += P^T.dO; warpgroup 1 computes dP^T = V.dO^T, reads P^T,
+//   forms dS^T and issues dK += dS^T.Q: 6 product units each a q tile, where
+//   computing S^T in both took 6 and 9.  One accumulator each keeps every D
+//   inside 168 registers; above 64 the A fragments are packed a half at a
+//   time.  The mask is a branch on the whole tile (a choice per element
+//   made the elementwise work 5x slower).
+//   Shared memory (1 KiB of alignment): D <= 64 dq 4 resident units (two
+//   warpgroups') and a ring of 3, dk/dv 2 and 4 and two P^T tiles (225 KiB
+//   each); D = 96 and 128 dq 4 and 3, dk/dv 4 and 2 and one P^T tile (225
+//   and 209 KiB); one block a SM.
+
 // Card times against the bound, SDPA's backward and the plain version:
 // PERF.md (chip_smoke.py's backward timing phase).
 
@@ -130,159 +160,419 @@ int set_smem(K kern, size_t smem, bool* done, int device) {
 namespace tf32 {
 
 constexpr int MAX_ST = 4;
+constexpr int PTILE = BT * BT * 4;     // bytes of the P^T tile one warpgroup hands the other
 
 template <int D>
 struct Cfg {
   static constexpr int NC = (D + 63) / 64;             // 64-column chunks of D
-  static constexpr int ST = NC == 1 ? 4 : 3;           // ring slots
-  static constexpr size_t SMEM = 1024 + (size_t)UNIT * (2 * NC + ST);
+  static constexpr int QW = NC == 1 ? 2 : 1;           // dq pass: consumer warpgroups
+  static constexpr int QST = 3;                        // dq pass: ring units
+  static constexpr int KST = NC == 1 ? 4 : 2;          // dk/dv pass: ring units
+  static constexpr int PB = NC == 1 ? 2 : 1;           // P^T buffers
+  static constexpr size_t SMEM_Q = 1024 + (size_t)UNIT * (2 * NC * QW + QST);
+  static constexpr size_t SMEM_KV = 1024 + (size_t)UNIT * (2 * NC + KST) + (size_t)PB * PTILE;
   // k steps of chunk c of a product over D
   static __device__ __forceinline__ int ks(int c) { return min(8, (D - 64 * c) / 8); }
+  // the 32-column TMA boxes of chunk c that hold columns below D
+  static __host__ __device__ constexpr int boxes(int c) {
+    return ((D - 64 * c < 64 ? D - 64 * c : 64) + 31) / 32;
+  }
+};
+
+// how a ring unit is made
+enum How : int {
+  ROW,    // TMA of the raw rows into its hi half, lo_pass
+  COL,    // TMA of the raw rows into its lo half, transpose_unit
+  PAIR,   // as ROW, and the next unit, its transpose, in the same pass
+  MADE    // made by the previous unit's pass (PAIR)
+};
+
+// the source of a ring unit: rows [row, row + 64) and chunk c of a tensor
+struct UnitSrc {
+  const CUtensorMap* map;
+  int row, c;
+  How how;
+};
+
+__device__ __forceinline__ float4 lo4(float4 v) {
+  const auto lo = [](float x) { return x - __uint_as_float(to_tf32<Round::trunc>(x)); };
+  return make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
+}
+
+// whether the barrier's phase of this parity has completed (no waiting)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// One producer thread: the TMA of unit n's raw rows into its slot (a row
+// unit's hi half, a transposed unit's lo half), once the slot is free; a
+// MADE unit's landed phase completes with no load (so that every slot's
+// phases stay one a use).
+template <int D, int ST>
+__device__ __forceinline__ void issue_unit(const UnitSrc& u, int n, uint8_t* ring,
+                                           uint64_t* empty, uint64_t* landed, int h, int b) {
+  const int s = n % ST;
+  mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+  if (u.how == MADE) {
+    mbar_arrive(&landed[s]);
+    return;
+  }
+  const int nb = u.c == 0 ? Cfg<D>::boxes(0) : Cfg<D>::boxes(1);
+  mbar_expect_tx(&landed[s], nb * BOX_BYTES);
+  uint8_t* dst = ring + s * UNIT + (u.how == COL ? UNIT_HALF : 0);
+  for (int x = 0; x < nb; ++x)
+    tma_load_4d(dst + x * BOX_BYTES, u.map, &landed[s], 64 * u.c + 32 * x, h, u.row, b);
+}
+
+// A row unit whose raw rows landed in its hi half: the tensor core reads a
+// tf32 operand's top 19 bits, so the raw value is hi as it lies; the lo
+// half gets x - trunc(x).  A thread takes 16-byte chunks, neighbours
+// neighbouring chunks (the layout does not matter to an elementwise pass).
+__device__ __forceinline__ void lo_pass(uint8_t* unit, int nb, int ptid) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    if (x < nb) {
+      float4 v[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        v[m] = *reinterpret_cast<const float4*>(unit + x * BOX_BYTES + (ptid + 128 * m) * 16);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        *reinterpret_cast<float4*>(unit + UNIT_HALF + x * BOX_BYTES + (ptid + 128 * m) * 16) =
+            lo4(v[m]);
+    }
+  }
+}
+
+// A transposed unit (ColTile's layout: element (r, slot of jj) = raw (jj,
+// r), jj permuted inside each 8-wide k step as pack_a orders the A
+// fragments) from the raw rows landed in its lo half: hi^T into the hi
+// half, then, once every producer thread has read its raw values, lo^T
+// over them.  A thread takes the 4 x 4 blocks of row group g (rows 4g ..
+// 4g + 3) and 16-byte chunk c (slots 4c .. 4c + 3, jj = jj0 + 2q):
+// c = ptid % 16, so the eight threads of a store phase write one row's
+// eight chunks (no bank conflict), and each reads its four source rows
+// starting at another q (rot), so the eight reads of a load phase fall in
+// eight bank groups too; the values are rotated back in registers.
+__device__ __forceinline__ void transpose_unit(uint8_t* unit, int nb, int ptid) {
+  const int c = ptid % 16, rot = (c >> 1) & 3;
+  const int jj0 = 8 * (c >> 1) + (c & 1);
+  uint8_t* raw = unit + UNIT_HALF;
+  float4 w[2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (m < nb) {
+      const int g = ptid / 16 + 8 * m;
+      float4 v[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        v[s] = *reinterpret_cast<const float4*>(raw + sw_off(jj0 + 2 * ((s + rot) & 3), 4 * g,
+                                                             UROWS));
+      // w[q] = v[(q - rot) & 3]: by 2, then by 1
+      const float4 t0 = rot & 2 ? v[2] : v[0], t1 = rot & 2 ? v[3] : v[1];
+      const float4 t2 = rot & 2 ? v[0] : v[2], t3 = rot & 2 ? v[1] : v[3];
+      w[m][0] = rot & 1 ? t3 : t0;
+      w[m][1] = rot & 1 ? t0 : t1;
+      w[m][2] = rot & 1 ? t1 : t2;
+      w[m][3] = rot & 1 ? t2 : t3;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(unit + sw_off(4 * g + i, 4 * c, UROWS)) =
+            make_float4(get(w[m][0], i), get(w[m][1], i), get(w[m][2], i), get(w[m][3], i));
+    }
+  }
+  // every producer thread has read its raw values (barrier.sync, not
+  // bar.sync: thread 0 may arrive apart from its warp, from a TMA issue)
+  asm volatile("barrier.sync 1, 128;\n" ::: "memory");
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (m < nb) {
+      const int g = ptid / 16 + 8 * m;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(raw + sw_off(4 * g + i, 4 * c, UROWS)) = lo4(
+            make_float4(get(w[m][0], i), get(w[m][1], i), get(w[m][2], i), get(w[m][3], i)));
+    }
+  }
+}
+
+// A row unit whose raw rows landed in its hi half, and its transpose, in
+// one pass (PAIR): lo into the row unit's lo half, hi^T and lo^T into
+// `tunit` (transpose_unit's layout and thread blocks; the rows' lo stored
+// where they were read, so no barrier: the raw rows stay).
+__device__ __forceinline__ void pair_pass(uint8_t* unit, uint8_t* tunit, int nb, int ptid) {
+  const int c = ptid % 16, rot = (c >> 1) & 3;
+  const int jj0 = 8 * (c >> 1) + (c & 1);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (m < nb) {
+      const int g = ptid / 16 + 8 * m;
+      float4 v[4];
+      uint32_t off[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        off[s] = sw_off(jj0 + 2 * ((s + rot) & 3), 4 * g, UROWS);
+        v[s] = *reinterpret_cast<const float4*>(unit + off[s]);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        *reinterpret_cast<float4*>(unit + UNIT_HALF + off[s]) = lo4(v[s]);
+      const float4 t0 = rot & 2 ? v[2] : v[0], t1 = rot & 2 ? v[3] : v[1];
+      const float4 t2 = rot & 2 ? v[0] : v[2], t3 = rot & 2 ? v[1] : v[3];
+      const float4 w0 = rot & 1 ? t3 : t0, w1 = rot & 1 ? t0 : t1;
+      const float4 w2 = rot & 1 ? t1 : t2, w3 = rot & 1 ? t2 : t3;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 t = make_float4(get(w0, i), get(w1, i), get(w2, i), get(w3, i));
+        const uint32_t o = sw_off(4 * g + i, 4 * c, UROWS);
+        *reinterpret_cast<float4*>(tunit + o) = t;
+        *reinterpret_cast<float4*>(tunit + UNIT_HALF + o) = lo4(t);
+      }
+    }
+  }
+}
+
+// The producer warpgroup: the resident units (for each of W 64-row blocks
+// from `row`, NC units of tensor ra's rows, then NC of rb's), then units 0
+// .. total - 1 of the stream (`unit(n)` their sources), each into ring slot
+// n % ST; with `rows`, the first 64 threads also store rowval(n, ptid)
+// into rows[64 slot + ptid] beside the unit (loaded before the pass, so
+// that its latency is the pass's).  Thread 0 issues the TMA loads: unit
+// n + 1's before unit n's pass where its slot is already free (so that its
+// landing overlaps the pass; it never waits for a slot ahead of its turn,
+// which the consumers may free only once unit n is in), else at its turn.
+// Every thread then waits for the unit to land, takes its pass (lo_pass,
+// transpose_unit, pair_pass) and publishes it (a PAIR with the next).
+template <int D, int ST, int W, typename U, typename R>
+__device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap* rb, int row,
+                                        uint8_t* res, uint64_t* res_landed, uint64_t* res_full,
+                                        U unit, R rowval, float* rows, int total, uint8_t* ring,
+                                        uint64_t* landed, uint64_t* full, uint64_t* empty, int h,
+                                        int b, int ptid) {
+  constexpr int NC = Cfg<D>::NC;
+  if (ptid == 0) {
+    mbar_expect_tx(res_landed, 2 * W * (Cfg<D>::boxes(0) + (NC > 1 ? Cfg<D>::boxes(1) : 0)) *
+                                   BOX_BYTES);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        for (int x = 0; x < Cfg<D>::boxes(c); ++x) {
+          tma_load_4d(res + (2 * w * NC + c) * UNIT + x * BOX_BYTES, ra, res_landed,
+                      64 * c + 32 * x, h, row + 64 * w, b);
+          tma_load_4d(res + ((2 * w + 1) * NC + c) * UNIT + x * BOX_BYTES, rb, res_landed,
+                      64 * c + 32 * x, h, row + 64 * w, b);
+        }
+      }
+    }
+    if (total > 0) issue_unit<D, ST>(unit(0), 0, ring, empty, landed, h, b);
+  }
+  mbar_wait(res_landed, 0);
+#pragma unroll
+  for (int c = 0; c < 2 * NC * W; ++c) lo_pass(res + c * UNIT, Cfg<D>::boxes(c % NC), ptid);
+  fence_async_shared();
+  mbar_arrive(res_full);
+  int issued = 1;   // thread 0: the units whose loads it has issued
+  for (int n = 0; n < total; ++n) {
+    const UnitSrc u = unit(n);
+    if (ptid == 0) {
+      if (issued == n) issue_unit<D, ST>(u, n, ring, empty, landed, h, b);
+      issued = n + 1;
+      if (n + 1 < total && mbar_test(&empty[(n + 1) % ST], (((n + 1) / ST) & 1) ^ 1)) {
+        issue_unit<D, ST>(unit(n + 1), n + 1, ring, empty, landed, h, b);
+        issued = n + 2;
+      }
+    }
+    if (u.how == MADE) continue;   // published with unit n - 1
+    const int s = n % ST;
+    const float x = rows != nullptr && ptid < 64 ? rowval(n, ptid) : 0.f;
+    mbar_wait(&landed[s], (n / ST) & 1);
+    const int nb = u.c == 0 ? Cfg<D>::boxes(0) : Cfg<D>::boxes(1);
+    const int s2 = (n + 1) % ST;
+    if (u.how == PAIR) {
+      mbar_wait(&empty[s2], (((n + 1) / ST) & 1) ^ 1);
+      pair_pass(ring + s * UNIT, ring + s2 * UNIT, nb, ptid);
+    } else if (u.how == COL) {
+      transpose_unit(ring + s * UNIT, nb, ptid);
+    } else {
+      lo_pass(ring + s * UNIT, nb, ptid);
+    }
+    if (rows != nullptr && ptid < 64) rows[64 * s + ptid] = x;
+    fence_async_shared();
+    mbar_arrive(&full[s]);
+    if (u.how == PAIR) mbar_arrive(&full[s2]);
+  }
+}
+
+// a consumer warpgroup's view of the ring: unit n is in slot n % ST.  In
+// the dk/dv pass at D <= 64 each warpgroup reads two units of a q tile's
+// four, never more than ST apart, and only the one that reads a unit
+// waits for it and gives it back: the slot's previous unit is then its
+// own, so the barrier phase it waits for is the next.  Elsewhere every
+// consumer warpgroup walks every unit and gives it back, skipping those it
+// does not read (tiles.cuh's rings).
+template <int ST>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  uint8_t* slots;
+  // the address of unit n, once it is full
+  __device__ __forceinline__ uint32_t take(int n) const {
+    mbar_wait(&full[n % ST], (n / ST) & 1);
+    return smem_u32(slots + (n % ST) * UNIT);
+  }
+  __device__ __forceinline__ void give(int n) const { mbar_arrive(&empty[n % ST]); }
+  __device__ __forceinline__ void skip(int n) const {
+    take(n);
+    give(n);
+  }
 };
 
 // the dq pass
 
 template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dO,
-                    const float* __restrict__ lse, float* __restrict__ Dsum, float* __restrict__ dq, int Sq, int Sk, int H,
-                    int n_qt, Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
+__global__ void __launch_bounds__(128 * (Cfg<D>::QW + 1), 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, float* __restrict__ Dsum,
+                    float* __restrict__ dq, int Sq, int Sk, int H, int n_qb, float scale,
                     int causal, int q_off) {
   using C = Cfg<D>;
-  constexpr int NC = C::NC, ST = C::ST;
+  constexpr int NC = C::NC, ST = C::QST, W = C::QW;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * MAX_ST];
+  __shared__ __align__(8) uint64_t bars[2 + 3 * MAX_ST];
   uint8_t* base = align1024(smem_raw);
-  uint8_t* sQ = base;                  // NC units
-  uint8_t* sdO = base + NC * UNIT;     // NC units
-  uint8_t* ring = base + 2 * NC * UNIT;
-  uint64_t* res_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + MAX_ST;
+  uint8_t* sQ = base;                  // each warpgroup's NC Q units, then its NC dO units
+  uint8_t* ring = base + 2 * NC * W * UNIT;
+  uint64_t* res_landed = bars;
+  uint64_t* res_full = bars + 1;
+  uint64_t* landed = bars + 2;
+  uint64_t* full = bars + 2 + MAX_ST;
+  uint64_t* empty = bars + 2 + 2 * MAX_ST;
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BT;   // most key tiles first
-  const int n_kt = key_tiles(q0, BT, Sq, Sk, causal, q_off);
+  const int q0 = (n_qb - 1 - (int)blockIdx.y) * BT * W;   // most key tiles first
+  const int n_kt = key_tiles(q0, BT * W, Sq, Sk, causal, q_off);
   const int tid = threadIdx.x;
   if (tid == 0) {
+    mbar_init(res_landed, 1);
     mbar_init(res_full, 128);
     for (int s = 0; s < ST; ++s) {
+      mbar_init(&landed[s], 1);
       mbar_init(&full[s], 128);
-      mbar_init(&empty[s], 128);
+      mbar_init(&empty[s], 128 * W);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= 128) {
-    // ------------------------------------------------------ producers
-    const int ptid = tid - 128;
-    const int rq = min(BT, Sq - q0);
-    RowTile<128> rt;
-    ColTile<128> ct;
-    const float* qb = q + b * sq.b + h * sq.h + (int64_t)q0 * sq.s;
-    const float* db = dO + b * sdo.b + h * sdo.h + (int64_t)q0 * sdo.s;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      rt.load(qb + 64 * c, sq.s, rq, D - 64 * c, true, NoScale{}, ptid);
-      rt.store(sQ + c * UNIT, ptid);
-      rt.load(db + 64 * c, sdo.s, rq, D - 64 * c, true, NoScale{}, ptid);
-      rt.store(sdO + c * UNIT, ptid);
+  // the stream: the D pass's K and V of each key tile (2 NC units), then
+  // the dq pass's K, V and K^T (3 NC)
+  const int n1 = 2 * NC * n_kt;
+  const auto unit = [&](int n) {
+    if (n < n1) {
+      const int k = n % (2 * NC);
+      return UnitSrc{k < NC ? &tk : &tv, n / (2 * NC) * BT, k % NC, ROW};
     }
-    fence_async_shared();
-    mbar_arrive(res_full);
-    RingOut<ST> out{full, empty, ring, 0};
-    const float* kb = k + b * sk.b + h * sk.h;
-    const float* vb = v + b * sv.b + h * sv.h;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int t = 0; t < n_kt; ++t) {
-        const int rk = min(BT, Sk - t * BT);
-        const float* kt = kb + (int64_t)t * BT * sk.s;
-        const float* vt = vb + (int64_t)t * BT * sv.s;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          rt.load(kt + 64 * c, sk.s, rk, D - 64 * c, true, NoScale{}, ptid);
-          rt.store(out.acquire(), ptid);
-          out.publish();
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          rt.load(vt + 64 * c, sv.s, rk, D - 64 * c, true, NoScale{}, ptid);
-          rt.store(out.acquire(), ptid);
-          out.publish();
-        }
-        if (pass == 1) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {   // K^T: rows d, K the key index
-            ct.load(kt + 64 * c, sk.s, rk, D - 64 * c, true, NoScale{}, ptid);
-            ct.store(out.acquire(), ptid);
-            out.publish();
-          }
-        }
-      }
-    }
+    const int k = (n - n1) % (3 * NC);
+    return UnitSrc{k < NC || k >= 2 * NC ? &tk : &tv, (n - n1) / (3 * NC) * BT, k % NC,
+                   k >= 2 * NC ? COL : ROW};
+  };
+
+  // the role of this thread's warpgroup, warp-uniform for the compiler
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == W) {
+    produce<D, ST, W>(&tq, &tdo, q0, sQ, res_landed, res_full, unit,
+                      [](int, int) { return 0.f; }, nullptr, 5 * NC * n_kt, ring, landed, full,
+                      empty, h, b, tid - 128 * W);
     return;
   }
 
   // ------------------------------------------------------- consumers
-  const int warp = tid / 32, lane = tid % 32;
-  const int ia = q0 + acc_row(warp, lane, 0), ib = ia + 8;
+  // Warpgroup wg takes the 64 q rows from qw; every consumer warpgroup
+  // reads every unit (the key tiles past its own rows' last it skips).
+  // Each waits for its own products: the tensor cores run one warpgroup's
+  // while the other forms p, dS and their sums.
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw = q0 + BT * wg, nw = key_tiles(qw, BT, Sq, Sk, causal, q_off);
+  const int ia = qw + acc_row(warp, lane, 0), ib = ia + 8;
   const float* lrow = lse + ((int64_t)b * H + h) * Sq;
   const float la = ia < Sq ? lrow[ia] * LOG2E : 0.f, lb = ib < Sq ? lrow[ib] * LOG2E : 0.f;
   const float sl2 = scale * LOG2E;
-  RingIn<ST> in{full, empty, ring, 0};
-  float s[32], dp[32];
+  const uint32_t aQ = smem_u32(sQ + 2 * NC * wg * UNIT), adO = aQ + NC * UNIT;
+  const Ring<ST> in{full, empty, ring};
 
-  // S = Q.K^T into s and dP = dO.V^T into dp for the next key tile
-  auto products = [&]() {
-    int slot[NC];
-    zero(s);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) slot[c] = in.take();
-    wg_fence();
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      mma_ss(s, smem_u32(sQ + c * UNIT), in.addr(slot[c]), C::ks(c));
-    wg_commit();
-    wg_wait_all();
-    fence_regs(s);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) in.give(slot[c]);
-    zero(dp);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) slot[c] = in.take();
-    wg_fence();
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      mma_ss(dp, smem_u32(sdO + c * UNIT), in.addr(slot[c]), C::ks(c));
-    wg_commit();
-    wg_wait_all();
-    fence_regs(dp);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) in.give(slot[c]);
-  };
   // s becomes p for the key tile at k0, 0 where masked
-  auto probs = [&](int k0) {
-    const bool edge = k0 + BT > Sk || (causal && k0 + BT - 1 > q0 + q_off);
+  // (the mask a branch on the whole tile, as in the dk/dv pass's P^T)
+  const auto probs = [&](float (&s)[32], int k0) {
+    if (k0 + BT > Sk || (causal && k0 + BT - 1 > qw + q_off)) {
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const bool lower = (r % 4) >= 2;
-      float p = exp2f(s[r] * sl2 - (lower ? lb : la));
-      if (edge) {
+      for (int r = 0; r < 32; ++r) {
+        const bool lower = (r % 4) >= 2;
         const int j = k0 + acc_col(lane, r), i = lower ? ib : ia;
-        if (j >= Sk || (causal && j > i + q_off)) p = 0.f;
+        const float p = exp2f(s[r] * sl2 - (lower ? lb : la));
+        s[r] = j >= Sk || (causal && j > i + q_off) ? 0.f : p;
       }
-      s[r] = p;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = exp2f(s[r] * sl2 - ((r % 4) >= 2 ? lb : la));
     }
+  };
+  // S = Q.K^T into s (the K units from unit k) and dP = dO.V^T into dp (the
+  // V units from unit k + NC), issued back to back; at NC = 2, whose ring
+  // cannot hold both, S is waited and its units given back before V's are
+  // taken.  Waited by the caller; then give_kv.
+  const auto sdp = [&](float (&s)[32], float (&dp)[32], int k) {
+    uint32_t ak[NC], av[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) ak[c] = in.take(k + c);
+    if constexpr (NC == 1) av[0] = in.take(k + 1);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) mma_ss(s, aQ + c * UNIT, ak[c], C::ks(c), c == 0);
+    if constexpr (NC > 1) {
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) in.give(k + c);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) av[c] = in.take(k + NC + c);
+      wg_fence();
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) mma_ss(dp, adO + c * UNIT, av[c], C::ks(c), c == 0);
+    wg_commit();
+  };
+  const auto give_kv = [&](int k) {
+#pragma unroll
+    for (int c = NC == 1 ? 0 : NC; c < 2 * NC; ++c) in.give(k + c);
+  };
+  const auto skip = [&](int k, int n) {
+    for (int i = 0; i < n; ++i) in.skip(k + i);
   };
 
   mbar_wait(res_full, 0);
   // the D pass: Dr = rowsum(p * dp) / rowsum(p) over every key
   float pdp_a = 0.f, pdp_b = 0.f, ps_a = 0.f, ps_b = 0.f;
-  for (int t = 0; t < n_kt; ++t) {
-    products();
-    probs(t * BT);
+  float s[32], dp[32];
+  for (int t = 0; t < nw; ++t) {
+    sdp(s, dp, 2 * NC * t);
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    give_kv(2 * NC * t);
+    probs(s, t * BT);
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
       if ((r % 4) < 2) {
@@ -294,6 +584,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
+  skip(2 * NC * nw, 2 * NC * (n_kt - nw));
   const float Da = row_sum4(pdp_a) / row_sum4(ps_a), Db = row_sum4(pdp_b) / row_sum4(ps_b);
   if (lane % 4 == 0) {
     float* drow = Dsum + ((int64_t)b * H + h) * Sq;
@@ -306,23 +597,31 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < NC; ++c) zero(acc[c]);
   uint32_t ah[32], al[32];
-  for (int t = 0; t < n_kt; ++t) {
-    products();
-    probs(t * BT);
+  for (int t = 0; t < nw; ++t) {
+    const int k = n1 + 3 * NC * t;
+    sdp(s, dp, k);
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    give_kv(k);
+    probs(s, t * BT);
 #pragma unroll
     for (int r = 0; r < 32; ++r) s[r] = s[r] * (dp[r] - ((r % 4) >= 2 ? Db : Da)) * scale;
     pack_a(s, ah, al);
+    uint32_t akt[NC];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int sl = in.take();
-      wg_fence();
-      mma_rs(acc[c], ah, al, in.addr(sl));
-      wg_commit();
-      wg_wait_all();
-      fence_regs(acc[c]);
-      in.give(sl);
-    }
+    for (int c = 0; c < NC; ++c) akt[c] = in.take(k + 2 * NC + c);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) mma_rs(acc[c], ah, al, akt[c]);   // dQ += dS.K
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) in.give(k + 2 * NC + c);
   }
+  skip(n1 + 3 * NC * nw, 3 * NC * (n_kt - nw));
 
   // ----------------------------------------------------------- epilogue
   const int64_t rs = (int64_t)H * D;
@@ -340,175 +639,226 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // the dk/dv pass
 
+// acc (NC chunks) += (v split, half by half: two sets of 16 fragment
+// registers, for the kernels that cannot hold 64) . (units b[c]), each
+// half waited
+template <int NC>
+__device__ __forceinline__ void mma_rs_halves(float (&acc)[NC][32], const float (&v)[32],
+                                              const uint32_t (&b)[NC]) {
+  uint32_t ah[16], al[16];
+  pack_a_half<0>(v, ah, al);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) mma_rs_half<0>(acc[c], ah, al, b[c]);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+  pack_a_half<1>(v, ah, al);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) mma_rs_half<1>(acc[c], ah, al, b[c]);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(384, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dO,
-                      const float* __restrict__ lse, const float* __restrict__ Dsum,
-                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
-                      Strides sq, Strides sk, Strides sv, Strides sdo, float scale, int causal,
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ Dsum, float* __restrict__ dk,
+                      float* __restrict__ dv, int Sq, int Sk, int H, float scale, int causal,
                       int q_off) {
   using C = Cfg<D>;
-  constexpr int NC = C::NC, ST = C::ST;
+  constexpr int NC = C::NC, ST = C::KST, PB = C::PB, U = 4 * NC;
+  constexpr int READERS = NC == 1 ? 1 : 2;   // warpgroups that give back each unit
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * MAX_ST];
+  __shared__ __align__(8) uint64_t bars[2 + 3 * MAX_ST + 4];
+  // beside each slot: the q tile's lse * log2(e) with its Q rows (chunk 0),
+  // its Dr with its dO rows, 0 past Sq
+  __shared__ float rows[ST * BT];
   uint8_t* base = align1024(smem_raw);
-  uint8_t* sK = base;                  // NC units
-  uint8_t* sV = base + NC * UNIT;      // NC units
+  uint8_t* sK = base;                  // NC units, then V's NC
   uint8_t* ring = base + 2 * NC * UNIT;
-  uint64_t* res_full = bars;
-  uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 1 + MAX_ST;
+  uint8_t* pbuf = ring + ST * UNIT;    // PB tiles of P^T
+  uint64_t* res_landed = bars;
+  uint64_t* res_full = bars + 1;
+  uint64_t* landed = bars + 2;
+  uint64_t* full = bars + 2 + MAX_ST;
+  uint64_t* empty = bars + 2 + 2 * MAX_ST;
+  uint64_t* pfull = bars + 2 + 3 * MAX_ST;
+  uint64_t* pempty = pfull + 2;
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int k0 = (int)blockIdx.y * BT;      // the first key tiles see the most q tiles
   const int n_qt = (Sq + BT - 1) / BT;
   // the first q tile with a row that sees a key of this tile
   const int it0 = causal ? max(0, k0 - q_off) / BT : 0;
+  const int ntile = max(0, n_qt - it0);
   const int tid = threadIdx.x;
   if (tid == 0) {
+    mbar_init(res_landed, 1);
     mbar_init(res_full, 128);
     for (int s = 0; s < ST; ++s) {
+      mbar_init(&landed[s], 1);
       mbar_init(&full[s], 128);
-      mbar_init(&empty[s], 256);
+      mbar_init(&empty[s], 128 * READERS);
+    }
+    for (int p = 0; p < PB; ++p) {
+      mbar_init(&pfull[p], 128);
+      mbar_init(&pempty[p], 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= 256) {
-    // ------------------------------------------------------ producers
-    const int ptid = tid - 256;
-    const int rk = min(BT, Sk - k0);
-    RowTile<128> rt;
-    ColTile<128> ct;
-    const float* kt = k + b * sk.b + h * sk.h + (int64_t)k0 * sk.s;
-    const float* vt = v + b * sv.b + h * sv.h + (int64_t)k0 * sv.s;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      rt.load(kt + 64 * c, sk.s, rk, D - 64 * c, true, NoScale{}, ptid);
-      rt.store(sK + c * UNIT, ptid);
-      rt.load(vt + 64 * c, sv.s, rk, D - 64 * c, true, NoScale{}, ptid);
-      rt.store(sV + c * UNIT, ptid);
-    }
-    fence_async_shared();
-    mbar_arrive(res_full);
-    RingOut<ST> out{full, empty, ring, 0};
-    const float* qb = q + b * sq.b + h * sq.h;
-    const float* db = dO + b * sdo.b + h * sdo.h;
-    for (int it = it0; it < n_qt; ++it) {
-      const int rq = min(BT, Sq - it * BT);
-      const float* qt = qb + (int64_t)it * BT * sq.s;
-      const float* dt = db + (int64_t)it * BT * sdo.s;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {   // Q rows (S^T)
-        rt.load(qt + 64 * c, sq.s, rq, D - 64 * c, true, NoScale{}, ptid);
-        rt.store(out.acquire(), ptid);
-        out.publish();
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {   // dO rows (dP^T)
-        rt.load(dt + 64 * c, sdo.s, rq, D - 64 * c, true, NoScale{}, ptid);
-        rt.store(out.acquire(), ptid);
-        out.publish();
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {   // dO^T (dv)
-        ct.load(dt + 64 * c, sdo.s, rq, D - 64 * c, true, NoScale{}, ptid);
-        ct.store(out.acquire(), ptid);
-        out.publish();
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {   // Q^T (dk)
-        ct.load(qt + 64 * c, sq.s, rq, D - 64 * c, true, NoScale{}, ptid);
-        ct.store(out.acquire(), ptid);
-        out.publish();
-      }
-    }
+  // the stream, a q tile's 4 NC units (the offsets of dO, dO^T and Q^T
+  // after Q): at D <= 64 Q rows (S^T; warpgroup 0) with Q^T (dK; 1) made
+  // in the same pass, then dO rows (dP^T; 1) with dO^T (dV; 0); above, Q,
+  // dO, dO^T, Q^T, NC units each
+  constexpr int ODO = NC == 1 ? 2 : NC, ODOT = NC == 1 ? 3 : 2 * NC, OQT = NC == 1 ? 1 : 3 * NC;
+  const auto unit = [&](int n) {
+    const int k = n % U, row = (it0 + n / U) * BT;
+    if (NC == 1) return UnitSrc{k < 2 ? &tq : &tdo, row, 0, k % 2 ? MADE : PAIR};
+    const int kind = k / NC;
+    return UnitSrc{kind == 0 || kind == 3 ? &tq : &tdo, row, k % NC, kind >= 2 ? COL : ROW};
+  };
+
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 2) {
+    const float* lrow = lse + ((int64_t)b * H + h) * Sq;
+    const float* drow = Dsum + ((int64_t)b * H + h) * Sq;
+    const auto rowval = [&](int n, int t) {
+      const int k = n % U, i = (it0 + n / U) * BT + t;
+      if (k != 0 && k != ODO || i >= Sq) return 0.f;
+      return k == 0 ? __ldg(lrow + i) * LOG2E : __ldg(drow + i);
+    };
+    produce<D, ST, 1>(&tk, &tv, k0, sK, res_landed, res_full, unit, rowval, rows, U * ntile,
+                      ring, landed, full, empty, h, b, tid - 256);
     return;
   }
 
   // ------------------------------------------------------- consumers
-  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
-  const bool is_dk = wg == 1;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);   // warp-uniform for the compiler
+  const int wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
   const int ja = k0 + acc_row(warp, lane, 0), jb = ja + 8;   // this thread's keys
-  const float* lrow = lse + ((int64_t)b * H + h) * Sq;
-  const float* drow = Dsum + ((int64_t)b * H + h) * Sq;
   const float sl2 = scale * LOG2E;
-  RingIn<ST> in{full, empty, ring, 0};
+  const Ring<ST> in{full, empty, ring};
   float acc[NC][32];
 #pragma unroll
   for (int c = 0; c < NC; ++c) zero(acc[c]);
-  float s[32], dp[32];
-  uint32_t ah[32], al[32];
-
-  // d = A (resident) . B^T (the next NC units), both over D
-  auto over_d = [&](float (&d)[32], uint8_t* a) {
-    int slot[NC];
-    zero(d);
+  float s[32];
+  float4* pw = reinterpret_cast<float4*>(pbuf) + wtid;   // this thread's P^T slice
+  // s = A (the resident units at a) . B^T (the NC units from unit n) over
+  // D, waited; v[2 (r / 4) + r % 2] gets the row value the producer staged
+  // beside unit n for column acc_col(lane, r) (a load from shared memory:
+  // from global memory, its latency would stall the elementwise work)
+  float v[16];
+  const auto over_d = [&](uint32_t a, int n) {
+    uint32_t bu[NC];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) slot[c] = in.take();
+    for (int c = 0; c < NC; ++c) bu[c] = in.take(n + c);
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+      v[m] = rows[(n % ST) * BT + 8 * (m / 2) + 2 * (lane % 4) + m % 2];
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      mma_ss(d, smem_u32(a + c * UNIT), in.addr(slot[c]), C::ks(c));
+    for (int c = 0; c < NC; ++c) mma_ss(s, a + c * UNIT, bu[c], C::ks(c), c == 0);
     wg_commit();
     wg_wait_all();
-    fence_regs(d);
+    fence_regs(s);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) in.give(slot[c]);
+    for (int c = 0; c < NC; ++c) in.give(n + c);
   };
-  // acc += (A fragments) . (the next NC units), over the q tile's 64 rows
-  auto over_q = [&]() {
+  // acc += (s split) . (the NC units from unit n) over the q tile's rows,
+  // waited: at D <= 64 one group, above a half of the split at a time
+  const auto over_q = [&](int n) {
+    uint32_t bu[NC];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int sl = in.take();
+    for (int c = 0; c < NC; ++c) bu[c] = in.take(n + c);
+    if constexpr (NC == 1) {
+      uint32_t ah[32], al[32];
+      pack_a(s, ah, al);
       wg_fence();
-      mma_rs(acc[c], ah, al, in.addr(sl));
+      mma_rs(acc[0], ah, al, bu[0]);
       wg_commit();
       wg_wait_all();
-      fence_regs(acc[c]);
-      in.give(sl);
+      fence_regs(acc[0]);
+    } else {
+      mma_rs_halves<NC>(acc, s, bu);
     }
-  };
-  auto skip = [&]() {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) in.skip();
+    for (int c = 0; c < NC; ++c) in.give(n + c);
+  };
+  // the NC units from unit n, where every warpgroup walks every unit
+  const auto skip = [&](int n) {
+    if (READERS == 2) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) in.skip(n + c);
+    }
   };
 
   mbar_wait(res_full, 0);
-  for (int it = it0; it < n_qt; ++it) {
-    const int i0 = it * BT;
-    over_d(s, sK);                            // S^T = K.Q^T: rows keys, columns q
-    const bool edge = i0 + BT > Sq || (causal && k0 + BT - 1 > i0 + q_off);
+  // Each warpgroup waits for its own products: the tensor cores run one
+  // warpgroup's while the other forms P^T or dS^T.
+  if (wg == 0) {
+    // S^T = K.Q^T once, P^T, handed to warpgroup 1, and dV += P^T.dO
+    const uint32_t aK = smem_u32(sK);
+    for (int j = 0; j < ntile; ++j) {
+      const int i0 = (it0 + j) * BT;
+      over_d(aK, U * j);                        // S^T = K.Q^T; v: lse * log2(e)
+      // P^T, masked on the tiles a mask cuts (a branch on the whole tile:
+      // a per-element choice made the loop 5x slower)
+      if (i0 + BT > Sq || (causal && k0 + BT - 1 > i0 + q_off)) {
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {            // P^T
-      const int i = i0 + acc_col(lane, r), j = (r % 4) >= 2 ? jb : ja;
-      const bool keep = !edge || (i < Sq && !(causal && j > i + q_off));
-      s[r] = keep ? exp2f(s[r] * sl2 - __ldg(lrow + i) * LOG2E) : 0.f;
-    }
-    if (!is_dk) {
-      skip();                                 // dO rows
-      pack_a(s, ah, al);
-      over_q();                               // dv += P^T.dO
-      skip();                                 // Q^T
-    } else {
-      over_d(dp, sV);                         // dP^T = V.dO^T
+        for (int r = 0; r < 32; ++r) {
+          const int i = i0 + acc_col(lane, r), jk = (r % 4) >= 2 ? jb : ja;
+          const bool keep = i < Sq && !(causal && jk > i + q_off);
+          s[r] = keep ? exp2f(s[r] * sl2 - v[2 * (r / 4) + r % 2]) : 0.f;
+        }
+      } else {
 #pragma unroll
-      for (int r = 0; r < 32; ++r) {          // dS^T
-        const int i = i0 + acc_col(lane, r);
-        const float Dr = i < Sq ? __ldg(drow + i) : 0.f;
-        dp[r] = s[r] * (dp[r] - Dr) * scale;
+        for (int r = 0; r < 32; ++r) s[r] = exp2f(s[r] * sl2 - v[2 * (r / 4) + r % 2]);
       }
-      pack_a(dp, ah, al);
-      skip();                                 // dO^T
-      over_q();                               // dk += dS^T.Q
+      const int pb = j % PB;
+      mbar_wait(&pempty[pb], ((j / PB) & 1) ^ 1);
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        pw[pb * (PTILE / 16) + m * 128] = make_float4(s[4 * m], s[4 * m + 1], s[4 * m + 2],
+                                                      s[4 * m + 3]);
+      mbar_arrive(&pfull[pb]);
+      skip(U * j + ODO);                        // dO rows
+      over_q(U * j + ODOT);                     // dV += P^T.dO
+      skip(U * j + OQT);                        // Q^T
+    }
+  } else {
+    // dP^T = V.dO^T, dS^T from warpgroup 0's P^T, and dK += dS^T.Q
+    const uint32_t aV = smem_u32(sK) + NC * UNIT;
+    for (int j = 0; j < ntile; ++j) {
+      skip(U * j);                              // Q rows
+      over_d(aV, U * j + ODO);                  // dP^T = V.dO^T; v: Dr
+      skip(U * j + ODOT);                       // dO^T
+      const int pb = j % PB;
+      mbar_wait(&pfull[pb], (j / PB) & 1);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {             // dS^T
+        const float4 p = pw[pb * (PTILE / 16) + m * 128];
+        s[4 * m] = p.x * (s[4 * m] - v[2 * m]) * scale;
+        s[4 * m + 1] = p.y * (s[4 * m + 1] - v[2 * m + 1]) * scale;
+        s[4 * m + 2] = p.z * (s[4 * m + 2] - v[2 * m]) * scale;
+        s[4 * m + 3] = p.w * (s[4 * m + 3] - v[2 * m + 1]) * scale;
+      }
+      mbar_arrive(&pempty[pb]);
+      over_q(U * j + OQT);                      // dK += dS^T.Q
     }
   }
 
   // ----------------------------------------------------------- epilogue
   const int64_t rs = (int64_t)H * D;
-  float* out = (is_dk ? dk : dv) + ((int64_t)b * Sk * H + h) * D;
+  float* out = (wg == 1 ? dk : dv) + ((int64_t)b * Sk * H + h) * D;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -520,36 +870,38 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* dO, const float* lse,
            float* Dsum, float* dq, float* dk, float* dv, int64_t B, int64_t Sq, int64_t Sk,
            int64_t H, Strides sq, Strides sk, Strides sv, Strides sdo, float scale, int causal,
            int q_off, int device, cudaStream_t stream) {
   // 16-byte-aligned bases, strides of whole 16 bytes (the wrapper copies
-  // what fails)
+  // what fails), read through float32 tensor maps
   const void* ptrs[] = {q, k, v, dO};
   const Strides strides[] = {sq, sk, sv, sdo};
   for (int i = 0; i < 4; ++i)
     if ((uintptr_t)ptrs[i] % 16 || strides[i].b % 4 || strides[i].s % 4 || strides[i].h % 4)
       return -3;
-  const size_t smem = Cfg<D>::SMEM;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc;
+  if ((rc = cached_map(&tq, q, B, Sq, H, D, sq, 4)) != 0) return rc;
+  if ((rc = cached_map(&tk, k, B, Sk, H, D, sk, 4)) != 0) return rc;
+  if ((rc = cached_map(&tv, v, B, Sk, H, D, sv, 4)) != 0) return rc;
+  if ((rc = cached_map(&tdo, dO, B, Sq, H, D, sdo, 4)) != 0) return rc;
   static bool done_dq[64] = {}, done_kv[64] = {};   // per device
   auto kq = flash_bwd_dq_kernel<D>;
   auto kkv = flash_bwd_dkdv_kernel<D>;
-  int rc;
-  if ((rc = set_smem(kq, smem, done_dq, device)) != 0) return rc;
-  if ((rc = set_smem(kkv, smem, done_kv, device)) != 0) return rc;
-  const int64_t n_qt = (Sq + BT - 1) / BT, n_kt = (Sk + BT - 1) / BT;
-  if (B * H > 0x7fffffff || n_qt > 65535 || n_kt > 65535) return -1;
-  kq<<<dim3((unsigned)(B * H), (unsigned)n_qt), 256, smem, stream>>>(
-      q, k, v, dO, lse, Dsum, dq, (int)Sq, (int)Sk, (int)H, (int)n_qt, sq, sk, sv, sdo, scale,
-      causal, q_off);
+  if ((rc = set_smem(kq, Cfg<D>::SMEM_Q, done_dq, device)) != 0) return rc;
+  if ((rc = set_smem(kkv, Cfg<D>::SMEM_KV, done_kv, device)) != 0) return rc;
+  constexpr int W = Cfg<D>::QW;
+  const int64_t n_qb = (Sq + BT * W - 1) / (BT * W), n_kt = (Sk + BT - 1) / BT;
+  if (B * H > 0x7fffffff || n_qb > 65535 || n_kt > 65535) return -1;
+  kq<<<dim3((unsigned)(B * H), (unsigned)n_qb), 128 * (W + 1), Cfg<D>::SMEM_Q, stream>>>(
+      tq, tk, tv, tdo, lse, Dsum, dq, (int)Sq, (int)Sk, (int)H, (int)n_qb, scale, causal, q_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3((unsigned)(B * H), (unsigned)n_kt), 384, smem, stream>>>(
-      q, k, v, dO, lse, Dsum, dk, dv, (int)Sq, (int)Sk, (int)H, sq, sk, sv, sdo, scale, causal,
-      q_off);
+  kkv<<<dim3((unsigned)(B * H), (unsigned)n_kt), 384, Cfg<D>::SMEM_KV, stream>>>(
+      tq, tk, tv, tdo, lse, Dsum, dk, dv, (int)Sq, (int)Sk, (int)H, scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 

@@ -141,8 +141,10 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk, int R) {
   return desc_sw128(base + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024);
 }
 
-// d (m64 x n64, f32) += A (smem, K-major) . B (smem, K-major), tf32
-__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+// d (m64 x n64, f32) += A (smem, K-major) . B (smem, K-major), tf32; with
+// scale_d 0, d = A . B (d's old values not read)
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -161,7 +163,7 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, u
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (m64 x n128, f32) += A (smem, K-major) . B (smem, K-major), tf32

@@ -189,12 +189,14 @@ struct ColTile {
 // ------------------------------------------------------------- products
 
 // d (64 x 64) += A . B^T over `ks` 8-wide k steps, both units in shared
-// memory (addresses a, b): lo.hi, hi.lo, hi.hi a k step
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b, int ks) {
+// memory (addresses a, b): lo.hi, hi.lo, hi.hi a k step; with `set`, d =
+// A . B^T (the first product does not read d, so d needs no zeroing)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b, int ks,
+                                       bool set = false) {
 #pragma unroll
   for (int kk = 0; kk < ks; ++kk) {
     const uint64_t ah = desc_k(a, kk, UROWS), bh = desc_k(b, kk, UROWS);
-    wgmma_tf32_ss_n64(d, desc_k(a + UNIT_HALF, kk, UROWS), bh);
+    wgmma_tf32_ss_n64(d, desc_k(a + UNIT_HALF, kk, UROWS), bh, !(set && kk == 0));
     wgmma_tf32_ss_n64(d, ah, desc_k(b + UNIT_HALF, kk, UROWS));
     wgmma_tf32_ss_n64(d, ah, bh);
   }

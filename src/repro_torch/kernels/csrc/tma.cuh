@@ -1,12 +1,14 @@
 // TMA tensor maps and loads, and the bf16 wgmma products, of the port's
-// bf16 attention kernels (flash_attention.cu's forward,
-// flash_attention_bwd.cuh's bf16 backward).  A (B, S, H, D) bf16 tensor is
-// read through a 4-D tensor map over (D, H, S, B) with its own strides, in
-// boxes of 64 columns x 64 rows into 128-byte-swizzled shared memory (a box
-// is BOX_BYTES; D = 96 and 128 take two, whose columns past D, like rows
-// past S, the TMA fills with zeros).  Such a tile is the K-major operand of
-// a product over D (desc_kmajor) or, through wgmma's transpose bit, the
-// MN-major B operand of a product over its 64 rows (desc_mnmajor).
+// attention kernels (flash_attention.cu's bf16 forward,
+// flash_attention_bwd.cuh's backward).  A (B, S, H, D) tensor is read
+// through a 4-D tensor map over (D, H, S, B) with its own strides, in boxes
+// of 128 bytes of columns (64 bf16 or 32 float32) x 64 rows into
+// 128-byte-swizzled shared memory (a box is BOX_BYTES; columns past D, like
+// rows past S, the TMA fills with zeros).  A bf16 tile is the K-major
+// operand of a product over D (desc_kmajor) or, through wgmma's transpose
+// bit, the MN-major B operand of a product over its 64 rows (desc_mnmajor);
+// a float32 box lands as one 32-column block of hopper.cuh's sw_off layout,
+// the K-major tf32 operand.
 
 #pragma once
 
@@ -27,7 +29,7 @@ struct Strides {
 };
 
 constexpr int TMA_ROWS = 64;           // rows of a box
-constexpr int BOX_BYTES = 64 * 128;    // one box: 64 rows x 64 bf16 columns
+constexpr int BOX_BYTES = 64 * 128;    // one box: 64 rows x 128 bytes (64 bf16, 32 float32)
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -174,21 +176,23 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// a 4-D map over (D, H, S, B) of a bf16 tensor with element strides `st`,
-// boxes of 64 columns x 1 head x 64 rows x 1 batch, 128-byte swizzle
+// a 4-D map over (D, H, S, B) of a tensor of `esize`-byte elements (2:
+// bf16, 4: float32) with element strides `st`, boxes of 128 bytes of
+// columns x 1 head x 64 rows x 1 batch, 128-byte swizzle
 int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-             Strides st) {
+             Strides st, int esize) {
   EncodeTiledFn encode = encode_fn();
   if (encode == nullptr) return -3;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)TMA_ROWS, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st.h * esize), (cuuint64_t)(st.s * esize),
+                                 (cuuint64_t)(st.b * esize)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 1, (cuuint32_t)TMA_ROWS, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
@@ -198,10 +202,10 @@ int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H,
 // encode costs host time on every launch otherwise.
 struct MapKey {
   const void* ptr;
-  int64_t B, S, H, D, sb, ss, sh;
+  int64_t B, S, H, D, sb, ss, sh, esize;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && B == o.B && S == o.S && H == o.H && D == o.D && sb == o.sb &&
-           ss == o.ss && sh == o.sh;
+           ss == o.ss && sh == o.sh && esize == o.esize;
   }
 };
 constexpr int MAP_SLOTS = 64;
@@ -214,17 +218,18 @@ MapSlot g_map_slots[MAP_SLOTS];
 std::mutex g_map_mutex;
 
 int cached_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-               Strides st) {
-  const MapKey key{ptr, B, S, H, D, st.b, st.s, st.h};
+               Strides st, int esize = 2) {
+  const MapKey key{ptr, B, S, H, D, st.b, st.s, st.h, esize};
   uint64_t h = (uint64_t)(uintptr_t)ptr;
-  for (int64_t f : {B, S, H, D, st.b, st.s, st.h}) h = (h ^ (uint64_t)f) * 0x9E3779B97F4A7C15ull;
+  for (int64_t f : {B, S, H, D, st.b, st.s, st.h, (int64_t)esize})
+    h = (h ^ (uint64_t)f) * 0x9E3779B97F4A7C15ull;
   MapSlot& slot = g_map_slots[(h >> 32) % MAP_SLOTS];
   std::lock_guard<std::mutex> lock(g_map_mutex);
   if (slot.used && slot.key == key) {
     *map = slot.map;
     return 0;
   }
-  const int rc = make_map(map, ptr, B, S, H, D, st);
+  const int rc = make_map(map, ptr, B, S, H, D, st, esize);
   if (rc == 0) slot = MapSlot{key, *map, true};
   return rc;
 }

@@ -27,10 +27,10 @@ backward is ``csrc/flash_attention_bwd.cuh`` on the card (built as
 ``flash_attention_bwd.cu`` for float32 and ``flash_attention_bwd_bf16.cu``
 for bfloat16; ``flash_attention_bwd_cuda``, the operator
 ``torch.ops.repro_torch.flash_attention_bwd``: a dq pass and a dk/dv pass,
-bf16 on bf16 ``wgmma`` fed by TMA, float32 on 3xTF32 ``wgmma``; see its
-header) and ``ref.flash_attention_bwd`` on the CPU.  The JAX package's
-backward is XLA code (``models.attention._flash_bwd_rule``), not a Pallas
-kernel.
+bf16 on bf16 ``wgmma`` fed by TMA, float32 on 3xTF32 ``wgmma`` fed by TMA
+(raw float32 tiles whose lo halves its producers write); see its header)
+and ``ref.flash_attention_bwd`` on the CPU.  The JAX package's backward is
+XLA code (``models.attention._flash_bwd_rule``), not a Pallas kernel.
 ``ops.flash_attention`` takes the Function when a gradient is needed; the
 raw forward wrappers refuse inputs that require one.  ``flash_bwd_cost``
 and ``flash_bwd_bound_ms`` count the backward's work.
@@ -120,11 +120,11 @@ def _check(q, k, v, q_offset: int = 0):
 
 def tma_strides(t):
     """(batch, sequence, head) element strides of a (B, S, H, D) tensor as
-    the kernels read it (a bfloat16 TMA map, float32 16-byte loads), or
-    None where they cannot take the tensor as it is (a base not 16-byte
-    aligned, a stride of a dimension longer than 1 not a multiple of 16
-    bytes).  A dimension of length 1 is never stepped, so its stride is
-    replaced by a valid one."""
+    the kernels read it (TMA tensor maps; the float32 forward's 16-byte
+    loads), or None where they cannot take the tensor as it is (a base not
+    16-byte aligned, a stride of a dimension longer than 1 not a multiple
+    of 16 bytes).  A dimension of length 1 is never stepped, so its stride
+    is replaced by a valid one."""
     if t.data_ptr() % 16:
         return None
     shape, stride, size = t.shape, t.stride(), t.element_size()
@@ -341,9 +341,8 @@ def flash_bwd_cost(B, Sq, Sk, H, D, causal, elem_bytes, q_offset: int = 0):
     key) pairs the mask keeps (S = Q.K^T recomputed, dV = P^T.dO, dP =
     dO.V^T, dQ = dS.K, dK = dS^T.Q), and q, k, v, do and lse read once, dq,
     dk and dv written once.  The kernels' own work is more (S and dP also in
-    the D pass; on the float32 route S in both warpgroups of the dk/dv
-    pass): the bound counts what the function needs, not what the design
-    does."""
+    the D pass): the bound counts what the function needs, not what the
+    design does."""
     pairs = causal_pairs(Sq, Sk, q_offset) if causal else Sq * Sk
     return (10.0 * B * H * pairs * D,
             elem_bytes * B * H * D * (3 * Sq + 4 * Sk) + 4 * B * H * Sq)

@@ -10,9 +10,12 @@
 * Precision: ``_flash_bwd_tf32``, ``_flash_bwd_bf16`` and ``_ssd_bwd_tf32``
   repeat each kernel's arithmetic in plain torch (``_tf32.py``): the tile
   order, the flash kernels' D pass, the float32 route's TF32 splits (three
-  terms; both kernels truncate, ``Round::trunc``), the bf16 route's exact
-  bf16 products with p and dS split into bf16 hi and lo (two terms; one
-  term does measurably worse), the SSD kernel's tile partition (a block
+  terms; both kernels truncate, ``Round::trunc``; its dk/dv pass computes
+  P^T once and hands it from one warpgroup to the other, which changes no
+  sum: dK and dV still add one q tile's product at a time, in order), the
+  bf16 route's exact bf16 products with p and dS split into bf16 hi and lo
+  (two terms; one term does measurably worse), the SSD kernel's tile
+  partition (a block
   per 64-row tile: its j tile's and i tile's pairs in order, E's column
   sums per warp), its cross-tile sums in
   their fixed order, dcum (the diagonal of E left out of both its sums),
@@ -250,7 +253,13 @@ FLASH_CASES = [(1, 192, 192, 2, 64, True, 0),       # zamba2's head dim, causal
                (1, 70, 200, 2, 32, True, 100)]      # a sequence block at q_offset
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset", FLASH_CASES)
+# the float32 route's two chunks of D (NC = 2): its dk/dv pass walks another
+# ring there, with the A fragments split a half at a time
+FLASH_F32_CASES = FLASH_CASES + [(1, 130, 130, 2, 128, True, 0),   # pixtral's head dim
+                                 (1, 100, 150, 2, 96, False, 0)]   # phi3's, Sq != Sk
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,q_offset", FLASH_F32_CASES)
 def test_flash_3xtf32_holds_1e4_and_1xtf32_does_not(B, Sq, Sk, H, D, causal, q_offset):
     q, k, v, lse, do = _flash_inputs(Sq + Sk, B, Sq, Sk, H, D, q_offset=q_offset,
                                      causal=causal)

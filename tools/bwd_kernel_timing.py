@@ -12,7 +12,8 @@ path's shapes:
 * the flash-attention backward (``flash_attention_bwd_cuda``) in bf16 at
   zamba2-1.2b's (B=2, S=512, H=32, D=64, causal), pixtral-12b's (B=2,
   S=1280, H=32, D=128, causal) and whisper-base's encoder (B=2, S=1500,
-  H=8, D=64, not causal) shapes, and in float32 at zamba2-1.2b's;
+  H=8, D=64, not causal) shapes, and in float32 at those three and at
+  phi3-mini's head dimension (B=2, S=256, H=32, D=96, causal);
 * the SSD chunk's backward (``ssd_chunk_bwd_cuda``) at zamba2-1.2b's chunk
   (B=2, Q=256, H=64, P=N=64, B and C of head stride 0);
 
@@ -39,7 +40,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FLASH = {"zamba2 bf16": (2, 512, 32, 64, True, "bfloat16"),
          "pixtral bf16": (2, 1280, 32, 128, True, "bfloat16"),
          "whisper-enc bf16": (2, 1500, 8, 64, False, "bfloat16"),
-         "zamba2 f32": (2, 512, 32, 64, True, "float32")}
+         "zamba2 f32": (2, 512, 32, 64, True, "float32"),
+         "whisper-enc f32": (2, 1500, 8, 64, False, "float32"),
+         "pixtral f32": (2, 1280, 32, 128, True, "float32"),
+         "phi3 f32": (2, 256, 32, 96, True, "float32")}
 SSD = (2, 256, 64, 64, 64)     # B, Q, H, P, N
 
 
