@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only tp         # the build, then the sharded forward
     python3 chip_smoke.py --only a12        # the build, the mesh decode, the dry run,
                                             # the chunked MLA attention
+    python3 chip_smoke.py --only a15        # the build, MLA's kernels at deepseek-v2's
+                                            # shape, the families' training
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -102,9 +104,20 @@ drives the port's two paths through them:
   versions (logits compared), a profiled prefill and decode, each MoE
   layer's capacity drops and the card time of its router, dispatch,
   expert products and combine; float32 (tokens compared, every flash
-  launch on the 3xTF32 route); deepseek-v2's MLA forms and incremental
-  decode against the full forward at full width, MLA's plain attention
-  timed beside SDPA; the reduced three on the card against the CPU;
+  launch on the 3xTF32 route; deepseek-v2's prefill one MLA attention
+  kernel a layer); deepseek-v2's MLA forms and incremental decode against
+  the full forward at full width; MLA's attention kernels (forward and
+  backward, bf16 and float32) held against their plain versions at
+  deepseek-v2's shape and timed beside their bounds, the plain versions
+  and SDPA; the reduced three on the card against the CPU;
+* the families' training at published width (``family_train_phases``):
+  pixtral-12b (4 of 40 layers) float32 loss and gradients through the
+  kernels against the plain path, then profiled bf16 Trainer steps;
+  deepseek-v2 (2 of 60 layers, moments_fp32) profiled bf16 Trainer steps,
+  its peak beside the reckoned state (AdamW updates its large leaves in
+  slices, in place: an out-of-memory fails the run), two MLA attention
+  forward and two backward kernel calls a step and no flash launch; the
+  reduced three one step each, card against CPU;
 * the distribution layer, last (``elastic_phases``): a NCCL process group
   of one and ``slice_mesh()`` of the card; qwen1.5-0.5b at published width
   trained 4 bf16 steps (B = 2 x 256) through flash attention, saved to an
@@ -3657,6 +3670,21 @@ def mla_bound_ms(B, S, H, Dk, Dv, elem_bytes):
     3xTF32 rate (float32)."""
     n_bytes = elem_bytes * B * (S * H * Dk + S * Dk + S * Dv + S * H * Dv)
     flops = 2.0 * B * H * (S * (S + 1) // 2) * (Dk + Dv)
+    return _mla_bound(n_bytes, flops, elem_bytes)
+
+
+def mla_bwd_bound_ms(B, S, H, Dk, Dv, elem_bytes):
+    """Least time for MLA's attention backward (causal): q, k, v and do read
+    once with lse (float32), dq, dk and dv written once, against the five
+    products over the kept (query, key) pairs: S = Q.K^T, dQ = dS.K and dK
+    = dS^T.Q over Dk, dP = dO.V^T and dV = P^T.dO over Dv."""
+    n_bytes = (elem_bytes * B * (2 * S * H * Dk + 2 * S * Dk + 2 * S * Dv + S * H * Dv)
+               + 4 * B * H * S)
+    flops = 2.0 * B * H * (S * (S + 1) // 2) * (3 * Dk + 2 * Dv)
+    return _mla_bound(n_bytes, flops, elem_bytes)
+
+
+def _mla_bound(n_bytes, flops, elem_bytes):
     peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_TF32_FLOPS / 3
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -3768,6 +3796,7 @@ def serve_family(torch, arch, gen_seed=0):
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.launch.serve import Server
     from repro_torch.models.context import ModelCtx
     from repro_torch.models.inputs import sample_train_batch
@@ -3776,6 +3805,9 @@ def serve_family(torch, arch, gen_seed=0):
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS[arch])
     n_flash = 0 if cfg.use_mla else cfg.n_layers
+    # MLA's attention: one forward kernel a layer in the prefill; its
+    # one-token decode stays plain, as the reference's is
+    n_mla = cfg.n_layers if cfg.use_mla else 0
     phase(f"main path: {arch} served at published width, {cfg.n_layers} of "
           f"{full.n_layers} layers (bf16, then float32)")
     t0 = time.perf_counter()
@@ -3810,18 +3842,21 @@ def serve_family(torch, arch, gen_seed=0):
                     2)                                           # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = 0
+    kfa.LAUNCHES = kfa.WGMMA_LAUNCHES = kfa.TF32_LAUNCHES = kmla.LAUNCHES = 0
     t0 = time.perf_counter()
     out = server.generate(pre, FAMILY_NEW)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    mla_launches = kmla.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"generate: {FAMILY_BATCH} x {seq} positions -> {tuple(out.shape)} tokens "
           f"in {gen_s * 1e3:.1f} ms; flash launches {launches[0]}, on the bf16 "
-          f"wgmma route {launches[1]} (want {n_flash}); peak memory {peak_gb:.2f} GB")
-    if launches != (n_flash, n_flash):
-        fail(f"{arch} bf16 serving launched flash {launches} (want {n_flash})")
+          f"wgmma route {launches[1]} (want {n_flash}); MLA attention launches "
+          f"{mla_launches} (want {n_mla}); peak memory {peak_gb:.2f} GB")
+    if launches != (n_flash, n_flash) or mla_launches != n_mla:
+        fail(f"{arch} bf16 serving launched flash {launches} (want {n_flash}), MLA "
+             f"attention {mla_launches} (want {n_mla})")
     if not (int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
         fail(f"{arch} generated tokens out of range")
 
@@ -3877,6 +3912,7 @@ def serve_family(torch, arch, gen_seed=0):
     res = {"arch": arch, "layers": cfg.n_layers, "published_layers": full.n_layers,
            "parameters": n_params, "batch": FAMILY_BATCH, "positions": seq,
            "new_tokens": FAMILY_NEW, "flash_launches_per_prefill": launches[0],
+           "mla_launches_per_prefill": mla_launches,
            "prefill_ms": pre_ms, "prefill_plain_ms": pre_plain_ms,
            "decode_ms_per_step": decode_ms, "generate_s": gen_s,
            "peak_memory_gb": peak_gb, "bf16_logit_err": lg_err,
@@ -3917,10 +3953,11 @@ def serve_family(torch, arch, gen_seed=0):
                    device="cuda")
     pre32 = {k: (v.float() if isinstance(v, torch.Tensor) else v)
              for k, v in pre.items()}
-    kfa.LAUNCHES = kfa.TF32_LAUNCHES = 0
+    kfa.LAUNCHES = kfa.TF32_LAUNCHES = kmla.LAUNCHES = 0
     o32 = s32.generate(pre32, FAMILY_NEW)
     torch.cuda.synchronize()
     tf32 = (kfa.LAUNCHES, kfa.TF32_LAUNCHES)
+    mla32 = kmla.LAUNCHES
     o32_r = s32_r.generate(pre32, FAMILY_NEW)
     p32_patches = pre32.get("patch_embeds")
     with torch.inference_mode():
@@ -3931,15 +3968,151 @@ def serve_family(torch, arch, gen_seed=0):
     l32_err = (l32_k - l32_r).abs().max().item()
     print(f"float32 (weights cast from the bf16 ones): {same} of {o32.numel()} "
           f"greedy tokens equal, kernels against plain; flash launches "
-          f"{tf32[0]}, on the 3xTF32 route {tf32[1]} (want {n_flash}); prefill "
-          f"logits max abs diff {l32_err:.4g}")
-    if tf32 != (n_flash, n_flash) or same != o32.numel():
-        fail(f"{arch} float32 serving: flash launches {tf32} (want {n_flash}), "
-             f"{same} of {o32.numel()} tokens equal")
+          f"{tf32[0]}, on the 3xTF32 route {tf32[1]} (want {n_flash}), MLA attention "
+          f"{mla32} (want {n_mla}); prefill logits max abs diff {l32_err:.4g}")
+    if tf32 != (n_flash, n_flash) or mla32 != n_mla or same != o32.numel():
+        fail(f"{arch} float32 serving: flash launches {tf32} (want {n_flash}), MLA "
+             f"{mla32} (want {n_mla}), {same} of {o32.numel()} tokens equal")
     res.update({"f32_flash_launches_per_prefill": tf32[1], "f32_tokens_equal": same,
                 "f32_tokens": o32.numel(), "f32_logit_err": l32_err})
     del s32, s32_r, o32, o32_r
     return res, cfg32, p32
+
+
+MLA_TOL = {"float32": 1e-4, "bfloat16": 1e-2}   # of each output's largest (BWD_TOL)
+
+
+def mla_kernel_phase(torch, B, S, gen) -> dict:
+    """MLA's absorbed attention at deepseek-v2's shape (B x S positions, 128
+    heads on one shared key head 576 wide and value head 512 wide, causal,
+    its scale) in bf16 and float32: the kernels (the forward with its lse,
+    the backward) against their plain versions (``ref``'s flash forward and
+    backward at one K/V head), each call repeated bitwise; then each timed
+    by CUDA events and by card time beside its bound, the plain version,
+    the model's plain route (``latent_attention`` with ``kernels="ref"``)
+    and SDPA with ``enable_gqa`` (its forward, and its backward alone).
+    Returns the kernels line's two rows (forward, backward)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    from repro_torch.models import mla
+    from repro_torch.models.context import null_ctx
+
+    phase("MLA's attention kernels at deepseek-v2's shape against their plain "
+          "versions, then timed beside the plain versions and SDPA (CUDA events, "
+          "card time)")
+    cfg = get_config("deepseek-v2-236b")
+    H, R, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    Dk, Dv, scale = R + qr, R, mla._scale(cfg)
+    shape = {"B": B, "S": S, "H": H, "Dk": Dk, "Dv": Dv, "causal": True}
+    rows = {
+        d: {"name": f"mla_attention{'' if d == 'fwd' else '_bwd'}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+            "replaces": "src/repro/models/mla.py:130 (attention.attention on MLA's "
+                        "absorbed form, XLA code: no Pallas kernel)",
+            "shape": shape}
+        for d in ("fwd", "bwd")}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        q = torch.randn(B, S, H, Dk, generator=gen).to("cuda", dt)
+        kk = torch.randn(B, S, Dk, generator=gen).to("cuda", dt)
+        vv = kk[..., :R].contiguous()     # the model's v: c_kv, k's first R columns
+        do = torch.randn(B, S, H, Dv, generator=gen).to("cuda", dt)
+        n0 = kmla.LAUNCHES, kmla.BWD_LAUNCHES
+        o, lse = kmla.mla_attention_lse_cuda(q, kk, vv, True, scale)
+        grads = kmla.mla_attention_bwd_cuda(q, kk, vv, lse, do, True, scale)
+        o2, lse2 = kmla.mla_attention_lse_cuda(q, kk, vv, True, scale)
+        grads2 = kmla.mla_attention_bwd_cuda(q, kk, vv, lse, do, True, scale)
+        launches = (kmla.LAUNCHES - n0[0], kmla.BWD_LAUNCHES - n0[1])
+        o_r, lse_r = kmla.mla_fwd_lse_ref(q, kk, vv, True, scale)
+        g_r = kmla.mla_bwd_ref(q, kk, vv, lse, do, True, scale)
+        torch.cuda.synchronize()
+        errs = {"o": rel(o, o_r), "lse": rel(lse, lse_r),
+                **{n: rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, g_r)}}
+        abs_fwd = (o.float() - o_r.float()).abs().max().item()
+        abs_bwd = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(grads, g_r))
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *grads))
+        print(f"{name}: (B, S, H, Dk, Dv) = {(B, S, H, Dk, Dv)} causal, of each "
+              f"output's largest: o {errs['o']:.3g}, lse {errs['lse']:.3g}, dq "
+              f"{errs['dq']:.3g}, dk {errs['dk']:.3g}, dv {errs['dv']:.3g} (tol "
+              f"{MLA_TOL[name]}); max abs err forward {abs_fwd:.3g}, backward "
+              f"{abs_bwd:.3g}; repeated bitwise {same}; finite {finite}; launches "
+              f"(forward, backward) {launches}")
+        if not (max(errs.values()) <= MLA_TOL[name] and same and finite
+                and launches == (2, 2)):
+            fail(f"MLA's attention kernels at deepseek-v2's shape, {name}: {errs}, "
+                 f"repeated bitwise {same}, finite {finite}, launches {launches}")
+        del o2, lse2, grads2, o_r, lse_r, g_r
+
+        qt, kt, vt = (t.detach().requires_grad_(True)
+                      for t in (q.transpose(1, 2), kk[:, None], vv[:, None]))
+        dot = do.transpose(1, 2)
+        ctx_ref = null_ctx(kernels="ref")
+        calls = {
+            "fwd": {"kernel": lambda: kmla.mla_attention_cuda(q, kk, vv, True, scale),
+                    "plain": lambda: kmla.mla_fwd_lse_ref(q, kk, vv, True, scale),
+                    "route_plain": lambda: mla.latent_attention(q, kk, vv, True, scale,
+                                                                ctx_ref)},
+            "bwd": {"kernel": lambda: kmla.mla_attention_bwd_cuda(q, kk, vv, lse, do, True,
+                                                                  scale),
+                    "plain": lambda: kmla.mla_bwd_ref(q, kk, vv, lse, do, True, scale)}}
+        try:
+            o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                                 enable_gqa=True)
+            lib_err = rel(o_s.transpose(1, 2), o)
+            calls["fwd"]["library"] = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+            calls["bwd"]["library"] = lambda: torch.autograd.grad(
+                o_s, (qt, kt, vt), dot, retain_graph=True)
+            refused = None
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            # SDPA refused the shapes: recorded, no library time
+            refused, lib_err = str(err).splitlines()[0][:200], None
+        eb = torch.finfo(dt).bits // 8
+        bounds = {"fwd": mla_bound_ms(B, S, H, Dk, Dv, eb),
+                  "bwd": mla_bwd_bound_ms(B, S, H, Dk, Dv, eb)}
+        for d, fns in calls.items():
+            r = {"max_abs_err": abs_fwd if d == "fwd" else abs_bwd,
+                 "errors": errs, "bound_ms": bounds[d][0], "bound_by": bounds[d][1]}
+            for what, fn in fns.items():
+                fast = what in ("kernel", "library")
+                r[f"{what}_ms"] = cuda_ms(fn, iters=50 if fast else 10,
+                                          warmup=5 if fast else 2)
+                r[f"{what}_device_us"] = device_us_per_call(
+                    fn, iters=20 if fast else 5, warmup=3 if fast else 1,
+                    what=f"of MLA's {d} {what}, {name}")
+            r["library_err"], r["library_refused"] = lib_err, refused
+            print(f"  {d} {name}: kernel {r['kernel_ms']:.4f} ms (CUDA events), card "
+                  f"{r['kernel_device_us']} us; bound {r['bound_ms']:.4g} ms "
+                  f"({r['bound_by']}), {r['kernel_ms'] / r['bound_ms']:.1f}x; plain "
+                  f"{r['plain_ms']:.4f} ms, card {r['plain_device_us']} us"
+                  + (f"; the model's plain route {r['route_plain_ms']:.4f} ms, card "
+                     f"{r['route_plain_device_us']} us" if d == "fwd" else "")
+                  + (f"; SDPA (enable_gqa) {r['library_ms']:.4f} ms, card "
+                     f"{r['library_device_us']} us ({lib_err:.3g} from the kernel's o)"
+                     if refused is None else f"; SDPA refused: {refused}"))
+            rows[d][name] = r
+        del qt, kt, vt, calls
+        torch.cuda.empty_cache()
+    for d, row in rows.items():
+        # the line's numbers: the bf16 route's (the training and serving type)
+        bf = row["bfloat16"]
+        row.update({"max_abs_err": max(row[n]["max_abs_err"] for n in ("bfloat16",
+                                                                        "float32")),
+                    "ms": bf["kernel_ms"], "plain_ms": bf["plain_ms"],
+                    "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+                    "library_ms": bf.get("library_ms"), "device_us": bf["kernel_device_us"],
+                    "library": "torch.nn.functional.scaled_dot_product_attention "
+                               "(enable_gqa)" + (", its backward" if d == "bwd" else "")})
+    return rows
 
 
 def family_phases(torch) -> dict:
@@ -3949,15 +4122,16 @@ def family_phases(torch) -> dict:
     kernels' D = 128 register spills from the build; grok-1 (2 layers),
     pixtral-12b (40 layers) and deepseek-v2 (3 layers) served at published
     width (``serve_family``); deepseek's MLA checks in float32 at full width
-    and its plain attention timed; the reduced three on the card against
-    the CPU.  Returns the slice's fields of the two flash rows."""
+    and MLA's attention kernels held and timed (``mla_kernel_phase``); the
+    reduced three on the card against the CPU.  Returns the slice's fields
+    of the two flash rows and the MLA kernels' two rows."""
     import dataclasses
 
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.launch.serve import Server
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import mla
@@ -4082,49 +4256,8 @@ def family_phases(torch) -> dict:
     del full_lg, lg_pre, cache, lg_dec, p32, m
     torch.cuda.empty_cache()
 
-    phase("MLA's plain attention at deepseek-v2's shape (CUDA events, card time)")
-    cfg = get_config("deepseek-v2-236b")
-    H, R, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    mla_t = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q = torch.randn(B, S, H, R + qr, generator=gen).to("cuda", dt)
-        kk = torch.randn(B, S, R + qr, generator=gen).to("cuda", dt)
-        vv = kk[..., :R]
-        scale = mla._scale(cfg)
-
-        def plain():
-            return mla.latent_attention(q, kk, vv, True, scale, null_ctx())
-        qt, kt, vt = q.transpose(1, 2), kk[:, None], vv[:, None]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  scale=scale, enable_gqa=True)
-        r = {"ms": cuda_ms(plain, iters=50, warmup=5),
-             "device_us": device_us_per_call(plain, iters=20, warmup=3,
-                                             what=f"of MLA's plain attention, {names[dt]}")}
-        try:
-            o_s = sdpa().transpose(1, 2)
-            r["library_err"] = (o_s.float() - plain().float()).abs().max().item()
-            r["library_ms"] = cuda_ms(sdpa, iters=50, warmup=5)
-            r["library_device_us"] = device_us_per_call(
-                sdpa, iters=20, warmup=3, what=f"of SDPA at MLA's shape, {names[dt]}")
-            lib = (f"SDPA (Dk {R + qr} != Dv {R}, enable_gqa) {r['library_ms']:.4f} "
-                   f"ms, card {r['library_device_us']} us, {r['library_err']:.3g} "
-                   f"from the plain version")
-        except (RuntimeError, ValueError, NotImplementedError) as err:
-            # SDPA refused the shapes: recorded, the plain version stands
-            r["library_ms"] = None
-            r["library_refused"] = str(err).splitlines()[0][:200]
-            lib = f"SDPA refused: {r['library_refused']}"
-        r["bound_ms"], r["bound_by"] = mla_bound_ms(B, S, H, R + qr, R,
-                                                    torch.finfo(dt).bits // 8)
-        r["shape"] = {"B": B, "S": S, "H": H, "Dk": R + qr, "Dv": R, "causal": True,
-                      "dtype": names[dt]}
-        print(f"MLA plain attention {names[dt]} (B,S,H,Dk,Dv) = {(B, S, H, R + qr, R)} "
-              f"causal: {r['ms']:.4f} ms (CUDA events), card {r['device_us']} us; "
-              f"bound {r['bound_ms']:.4g} ms ({r['bound_by']}); {lib}")
-        mla_t[names[dt]] = r
-    out["flash"]["mla_plain_attention"] = mla_t
+    out["mla"] = mla_kernel_phase(torch, B, S, gen)
+    out["mla"]["fwd"]["launches"] = fam["deepseek-v2-236b"]["mla_launches_per_prefill"]
 
     # ------------------------------ the reduced three, card against CPU
     phase("the reduced deepseek-v2, grok-1 and pixtral-12b (float32) on the "
@@ -4137,10 +4270,10 @@ def family_phases(torch) -> dict:
         n = 13 + (rc.n_patches if rc.family == "vlm" else 0)
         smp = sample_train_batch(np.random.default_rng(5), rc, B, n)
         pre = {k: v for k, v in smp.items() if k != "labels"}
-        kfa.LAUNCHES = 0
+        kfa.LAUNCHES = kmla.LAUNCHES = 0
         tok_card = Server(rc, p_card, max_len=n + 16, device="cuda").generate(pre, 12)
         torch.cuda.synchronize()
-        launches = kfa.LAUNCHES
+        launches, mla_launches = kfa.LAUNCHES, kmla.LAUNCHES
         tok_cpu = Server(rc, p_cpu, max_len=n + 16, device="cpu").generate(pre, 12)
         pre_t = {"tokens": torch.as_tensor(pre["tokens"]).long(),
                  **({"patch_embeds": pre["patch_embeds"]} if rc.family == "vlm" else {})}
@@ -4150,12 +4283,14 @@ def family_phases(torch) -> dict:
         err = (lc.cpu() - lh).abs().max().item()
         same = bool(torch.equal(tok_card.cpu(), tok_cpu))
         want = 0 if rc.use_mla else rc.n_layers
+        want_mla = rc.n_layers if rc.use_mla else 0
         print(f"  {arch} reduced: tokens equal {same}, forward logits max abs diff "
               f"{err:.3g} (tol {CARD_CPU_LOGIT_TOL}); flash launches {launches} "
-              f"(want {want})")
-        if not (same and err <= CARD_CPU_LOGIT_TOL and launches == want):
+              f"(want {want}), MLA attention launches {mla_launches} (want {want_mla})")
+        if not (same and err <= CARD_CPU_LOGIT_TOL and launches == want
+                and mla_launches == want_mla):
             fail(f"{arch} reduced on the card against the CPU: tokens equal {same}, "
-                 f"logits {err:.3g}, flash launches {launches}")
+                 f"logits {err:.3g}, flash launches {launches}, MLA {mla_launches}")
         reduced[arch] = {"tokens_equal": same, "logit_err": err}
 
     wall = time.perf_counter() - t_all
@@ -4216,14 +4351,16 @@ def _train_parts(torch, model, opt, state, batch, ctx):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         p = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
         with record_function("train.forward"):
-            loss, _ = model.loss(p, batch, ctx)
+            loss, metrics = model.loss(p, batch, ctx)
             torch.cuda.synchronize()
         with record_function("train.backward"):
             grads = torch.autograd.grad(loss, tree_leaves(p))
             torch.cuda.synchronize()
         loss = float(loss.detach())
         g = tree_unflatten(state["params"], list(grads))
-        del p, grads
+        # the graph (its leaves share the parameters' storage) goes before
+        # the donated update, as the Trainer's step lets it go
+        del p, grads, metrics
         with record_function("train.update"):
             new = opt.update(g, state["opt"], state["params"], donate=True)
             torch.cuda.synchronize()
@@ -4239,10 +4376,12 @@ def _train_parts(torch, model, opt, state, batch, ctx):
 def a15_trainer(torch, arch, cfg, B, S):
     """Profiled bf16 ``Trainer`` steps of ``cfg`` on one fixed batch: a
     warm-up step, two steps under the profiler (the second measured), one
-    step in its parts (forward, backward, update) -> the numbers, or
-    {"oom": ...} where a step runs out of the card's memory."""
+    step in its parts (forward, backward, update) -> the numbers.  A step
+    that runs out of the card's memory fails the run."""
     from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.launch.train import Trainer, batch_to
+    from repro_torch.optim import optimizers
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4262,7 +4401,11 @@ def a15_trainer(torch, arch, cfg, B, S):
           f"state {state_gb:.2f} GB ({state_gb * 1e9 / n_params:.1f} B a parameter), "
           f"drawn on the card in {init_s:.2f} s; B = {B} x {S} positions, one "
           f"fixed batch, lr {A15_LR}")
-    before = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES)
+    before = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kmla.LAUNCHES, kmla.BWD_LAUNCHES)
+    # the leaves AdamW updates in slices, and where they lie: a donated
+    # step writes them in place
+    big = {p: t.data_ptr() for p, t in leaf_paths_of(tr.state)
+           if t.numel() > optimizers.SLICE_ELEMS}
     try:
         t0 = time.perf_counter()
         tr.run_steps(1)
@@ -4270,14 +4413,15 @@ def a15_trainer(torch, arch, cfg, B, S):
         warm_ms = (time.perf_counter() - t0) * 1e3
         wall, seen = profiled(torch, lambda: tr.run_steps(1))
     except torch.cuda.OutOfMemoryError as err:
-        res["oom"] = {"message": str(err).splitlines()[0][:400],
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "steps_done": tr.step}
-        del err
-        print(f"  out of the card's memory in step {tr.step + 1}: peak "
-              f"{res['oom']['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); "
-              f"{res['oom']['message']}")
-        return res
+        msg = str(err).splitlines()[0][:400]
+        fail(f"{cfg.name} at {cfg.n_layers} layers ran out of the card's memory in "
+             f"step {tr.step + 1}: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+             f"(torch.cuda.max_memory_allocated); {msg}")
+    # (no name may keep the state's leaves: the donated update below writes
+    # in place only leaves that nothing else holds)
+    in_place = sum(t.data_ptr() == big[p] for p, t in leaf_paths_of(tr.state) if p in big)
+    print(f"  {len(big)} leaves over AdamW's slice cut ({optimizers.SLICE_ELEMS:,} "
+          f"elements), {in_place} of them updated in place over {tr.step} steps")
     busy = busy_us(seen) / 1e6
     state, loss_parts, part_busy, n_kern = _train_parts(
         torch, tr.model, tr.optimizer, tr.state,
@@ -4286,6 +4430,7 @@ def a15_trainer(torch, arch, cfg, B, S):
     del state
     steps = tr.step + 1
     flash = (kfa.LAUNCHES - before[0], kfa.WGMMA_LAUNCHES - before[1])
+    mla_n = (kmla.LAUNCHES - before[2], kmla.BWD_LAUNCHES - before[3])
     losses = list(tr.metrics_vals) + [loss_parts]
     res.update({
         "losses": losses, "warm_step_ms": warm_ms, "step_ms": wall * 1e3,
@@ -4294,6 +4439,9 @@ def a15_trainer(torch, arch, cfg, B, S):
         "busy_ms_by_part": part_busy, "kernels_in_parts_step": n_kern,
         "flash_launches_per_step": flash[0] / steps,
         "wgmma_launches_per_step": flash[1] / steps,
+        "mla_launches_per_step": mla_n[0] / steps,
+        "mla_bwd_launches_per_step": mla_n[1] / steps,
+        "sliced_leaves": len(big), "sliced_leaves_in_place": in_place,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     print(f"  losses over {steps} steps {[round(x, 5) for x in losses]}; a step "
           f"{wall * 1e3:.2f} ms under the profiler ({warm_ms:.2f} ms the first), "
@@ -4301,8 +4449,9 @@ def a15_trainer(torch, arch, cfg, B, S):
           f"{100 * res['idle_share']:.2f}%; busy by part (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in part_busy.items())
           + f"; flash launches a step {res['flash_launches_per_step']:g} "
-          f"(bf16 wgmma {res['wgmma_launches_per_step']:g}); peak "
-          f"{res['peak_gb']:.2f} GB")
+          f"(bf16 wgmma {res['wgmma_launches_per_step']:g}), MLA forward "
+          f"{res['mla_launches_per_step']:g}, backward "
+          f"{res['mla_bwd_launches_per_step']:g}; peak {res['peak_gb']:.2f} GB")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         fail(f"{cfg.name} bf16 training at published width: losses {losses} not "
              "finite or not falling on a fixed batch")
@@ -4319,19 +4468,20 @@ def family_train_phases(torch) -> dict:
     Model.loss and its gradients through the kernels (the 3xTF32 flash
     route at D = 128, the plain backward) against the plain path, then
     profiled bf16 Trainer steps at its float32 master; deepseek-v2 (2
-    layers: the dense layer and a MoE layer of 160 experts, MLA's chunked
-    backward) in bf16 at moments_fp32, its state reckoned beside the
-    measured peak, its Trainer steps or, where a step runs out of the
-    card's memory, that finding and the loss and gradients alone; the
-    reduced grok-1, deepseek-v2 and pixtral-12b one bf16 Trainer step each
-    at their full configs' optimizer precision, card against CPU.  Returns
-    the phase's fields of the flash rows."""
+    layers: the dense layer and a MoE layer of 160 experts, MLA's attention
+    on its kernels forward and backward) in bf16 at moments_fp32, its state
+    reckoned beside the measured peak, its profiled Trainer steps (an
+    out-of-memory fails the run); the reduced grok-1, deepseek-v2 and
+    pixtral-12b one bf16 Trainer step each at their full configs'
+    optimizer precision, card against CPU.  Returns the phase's fields of
+    the flash rows and the deepseek step's MLA launches."""
     import dataclasses
     import gc
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.launch.train import Trainer, batch_to
     from repro_torch.models.context import null_ctx
     from repro_torch.models.model import Model
@@ -4410,8 +4560,6 @@ def family_train_phases(torch) -> dict:
     phase(f"A15: {arch} ({cfg.n_layers} layers, {cfg.dtype}, float32 master) "
           f"profiled Trainer steps")
     fam[arch] = a15_trainer(torch, arch, cfg, B, S)
-    if "oom" in fam[arch]:
-        fail(f"{arch} at {cfg.n_layers} layers ran out of the card's memory")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4426,48 +4574,19 @@ def family_train_phases(torch) -> dict:
           f"{n * 12 / 1e9:.2f} GB before any activation or update temporary")
     res = a15_trainer(torch, arch, dcfg, B, A15_TEXT)
     res["state_reckoned_gb"] = reckoned
+    print(f"  peak {res['peak_gb']:.2f} GB against the reckoned state "
+          f"{reckoned:.2f} GB ({n * 12 / 1e9:.2f} GB with the gradients)")
+    # MLA's attention: one forward and one backward kernel call a layer and
+    # step; no flash launch (deepseek-v2 has no standard attention)
+    want = (dcfg.n_layers, dcfg.n_layers)
+    got = (res["mla_launches_per_step"], res["mla_bwd_launches_per_step"])
+    if got != want or res["flash_launches_per_step"] != 0:
+        fail(f"{arch} training step: MLA launches (forward, backward) a step {got} "
+             f"(want {want}), flash launches {res['flash_launches_per_step']} (want 0)")
+    out["mla"] = {"a15_step": {k: res[k] for k in (
+        "mla_launches_per_step", "mla_bwd_launches_per_step", "step_ms", "peak_gb")}}
     gc.collect()
     torch.cuda.empty_cache()
-    if "oom" in res:
-        phase(f"A15: {arch} ({dcfg.n_layers} layers, bf16): the loss and its "
-              "gradients alone, profiled (the update is held at the reduced "
-              "config below)")
-        torch.cuda.reset_peak_memory_stats()
-        model = Model(dcfg)
-        params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
-        batch = batch_to(SyntheticLMDataset(dcfg, B, A15_TEXT, seed=0).get_batch(0),
-                         "cuda")
-        dctx = null_ctx(attn_chunk=min(512, A15_TEXT), remat="none")
-        kept = {}
-
-        def lg():
-            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-            n0 = kfa.LAUNCHES, kfa.BWD_LAUNCHES
-            loss, _ = model.loss(p, batch, dctx)
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-            kept["flash"] = (kfa.LAUNCHES - n0[0], kfa.BWD_LAUNCHES - n0[1])
-            kept["loss"] = float(loss.detach())
-            kept["finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
-
-        wall, seen = profiled(torch, lg)
-        busy = busy_us(seen) / 1e6
-        res["loss_and_grads"] = {
-            "loss": kept["loss"], "finite": kept["finite"], "ms": wall * 1e3,
-            "kernels": len(seen), "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        print(f"  loss {kept['loss']:.5f}, gradients finite {kept['finite']}; "
-              f"{wall * 1e3:.2f} ms under the profiler, {len(seen)} kernels, card "
-              f"busy {busy * 1e3:.2f} ms, idle {100 * (1 - busy / wall):.2f}%; peak "
-              f"{res['loss_and_grads']['peak_gb']:.2f} GB")
-        if not (math.isfinite(kept["loss"]) and kept["finite"]):
-            fail(f"{arch} bf16 loss and gradients at {dcfg.n_layers} layers not finite")
-        if kept["flash"] != (0, 0):
-            fail(f"{arch}: MLA's attention reached the flash kernels {kept['flash']}")
-        res["loss_and_grads"]["flash_launches"] = kept["flash"]
-        del params, batch
-        gc.collect()
-        torch.cuda.empty_cache()
     fam[arch] = res
 
     # --------------------------- the reduced three: card against the CPU
@@ -4492,7 +4611,7 @@ def family_train_phases(torch) -> dict:
                                     ("f32", "float32", None)):
             rc = dataclasses.replace(base, dtype=dtype)
             states, losses = {}, {}
-            before = kfa.LAUNCHES
+            before = kfa.LAUNCHES, kmla.LAUNCHES, kmla.BWD_LAUNCHES
             for dev in ("cuda", "cpu"):
                 tr = Trainer(rc, batch=B, seq=seq, lr=A15_LR, seed=0, val_every=1,
                              device=dev, ctx=null_ctx(attn_chunk=min(512, seq),
@@ -4501,7 +4620,8 @@ def family_train_phases(torch) -> dict:
                 start = {p: t.detach().cpu() for p, t in leaf_paths_of(tr.state["params"])}
                 tr.run_steps(1)
                 states[dev], losses[dev] = tr.state, tr.metrics_vals[0]
-            launches = kfa.LAUNCHES - before
+            launches = kfa.LAUNCHES - before[0]
+            mla_n = (kmla.LAUNCHES - before[1], kmla.BWD_LAUNCHES - before[2])
             card = dict(leaf_paths_of(states["cuda"]))
             errs, change = {}, {}
             for path, want in leaf_paths_of(states["cpu"]):
@@ -4518,19 +4638,24 @@ def family_train_phases(torch) -> dict:
                         change[kind] = (c, path)
             loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
             reduced[arch][run] = {"loss_rel": loss_rel, "flash_launches": launches,
+                                  "mla_launches": mla_n,
                                   "worst_norm_rel": {k: v[0] for k, v in errs.items()},
                                   "worst_leaf": {k: v[1] for k, v in errs.items()},
                                   "worst_change_rel": {k: v[0] for k, v in change.items()},
                                   "worst_change_leaf": {k: v[1] for k, v in change.items()}}
             print(f"  {rc.name} ({rc.opt_precision}) {run}: loss card "
                   f"{losses['cuda']:.6f}, CPU {losses['cpu']:.6f} ({loss_rel:.3g}); "
-                  f"card flash launches {launches}; worst leaf of each part: "
+                  f"card flash launches {launches}, MLA (forward, backward) {mla_n}; "
+                  f"worst leaf of each part: "
                   + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in errs.items())
                   + "; worst change: "
                   + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in change.items()))
             want_fa = 0 if (rc.use_mla or kernels == "ref") else rc.n_layers
             if launches != want_fa:
                 bad.append(f"{arch} {run} flash launches {launches} (want {want_fa})")
+            want_mla = ((rc.n_layers,) * 2 if rc.use_mla and kernels is None else (0, 0))
+            if mla_n != want_mla:
+                bad.append(f"{arch} {run} MLA launches {mla_n} (want {want_mla})")
             if run == "bf16_plain_attention":
                 continue
             if not loss_rel <= A15_REDUCED_TOL:
@@ -5686,7 +5811,9 @@ def main() -> None:
         # decode's and the dry run's, or the families' training phases
         # alone, after the build
         if only == "a15":
-            alone = family_train_phases(torch)
+            alone = {"mla_kernels": mla_kernel_phase(torch, FAMILY_BATCH, FAMILY_PROMPT,
+                                                     torch.Generator().manual_seed(22)),
+                     **family_train_phases(torch)}
         elif only == "a12":
             measured = mesh_train_step(torch)
             child = start_dryrun_child()
@@ -6011,10 +6138,16 @@ def main() -> None:
     families = family_phases(torch)
     flash_row.update(families["flash"])
     flash_f32_row.update(families["flash_f32"])
+    mla_rows = families["mla"]
     # their training at published width next, with the card to itself
     a15 = family_train_phases(torch)
     flash_row.update(a15["flash"])
     flash_f32_row.update(a15["flash_f32"])
+    step = a15["mla"]["a15_step"]
+    mla_rows["fwd"]["launches_per_a15_step"] = step["mla_launches_per_step"]
+    mla_rows["bwd"]["launches"] = step["mla_bwd_launches_per_step"]
+    mla_rows["bwd"]["paths"] = ("deepseek-v2's A15 bf16 Trainer step (launches a step); "
+                                "the forward row's launches are its 3-layer prefill's")
     # the distribution layer: a NCCL group of one over the card
     elastic = elastic_phases(torch)
     flash_row.update(elastic["flash"])
@@ -6044,7 +6177,7 @@ def main() -> None:
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row,
-                                  *bwd_rows]}))
+                                  *bwd_rows, mla_rows["fwd"], mla_rows["bwd"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

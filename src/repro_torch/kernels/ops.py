@@ -6,7 +6,8 @@ fallback from the kernel to the plain version.  ``force="ref"`` runs the
 plain version on any device, for tests and ``chip_smoke.py``; it trains by
 autograd of the plain version.  Otherwise inputs that need a gradient take
 the kernel's autograd Function (``LstmStack``, ``FlashAttention``,
-``SsdChunk``), whose forward and backward are kernels on the card.
+``MlaAttention``, ``SsdChunk``), whose forward and backward are kernels on
+the card.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from repro_torch.kernels.flash_attention_cuda import (FlashAttention,
                                                       flash_attention_cuda)
 from repro_torch.kernels.lstm_cell import (lstm_cell_cuda, lstm_stack_cuda,
                                            lstm_stack_train)
+from repro_torch.kernels.mla_attention_cuda import (MlaAttention, mla_attention_cuda,
+                                                    mla_fwd_lse_ref)
 from repro_torch.kernels.soa_step_cuda import ewma_fold_cuda, soa_step_fused_cuda
 from repro_torch.kernels.ssd_chunk_cuda import SsdChunk, ssd_chunk_cuda
 
@@ -96,6 +99,21 @@ def flash_attention(q, k, v, causal: bool = True, scale=None, chunk=None,
     if mode == "ref":
         return ref.flash_attention_ref(q, k, v, causal, scale, q_offset)
     return flash_attention_cuda(q, k, v, causal, scale, q_offset)
+
+
+def mla_attention(q, k, v, causal: bool = True, scale=None, chunk=None,
+                  force: str | None = None):
+    """MLA's absorbed attention: q (B, Sq, H, Dk) against one shared key
+    head k (B, Sk, Dk) and value head v (B, Sk, Dv) -> (B, Sq, H, Dv) in
+    q's type.  force: None (by device) | 'ref' | 'cuda'.  Inputs that need
+    a gradient take ``MlaAttention`` (unless ``force='ref'``), whose plain
+    backward runs over key chunks of ``chunk`` (None: one chunk)."""
+    mode = _mode(q, force)
+    if force != "ref" and needs_grad(q, k, v):
+        return MlaAttention.apply(q, k, v, causal, scale, chunk, mode == "cuda")
+    if mode == "ref":
+        return mla_fwd_lse_ref(q, k, v, causal, scale, chunk)[0]
+    return mla_attention_cuda(q, k, v, causal, scale)
 
 
 def ssd_chunk(x, dt, A, B_in, C_in, state, force: str | None = None):

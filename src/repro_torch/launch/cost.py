@@ -9,6 +9,7 @@ one rank runs and counts, as ``hlo_cost.module_cost`` does:
     ``baddbmm``) at 2 |out| |contraction| (``hlo_cost._dot_flops``), and
     each hand-written kernel's operator at its own count
     (``flash_attention_cuda.flash_cost`` and ``flash_bwd_cost``,
+    ``mla_attention_cuda.mla_cost`` and ``mla_bwd_cost``,
     ``ssd_chunk_cuda.ssd_chunk_cost`` and ``ssd_chunk_bwd_cost``);
   * bytes: operands + result of each operator that materializes one (views,
     factories of uninitialized storage and waits move none); a kernel's
@@ -58,6 +59,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.kernels.flash_attention_cuda import flash_bwd_cost, flash_cost
+from repro_torch.kernels.mla_attention_cuda import mla_bwd_cost, mla_cost
 from repro_torch.kernels.ssd_chunk_cuda import ssd_chunk_bwd_cost, ssd_chunk_cost
 
 aten = torch.ops.aten
@@ -133,6 +135,11 @@ def _kernel_flops(func, args) -> float:
         q_offset = args[7] if len(args) > 7 else 0
         return flash_bwd_cost(B, Sq, k.shape[1], H, D, args[5], q.element_size(),
                               q_offset)[0]
+    if name in ("mla_attention", "mla_attention_lse", "mla_attention_bwd"):
+        q, k, v = args[0], args[1], args[2]
+        B, Sq, H, Dk = q.shape
+        cost = mla_bwd_cost if name == "mla_attention_bwd" else mla_cost
+        return cost(B, Sq, k.shape[1], H, Dk, v.shape[2], args[-2], q.element_size())[0]
     if name in ("ssd_chunk", "ssd_chunk_bwd"):
         x, B_in = args[0], args[3]
         Bb, Q, H, P = x.shape

@@ -52,9 +52,9 @@ def _plain(t):
 
 
 def loss_and_grads(model: Model, params, batch, ctx: ModelCtx):
-    """(loss, metrics, grads): ``Model.loss`` and the gradient of every
-    parameter leaf (zeros where a leaf is unused), each placed like its
-    parameter on a mesh."""
+    """(loss, metrics, grads): ``Model.loss`` (detached) and the gradient of
+    every parameter leaf (zeros where a leaf is unused), each placed like
+    its parameter on a mesh."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(params)
     with torch.enable_grad():
@@ -63,7 +63,12 @@ def loss_and_grads(model: Model, params, batch, ctx: ModelCtx):
     grads = [torch.zeros_like(p) if g is None
              else g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor)
              else g for p, g in zip(leaves, grads)]
-    return loss, metrics, tree_unflatten(params, grads)
+    # the loss and metrics detached: their graph (whose leaves share the
+    # parameters' storage) goes with this frame, so that a donated update
+    # finds the parameters held by nothing else
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
 def make_train_step(model: Model, optimizer: Optimizer, ctx: ModelCtx,

@@ -13,16 +13,19 @@ The port of ``repro.models.mla``, with its two exactly equivalent forms:
   ``ctx.rules["mla_materialized"]``): per-head K (qk_nope + qk_rope wide)
   and V (v_head_dim wide).
 
-Neither form runs the flash kernel, by design.  The JAX package computes
-both with ``attention.attention`` (its chunked flash VJP where the key
-length is a multiple of ``ctx.attn_chunk``, else the naive path: XLA code,
-no Pallas kernel), and the kernel takes k and v of one shape and head dims
-up to 128 only.  The port computes both with plain float32 scores and
-softmax routed as the reference routes them
-(``attention.plain_attention``: ``ChunkedAttention`` over key chunks,
-which holds one (S, chunk) score tile at a time in either pass, or
-``naive_attention``) on every device; which form runs is decided by
-``cfg.use_mla`` alone.
+Neither form runs the flash kernel, which takes k and v of one shape and
+head dims up to 128 only.  The JAX package computes both with
+``attention.attention`` (its chunked flash VJP where the key length is a
+multiple of ``ctx.attn_chunk``, else the naive path: XLA code, no Pallas
+kernel).  On the card the absorbed form's attention runs the hand-written
+MLA kernels (``kops.mla_attention``, ``kernels/csrc/mla_attention.cu``:
+one shared key and value head, forward and backward); the materialized
+form (a tests and ablation path) and the one-token decode stay plain, as
+everything does on the CPU: float32 scores and softmax routed as the
+reference routes them (``attention.plain_attention``: ``ChunkedAttention``
+over key chunks, which holds one (S, chunk) score tile at a time in
+either pass, or ``naive_attention``).  Which form runs is decided by
+``cfg.use_mla`` and ``ctx.rules`` alone.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.collectives import P, all_gather_ordered, local_map_summed
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, tp
 
@@ -88,11 +92,17 @@ def _absorbed_q(q_nope, q_rope, params):
 
 def latent_attention(q_eff, k_eff, v_eff, causal: bool, scale: float, ctx):
     """Attention of H query heads against one shared key head and one shared
-    value head, plain: q_eff (B,S,H,Dk), k_eff (B,Sk,Dk), v_eff (B,Sk,Dv) ->
-    (B,S,H,Dv) in q's type.  Float32 scores and softmax over the shared head
-    (one group of G = H), the key never repeated per head; over key chunks
-    of ``ctx.attn_chunk`` where the JAX package chunks them
+    value head: q_eff (B,S,H,Dk), k_eff (B,Sk,Dk), v_eff (B,Sk,Dv) ->
+    (B,S,H,Dv) in q's type.  On the card (or with ``ctx.kernels ==
+    "cuda"``) the hand-written kernels (``kops.mla_attention``: forward,
+    and backward through ``MlaAttention``); on the CPU (or with
+    ``ctx.kernels == "ref"``) plain: float32 scores and softmax over the
+    shared head (one group of G = H), the key never repeated per head, over
+    key chunks of ``ctx.attn_chunk`` where the JAX package chunks them
     (``attention.plain_attention``)."""
+    if (ctx.kernels or ("cuda" if q_eff.is_cuda else "ref")) == "cuda":
+        return kops.mla_attention(q_eff, k_eff, v_eff, causal, scale,
+                                  chunk=ctx.attn_chunk, force="cuda")
     o = attn_lib.plain_attention(q_eff[:, :, None], k_eff[:, :, None],
                                    v_eff[:, :, None], causal, ctx.attn_chunk,
                                    use_chunked=ctx.use_chunked_attn, scale=scale)

@@ -19,6 +19,17 @@ arithmetic, each given leaf of the gradients, the moments, the master
 copy and the parameters released from its dict or list as the update
 takes it, so that the step holds the old state and one leaf's
 temporaries, not two states.  The trees given are left holding ``None``.
+A leaf of more than ``SLICE_ELEMS`` elements is updated in slices
+(``_slices``: ranges of its first axis, or of the first axis under short
+leading ones, as a stacked layer axis of 1 is), each slice by the same
+arithmetic (AdamW is elementwise, so the result is bit-equal to the whole
+leaf's; the clip's norm sums such a leaf a slice at a time), so that its float32
+temporaries are a slice's, not the leaf's; donated, each slice's new
+moments, master copy and parameters are written into the old leaves' own
+storage where nothing outside the update holds them (no other name, dict
+or list refers to the tensor and no other tensor shares its storage), as
+XLA writes a donated buffer in place.  A new whole leaf then never lives
+beside the old one.
 
 On a mesh the leaves are ``DTensor``s (``launch.sharding.place_state``):
 the gradients placed like their parameters and the moments and master
@@ -30,6 +41,9 @@ reduction over every shard, each replicated block counted once.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
+import sys
 from typing import Callable, Optional
 
 import torch
@@ -103,16 +117,17 @@ def _counted_here(t) -> bool:
 
 def global_norm(grads):
     """|grads| in float32: the squares summed leaf by leaf in the
-    reference's leaf order; on a mesh over each rank's own blocks, then
-    reduced over the mesh once."""
+    reference's leaf order (a leaf over ``SLICE_ELEMS`` a slice at a time);
+    on a mesh over each rank's own blocks, then reduced over the mesh
+    once."""
     total, like = 0, None
     for g in tree_leaves(grads):
         if isinstance(g, DTensor):
             like = g
             if _counted_here(g):
-                total = total + torch.sum(torch.square(g.to_local().float()))
+                total = total + _squares(g.to_local())
         else:
-            total = total + torch.sum(torch.square(g.float()))
+            total = total + _squares(g)
     if like is not None:
         local = torch.as_tensor(total, dtype=torch.float32,
                                 device=like.to_local().device).reshape(())
@@ -136,13 +151,36 @@ def _scaled(g, scale):
     return on_local(lambda x: (x.float() * scale).to(x.dtype), g)
 
 
+#: a leaf of more elements than this is updated (and its squares summed for
+#: the clip) in slices, a slice's float32 temporaries at most this many
+#: elements (256 MiB)
+SLICE_ELEMS = 1 << 26
+
+
+def _held_only_in(leaves: list, i: int) -> bool:
+    """Nothing but the list ``leaves`` (at each of its places there) refers
+    to the plain tensor ``leaves[i]``, and no other tensor shares its
+    storage: it can be written in place without changing a tensor that
+    anyone else holds."""
+    x = leaves[i]
+    if not isinstance(x, torch.Tensor) or isinstance(x, DTensor):
+        return False
+    places = sum(y is x for y in leaves)
+    # + this frame's ``x`` and getrefcount's argument; the storage's users:
+    # x and the storage object untyped_storage() makes
+    return (sys.getrefcount(x) == places + 2
+            and torch._C._storage_Use_Count(x.untyped_storage()._cdata) == 2)
+
+
 def _leaf_map(fn, *trees, release: bool = False):
-    """``tree_map(fn, *trees)``; with ``release`` each leaf is set to
-    ``None`` in its dict or list once ``fn`` has taken it (a tuple's
-    leaves are not released)."""
+    """``tree_map(fn, *trees)`` as ``fn(*leaves, owned)``, ``owned`` a bool
+    a tree; with ``release`` each leaf is set to ``None`` in its dict or
+    list once ``fn`` has taken it (a tuple's leaves are not released), and
+    ``owned`` says which leaves nothing else then holds
+    (``_held_only_in``); without it no leaf is owned."""
     t0 = trees[0]
     if not release or not isinstance(t0, (dict, list)):
-        return tree_map(fn, *trees)
+        return tree_map(lambda *xs: fn(*xs, (False,) * len(xs)), *trees)
     keys = list(t0) if isinstance(t0, dict) else range(len(t0))
     out = {} if isinstance(t0, dict) else [None] * len(t0)
     for k in keys:
@@ -152,9 +190,39 @@ def _leaf_map(fn, *trees, release: bool = False):
             continue
         for t in trees:
             t[k] = None
-        out[k] = fn(*sub)
+        owned = tuple(_held_only_in(sub, i) for i in range(len(sub)))
+        out[k] = fn(*sub, owned)
         del sub
     return out
+
+
+def _slices(shape) -> list:
+    """The index tuples that cut a leaf of ``shape`` into slices of at most
+    ``SLICE_ELEMS`` elements, in order: ranges of the first axis whose
+    trailing dims hold at most ``SLICE_ELEMS`` elements a step, under every
+    index of the axes before it (a stacked layer axis of 1, a MoE layer's
+    experts).  Each slice is a view, written in place through the leaf's
+    own strides."""
+    ax = 0      # the first axis one index of which holds at most the cut
+    while ax < len(shape) - 1 and math.prod(shape[ax + 1:]) > SLICE_ELEMS:
+        ax += 1
+    row = math.prod(shape[ax + 1:])
+    step = max(1, SLICE_ELEMS // max(row, 1))
+    return [(*lead, slice(a, min(a + step, shape[ax])))
+            for lead in itertools.product(*(range(n) for n in shape[:ax]))
+            for a in range(0, shape[ax], step)]
+
+
+def _squares(g):
+    """sum(g ** 2) in float32; over ``_slices`` where ``g`` is over
+    ``SLICE_ELEMS`` (no float32 copy of the whole leaf), the slices' sums
+    added in order."""
+    if g.numel() <= SLICE_ELEMS or g.dim() == 0:
+        return torch.sum(torch.square(g.float()))
+    total = 0
+    for idx in _slices(tuple(g.shape)):
+        total = total + torch.sum(torch.square(g[idx].float()))
+    return total
 
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
@@ -198,13 +266,40 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             p32 = p.detach().float()
             return m, v, p32 - lr_t * (u + weight_decay * p32)
 
-        def one(g, m, v, r, p):
+        def one(g, m, v, r, p, owned):
+            if g.numel() > SLICE_ELEMS and g.dim() > 0:
+                m, v, n32, p = on_local(lambda *xs: sliced(*xs, all(owned[1:])),
+                                        g, m, v, r, p)
+                return m, v, n32 if keep_master else None, p
             if scale is not None:
                 g = _scaled(g, scale)
             m, v, n32 = on_local(upd, g, m, v, r)
             # no float32 copy of every parameter kept without a master
             return (m, v, n32 if keep_master else None,
                     on_local(lambda x: x.to(p.dtype), n32))
+
+        def sliced(g, m, v, r, p, in_place: bool):
+            """``one`` a slice (``_slices``) at a time -> (m, v, master, p):
+            each slice's new moments, master and parameters written into the
+            old leaves (``in_place``: nothing else holds them) or into new
+            ones; without a master its place holds the parameters."""
+            if in_place:
+                out = (m, v, r, p)
+            else:
+                out = (torch.empty_like(m), torch.empty_like(v),
+                       torch.empty_like(r) if keep_master else None, torch.empty_like(p))
+            for idx in _slices(tuple(g.shape)):
+                gs = g[idx]
+                if scale is not None:
+                    gs = (gs.float() * scale).to(gs.dtype)
+                ms, vs, n32 = upd(gs, m[idx], v[idx], r[idx])
+                out[0][idx] = ms
+                out[1][idx] = vs
+                if keep_master:
+                    out[2][idx] = n32
+                out[3][idx] = n32.to(p.dtype)
+                del gs, ms, vs, n32
+            return out if keep_master else (*out[:2], out[3], out[3])
 
         out = _leaf_map(one, grads, state["m"], state["v"], ref, params,
                         release=donate)

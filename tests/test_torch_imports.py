@@ -64,7 +64,9 @@ def test_port_imports_without_jax_or_reference():
             "repro_torch.optim.optimizers",
             # the dry-run family
             "repro_torch.launch.cost", "repro_torch.launch.dryrun",
-            "repro_torch.models.inputs", "repro_torch.kernels.hopper"} <= set(names.split())
+            "repro_torch.models.inputs", "repro_torch.kernels.hopper",
+            # MLA's attention kernels
+            "repro_torch.kernels.mla_attention_cuda"} <= set(names.split())
 
 
 def _imported_modules(path: Path):

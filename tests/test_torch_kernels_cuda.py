@@ -1434,3 +1434,102 @@ def test_ssm_hybrid_audio_decode_on_the_one_card_mesh(arch, one_card_mesh):
     ctx = Policy(cfg, one_card_mesh, "prefill").ctx()
     got = Server(cfg, params, ctx=ctx, max_len=24, device="cuda").generate(batch, 8)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------- MLA's absorbed attention
+
+MLA_SCALE = 192 ** -0.5       # deepseek-v2's (qk_nope + qk_rope) ** -0.5
+MLA_CASES = [(2, 256, 128, 576, 512, True),   # deepseek-v2's training shape
+             (2, 24, 4, 40, 32, True),        # the reduced deepseek-v2
+             (1, 200, 128, 576, 512, True),   # ragged: S not a multiple of 64
+             (1, 200, 4, 40, 32, True), (2, 70, 3, 72, 64, True),
+             (2, 256, 128, 576, 512, False), (1, 97, 6, 40, 32, False)]
+
+
+def _mla_case(gen, B, S, H, Dk, Dv, dtype, device):
+    q = _randn(gen, B, S, H, Dk, dtype=dtype, device=device)
+    k = _randn(gen, B, S, Dk, dtype=dtype, device=device)
+    v = _randn(gen, B, S, Dv, dtype=dtype, device=device)
+    do = _randn(gen, B, S, H, Dv, dtype=dtype, device=device)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Dk,Dv,causal", MLA_CASES)
+def test_mla_attention_kernels_match_plain(B, S, H, Dk, Dv, causal, dtype, card):
+    """The forward (o and lse) and the backward (dq, dk, dv) against
+    ``ref.flash_attention_fwd_lse`` / ``ref.flash_attention_bwd`` at one
+    K/V head, within BWD_TOL of each output's largest; every call repeats
+    bitwise; each call counts one launch."""
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    gen = torch.Generator().manual_seed(S + H + Dk)
+    q, k, v, do = _mla_case(gen, B, S, H, Dk, Dv, dtype, card)
+    n0 = kmla.LAUNCHES, kmla.BWD_LAUNCHES
+    o, lse = kmla.mla_attention_lse_cuda(q, k, v, causal, MLA_SCALE)
+    got = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, causal, MLA_SCALE)
+    assert (kmla.LAUNCHES - n0[0], kmla.BWD_LAUNCHES - n0[1]) == (1, 1)
+    o2, lse2 = kmla.mla_attention_lse_cuda(q, k, v, causal, MLA_SCALE)
+    again = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, causal, MLA_SCALE)
+    o_ref, lse_ref = kmla.mla_fwd_lse_ref(q, k, v, causal, MLA_SCALE)
+    want = kmla.mla_bwd_ref(q, k, v, lse, do, causal, MLA_SCALE)
+    torch.cuda.synchronize()
+    _leafwise((o, lse), (o_ref, lse_ref), BWD_TOL[dtype])
+    _leafwise(got, want, BWD_TOL[dtype])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_attention_function_and_latent_attention_take_the_kernels(dtype, card):
+    """``ops.mla_attention`` with a gradient takes ``MlaAttention`` (a
+    forward and a backward launch), without one the forward kernel; the
+    model's ``latent_attention`` on card tensors launches the forward kernel
+    and no flash kernel."""
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    from repro_torch.models import mla
+    from repro_torch.models.context import null_ctx
+    gen = torch.Generator().manual_seed(31)
+    q, k, v, do = _mla_case(gen, 2, 64, 4, 40, 32, dtype, card)
+    n0 = kmla.LAUNCHES, kmla.BWD_LAUNCHES, kfa.LAUNCHES, kfa.BWD_LAUNCHES
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ops.mla_attention(*leaves, True, MLA_SCALE)
+    grads = torch.autograd.grad(o, leaves, do)
+    with torch.no_grad():
+        o2 = mla.latent_attention(q, k, v, True, MLA_SCALE, null_ctx())
+    assert (kmla.LAUNCHES - n0[0], kmla.BWD_LAUNCHES - n0[1]) == (2, 1)
+    assert (kfa.LAUNCHES, kfa.BWD_LAUNCHES) == n0[2:]
+    o_ref, lse = kmla.mla_fwd_lse_ref(q, k, v, True, MLA_SCALE)
+    _leafwise((o.detach(), o2), (o_ref, o_ref), BWD_TOL[dtype])
+    _leafwise(grads, kmla.mla_bwd_ref(q, k, v, lse, do, True, MLA_SCALE), BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_attention_backward_keeps_a_nan_of_do(dtype, card):
+    """A NaN in do (CUDA's canonical one and its negation) reaches the
+    kernels' gradients as it reaches the plain backward's: the dq of its
+    (position, head) is all NaN, and every gradient holds one."""
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    gen = torch.Generator().manual_seed(41)
+    q, k, v, do = _mla_case(gen, 1, 80, 4, 40, 32, dtype, card)
+    nan = torch.tensor([0x7FFFFFFF, -1], dtype=torch.int32).view(torch.float32)
+    do[0, 37, 1, 5], do[0, 60, 0, 9] = nan[0], nan[1]
+    _, lse = kmla.mla_attention_lse_cuda(q, k, v, True, MLA_SCALE)
+    got = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, True, MLA_SCALE)
+    want = kmla.mla_bwd_ref(q, k, v, lse, do, True, MLA_SCALE)
+    assert torch.isnan(got[0][0, 37, 1]).all()
+    for g, w in zip(got, want):
+        assert torch.isnan(w).any() and torch.isnan(g).any()
+
+
+@pytest.mark.cuda
+def test_mla_attention_kernels_refuse_shapes_outside_their_contract(card):
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    q = torch.zeros(1, 8, 4, 584, device=card)
+    k, v = torch.zeros(1, 8, 584, device=card), torch.zeros(1, 8, 32, device=card)
+    with pytest.raises(ValueError, match=r"q \(1, 8, 4, 584\).*Dk <= 576"):
+        kmla.mla_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kmla.mla_attention_cuda(q[..., :40], k[..., :40].cpu(), v)

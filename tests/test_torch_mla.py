@@ -15,10 +15,13 @@ Reduced deepseek-v2 in float32, the JAX package's weights carried across by
 * the gradients of the absorbed form against ``jax.grad``'s, each leaf
   within 1e-3 of its largest magnitude.
 
-MLA's attention is plain by design (one shared 576-wide key head and a
+MLA's attention runs no flash kernel (one shared 576-wide key head and a
 512-wide value at full width; the flash kernel takes k and v of one shape
-and D <= 128).  Two tests marked ``cuda`` show it on a card: the MLA route
-launches no flash kernel, and ``kops.flash_attention`` at D = 576 raises.
+and D <= 128): on the card the absorbed form's attention runs MLA's own
+kernels, on the CPU the plain versions these tests hold.  Two tests marked
+``cuda`` show it on a card: the MLA route launches no flash kernel (the
+prefill one MLA attention kernel, the materialized form and the decode
+none), and ``kops.flash_attention`` at D = 576 raises.
 They need no JAX: this module imports it only where a test compares with
 the JAX package, so ``python -m pytest -q -m cuda tests/test_torch_mla.py``
 runs where JAX is not installed.
@@ -249,16 +252,18 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_mla_route_launches_no_flash_kernel(dtype, card):
     """Prefill, the materialized form and a decode step of the reduced
-    deepseek-v2's MLA on the card: plain by design, so the flash kernel's
-    launch count does not move; the card's answer is the CPU's."""
+    deepseek-v2's MLA on the card: the flash kernel's launch count does not
+    move, the prefill launches one MLA attention kernel (the materialized
+    form and the decode stay plain); the card's answer is the CPU's."""
     from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(tget(ARCH, reduced=True), dtype=str(dtype)[6:])
     p = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     lp = tree_map(lambda t: t[0], p["moe_layers"]["attn"])
     lp_card = tree_map(lambda t: t.to(card), lp)
     x = torch.from_numpy(_x(5)).to(dtype)
-    before = kfa.LAUNCHES
+    before, mla_before = kfa.LAUNCHES, kmla.LAUNCHES
     with torch.no_grad():
         o, cache = mla.mla_prefill(x.to(card), lp_card, cfg, torch.arange(S, device=card),
                                    null_ctx())
@@ -269,7 +274,7 @@ def test_the_mla_route_launches_no_flash_kernel(dtype, card):
         mla.mla_decode(x[:, :1].to(card), lp_card, cfg, cache, S, null_ctx())
         torch.cuda.synchronize()
         o_cpu, _ = mla.mla_prefill(x, lp, cfg, torch.arange(S), null_ctx())
-    assert kfa.LAUNCHES == before
+    assert kfa.LAUNCHES == before and kmla.LAUNCHES == mla_before + 1
     tol = 1e-4 if dtype == torch.float32 else 5e-2 * o_cpu.abs().max().item()
     assert (o.cpu().float() - o_cpu.float()).abs().max().item() <= tol
 

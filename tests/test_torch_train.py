@@ -54,6 +54,7 @@ from repro_torch.models.context import ModelCtx, null_ctx
 from repro_torch.models.model import Model as TModel
 from repro_torch.models.model import params_from_numpy
 from repro_torch.optim import compression as tcomp
+from repro_torch.optim import optimizers
 from repro_torch.optim import schedules as tsched
 from repro_torch.optim.optimizers import adamw, sgd as tsgd
 from repro_torch.optim.optimizers import tree_leaves, tree_map
@@ -348,6 +349,100 @@ def test_donated_step_equals_the_functional_step(keep_master):
     assert all(x is None for x in tree_leaves(copy["params"]) + tree_leaves(
         {k: v for k, v in copy["opt"].items() if k != "step"}))
     assert all(isinstance(x, torch.Tensor) for x in tree_leaves(state["params"]))
+
+
+def _sliced_case(keep_master, seed=0):
+    """An AdamW update's inputs: bf16 leaves over a cut of 50 elements
+    (13 x 7, 7 rows a slice: the first axis not a multiple; 9 x 2 x 4; a
+    stacked layer axis of 1 over 13 x 7, sliced under it; 2 x 3 x 40, a
+    slice a row) and one under it (3), after one step so that the moments
+    and the master are not zeros.  The gradients are multiples of 1/4 up to
+    1, so that their float32 squares sum exactly in any order: the clip
+    (0.5, which scales them) is the same whole or sliced."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(torch.bfloat16)  # noqa: E731
+    params = {"a": rnd(13, 7), "c": [rnd(9, 2, 4)], "b": rnd(3),
+              "s": {"stacked": rnd(1, 13, 7), "rows": rnd(2, 3, 40)}}
+    opt = adamw(1e-2, keep_master=keep_master, weight_decay=0.1, grad_clip=0.5)
+    grads = lambda: tree_map(  # noqa: E731
+        lambda p: (torch.randint(-4, 5, p.shape, generator=gen) / 4).to(torch.bfloat16),
+        params)
+    params, state, _ = opt.update(grads(), opt.init(params), params)
+    return opt, params, state, grads()
+
+
+def _copy(tree):
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _bit_equal(a, b):
+    return all((x == y) if isinstance(x, int) else torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("keep_master", [True, False])
+def test_sliced_update_equals_the_whole_leaf_update(keep_master, donate, monkeypatch):
+    """A leaf over ``SLICE_ELEMS`` is updated a first-axis slice at a time,
+    bit-equal to the whole-leaf update (the cut patched to 50 elements);
+    donated, the new moments, master and parameters of a sliced leaf are
+    the old leaves' storage, and a leaf under the cut takes the whole-leaf
+    path (new tensors)."""
+    opt, params, state, grads = _sliced_case(keep_master)
+    want = opt.update(_copy(grads), _copy(state), _copy(params))
+    monkeypatch.setattr(optimizers, "SLICE_ELEMS", 50)
+    p, st, g = _copy(params), _copy(state), _copy(grads)
+    trees = {"params": p, "m": st["m"], "v": st["v"]}
+    if keep_master:
+        trees["master"] = st["master"]
+    before = {k: [t.data_ptr() for t in tree_leaves(tr)] for k, tr in trees.items()}
+    got = opt.update(g, st, p, donate=donate)
+    if donate:
+        assert tree_leaves(p) == [None] * 5
+    del p, st, g, trees
+    assert _bit_equal(got[:2], want[:2])
+    assert float(got[2]["grad_norm"]) == float(want[2]["grad_norm"])
+    assert 0.5 < float(want[2]["grad_norm"])          # the clip scales
+    new = {"params": got[0], **{k: got[1][k] for k in before if k != "params"}}
+    # leaf order (sorted keys): a, b (under the cut), c, s/rows, s/stacked
+    for k, ptrs in before.items():
+        now = [t.data_ptr() for t in tree_leaves(new[k])]
+        assert [a == b for a, b in zip(now, ptrs)] == [donate, False] + [donate] * 3, k
+
+
+@pytest.mark.parametrize("keep_master", [True, False])
+def test_sliced_update_writes_no_leaf_that_someone_else_holds(keep_master, monkeypatch):
+    """Donated, a sliced leaf that the caller still holds (a name, or a
+    view of its storage) is not written in place: the caller's tensors keep
+    their values and the update is the functional one's, bit for bit."""
+    opt, params, state, grads = _sliced_case(keep_master, seed=1)
+    want = opt.update(_copy(grads), _copy(state), _copy(params))
+    monkeypatch.setattr(optimizers, "SLICE_ELEMS", 50)
+    p, st, g = _copy(params), _copy(state), _copy(grads)
+    p_c = p["c"][0].data_ptr()
+    held, view = p["a"], st["m"]["s"]["stacked"][0, 2:5]
+    held_was, view_was = held.clone(), view.clone()
+    got = opt.update(g, st, p, donate=True)
+    assert torch.equal(held, held_was) and torch.equal(view, view_was)
+    assert got[0]["a"].data_ptr() != held.data_ptr()
+    assert got[1]["m"]["s"]["stacked"].data_ptr() != view.data_ptr() - 2 * 7 * 4
+    assert got[0]["c"][0].data_ptr() == p_c      # held by no one else: in place
+    assert _bit_equal(got[:2], want[:2])
+
+
+def test_global_norm_sums_a_large_leaf_a_slice_at_a_time(monkeypatch):
+    """The clip's norm sums a leaf over the cut a slice at a time (no
+    float32 copy of the whole leaf): within float32 rounding of the
+    whole-leaf sum, and the same bits for leaves under the cut."""
+    gen = torch.Generator().manual_seed(3)
+    grads = {"big": torch.randn(1, 40, 33, generator=gen).to(torch.bfloat16),
+             "small": [torch.randn(5, generator=gen)]}
+    whole = float(optimizers.global_norm(grads))
+    small = float(optimizers.global_norm({"small": grads["small"]}))
+    monkeypatch.setattr(optimizers, "SLICE_ELEMS", 100)
+    assert len(optimizers._slices((1, 40, 33))) == 14
+    assert float(optimizers.global_norm(grads)) == pytest.approx(whole, rel=1e-6)
+    assert float(optimizers.global_norm({"small": grads["small"]})) == small
 
 
 def test_entry_points_default_to_the_card_and_check_their_flags():
