@@ -26,46 +26,91 @@
 // once for 64 heads) and 16 positions of 4 heads at H = 4.  Every tile
 // masks by its rows' own positions.
 //
-// What bounds it: at deepseek-v2's training shape (B = 2, S = 256, H =
-// 128, Dk = 576, Dv = 512, causal) the forward moves 143.7 MB of bf16
-// (42.9 us at 3.35 TB/s) and needs 18.3 GFLOP (18.5 us at the bf16
-// tensor-core peak): bytes bound it, operations near.  Design (simple
-// first; not pipelined): 256 threads, eight warps on mma.sync tensor-core
-// products, bf16 (m16n8k16) for bf16 inputs and 3xTF32 (m16n8k8, each
-// float32 operand split into tf32 hi and lo by round-to-nearest, lo.hi +
-// hi.lo + hi.hi) for float32, accumulating in float32.  Operands are staged
-// in shared memory tiles of 64 rows by 64 columns (a 16-byte pad a row, no
-// bank conflicts in the fragment loads), filled by 16-byte loads with
-// zeros past the edges.
+// What bounds it, at deepseek-v2's training shape (B = 2, S = 256, H =
+// 128, Dk = 576, Dv = 512, causal): the forward moves 143.7 MB of bf16 (q
+// in, o out; 42.9 us at 3.35 TB/s) and needs 18.3 GFLOP (18.5 us at the
+// bf16 tensor-core peak), so bytes bound it; the backward moves 220 MB
+// (65.9 us) and needs 46.3 GFLOP (46.9 us): nearly balanced.  Every byte
+// of q, o, do and dq is a row tile's, so the design reads each row tile
+// once a launch and keeps the products on the tensor cores.
 //
-// Forward: a block per (64-row tile, 256-column slab of Dv, batch row).  S
-// = Q.K^T accumulates over 64-column slabs of Dk (Q's and K's slabs
-// streamed through shared memory, so Dk = 576 needs 17 KB of float32 a
-// tile, not 144 KB), is scaled and masked into shared memory, and four
-// threads a row take the online softmax (row max, P rounded to the input
-// type, rescale factor); O (64 x 256 float32, 64 registers a thread in
-// eight warps) is rescaled and accumulates P.V.  The output's 512 columns
-// take two blocks, each recomputing S (1.5x the least products).  Causal
-// tiles load no key tile past their last row's position.
+// Two routes, by the input type, apart by name:
 //
-// Backward, three launches, no atomics (every call repeats bitwise):
-//  1. rows: a block per (64-row tile, batch row) recomputes S and dP =
-//     dO.V^T over the key tiles its rows see, sums p * dp and p a row, then
-//     recomputes them again and writes P and dS (the input type) to a
-//     scratch of (B, rows, keys) padded to whole tiles, then dQ = dS.K,
-//     64 columns of Dk at a time, reading back its own dS.
-//  2. keys: a block per (64-key tile, 64-column slab of dK's Dk or dV's Dv
-//     columns, batch row x chunk of 32 row tiles) sums dS^T.Q (or P^T.dO)
-//     over the chunk's row tiles that see the keys, into a float32 partial
-//     of its own.
-//  3. finish: the partials of the chunks summed in chunk order and written
-//     to dk and dv.
-// The scratch and the partials are allocated by the wrapper
-// (kernels/mla_attention_cuda.py) and checked here against their sizes.
+// bfloat16: wgmma fed by TMA (mla_attention_wgmma.cuh: the tiles, the
+//   rings, the warpgroups' roles).  Every shape the contract takes runs
+//   these kernels: the products always run over the widest head's 64-column
+//   boxes (9 of Dk, 8 of Dv, unrolled), and a narrower head loads fewer
+//   boxes into zeroed shared memory (the TMA fills a box's columns past the
+//   width with zeros); H and the lengths set only the row tiles' positions
+//   and the number of key stages.
+//   - Forward, mla_fwd_wgmma_kernel: a block per 64-row tile (the last
+//     tiles first), one consumer warpgroup per 256 columns of O (two at Dv
+//     > 256, then with a producer warpgroup whose registers setmaxnreg
+//     moves to them: 232 a consumer thread; at Dv <= 256 a producer warp).
+//     The Q tile is read once (9 boxes, 72 KB) and stays; K and V stream
+//     through a two-stage ring of 32-key stages (36 + 32 KB a stage: 208 KB
+//     with Q; 64-key stages would leave room for one).  Each warpgroup
+//     computes S = Q.K^T of a stage whole (m64n32k16; 1.53x the least
+//     products, still under the byte bound, and no barrier between the
+//     warpgroups) and the online softmax in registers, and O += P.V over
+//     its 256 columns (m64n256k16, P in registers: 128 accumulators a
+//     thread); S of stage t is issued with P.V of stage t - 1.  O leaves
+//     through shared memory by TMA, the lse from warpgroup 0.
+//   - Backward: three launches, no atomics: rows (a block per row tile, two
+//     consumer warpgroups and a producer warpgroup, setmaxnreg as above: Q
+//     and dO read once and kept, 136 KB; K and V streamed twice in 32-key
+//     stages, one each; warpgroup 0 computes S and P, warpgroup 1 dP, and P
+//     passes between them through shared memory; a first pass sums the
+//     port's D, a second writes P and dS to the scratch and accumulates dQ
+//     = dS.K in registers over both warpgroups, 256 + 320 columns), keys
+//     (a block per 128 keys, 256-column slab of dK or dV and chunk of 32
+//     row tiles, a warpgroup per 64 keys sharing the slab: dK = dS^T.Q, dV
+//     = P^T.dO, both operands MN-major in a four-stage ring, into the
+//     chunk's float32 partial) and finish (the partials summed in chunk
+//     order).  S and dP are computed twice (1.4x the least products); each
+//     dS tile is read three times (dK's three slabs), each P tile twice.
+//     The rows launch holds one K and one V stage (what shared memory
+//     leaves), so in the second pass a K stage loads only once the dQ
+//     products over the one before are done: its tensor cores are busy
+//     about half the time (PERF.md).
+//   Shared memory (mirrored by mla_smem_bytes / mla_bwd_smem_bytes in
+//   kernels/mla_attention_cuda.py): forward 214,016 bytes at Dv > 256 (Q
+//   72 KB + 2 x (K 36 + V 32 KB) + 1 KiB of alignment), 181,248 below (V
+//   16 KB a stage); rows 222,208 (Q 72 + dO 64 + K 36 + V 32 + P 8 + dS 4
+//   KB + 1 KiB); keys 197,632 (4 x (16 + 32 KB) + 1 KiB): one block a SM.
+//
+// float32: mma.sync at float32 accuracy (3xTF32), the first design of these
+//   kernels (not yet redesigned): 256 threads, eight warps on m16n8k8
+//   products, each float32 operand split into tf32 hi and lo by
+//   round-to-nearest, lo.hi + hi.lo + hi.hi accumulated in float32, operands
+//   staged in shared memory tiles of 64 rows by 64 columns (a 16-byte pad a
+//   row) by 16-byte loads with zeros past the edges.
+//   - Forward, mla_fwd_mma_kernel: a block per (64-row tile, 256-column
+//     slab of Dv, batch row).  S = Q.K^T accumulates over 64-column slabs
+//     of Dk, is scaled and masked into shared memory, and four threads a row
+//     take the online softmax; O (64 x 256 float32) is rescaled and
+//     accumulates P.V.  The output's 512 columns take two blocks, each
+//     recomputing S.  Causal tiles load no key tile past their last row's
+//     position.
+//   - Backward, three launches: rows (mla_bwd_rows_mma_kernel: a block per
+//     (64-row tile, batch row) recomputes S and dP over the key tiles its
+//     rows see, sums p * dp and p a row, recomputes them and writes P and
+//     dS to the scratch, then dQ = dS.K 64 columns at a time from its own
+//     dS), keys (mla_bwd_keys_mma_kernel: a block per (64-key tile,
+//     64-column slab of dK or dV, batch row x chunk of 32 row tiles) sums
+//     dS^T.Q (P^T.dO) into the chunk's float32 partial) and finish.
+//
+// The backward's scratch (P and dS, B x rows x keys padded to 64-row and
+// 64-key tiles, of q's type) and partials (chunks x B x Sk x (Dk + Dv)
+// float32) are allocated by the wrapper (kernels/mla_attention_cuda.py)
+// and checked here against their sizes.  Card times: PERF.md rows 4m and
+// 4mb (tools/bwd_kernel_timing.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mla_attention_wgmma.cuh"
 
 namespace {
 
@@ -118,38 +163,17 @@ __device__ __forceinline__ void load_tile(T* s, int ld, const T* g, int64_t gld,
 
 // ------------------------------------------------------------ mma.sync
 //
-// A warp's product tile: acc[nt] is the m16n8 float32 accumulator of rows
-// 0-15 and columns 8 nt .. 8 nt + 7 of the warp's output; a thread holds
-// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), g = lane / 4, t =
-// lane % 4.  Operands come from shared memory: A(m, k) = at<AKM>(a, lda,
-// a0 + m, k), stored [m][k] or, with AKM, [k][m]; B(k, n) = at<BKN>(b, ldb,
-// b0 + n, k), stored [n][k] or, with BKN, [k][n].  K = 64 a call.
+// A warp's product tile (3xTF32, the float32 route): acc[nt] is the m16n8
+// float32 accumulator of rows 0-15 and columns 8 nt .. 8 nt + 7 of the
+// warp's output; a thread holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1), g = lane / 4, t = lane % 4.  Operands come from shared memory:
+// A(m, k) = at<AKM>(a, lda, a0 + m, k), stored [m][k] or, with AKM, [k][m];
+// B(k, n) = at<BKN>(b, ldb, b0 + n, k), stored [n][k] or, with BKN, [k][n].
+// K = 64 a call.
 
 template <bool KM, typename T>
 __device__ __forceinline__ T at(const T* s, int ld, int i, int k) {
   return KM ? s[k * ld + i] : s[i * ld + k];
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// elements (i, k) and (i, k + 1), packed; one 32-bit load where adjacent
-template <bool KM>
-__device__ __forceinline__ uint32_t pair(const bf16* s, int ld, int i, int k) {
-  if constexpr (KM)
-    return pack_bf16(s[k * ld + i], s[(k + 1) * ld + i]);
-  else
-    return *reinterpret_cast<const uint32_t*>(s + i * ld + k);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -168,31 +192,9 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 }
 
 // x = hi + lo + e, |e| ~2^-22 |x|; a NaN gives NaN halves
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-template <bool AKM, bool BKN, int NT>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* a, int lda, int a0,
-                                         const bf16* b, int ldb, int b0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < BK; k0 += 16) {
-    uint32_t af[4];
-    af[0] = pair<AKM>(a, lda, a0 + g, k0 + 2 * t);
-    af[1] = pair<AKM>(a, lda, a0 + g + 8, k0 + 2 * t);
-    af[2] = pair<AKM>(a, lda, a0 + g, k0 + 2 * t + 8);
-    af[3] = pair<AKM>(a, lda, a0 + g + 8, k0 + 2 * t + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = b0 + nt * 8 + g;
-      uint32_t bfr[2];
-      bfr[0] = pair<BKN>(b, ldb, n, k0 + 2 * t);
-      bfr[1] = pair<BKN>(b, ldb, n, k0 + 2 * t + 8);
-      mma_bf16(acc[nt], af, bfr);
-    }
-  }
 }
 
 template <bool AKM, bool BKN, int NT>
@@ -202,16 +204,16 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, in
 #pragma unroll 2
   for (int k0 = 0; k0 < BK; k0 += 8) {
     uint32_t ah[4], al[4];
-    split(at<AKM>(a, lda, a0 + g, k0 + t), ah[0], al[0]);
-    split(at<AKM>(a, lda, a0 + g + 8, k0 + t), ah[1], al[1]);
-    split(at<AKM>(a, lda, a0 + g, k0 + t + 4), ah[2], al[2]);
-    split(at<AKM>(a, lda, a0 + g + 8, k0 + t + 4), ah[3], al[3]);
+    split_rna(at<AKM>(a, lda, a0 + g, k0 + t), ah[0], al[0]);
+    split_rna(at<AKM>(a, lda, a0 + g + 8, k0 + t), ah[1], al[1]);
+    split_rna(at<AKM>(a, lda, a0 + g, k0 + t + 4), ah[2], al[2]);
+    split_rna(at<AKM>(a, lda, a0 + g + 8, k0 + t + 4), ah[3], al[3]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = b0 + nt * 8 + g;
       uint32_t bh[2], bl[2];
-      split(at<BKN>(b, ldb, n, k0 + t), bh[0], bl[0]);
-      split(at<BKN>(b, ldb, n, k0 + t + 4), bh[1], bl[1]);
+      split_rna(at<BKN>(b, ldb, n, k0 + t), bh[0], bl[0]);
+      split_rna(at<BKN>(b, ldb, n, k0 + t + 4), bh[1], bl[1]);
       mma_tf32(acc[nt], al, bh);
       mma_tf32(acc[nt], ah, bl);
       mma_tf32(acc[nt], ah, bh);
@@ -244,9 +246,9 @@ constexpr size_t fwd_smem() {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    mla_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int Dk,
-                   int Dv, float scale, int causal) {
+    mla_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Sk, int H, int Dk, int Dv, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LK = pitch<T>(BK), LV = pitch<T>(DVS);
   T* Qs = reinterpret_cast<T*>(smem);
@@ -393,10 +395,10 @@ __device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4], T* A
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    mla_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ lse,
-                        const T* __restrict__ dout, T* P, T* dS, T* __restrict__ dq,
-                        BwdArgs a) {
+    mla_bwd_rows_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const float* __restrict__ lse,
+                            const T* __restrict__ dout, T* P, T* dS, T* __restrict__ dq,
+                            BwdArgs a) {
   constexpr int LK = pitch<T>(BK);
   __shared__ __align__(16) T As[BM * LK];
   __shared__ __align__(16) T Bs[BN * LK];
@@ -512,9 +514,9 @@ __global__ void __launch_bounds__(THREADS)
 // tiles: sum of dS^T.Q (P^T.dO), into the chunk's float32 partial
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    mla_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ dout,
-                        const T* __restrict__ P, const T* __restrict__ dS,
-                        float* __restrict__ part, int B, int n_dk_slabs, BwdArgs a) {
+    mla_bwd_keys_mma_kernel(const T* __restrict__ q, const T* __restrict__ dout,
+                            const T* __restrict__ P, const T* __restrict__ dS,
+                            float* __restrict__ part, int B, int n_dk_slabs, BwdArgs a) {
   constexpr int LK = pitch<T>(BK);
   __shared__ __align__(16) T Xs[BM * LK];
   __shared__ __align__(16) T Ys[BM * LK];
@@ -578,39 +580,46 @@ __global__ void mla_bwd_finish_kernel(const float* __restrict__ part, T* __restr
 
 __host__ __device__ __forceinline__ int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
-        int64_t Sq, int64_t Sk, int64_t H, int Dk, int Dv, float scale, int causal,
-        cudaStream_t st) {
-  const size_t smem = fwd_smem<T>();
-  auto kern = mla_fwd_kernel<T>;
+// the float32 forward
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
+            int64_t Sq, int64_t Sk, int64_t H, int Dk, int Dv, float scale, int causal,
+            cudaStream_t st) {
+  const size_t smem = fwd_smem<float>();
+  auto kern = mla_fwd_mma_kernel<float>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)cdiv(Sq * H, BM), (unsigned)cdiv(Dv, DVS), (unsigned)B);
   kern<<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, (int)Sq, (int)Sk, (int)H, Dk, Dv,
-      scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, (int)Sq, (int)Sk,
+      (int)H, Dk, Dv, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd(const void* q, const void* k, const void* v, const float* lse, const void* dout,
-        void* P, void* dS, float* part, void* dq, void* dk, void* dv, int64_t B, int64_t Sq,
-        int64_t Sk, int64_t H, int Dk, int Dv, float scale, int causal, cudaStream_t st) {
+// the float32 backward's rows and keys launches
+int bwd_f32(const void* q, const void* k, const void* v, const float* lse, const void* dout,
+            void* P, void* dS, float* part, void* dq, int64_t B, int64_t Sq, int64_t Sk,
+            int64_t H, int Dk, int Dv, float scale, int causal, cudaStream_t st) {
+  typedef float T;
   const int64_t n_rt = cdiv(Sq * H, BM), chunks = cdiv(n_rt, ROW_CHUNK);
   const BwdArgs a{(int)Sq, (int)Sk, (int)H, Dk, Dv, scale, causal, n_rt * BM, cdiv(Sk, BN) * BN};
-  mla_bwd_rows_kernel<T><<<dim3((unsigned)n_rt, (unsigned)B), THREADS, 0, st>>>(
+  mla_bwd_rows_mma_kernel<T><<<dim3((unsigned)n_rt, (unsigned)B), THREADS, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, lse, (const T*)dout, (T*)P, (T*)dS, (T*)dq, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_dk = (int)cdiv(Dk, BK), n_dv = (int)cdiv(Dv, BK);
-  mla_bwd_keys_kernel<T><<<dim3((unsigned)cdiv(Sk, BN), (unsigned)(n_dk + n_dv),
-                               (unsigned)(B * chunks)),
-                          THREADS, 0, st>>>((const T*)q, (const T*)dout, (const T*)P,
-                                            (const T*)dS, part, (int)B, n_dk, a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  mla_bwd_keys_mma_kernel<T><<<dim3((unsigned)cdiv(Sk, BN), (unsigned)(n_dk + n_dv),
+                                    (unsigned)(B * chunks)),
+                               THREADS, 0, st>>>((const T*)q, (const T*)dout, (const T*)P,
+                                                 (const T*)dS, part, (int)B, n_dk, a);
+  return (int)cudaGetLastError();
+}
+
+// the backward's last launch, both routes: dk and dv from the partials
+template <typename T>
+int finish(const float* part, void* dk, void* dv, int64_t B, int64_t Sq, int64_t Sk,
+           int64_t H, int Dk, int Dv, cudaStream_t st) {
+  const int64_t chunks = cdiv(cdiv(Sq * H, BM), ROW_CHUNK);
   const int64_t n = B * Sk * (Dk + Dv);
   const int blocks = (int)min64(cdiv(n, 256), 4096);
   mla_bwd_finish_kernel<T><<<blocks, 256, 0, st>>>(part, (T*)dk, (T*)dv, n, (int)chunks, Dk, Dv);
@@ -623,7 +632,24 @@ bool shape_ok(int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t Dk, int64_t 
          Sq * H <= ((int64_t)1 << 30);
 }
 
+static_assert(BM == mlawg::BM && BN == mlawg::KEY_TILE && ROW_CHUNK == mlawg::ROW_CHUNK,
+              "both routes use one scratch and one partials layout");
+
 }  // namespace
+
+// Dynamic shared memory (bytes) of a launch at value width Dv, as
+// kernels/mla_attention_cuda.py mirrors it: `launch` 0 the forward, 1 the
+// backward's rows launch, 2 its keys launch (the bf16 plan holds the
+// widest key head at every Dk; the float32 route's backward takes static
+// shared memory).
+extern "C" int64_t mla_attention_smem_bytes(int64_t Dv, int dtype, int launch) {
+  const int nvb = mlawg::boxes(Dv);
+  if (dtype == 1)
+    return launch == 0 ? (int64_t)mlawg::fwd_smem(nvb)
+         : launch == 1 ? (int64_t)mlawg::rows_smem()
+                       : (int64_t)mlawg::keys_smem();
+  return launch == 0 ? (int64_t)fwd_smem<float>() : 0;
+}
 
 // The sizes the backward's buffers must have, in elements: the scratch of P
 // (and of dS), B x rows_pad x keys_pad of q's type, and the partials,
@@ -638,8 +664,9 @@ extern "C" void mla_attention_bwd_sizes(int64_t B, int64_t Sq, int64_t Sk, int64
 // Returns the CUDA error of the launch (0 on success); -1 for a shape the
 // kernels do not take (Dk > 576, Dv > 512, either not a multiple of 8, an
 // empty or oversized tensor), -2 for a dtype code other than 0 (float32) or
-// 1 (bfloat16).  Every tensor is contiguous: q (B,Sq,H,Dk), k (B,Sk,Dk), v
-// (B,Sk,Dv), o (B,Sq,H,Dv); `lse` null or float32 (B,H,Sq).
+// 1 (bfloat16), -3 when a tensor map cannot be encoded (bfloat16: bases
+// 16-byte aligned).  Every tensor is contiguous: q (B,Sq,H,Dk), k (B,Sk,Dk),
+// v (B,Sk,Dv), o (B,Sq,H,Dv); `lse` null or float32 (B,H,Sq).
 extern "C" int mla_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
                                  int64_t Dk, int64_t Dv, float scale, int causal, int dtype,
@@ -649,11 +676,10 @@ extern "C" int mla_attention_fwd(const void* q, const void* k, const void* v, vo
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return fwd<float>(q, k, v, o, (float*)lse, B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal,
-                      st);
+    return fwd_f32(q, k, v, o, (float*)lse, B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal, st);
   if (dtype == 1)
-    return fwd<bf16>(q, k, v, o, (float*)lse, B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal,
-                     st);
+    return mlawg::fwd(q, k, v, o, (float*)lse, B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal,
+                      st);
   return -2;
 }
 
@@ -675,11 +701,13 @@ extern "C" int mla_attention_bwd(const void* q, const void* k, const void* v, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd<float>(q, k, v, (const float*)lse, dout, P, dS, (float*)part, dq, dk, dv, B, Sq,
-                      Sk, H, (int)Dk, (int)Dv, scale, causal, st);
-  if (dtype == 1)
-    return bwd<bf16>(q, k, v, (const float*)lse, dout, P, dS, (float*)part, dq, dk, dv, B, Sq,
-                     Sk, H, (int)Dk, (int)Dv, scale, causal, st);
-  return -2;
+  if (dtype != 0 && dtype != 1) return -2;
+  const int rc = dtype == 0 ? bwd_f32(q, k, v, (const float*)lse, dout, P, dS, (float*)part, dq,
+                                      B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal, st)
+                            : mlawg::bwd(q, k, v, (const float*)lse, dout, P, dS, (float*)part,
+                                         dq, B, Sq, Sk, H, (int)Dk, (int)Dv, scale, causal, st);
+  if (rc != 0) return rc;
+  const float* pt = (const float*)part;
+  return dtype == 0 ? finish<float>(pt, dk, dv, B, Sq, Sk, H, (int)Dk, (int)Dv, st)
+                    : finish<bf16>(pt, dk, dv, B, Sq, Sk, H, (int)Dk, (int)Dv, st);
 }

@@ -1,8 +1,9 @@
 // TMA tensor maps and loads, and the bf16 wgmma products, of the port's
 // attention kernels (flash_attention.cu's bf16 forward,
-// flash_attention_bwd.cuh's backward).  A (B, S, H, D) tensor is read
-// through a 4-D tensor map over (D, H, S, B) with its own strides, in boxes
-// of 128 bytes of columns (64 bf16 or 32 float32) x 64 rows into
+// flash_attention_bwd.cuh's backward, mla_attention_wgmma.cuh).  A (B, S,
+// H, D) tensor is read through a 4-D tensor map over (D, H, S, B) with its
+// own strides, in boxes of 128 bytes of columns (64 bf16 or 32 float32) x
+// 64 rows (or `rows`, a multiple of 8, where the map says so) into
 // 128-byte-swizzled shared memory (a box is BOX_BYTES; columns past D, like
 // rows past S, the TMA fills with zeros).  A bf16 tile is the K-major
 // operand of a product over D (desc_kmajor) or, through wgmma's transpose
@@ -178,15 +179,15 @@ EncodeTiledFn encode_fn() {
 
 // a 4-D map over (D, H, S, B) of a tensor of `esize`-byte elements (2:
 // bf16, 4: float32) with element strides `st`, boxes of 128 bytes of
-// columns x 1 head x 64 rows x 1 batch, 128-byte swizzle
+// columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle
 int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-             Strides st, int esize) {
+             Strides st, int esize, int rows = TMA_ROWS) {
   EncodeTiledFn encode = encode_fn();
   if (encode == nullptr) return -3;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(st.h * esize), (cuuint64_t)(st.s * esize),
                                  (cuuint64_t)(st.b * esize)};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 1, (cuuint32_t)TMA_ROWS, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -202,10 +203,10 @@ int make_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H,
 // encode costs host time on every launch otherwise.
 struct MapKey {
   const void* ptr;
-  int64_t B, S, H, D, sb, ss, sh, esize;
+  int64_t B, S, H, D, sb, ss, sh, esize, rows;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && B == o.B && S == o.S && H == o.H && D == o.D && sb == o.sb &&
-           ss == o.ss && sh == o.sh && esize == o.esize;
+           ss == o.ss && sh == o.sh && esize == o.esize && rows == o.rows;
   }
 };
 constexpr int MAP_SLOTS = 64;
@@ -218,10 +219,10 @@ MapSlot g_map_slots[MAP_SLOTS];
 std::mutex g_map_mutex;
 
 int cached_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H, int64_t D,
-               Strides st, int esize = 2) {
-  const MapKey key{ptr, B, S, H, D, st.b, st.s, st.h, esize};
+               Strides st, int esize = 2, int rows = TMA_ROWS) {
+  const MapKey key{ptr, B, S, H, D, st.b, st.s, st.h, esize, rows};
   uint64_t h = (uint64_t)(uintptr_t)ptr;
-  for (int64_t f : {B, S, H, D, st.b, st.s, st.h, (int64_t)esize})
+  for (int64_t f : {B, S, H, D, st.b, st.s, st.h, (int64_t)esize, (int64_t)rows})
     h = (h ^ (uint64_t)f) * 0x9E3779B97F4A7C15ull;
   MapSlot& slot = g_map_slots[(h >> 32) % MAP_SLOTS];
   std::lock_guard<std::mutex> lock(g_map_mutex);
@@ -229,7 +230,7 @@ int cached_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t 
     *map = slot.map;
     return 0;
   }
-  const int rc = make_map(map, ptr, B, S, H, D, st, esize);
+  const int rc = make_map(map, ptr, B, S, H, D, st, esize, rows);
   if (rc == 0) slot = MapSlot{key, *map, true};
   return rc;
 }

@@ -21,6 +21,8 @@ HBM_BYTES_PER_S = 3.35e12
 #: NVLink 4 bytes/s one way per card (H100 SXM data sheet: 900 GB/s both
 #: ways together)
 NVLINK_BYTES_PER_S = 450e9
+#: shared memory a block may take (227 KB of the SM's 256 KB), bytes
+SMEM_PER_BLOCK = 232_448
 
 
 def bound_ms(flops: float, n_bytes: float, peak: float):

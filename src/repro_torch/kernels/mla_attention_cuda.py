@@ -4,22 +4,35 @@
 computes this attention with XLA code (``attention.attention`` as
 ``src/repro/models/mla.py:130`` calls it), and the flash kernels cannot
 take it (one key head Dk wide and one value head Dv wide shared by all H
-query heads, Dk != Dv, up to 576 and 512; see the source's header for the
-design: mma.sync products, bf16 or 3xTF32, a forward launch and three
-backward launches).  It is compiled by ``build.py`` at first use and
-called through ``ctypes`` on PyTorch's current stream.
+query heads, Dk != Dv, up to 576 and 512).  Two routes, by the input type
+(the source's header has the design):
+
+* bfloat16: ``wgmma`` fed by TMA (``csrc/mla_attention_wgmma.cuh``).  The
+  forward is a block per 64-row tile of the (B, Sq * H, Dk) rows that reads
+  its Q tile once and streams 32-key stages of K and V through a two-stage
+  ring (one consumer warpgroup per 256 output columns); the backward is a
+  rows launch (Q and dO kept, K and V streamed twice: the port's D, then P
+  and dS to a scratch and dQ), a keys launch (dK and dV over chunks of row
+  tiles into float32 partials) and a finishing launch.
+* float32: ``mma.sync`` at float32 accuracy (3xTF32), a forward launch
+  and three backward launches over the same scratch and partials.
+
+It is compiled by ``build.py`` at first use and called through ``ctypes``
+on PyTorch's current stream.
 
     q (B, Sq, H, Dk), k (B, Sk, Dk), v (B, Sk, Dv)
       -> o (B, Sq, H, Dv) in q's type, lse (B, H, Sq) float32
 
 with Dk <= 576 and Dv <= 512, multiples of 8, any H >= 1 and any lengths;
-a shape outside that raises, with the shape in the message.  The tensors
-are read contiguous from 16-byte aligned bases by 16-byte loads (a view,
-or a tensor at an odd offset, is copied first: a copy, not a change of
-route).  The plain version is the flash functions of ``ref`` in their
-grouped layout at one K/V head (KV = 1, G = H): ``mla_fwd_lse_ref`` and
-``mla_bwd_ref`` below call ``ref.flash_attention_fwd_lse`` and
-``ref.flash_attention_bwd`` so.
+a shape outside that raises, with the shape in the message.  Every shape
+the contract takes runs the kernels (a narrower head loads fewer 64-column
+boxes); ``mla_smem_bytes`` and ``mla_bwd_smem_bytes`` mirror their shared
+memory.  The tensors are read contiguous from 16-byte aligned bases (TMA
+tensor maps in bf16, 16-byte loads in float32: a view, or a tensor at an
+odd offset, is copied first: a copy, not a change of route).  The plain
+version is the flash functions of ``ref`` in their grouped layout at one
+K/V head (KV = 1, G = H): ``mla_fwd_lse_ref`` and ``mla_bwd_ref`` below
+call ``ref.flash_attention_fwd_lse`` and ``ref.flash_attention_bwd`` so.
 
 Each launch is an operator of the ``repro_torch`` namespace
 (``mla_attention``, ``mla_attention_lse``, ``mla_attention_bwd``) with a
@@ -68,8 +81,47 @@ def _lib():
         lib.mla_attention_bwd.restype = ctypes.c_int
         lib.mla_attention_bwd_sizes.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
         lib.mla_attention_bwd_sizes.restype = None
+        lib.mla_attention_smem_bytes.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 2
+        lib.mla_attention_smem_bytes.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
+
+
+#: a TMA box: 64 rows (32 for the key and value stages) x 128 bytes
+_BOX, _KBOX = 64 * 128, 32 * 128
+
+
+def _boxes(d):
+    return -(-d // 64)
+
+
+def mla_smem_bytes(Dk, Dv, dtype):
+    """Dynamic shared memory of the forward launch, as the kernel plans it.
+    bf16: the Q tile (9 boxes of 64 rows: the products run over the widest
+    Dk, the boxes a narrower head leaves unloaded hold zeros) and two 32-key
+    stages of K (9 boxes) and of V (4 boxes a consumer warpgroup, one per
+    256 columns of Dv), or the O tile it stages its output in if larger, + 1
+    KiB of alignment.  float32: three 64 x 64 tiles, a 64-key x 256-column V
+    tile (16-byte row pads), the scores and three row vectors."""
+    if dtype == torch.bfloat16:
+        nwg = 2 if _boxes(Dv) > 4 else 1
+        main = 9 * _BOX + 2 * (9 + 4 * nwg) * _KBOX
+        return 1024 + max(main, 4 * nwg * _BOX)
+    return (3 * 64 * 68 + 64 * 260) * 4 + (64 * 68 + 3 * 64) * 4
+
+
+def mla_bwd_smem_bytes(Dk, Dv, dtype):
+    """Shared memory of the backward's largest launch, as the kernels plan
+    it.  bf16, the rows launch: Q and dO tiles (9 and 8 boxes), a 32-key
+    stage of K and of V, P (float32) and dS (bf16) of a stage, + 1 KiB; the
+    keys launch: four stages of two 64 x 64 dS tiles and a 4-box slab, + 1
+    KiB.  float32 (static): the rows launch's two padded 64 x 64 tiles and
+    row vectors."""
+    if dtype == torch.bfloat16:
+        rows = 1024 + (9 + 8) * (_BOX + _KBOX) + 64 * 32 * (4 + 2)
+        keys = 1024 + 4 * (2 + 4) * _BOX
+        return max(rows, keys)
+    return 2 * 64 * 68 * 4 + 2 * 64 * 4 + 4 * 64 * 4
 
 
 def _check(q, k, v):

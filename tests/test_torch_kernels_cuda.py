@@ -947,7 +947,7 @@ def test_the_backward_shared_memory_fits_the_configs_chunks(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["flash f32", "flash bf16", "ssd"])
+@pytest.mark.parametrize("which", ["flash f32", "flash bf16", "ssd", "mla f32", "mla bf16"])
 def test_backward_kernels_keep_a_nan_of_dy(which, card):
     """A NaN in dy reaches the kernels' gradients as it reaches the plain
     backwards': their tf32 and bf16 splits keep a NaN a NaN, CUDA's
@@ -961,6 +961,15 @@ def test_backward_kernels_keep_a_nan_of_dy(which, card):
         do[0, 37, 1, 5], do[0, 60, 0, 9] = nan[0], nan[1]
         got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True)
         want = ref.flash_attention_bwd(q, k, v, lse, do, True)
+        assert torch.isnan(got[0][0, 37, 1]).all()
+    elif which.startswith("mla"):
+        from repro_torch.kernels import mla_attention_cuda as kmla
+        dtype = torch.float32 if which == "mla f32" else torch.bfloat16
+        q, k, v, do = _mla_case(gen, 1, 80, 128, 576, 512, dtype, card)
+        do[0, 37, 1, 5], do[0, 60, 0, 9] = nan[0], nan[1]
+        _, lse = kmla.mla_attention_lse_cuda(q, k, v, True, MLA_SCALE)
+        got = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, True, MLA_SCALE)
+        want = kmla.mla_bwd_ref(q, k, v, lse, do, True, MLA_SCALE)
         assert torch.isnan(got[0][0, 37, 1]).all()
     else:
         x, dt, A, Bm, Cm, st = _ssd_inputs(gen, 1, 70, 2, 64, 64, card)
@@ -1443,7 +1452,10 @@ MLA_CASES = [(2, 256, 128, 576, 512, True),   # deepseek-v2's training shape
              (2, 24, 4, 40, 32, True),        # the reduced deepseek-v2
              (1, 200, 128, 576, 512, True),   # ragged: S not a multiple of 64
              (1, 200, 4, 40, 32, True), (2, 70, 3, 72, 64, True),
-             (2, 256, 128, 576, 512, False), (1, 97, 6, 40, 32, False)]
+             (2, 256, 128, 576, 512, False), (1, 97, 6, 40, 32, False),
+             (1, 1, 128, 576, 512, True),     # one position
+             (1, 130, 96, 576, 512, True),    # a 64-row tile spans two positions
+             (1, 2048, 16, 576, 512, True)]   # keys past 256
 
 
 def _mla_case(gen, B, S, H, Dk, Dv, dtype, device):
@@ -1522,6 +1534,27 @@ def test_mla_attention_backward_keeps_a_nan_of_do(dtype, card):
     assert torch.isnan(got[0][0, 37, 1]).all()
     for g, w in zip(got, want):
         assert torch.isnan(w).any() and torch.isnan(g).any()
+
+
+@pytest.mark.cuda
+def test_mla_attention_shared_memory_plan_is_the_kernels(card):
+    """``mla_smem_bytes`` / ``mla_bwd_smem_bytes`` are what the library's
+    launches take (bf16: the forward, the backward's rows and keys launches;
+    float32: the forward), at widths that change the plan, and fit a block."""
+    from repro_torch.kernels import hopper
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    lib = kmla._lib()
+    props = torch.cuda.get_device_properties(card)
+    limit = getattr(props, "shared_memory_per_block_optin", hopper.SMEM_PER_BLOCK)
+    for Dk, Dv in ((576, 512), (40, 32), (72, 64), (256, 256), (264, 264), (320, 320),
+                   (512, 512), (520, 8)):
+        fwd = lib.mla_attention_smem_bytes(Dv, 1, 0)
+        bwd = max(lib.mla_attention_smem_bytes(Dv, 1, 1), lib.mla_attention_smem_bytes(Dv, 1, 2))
+        assert (fwd, bwd) == (kmla.mla_smem_bytes(Dk, Dv, torch.bfloat16),
+                              kmla.mla_bwd_smem_bytes(Dk, Dv, torch.bfloat16)), (Dk, Dv)
+        assert lib.mla_attention_smem_bytes(Dv, 0, 0) == kmla.mla_smem_bytes(
+            Dk, Dv, torch.float32)
+        assert max(fwd, bwd) <= limit
 
 
 @pytest.mark.cuda

@@ -15,8 +15,10 @@ of each output's largest magnitude.  Also: ``latent_attention`` on the CPU
 is the plain attention it was, bit for bit; the kernels' wrappers refuse
 CPU tensors and shapes outside their contract (with the shape in the
 message); their operators give fake and ``meta`` inputs the plain
-versions' shapes and the dry run's counter their FLOPs.  The kernels
-themselves are held on the card (``tests/test_torch_kernels_cuda.py``).
+versions' shapes and the dry run's counter their FLOPs; the kernels'
+shared-memory plan (``mla_smem_bytes``, ``mla_bwd_smem_bytes``) fits a
+block at every width the wrappers take.  The kernels themselves are held on
+the card (``tests/test_torch_kernels_cuda.py``).
 """
 
 import jax
@@ -27,6 +29,7 @@ import torch
 import _torch_port  # noqa: F401  (one intra-op thread)
 
 from repro.models import attention as jattn
+from repro_torch.kernels import hopper
 from repro_torch.kernels import mla_attention_cuda as kmla
 from repro_torch.kernels import ops
 from repro_torch.launch.cost import CostCounter
@@ -194,3 +197,20 @@ def test_cost_and_bound_at_deepseek_v2s_shape():
     assert bbytes == 2 * B * (2 * S * H * Dk + 2 * S * Dk + 2 * S * Dv + S * H * Dv) + \
         4 * B * H * S
     assert kmla.mla_cost(B, S, S, H, Dk, Dv, False, 2)[0] == 2.0 * B * H * S * S * (Dk + Dv)
+
+
+@pytest.mark.parametrize("launch", ["forward", "backward"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_shared_memory_plan_fits_a_block_at_every_width(launch, dtype):
+    """The kernels' shared memory, mirrored in Python, at every Dk <= 576 and
+    Dv <= 512 the wrappers take (multiples of 8), is at most the 227 KB a
+    block may take, and at the widest it is the source header's plan."""
+    fn = kmla.mla_smem_bytes if launch == "forward" else kmla.mla_bwd_smem_bytes
+    sizes = {(Dk, Dv): fn(Dk, Dv, dtype) for Dk in range(8, kmla.MAX_DK + 1, 8)
+             for Dv in range(8, kmla.MAX_DV + 1, 8)}
+    assert max(sizes.values()) <= hopper.SMEM_PER_BLOCK == 232_448
+    widest = {("forward", torch.bfloat16): 1024 + 72 * 1024 + 2 * (36 + 32) * 1024,
+              ("backward", torch.bfloat16): 1024 + (72 + 64 + 36 + 32 + 8 + 4) * 1024,
+              ("forward", torch.float32): 136_960,
+              ("backward", torch.float32): 36_352}[launch, dtype]
+    assert sizes[576, 512] == max(sizes.values()) == widest

@@ -16,12 +16,23 @@ path's shapes:
   phi3-mini's head dimension (B=2, S=256, H=32, D=96, causal);
 * the SSD chunk's backward (``ssd_chunk_bwd_cuda``) at zamba2-1.2b's chunk
   (B=2, Q=256, H=64, P=N=64, B and C of head stride 0);
+* MLA's absorbed attention, forward (``mla_attention_cuda``) and backward
+  (``mla_attention_bwd_cuda``), at deepseek-v2's training shape (B=2,
+  S=256, 128 query heads on one key head Dk=576 and one value head Dv=512,
+  causal, scale 192^-0.5), bf16 and float32;
 
 each as card time a call (torch.profiler, the kernels' launches only) and
 CUDA-events milliseconds a call, beside its bound (the checkout's
-``flash_bwd_bound_ms`` / ``ssd_bwd_bound_ms``), the plain backward's card
-time and, for flash attention, ``scaled_dot_product_attention``'s backward
-(``torch.autograd.grad``), which no path of the port calls.
+``flash_bwd_bound_ms`` / ``ssd_bwd_bound_ms`` / ``mla_bound_ms`` /
+``mla_bwd_bound_ms``), the plain version's card time and, for attention,
+``scaled_dot_product_attention`` (its backward by ``torch.autograd.grad``;
+for MLA with ``enable_gqa``), which no path of the port calls.  The card
+time of a call is built from the launches the profiler saw: per kernel name
+the mean time of a launch seen, times the name's launches a call (those
+seen over the calls issued, rounded, at least 1); MLA's rows also give it
+per kernel name (``*_by_name``), and the CUDA-events time gives a row its
+number where the profiler saw no launch.  ``--only flash,ssd,mla`` times a
+subset.
 
 It prints the card's name and power limit, one JSON line per checkout and a
 table with one column per run.  It needs a CUDA card.
@@ -45,10 +56,15 @@ FLASH = {"zamba2 bf16": (2, 512, 32, 64, True, "bfloat16"),
          "pixtral f32": (2, 1280, 32, 128, True, "float32"),
          "phi3 f32": (2, 256, 32, 96, True, "float32")}
 SSD = (2, 256, 64, 64, 64)     # B, Q, H, P, N
+# deepseek-v2's MLA attention at its training shape: B, S, H, Dk, Dv, scale
+MLA = (2, 256, 128, 576, 512, 192 ** -0.5)
+PARTS = ("flash", "ssd", "mla")
 
 
-def _card_us(torch, fn, iters=20, warmup=5):
-    """Card time a call: the sum of the launches the profiler sees."""
+def _card_by_name(torch, fn, iters=20, warmup=5):
+    """Card time a call by kernel name (µs): the mean time of a launch the
+    profiler saw, times the name's launches a call (seen over the calls
+    issued, rounded, at least 1); {} if it saw none."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -57,9 +73,18 @@ def _card_us(torch, fn, iters=20, warmup=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters if total else None
+    seen = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, t = seen.get(e.name, (0, 0.0))
+            seen[e.name] = (n + 1, t + e.time_range.end - e.time_range.start)
+    return {name: t / n * max(1, round(n / iters)) for name, (n, t) in seen.items()}
+
+
+def _card_us(torch, fn, iters=20, warmup=5):
+    """Card time a call: the sum over the kernel names the profiler saw."""
+    by = _card_by_name(torch, fn, iters, warmup)
+    return sum(by.values()) if by else None
 
 
 def _events_ms(torch, fn, iters=50, warmup=5):
@@ -75,7 +100,44 @@ def _events_ms(torch, fn, iters=50, warmup=5):
     return a.elapsed_time(b) / iters
 
 
-def measure(root: Path) -> dict:
+def _mla(torch, F, randn, out):
+    """MLA's forward and backward rows at deepseek-v2's training shape."""
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    B, S, H, Dk, Dv, scale = MLA
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q, kk, vv, do = (randn(B, S, H, Dk, dtype=dtype), randn(B, S, Dk, dtype=dtype),
+                         randn(B, S, Dv, dtype=dtype), randn(B, S, H, Dv, dtype=dtype))
+        _, lse = kmla.mla_attention_lse_cuda(q, kk, vv, True, scale)
+        qt, kt, vt = (t.detach().requires_grad_(True)
+                      for t in (q.transpose(1, 2), kk[:, None], vv[:, None]))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        eb = q.element_size()
+        calls = {
+            "fwd": (lambda: kmla.mla_attention_cuda(q, kk, vv, True, scale),
+                    lambda: kmla.mla_fwd_lse_ref(q, kk, vv, True, scale),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           scale=scale, enable_gqa=True),
+                    kmla.mla_bound_ms(B, S, S, H, Dk, Dv, True, eb)),
+            "bwd": (lambda: kmla.mla_attention_bwd_cuda(q, kk, vv, lse, do, True, scale),
+                    lambda: kmla.mla_bwd_ref(q, kk, vv, lse, do, True, scale),
+                    lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                    kmla.mla_bwd_bound_ms(B, S, S, H, Dk, Dv, True, eb))}
+        for d, (kern, plain, sdpa, (bound, by)) in calls.items():
+            names = _card_by_name(torch, kern)
+            out[f"mla {d} {'bf16' if eb == 2 else 'f32'}"] = {
+                "card_us": sum(names.values()) if names else None,
+                "card_us_by_name": names, "ms": _events_ms(torch, kern),
+                "plain_card_us": _card_us(torch, plain, iters=3, warmup=1),
+                "sdpa_card_us": _card_us(torch, sdpa, iters=5, warmup=2),
+                "bound_us": bound * 1e3, "bound_by": by}
+        del q, kk, vv, do, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+
+
+def measure(root: Path, parts=PARTS) -> dict:
     """Every number of one checkout (run in its own process)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -93,7 +155,11 @@ def measure(root: Path) -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to("cuda", dtype)
 
+    if "mla" in parts:
+        _mla(torch, F, randn, out)
     for name, (B, S, H, D, causal, dt) in FLASH.items():
+        if "flash" not in parts:
+            break
         dtype = getattr(torch, dt)
         q, k, v, do = (randn(B, S, H, D, dtype=dtype) for _ in range(4))
         _, lse = kfa.flash_attention_lse_cuda(q, k, v, causal)
@@ -118,6 +184,8 @@ def measure(root: Path) -> dict:
         del q, k, v, do, lse, qt, kt, vt, ot, dot
         torch.cuda.empty_cache()
 
+    if "ssd" not in parts:
+        return out
     B, Q, H, P, N = SSD
     x, dy = randn(B, Q, H, P), randn(B, Q, H, P)
     dt_ = (torch.rand(B, Q, H, generator=gen) * 0.099 + 0.001).cuda()
@@ -137,10 +205,15 @@ def measure(root: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", action="append", help="checkout to time (repeatable)")
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    parts = tuple(args.only.split(","))
+    if set(parts) - set(PARTS):
+        raise SystemExit(f"--only takes {','.join(PARTS)}, not {args.only}")
     if args.one:
-        print(json.dumps(measure(Path(args.one).resolve())))
+        print(json.dumps(measure(Path(args.one).resolve(), parts)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -148,21 +221,25 @@ def main() -> None:
     print(smi)
     runs = []
     for root in args.root or [str(ROOT)]:
-        proc = subprocess.run([sys.executable, __file__, "--one", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", root, "--only",
+                               args.only], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             raise SystemExit(f"timing {root} failed")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     print("run: " + " | ".join(Path(r["root"]).name or r["root"] for r in runs))
-    for name in (*FLASH, "ssd zamba2"):
+    for name in [n for n in runs[0] if isinstance(runs[0][n], dict)]:
         for key in ("card_us", "ms", "plain_card_us", "sdpa_card_us", "bound_us"):
             vals = []
             for r in runs:
                 v = r[name][key]
                 vals.append("none" if v is None else f"{v:.4f}")
             print(f"{name + ' ' + key:36s} " + " | ".join(vals))
+        for kname in sorted({k for r in runs for k in r[name].get("card_us_by_name", {})}):
+            vals = [r[name]["card_us_by_name"].get(kname) for r in runs]
+            print(f"  {kname[:60]:60s} " + " | ".join(
+                "none" if v is None else f"{v:.4f}" for v in vals))
     print(smi)
 
 
