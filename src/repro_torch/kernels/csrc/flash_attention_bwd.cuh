@@ -194,26 +194,6 @@ struct UnitSrc {
   How how;
 };
 
-__device__ __forceinline__ float4 lo4(float4 v) {
-  const auto lo = [](float x) { return x - __uint_as_float(to_tf32<Round::trunc>(x)); };
-  return make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
-}
-
-// whether the barrier's phase of this parity has completed (no waiting)
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
 // One producer thread: the TMA of unit n's raw rows into its slot (a row
 // unit's hi half, a transposed unit's lo half), once the slot is free; a
 // MADE unit's landed phase completes with no load (so that every slot's
@@ -232,78 +212,6 @@ __device__ __forceinline__ void issue_unit(const UnitSrc& u, int n, uint8_t* rin
   uint8_t* dst = ring + s * UNIT + (u.how == COL ? UNIT_HALF : 0);
   for (int x = 0; x < nb; ++x)
     tma_load_4d(dst + x * BOX_BYTES, u.map, &landed[s], 64 * u.c + 32 * x, h, u.row, b);
-}
-
-// A row unit whose raw rows landed in its hi half: the tensor core reads a
-// tf32 operand's top 19 bits, so the raw value is hi as it lies; the lo
-// half gets x - trunc(x).  A thread takes 16-byte chunks, neighbours
-// neighbouring chunks (the layout does not matter to an elementwise pass).
-__device__ __forceinline__ void lo_pass(uint8_t* unit, int nb, int ptid) {
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    if (x < nb) {
-      float4 v[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        v[m] = *reinterpret_cast<const float4*>(unit + x * BOX_BYTES + (ptid + 128 * m) * 16);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        *reinterpret_cast<float4*>(unit + UNIT_HALF + x * BOX_BYTES + (ptid + 128 * m) * 16) =
-            lo4(v[m]);
-    }
-  }
-}
-
-// A transposed unit (ColTile's layout: element (r, slot of jj) = raw (jj,
-// r), jj permuted inside each 8-wide k step as pack_a orders the A
-// fragments) from the raw rows landed in its lo half: hi^T into the hi
-// half, then, once every producer thread has read its raw values, lo^T
-// over them.  A thread takes the 4 x 4 blocks of row group g (rows 4g ..
-// 4g + 3) and 16-byte chunk c (slots 4c .. 4c + 3, jj = jj0 + 2q):
-// c = ptid % 16, so the eight threads of a store phase write one row's
-// eight chunks (no bank conflict), and each reads its four source rows
-// starting at another q (rot), so the eight reads of a load phase fall in
-// eight bank groups too; the values are rotated back in registers.
-__device__ __forceinline__ void transpose_unit(uint8_t* unit, int nb, int ptid) {
-  const int c = ptid % 16, rot = (c >> 1) & 3;
-  const int jj0 = 8 * (c >> 1) + (c & 1);
-  uint8_t* raw = unit + UNIT_HALF;
-  float4 w[2][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    if (m < nb) {
-      const int g = ptid / 16 + 8 * m;
-      float4 v[4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        v[s] = *reinterpret_cast<const float4*>(raw + sw_off(jj0 + 2 * ((s + rot) & 3), 4 * g,
-                                                             UROWS));
-      // w[q] = v[(q - rot) & 3]: by 2, then by 1
-      const float4 t0 = rot & 2 ? v[2] : v[0], t1 = rot & 2 ? v[3] : v[1];
-      const float4 t2 = rot & 2 ? v[0] : v[2], t3 = rot & 2 ? v[1] : v[3];
-      w[m][0] = rot & 1 ? t3 : t0;
-      w[m][1] = rot & 1 ? t0 : t1;
-      w[m][2] = rot & 1 ? t1 : t2;
-      w[m][3] = rot & 1 ? t2 : t3;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(unit + sw_off(4 * g + i, 4 * c, UROWS)) =
-            make_float4(get(w[m][0], i), get(w[m][1], i), get(w[m][2], i), get(w[m][3], i));
-    }
-  }
-  // every producer thread has read its raw values (barrier.sync, not
-  // bar.sync: thread 0 may arrive apart from its warp, from a TMA issue)
-  asm volatile("barrier.sync 1, 128;\n" ::: "memory");
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    if (m < nb) {
-      const int g = ptid / 16 + 8 * m;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(raw + sw_off(4 * g + i, 4 * c, UROWS)) = lo4(
-            make_float4(get(w[m][0], i), get(w[m][1], i), get(w[m][2], i), get(w[m][3], i)));
-    }
-  }
 }
 
 // A row unit whose raw rows landed in its hi half, and its transpose, in

@@ -14,8 +14,18 @@ query heads, Dk != Dv, up to 576 and 512).  Two routes, by the input type
   rows launch (Q and dO kept, K and V streamed twice: the port's D, then P
   and dS to a scratch and dQ), a keys launch (dK and dV over chunks of row
   tiles into float32 partials) and a finishing launch.
-* float32: ``mma.sync`` at float32 accuracy (3xTF32), a forward launch
-  and three backward launches over the same scratch and partials.
+* float32: tf32 ``wgmma`` fed by TMA at float32 accuracy (3xTF32,
+  ``csrc/mla_attention_tf32.cuh``).  Every operand a product reads from
+  shared memory is a 64 x 64 unit (hi and lo): K and V rows split in place
+  by the warpgroup that reads them, V^T and K^T built once a call into a
+  scratch (``units``, allocated here) and copied whole, Q and dO read raw
+  into registers.  The forward is a block per row tile whose two
+  warpgroups each compute half of S's chunks, exchange their partials and
+  accumulate 256 columns of O each; the backward's rows launch computes S
+  and dP once (P and dP to a key-major scratch, then dS over dP, then dQ
+  = dS.K a chunk at a time), its keys launch reads dS^T and P^T from that
+  scratch into registers, and the same finishing launch sums the
+  partials.
 
 It is compiled by ``build.py`` at first use and called through ``ctypes``
 on PyTorch's current stream.
@@ -28,8 +38,8 @@ a shape outside that raises, with the shape in the message.  Every shape
 the contract takes runs the kernels (a narrower head loads fewer 64-column
 boxes); ``mla_smem_bytes`` and ``mla_bwd_smem_bytes`` mirror their shared
 memory.  The tensors are read contiguous from 16-byte aligned bases (TMA
-tensor maps in bf16, 16-byte loads in float32: a view, or a tensor at an
-odd offset, is copied first: a copy, not a change of route).  The plain
+tensor maps in both types: a view, or a tensor at an odd offset, is copied
+first: a copy, not a change of route).  The plain
 version is the flash functions of ``ref`` in their grouped layout at one
 K/V head (KV = 1, G = H): ``mla_fwd_lse_ref`` and ``mla_bwd_ref`` below
 call ``ref.flash_attention_fwd_lse`` and ``ref.flash_attention_bwd`` so.
@@ -71,11 +81,11 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("mla_attention")
-        lib.mla_attention_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+        lib.mla_attention_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7
                                           + [ctypes.c_float] + [ctypes.c_int] * 3
                                           + [ctypes.c_void_p])
         lib.mla_attention_fwd.restype = ctypes.c_int
-        lib.mla_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 8
+        lib.mla_attention_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 9
                                           + [ctypes.c_float] + [ctypes.c_int] * 3
                                           + [ctypes.c_void_p])
         lib.mla_attention_bwd.restype = ctypes.c_int
@@ -83,12 +93,15 @@ def _lib():
         lib.mla_attention_bwd_sizes.restype = None
         lib.mla_attention_smem_bytes.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 2
         lib.mla_attention_smem_bytes.restype = ctypes.c_int64
+        lib.mla_attention_units_floats.argtypes = [ctypes.c_int64] * 3
+        lib.mla_attention_units_floats.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
 
 
-#: a TMA box: 64 rows (32 for the key and value stages) x 128 bytes
-_BOX, _KBOX = 64 * 128, 32 * 128
+#: a TMA box: 64 rows (32 for the key and value stages) x 128 bytes; a
+#: float32 unit: 64 x 64, hi and lo
+_BOX, _KBOX, _UNIT = 64 * 128, 32 * 128, 2 * 64 * 64 * 4
 
 
 def _boxes(d):
@@ -101,13 +114,14 @@ def mla_smem_bytes(Dk, Dv, dtype):
     Dk, the boxes a narrower head leaves unloaded hold zeros) and two 32-key
     stages of K (9 boxes) and of V (4 boxes a consumer warpgroup, one per
     256 columns of Dv), or the O tile it stages its output in if larger, + 1
-    KiB of alignment.  float32: three 64 x 64 tiles, a 64-key x 256-column V
-    tile (16-byte row pads), the scores and three row vectors."""
+    KiB of alignment.  float32: a ring of six 64 x 64 units (hi and lo, 32
+    KiB each) and the two warpgroups' S partials (16 KiB each), + 1 KiB, at
+    every width."""
     if dtype == torch.bfloat16:
         nwg = 2 if _boxes(Dv) > 4 else 1
         main = 9 * _BOX + 2 * (9 + 4 * nwg) * _KBOX
         return 1024 + max(main, 4 * nwg * _BOX)
-    return (3 * 64 * 68 + 64 * 260) * 4 + (64 * 68 + 3 * 64) * 4
+    return 1024 + 6 * _UNIT + 2 * 64 * 64 * 4
 
 
 def mla_bwd_smem_bytes(Dk, Dv, dtype):
@@ -115,13 +129,13 @@ def mla_bwd_smem_bytes(Dk, Dv, dtype):
     it.  bf16, the rows launch: Q and dO tiles (9 and 8 boxes), a 32-key
     stage of K and of V, P (float32) and dS (bf16) of a stage, + 1 KiB; the
     keys launch: four stages of two 64 x 64 dS tiles and a 4-box slab, + 1
-    KiB.  float32 (static): the rows launch's two padded 64 x 64 tiles and
-    row vectors."""
+    KiB.  float32, at every width: the rows launch's ring of six units and
+    P's 16 KiB hand-over; the keys launch's ring of seven units, + 1 KiB."""
     if dtype == torch.bfloat16:
         rows = 1024 + (9 + 8) * (_BOX + _KBOX) + 64 * 32 * (4 + 2)
         keys = 1024 + 4 * (2 + 4) * _BOX
         return max(rows, keys)
-    return 2 * 64 * 68 * 4 + 2 * 64 * 4 + 4 * 64 * 4
+    return 1024 + max(6 * _UNIT + 64 * 64 * 4, 7 * _UNIT)
 
 
 def _check(q, k, v):
@@ -151,10 +165,17 @@ def _check(q, k, v):
 
 
 def _readable(t):
-    """t contiguous with a 16-byte aligned base (the kernels' 16-byte
-    loads): t itself, or a new copy."""
+    """t contiguous with a 16-byte aligned base (the kernels' TMA tensor
+    maps): t itself, or a new copy."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _units(lib, q, B, Sk, D):
+    """The float32 route's scratch of transposed units (V's for the
+    forward, D = Dv; K's for the backward, D = Dk); none for bf16."""
+    n = lib.mla_attention_units_floats(B, Sk, D) if q.dtype == torch.float32 else 0
+    return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
 def _scale_of(scale, Dk):
@@ -172,11 +193,13 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
            if with_lse else None)
     if B == 0 or Sq == 0 or H == 0:
         return o, lse
+    lib = _lib()
+    units = _units(lib, q, B, Sk, Dv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().mla_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   lse.data_ptr() if with_lse else None, B, Sq, Sk, H, Dk,
-                                   Dv, _scale_of(scale, Dk), int(bool(causal)),
-                                   _DTYPES[q.dtype], q.device.index, stream)
+    err = lib.mla_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                lse.data_ptr() if with_lse else None, units.data_ptr(),
+                                units.numel(), B, Sq, Sk, H, Dk, Dv, _scale_of(scale, Dk),
+                                int(bool(causal)), _DTYPES[q.dtype], q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"mla_attention kernel launch failed (code {err}) at "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -211,13 +234,14 @@ def _launch_bwd(q, k, v, lse, dout, causal, scale):
     p_scr = torch.empty(sizes[0], dtype=q.dtype, device=q.device)
     ds_scr = torch.empty(sizes[0], dtype=q.dtype, device=q.device)
     part = torch.empty(sizes[1], dtype=torch.float32, device=q.device)
+    units = _units(lib, q, B, Sk, Dk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mla_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                                 dout.data_ptr(), p_scr.data_ptr(), ds_scr.data_ptr(),
-                                part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                sizes[0], sizes[1], B, Sq, Sk, H, Dk, Dv,
-                                _scale_of(scale, Dk), int(bool(causal)), _DTYPES[q.dtype],
-                                q.device.index, stream)
+                                part.data_ptr(), units.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                dv.data_ptr(), sizes[0], sizes[1], units.numel(), B, Sq, Sk, H,
+                                Dk, Dv, _scale_of(scale, Dk), int(bool(causal)),
+                                _DTYPES[q.dtype], q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"mla_attention_bwd kernel launch failed (code {err}) at "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")

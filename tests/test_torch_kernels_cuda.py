@@ -1493,6 +1493,37 @@ def test_mla_attention_kernels_match_plain(B, S, H, Dk, Dv, causal, dtype, card)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views at a 4-byte offset", "v in k"])
+def test_mla_attention_float32_reads_views_and_the_models_layout(layout, card):
+    """Float32 q and k as views 4 bytes past a 16-byte boundary (the wrapper
+    copies them: a TMA tensor map needs a 16-byte aligned base), and the
+    model's layout (v the first Dv columns of k, a strided view): the
+    kernels match the plain versions within 1e-4 of each output's largest
+    and repeat bitwise."""
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    B, S, H, Dk, Dv = 1, 130, 8, 576, 512
+    gen = torch.Generator().manual_seed(53)
+    q, k, v, do = _mla_case(gen, B, S, H, Dk, Dv, torch.float32, card)
+    if layout == "v in k":
+        v = k[..., :Dv]
+    else:
+        q = _randn(gen, B * S * H * Dk + 1, device=card)[1:].view(B, S, H, Dk)
+        k = _randn(gen, B * S * Dk + 1, device=card)[1:].view(B, S, Dk)
+        assert q.data_ptr() % 16 == 4 and k.data_ptr() % 16 == 4
+    o, lse = kmla.mla_attention_lse_cuda(q, k, v, True, MLA_SCALE)
+    got = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, True, MLA_SCALE)
+    o2, lse2 = kmla.mla_attention_lse_cuda(q, k, v, True, MLA_SCALE)
+    again = kmla.mla_attention_bwd_cuda(q, k, v, lse, do, True, MLA_SCALE)
+    o_ref, lse_ref = kmla.mla_fwd_lse_ref(q, k, v, True, MLA_SCALE)
+    want = kmla.mla_bwd_ref(q, k, v, lse, do, True, MLA_SCALE)
+    torch.cuda.synchronize()
+    _leafwise((o, lse), (o_ref, lse_ref), BWD_TOL[torch.float32])
+    _leafwise(got, want, BWD_TOL[torch.float32])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mla_attention_function_and_latent_attention_take_the_kernels(dtype, card):
     """``ops.mla_attention`` with a gradient takes ``MlaAttention`` (a
@@ -1539,8 +1570,8 @@ def test_mla_attention_backward_keeps_a_nan_of_do(dtype, card):
 @pytest.mark.cuda
 def test_mla_attention_shared_memory_plan_is_the_kernels(card):
     """``mla_smem_bytes`` / ``mla_bwd_smem_bytes`` are what the library's
-    launches take (bf16: the forward, the backward's rows and keys launches;
-    float32: the forward), at widths that change the plan, and fit a block."""
+    launches take (the forward, the backward's rows and keys launches), at
+    widths that change the bf16 plan, and fit a block."""
     from repro_torch.kernels import hopper
     from repro_torch.kernels import mla_attention_cuda as kmla
     lib = kmla._lib()
@@ -1552,9 +1583,11 @@ def test_mla_attention_shared_memory_plan_is_the_kernels(card):
         bwd = max(lib.mla_attention_smem_bytes(Dv, 1, 1), lib.mla_attention_smem_bytes(Dv, 1, 2))
         assert (fwd, bwd) == (kmla.mla_smem_bytes(Dk, Dv, torch.bfloat16),
                               kmla.mla_bwd_smem_bytes(Dk, Dv, torch.bfloat16)), (Dk, Dv)
-        assert lib.mla_attention_smem_bytes(Dv, 0, 0) == kmla.mla_smem_bytes(
-            Dk, Dv, torch.float32)
-        assert max(fwd, bwd) <= limit
+        f32 = (lib.mla_attention_smem_bytes(Dv, 0, 0),
+               max(lib.mla_attention_smem_bytes(Dv, 0, 1), lib.mla_attention_smem_bytes(Dv, 0, 2)))
+        assert f32 == (kmla.mla_smem_bytes(Dk, Dv, torch.float32),
+                       kmla.mla_bwd_smem_bytes(Dk, Dv, torch.float32)), (Dk, Dv)
+        assert max(fwd, bwd, *f32) <= limit
 
 
 @pytest.mark.cuda

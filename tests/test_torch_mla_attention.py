@@ -211,6 +211,6 @@ def test_the_shared_memory_plan_fits_a_block_at_every_width(launch, dtype):
     assert max(sizes.values()) <= hopper.SMEM_PER_BLOCK == 232_448
     widest = {("forward", torch.bfloat16): 1024 + 72 * 1024 + 2 * (36 + 32) * 1024,
               ("backward", torch.bfloat16): 1024 + (72 + 64 + 36 + 32 + 8 + 4) * 1024,
-              ("forward", torch.float32): 136_960,
-              ("backward", torch.float32): 36_352}[launch, dtype]
+              ("forward", torch.float32): 1024 + 6 * 32 * 1024 + 2 * 16 * 1024,
+              ("backward", torch.float32): 1024 + 7 * 32 * 1024}[launch, dtype]
     assert sizes[576, 512] == max(sizes.values()) == widest

@@ -32,7 +32,9 @@ the mean time of a launch seen, times the name's launches a call (those
 seen over the calls issued, rounded, at least 1); MLA's rows also give it
 per kernel name (``*_by_name``), and the CUDA-events time gives a row its
 number where the profiler saw no launch.  ``--only flash,ssd,mla`` times a
-subset.
+subset; for MLA, ``--dtype float32`` (or ``bfloat16``) one type and
+``--kernels-only`` the kernels alone (no plain version, no SDPA: the quick
+way to time ablation copies, ``tools/mla_probe.py copy``).
 
 It prints the card's name and power limit, one JSON line per checkout and a
 table with one column per run.  It needs a CUDA card.
@@ -100,11 +102,11 @@ def _events_ms(torch, fn, iters=50, warmup=5):
     return a.elapsed_time(b) / iters
 
 
-def _mla(torch, F, randn, out):
+def _mla(torch, F, randn, out, dtypes=("bfloat16", "float32"), reference=True):
     """MLA's forward and backward rows at deepseek-v2's training shape."""
     from repro_torch.kernels import mla_attention_cuda as kmla
     B, S, H, Dk, Dv, scale = MLA
-    for dt in ("bfloat16", "float32"):
+    for dt in dtypes:
         dtype = getattr(torch, dt)
         q, kk, vv, do = (randn(B, S, H, Dk, dtype=dtype), randn(B, S, Dk, dtype=dtype),
                          randn(B, S, Dv, dtype=dtype), randn(B, S, H, Dv, dtype=dtype))
@@ -130,14 +132,14 @@ def _mla(torch, F, randn, out):
             out[f"mla {d} {'bf16' if eb == 2 else 'f32'}"] = {
                 "card_us": sum(names.values()) if names else None,
                 "card_us_by_name": names, "ms": _events_ms(torch, kern),
-                "plain_card_us": _card_us(torch, plain, iters=3, warmup=1),
-                "sdpa_card_us": _card_us(torch, sdpa, iters=5, warmup=2),
+                "plain_card_us": _card_us(torch, plain, iters=3, warmup=1) if reference else None,
+                "sdpa_card_us": _card_us(torch, sdpa, iters=5, warmup=2) if reference else None,
                 "bound_us": bound * 1e3, "bound_by": by}
         del q, kk, vv, do, lse, qt, kt, vt, ot, dot
         torch.cuda.empty_cache()
 
 
-def measure(root: Path, parts=PARTS) -> dict:
+def measure(root: Path, parts=PARTS, dtypes=("bfloat16", "float32"), reference=True) -> dict:
     """Every number of one checkout (run in its own process)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -156,7 +158,7 @@ def measure(root: Path, parts=PARTS) -> dict:
         return torch.randn(*shape, generator=gen).to("cuda", dtype)
 
     if "mla" in parts:
-        _mla(torch, F, randn, out)
+        _mla(torch, F, randn, out, dtypes, reference)
     for name, (B, S, H, D, causal, dt) in FLASH.items():
         if "flash" not in parts:
             break
@@ -207,13 +209,19 @@ def main() -> None:
     ap.add_argument("--root", action="append", help="checkout to time (repeatable)")
     ap.add_argument("--only", default=",".join(PARTS),
                     help="comma-separated subset of " + ",".join(PARTS))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="MLA: time this type alone")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="MLA: no plain version and no SDPA")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     parts = tuple(args.only.split(","))
     if set(parts) - set(PARTS):
         raise SystemExit(f"--only takes {','.join(PARTS)}, not {args.only}")
+    dtypes = (args.dtype,) if args.dtype else ("bfloat16", "float32")
     if args.one:
-        print(json.dumps(measure(Path(args.one).resolve(), parts)))
+        print(json.dumps(measure(Path(args.one).resolve(), parts, dtypes,
+                                 not args.kernels_only)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -221,8 +229,10 @@ def main() -> None:
     print(smi)
     runs = []
     for root in args.root or [str(ROOT)]:
+        flags = (["--dtype", args.dtype] if args.dtype else []) + (
+            ["--kernels-only"] if args.kernels_only else [])
         proc = subprocess.run([sys.executable, __file__, "--one", root, "--only",
-                               args.only], capture_output=True, text=True)
+                               args.only, *flags], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             raise SystemExit(f"timing {root} failed")

@@ -1,16 +1,17 @@
-"""Probes of MLA's bf16 kernels (``csrc/mla_attention_wgmma.cuh``) that the
-program does not carry: timing-only copies, a phase trace, ptxas's
-registers and the SASS.
+"""Probes of MLA's kernels (``csrc/mla_attention_wgmma.cuh``, bf16, and
+``csrc/mla_attention_tf32.cuh``, float32) that the program does not carry:
+timing-only copies, phase traces, ptxas's registers and the SASS.
 
-    python tools/mla_probe.py copy F1 R1 ...   # patched copies under build/
+    python tools/mla_probe.py copy F1 T1 ...   # patched copies under build/
     python tools/bwd_kernel_timing.py --only mla --root . --root build/mla_F1 ...
-    python tools/mla_probe.py trace            # card only: a clock64 phase trace
+    python tools/mla_probe.py trace            # card only: the bf16 rows launch's phases
+    python tools/mla_probe.py trace f32        # card only: the float32 forward's phases
     python tools/mla_probe.py ptxas            # card only: registers and spills
-    python tools/mla_probe.py sass             # card only: HGMMA and atomics
+    python tools/mla_probe.py sass             # card only: HGMMA (TF32) and atomics
 
 ``copy`` writes ``build/mla_<name>/src``, this checkout's ``src/`` with one
-change to the wgmma header; ``tools/bwd_kernel_timing.py --root`` times it
-beside the unchanged checkout, in turns.  The copies:
+change to a kernel header; ``tools/bwd_kernel_timing.py --root`` times it
+beside the unchanged checkout, in turns.  The bf16 copies:
 
 * F1: the forward's warpgroup 1 issues no S products (the most that handing
   P from warpgroup 0 to 1 could gain; its output is wrong);
@@ -28,11 +29,28 @@ beside the unchanged checkout, in turns.  The copies:
 * box_barriers: the rows launch's K and V stages with a full barrier a box
   (measured, not kept).
 
-Copies F1-R5 compute wrong numbers on purpose: time them, never check them.
-``trace`` builds ``build/mla_trace`` (the rows launch with ``clock64``
-stamps a phase, per consumer warpgroup and pass, summed over a block's
-stages) and prints each phase's mean cycles a block at deepseek-v2's
-training shape (B=2, S=256, H=128, Dk=576, Dv=512, causal, bf16).
+The float32 copies (``mla_attention_tf32.cuh``):
+
+* T1: the forward issues no products;
+* T2: the forward's consumers split no K unit;
+* T3: the rows launch issues no products;
+* T4: the keys launch's producers transpose no unit;
+* T5: the keys launch issues no products;
+* T6: the forward's warpgroups each compute S whole, as the bf16 forward
+  does (and still add the other's partial: the cost of not handing S over);
+* k56, k72, k96: the keys launch's register split (producer / consumer)
+  56 / 224, 72 / 208 and 96 / 184 where it takes 80 / 200 (measured, not
+  kept: PERF.md).
+
+Copies F1-R5 and T1-T5 compute wrong numbers on purpose: time them, never
+check them.  ``trace`` builds ``build/mla_trace`` (the bf16 rows launch
+with ``clock64`` stamps a phase, per consumer warpgroup and pass, summed
+over a block's stages) and prints each phase's mean cycles a block at
+deepseek-v2's training shape (B=2, S=256, H=128, Dk=576, Dv=512, causal,
+bf16); ``trace f32`` builds ``build/mla_trace_f32`` (the float32 forward,
+per consumer warpgroup: waiting for units, for its products, at the S
+exchange, splitting K's units, the rest) and prints the same at
+the same shape in float32.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADER = "src/repro_torch/kernels/csrc/mla_attention_wgmma.cuh"
+HEADER_F32 = "src/repro_torch/kernels/csrc/mla_attention_tf32.cuh"
 SOURCE = "src/repro_torch/kernels/csrc/mla_attention.cu"
 
 _RELEASE_K_AFTER_DQ = """        wg_commit();
@@ -252,6 +271,22 @@ __device__ __forceinline__ void add_chains(float (&acc)[NC][16]) {
 }
 
 
+_REGS = "constexpr int KEYS_PRODUCER_REGS = 80, KEYS_CONSUMER_REGS = 200;"
+F32_PATCHES = {
+    "T1": [("        mma_rs_raw(sc,", "        if (0) mma_rs_raw(sc,"),
+           ("            mma_rs(oa[i], ah", "            if (0) mma_rs(oa[i], ah")],
+    "T2": [("        split_row_unit(ring + sk * UNIT, nboxes(Dk, c), wg, wtid);\n", "")],
+    "T3": [("            mma_rs_raw(acc,", "            if (0) mma_rs_raw(acc,"),
+           ("            mma_rs(dqa, ah, al", "            if (0) mma_rs(dqa, ah, al")],
+    "T4": [("    transpose_unit(ring + s * UNIT, u.nb, ptid);\n", "")],
+    "T5": [("          mma_rs(acc[j], ah, al", "          if (0) mma_rs(acc[j], ah, al")],
+    "T6": [("      if ((c & 1) == wg) {\n", "      if (true) {\n")],
+    "k56": [(_REGS, "constexpr int KEYS_PRODUCER_REGS = 56, KEYS_CONSUMER_REGS = 224;")],
+    "k72": [(_REGS, "constexpr int KEYS_PRODUCER_REGS = 72, KEYS_CONSUMER_REGS = 208;")],
+    "k96": [(_REGS, "constexpr int KEYS_PRODUCER_REGS = 96, KEYS_CONSUMER_REGS = 184;")],
+}
+
+
 def _patched(text: str, edits) -> str:
     for old, new in edits:
         if old not in text:
@@ -269,8 +304,8 @@ def _copy(dst: Path) -> Path:
 def copy(names) -> None:
     for name in names:
         dst = _copy(ROOT / "build" / f"mla_{name}")
-        p = dst / HEADER
-        p.write_text(_patched(p.read_text(), PATCHES[name]))
+        p = dst / (HEADER_F32 if name in F32_PATCHES else HEADER)
+        p.write_text(_patched(p.read_text(), {**PATCHES, **F32_PATCHES}[name]))
         print(dst)
 
 
@@ -358,6 +393,83 @@ def trace() -> None:
                 f"{name} {c:.0f}" for name, c in zip(PHASES[wg], t[wg, ps])))
 
 
+# the float32 forward's trace: 0 waiting for units, 1 for its products, 2 at
+# the S exchange, 3 the rest (issuing products, the softmax), 4 splitting
+# K's units; (text after which the stamp goes, phase)
+F32_PHASES = ["unit waits", "product waits", "exchange", "rest", "K splits"]
+F32_STAMPS = [("      const int sq = in.take(), sk = in.take();\n", 0),
+              ("        split_row_unit(ring + sk * UNIT, nboxes(Dk, c), wg, wtid);\n", 4),
+              ("        mma_rs_raw(sc, in.addr(sq), in.addr(sk), ksteps(Dk, c), wtid);\n", 1),
+              ("    if (t > 0) bar_sync(3 + wg, 256);\n", 2),
+              ("    bar_sync(2, 256);\n", 2),
+              ("          const int s = in.take();\n", 0)]
+F32_WAITS = "            wg_wait_all();\n            fence_regs(oa[i]);\n"
+
+
+def make_trace_f32() -> Path:
+    dst = _copy(ROOT / "build" / "mla_trace_f32")
+    p = dst / HEADER_F32
+    s = p.read_text()
+    a = s.index("mla_fwd_tf32_kernel(const")
+    b = s.index("// ------------------------------------------------------------ backward")
+    f = s[a:b]
+    for text, ph in F32_STAMPS:
+        assert f.count(text) == 1, text
+        f = f.replace(text, f"TS(3); {text}TS({ph});\n")
+    assert f.count(F32_WAITS) == 1
+    f = f.replace(F32_WAITS, f"TS(3);\n{F32_WAITS}TS(1);\n")
+    f = f.replace("  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;\n",
+                  "  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;\n"
+                  "  long long tr_[5] = {0, 0, 0, 0, 0}, last_ = clock64();\n", 1)
+    f = f.replace("  // ----------------------------------------------------------- epilogue\n",
+                  "  TS(3);\n  if (wtid == 0)\n    for (int i = 0; i < 5; ++i) "
+                  "g_trace[(blockIdx.x * 2 + wg) * 5 + i] = tr_[i];\n"
+                  "  // ----------------------------------------------------------- epilogue\n", 1)
+    s = s[:a] + f + s[b:]
+    s = s.replace("using mlawg::ThreadRows;\n", "using mlawg::ThreadRows;\n"
+                  "__device__ long long g_trace[1 << 16];\n"
+                  "#define TS(i) { const long long now_ = clock64(); tr_[i] += now_ - last_; "
+                  "last_ = now_; }\n", 1)
+    p.write_text(s)
+    c = dst / SOURCE
+    c.write_text(c.read_text() + "\nextern \"C\" int mla_trace(void* dst, int n) {\n"
+                 "  return (int)cudaMemcpyFromSymbol(dst, mlatf::g_trace, (size_t)n * 8);\n}\n")
+    return dst
+
+
+def trace_f32() -> None:
+    dst = make_trace_f32()
+    sys.path.insert(0, str(dst / "src"))
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    lib = kmla._lib()
+    lib.mla_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    B, S, H, Dk, Dv, scale = 2, 256, 128, 576, 512, 192 ** -0.5
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(*shape, generator=gen).cuda() for shape in
+               ((B, S, H, Dk), (B, S, Dk), (B, S, Dv)))
+    for _ in range(3):
+        kmla.mla_attention_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    blocks = B * (S * H // 64)
+    buf = np.zeros(blocks * 2 * 5, dtype=np.int64)
+    if lib.mla_trace(buf.ctypes.data, buf.size) != 0:
+        raise SystemExit("reading the trace failed")
+    t = buf.reshape(blocks, 2, 5).astype(float).mean(0)
+    print(_smi("name,power.limit,clocks.sm"))
+    print(f"float32 forward, mean cycles a block over {blocks} blocks (clock64 between "
+          "stamps)")
+    for wg in (0, 1):
+        print(f"warpgroup {wg}: {t[wg].sum():.0f}; " + ", ".join(
+            f"{name} {c:.0f}" for name, c in zip(F32_PHASES, t[wg])))
+
+
 def _smi(fields: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -392,13 +504,14 @@ def sass() -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn and "HGMMA" in line:
             counts[fn][0] += 1
+            counts[fn][1] += ".TF32" in line
         elif fn and re.search(r"\b(ATOM|RED)\.", line):
-            counts[fn][1] += 1
-    for fn, (h, a) in counts.items():
-        print(f"HGMMA {h:4d}  atomics {a}  {fn}")
+            counts[fn][2] += 1
+    for fn, (h, t, a) in counts.items():
+        print(f"HGMMA {h:4d} (TF32 {t:4d})  atomics {a}  {fn}")
 
 
 def main() -> None:
@@ -406,10 +519,13 @@ def main() -> None:
         raise SystemExit(__doc__)
     cmd, args = sys.argv[1], sys.argv[2:]
     if cmd == "copy":
-        unknown = [a for a in args if a not in PATCHES]
+        names = {**PATCHES, **F32_PATCHES}
+        unknown = [a for a in args if a not in names]
         if not args or unknown:
-            raise SystemExit(f"copy takes some of {', '.join(PATCHES)}")
+            raise SystemExit(f"copy takes some of {', '.join(names)}")
         copy(args)
+    elif cmd == "trace" and args == ["f32"]:
+        trace_f32()
     else:
         {"trace": trace, "ptxas": ptxas, "sass": sass}[cmd]()
 
