@@ -105,19 +105,28 @@ drives the port's two paths through them:
   layer's capacity drops and the card time of its router, dispatch,
   expert products and combine; float32 (tokens compared, every flash
   launch on the 3xTF32 route; deepseek-v2's prefill one MLA attention
-  kernel a layer); deepseek-v2's MLA forms and incremental decode against
-  the full forward at full width; MLA's attention kernels (forward and
-  backward, bf16 and float32) held against their plain versions at
-  deepseek-v2's shape and timed beside their bounds, the plain versions
-  and SDPA; the reduced three on the card against the CPU;
+  kernel a layer); deepseek-v2's MLA forms (the materialized one on the
+  flash kernels, one launch) and incremental decode against the full
+  forward at full width; MLA's attention kernels (forward and backward,
+  bf16 and float32) held against their plain versions at deepseek-v2's
+  shape and timed beside their bounds, the plain versions and SDPA; one
+  MLA layer at full width forward and backward in bf16 and float32, its
+  materialized form on the flash kernels against the same form plain and
+  against the absorbed form (``mla_materialized_phase``); the flash
+  kernels at the materialized pair (q and k 192 wide, v 128) checked and
+  timed at deepseek-v2's training shape and at S = 4096 beside their
+  bounds, the plain versions and SDPA (``flash_dv_timing_phase``); the
+  reduced three on the card against the CPU;
 * the families' training at published width (``family_train_phases``):
   pixtral-12b (4 of 40 layers) float32 loss and gradients through the
   kernels against the plain path, then profiled bf16 Trainer steps;
   deepseek-v2 (2 of 60 layers, moments_fp32) profiled bf16 Trainer steps,
   its peak beside the reckoned state (AdamW updates its large leaves in
   slices, in place: an out-of-memory fails the run), two MLA attention
-  forward and two backward kernel calls a step and no flash launch; the
-  reduced three one step each, card against CPU;
+  forward and two backward kernel calls a step and no flash launch, then
+  one more step on the same state in MLA's materialized form (two flash
+  forward launches and two backward calls, no MLA kernel; its loss, peak
+  and wall); the reduced three one step each, card against CPU;
 * the distribution layer, last (``elastic_phases``): a NCCL process group
   of one and ``slice_mesh()`` of the card; qwen1.5-0.5b at published width
   trained 4 bf16 steps (B = 2 x 256) through flash attention, saved to an
@@ -1376,7 +1385,7 @@ def serve_phases(torch) -> tuple:
     cases += [(2, s, sk, 4, d, torch.bfloat16, c)
               for d in (16, 32, 64, 96, 128) for s in (1, 200, 333, 512)
               for sk in (s, s + 37) for c in (True, False)]
-    cases += [(2, s, sk, 4, d, torch.float32, c) for d in kfa.HEAD_DIMS
+    cases += [(2, s, sk, 4, d, torch.float32, c) for d in (16, 32, 64, 96, 128)
               for s in (1, 200, 333) for sk in (s, s + 37)
               for c in (True, False)]
     # a rank's block of queries against the whole sequence's keys (the
@@ -1432,7 +1441,7 @@ def serve_phases(torch) -> tuple:
     print(f"{len(cases) + len(off_cases) + 6} cases (zamba2's prefill B={B} "
           f"S={S} H={H} D={D} and {PHI3_ARCH}'s B={PHI3_BATCH} S={PHI3_PROMPT} "
           f"H={p3.n_heads} D={p3.d_model // p3.n_heads} in both types, causal "
-          f"and not; at D in {kfa.HEAD_DIMS} bf16 with S in (1, 200, 333, 512) "
+          f"and not; at D in (16, 32, 64, 96, 128) bf16 with S in (1, 200, 333, 512) "
           f"and f32 with S in (1, 200, 333), Sk = S and S + 37; "
           f"{len(off_cases)} causal with a query offset, Sq < Sk; strided views "
           f"in both types): max abs err f32 {flash_err['float32']:.3g} (tol "
@@ -4115,6 +4124,229 @@ def mla_kernel_phase(torch, B, S, gen) -> dict:
     return rows
 
 
+# MLA's materialized form (q and k 192 wide a head, v 128) on the flash
+# kernels: one layer at full width, of each output's largest.  The kernels
+# against the same form's plain version: FN_GRAD_TOL (the flash Function's
+# gradients against the plain version's); the two forms against each other:
+# float32 1e-3 (tests/test_torch_mla.py's GRAD_TOL against the JAX
+# package), bf16 5e-2 (SERVE_REL_TOL: the two forms round at other places)
+MAT_FORMS_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# (B, S) of the flash kernels' timing at the materialized pair: A15's
+# training shape, and one sequence at DeepSeek-V2's 4K pretraining length
+MAT_TIMING_SHAPES = ((2, 256), (1, 4096))
+
+
+def mla_materialized_phase(torch, B, S, gen) -> dict:
+    """One MLA layer of deepseek-v2 at full width (128 heads, q and k 192
+    wide a head, v 128; B x S positions, causal) forward and backward in
+    bf16 and float32: the materialized form on the flash kernels, the same
+    form with ``kernels="ref"`` on the card, and the absorbed form on the
+    MLA kernels, each for the output, x's gradient and every attention
+    leaf's (the cotangent a fixed random tensor).  Held: the kernels
+    against the plain version within FN_GRAD_TOL, the forms within
+    MAT_FORMS_TOL, one flash forward launch and one backward call in the
+    kernels' run (no MLA kernel), none in the plain run, one MLA forward
+    and backward call in the absorbed run.  Returns each type's errors and
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    from repro_torch.models import mla
+    from repro_torch.models.context import ModelCtx, null_ctx
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    phase(f"deepseek-v2's MLA layer at full width (B = {B}, S = {S}): the materialized "
+          "form on the flash kernels against its plain version and the absorbed form, "
+          "forward and backward, bf16 and float32")
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        cfg = dataclasses.replace(get_config("deepseek-v2-236b"), dtype=name)
+        params = mla.init_mla(torch.Generator(device="cuda").manual_seed(3), cfg, "cuda")
+        names = ["out", "x"] + leaf_names(params)
+        x = torch.randn(B, S, cfg.d_model, generator=gen).to("cuda", dt)
+        cot = torch.randn(B, S, cfg.d_model, generator=gen).to("cuda", dt)
+        pos = torch.arange(S, device="cuda")
+
+        def run(ctx):
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            xt = x.detach().requires_grad_(True)
+            n0 = (kfa.LAUNCHES, kfa.BWD_LAUNCHES, kmla.LAUNCHES, kmla.BWD_LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = mla.mla_train(xt, p, cfg, pos, ctx)
+            grads = torch.autograd.grad(o, [xt] + tree_leaves(p), cot)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = tuple(a - b for a, b in zip(
+                (kfa.LAUNCHES, kfa.BWD_LAUNCHES, kmla.LAUNCHES, kmla.BWD_LAUNCHES), n0))
+            return [o.detach()] + [g.detach() for g in grads], n, ms
+
+        mat = {"rules": {"mla_materialized": True}, "remat": "none", "attn_chunk": S}
+        kern, n_k, ms_k = run(ModelCtx(**mat))
+        plain, n_p, ms_p = run(ModelCtx(**mat, kernels="ref"))
+        absorbed, n_a, ms_a = run(null_ctx(remat="none", attn_chunk=S))
+
+        def rel(a, b):
+            return ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30)).item()
+
+        e_kp = [rel(a, b) for a, b in zip(kern, plain)]
+        e_fm = [rel(a, b) for a, b in zip(kern, absorbed)]
+        finite = all(bool(torch.isfinite(t).all()) for t in kern)
+        wk, wf = max(range(len(names)), key=e_kp.__getitem__), max(
+            range(len(names)), key=e_fm.__getitem__)
+        print(f"{name}: of each output's largest, kernels against plain: worst {names[wk]} "
+              f"{e_kp[wk]:.3g} (out {e_kp[0]:.3g}, x {e_kp[1]:.3g}; tol "
+              f"{FN_GRAD_TOL[name]}); materialized against absorbed: worst {names[wf]} "
+              f"{e_fm[wf]:.3g} (out {e_fm[0]:.3g}; tol {MAT_FORMS_TOL[name]}); finite "
+              f"{finite}; launches (flash forward, flash backward, MLA forward, MLA "
+              f"backward): kernels {n_k}, plain {n_p}, absorbed {n_a}; wall forward + "
+              f"backward {ms_k:.2f} / {ms_p:.2f} / {ms_a:.2f} ms")
+        if not (e_kp[wk] <= FN_GRAD_TOL[name] and e_fm[wf] <= MAT_FORMS_TOL[name] and finite
+                and n_k == (1, 1, 0, 0) and n_p == (0, 0, 0, 0) and n_a == (0, 0, 1, 1)):
+            fail(f"MLA's materialized form at full width, {name}: kernels against plain "
+                 f"{names[wk]} {e_kp[wk]:.3g}, against absorbed {names[wf]} {e_fm[wf]:.3g}, "
+                 f"finite {finite}, launches {n_k} / {n_p} / {n_a}")
+        out[name] = {"kernels_vs_plain": dict(zip(names, e_kp)),
+                     "materialized_vs_absorbed": dict(zip(names, e_fm)),
+                     "launches": {"kernels": n_k, "plain": n_p, "absorbed": n_a},
+                     "wall_ms": {"kernels": ms_k, "plain": ms_p, "absorbed": ms_a}}
+        del kern, plain, absorbed, params, x, cot
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_backend(torch, qt, kt, vt, scale) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these causal
+    inputs: PyTorch's own choice (``torch._fused_sdp_choice``), or, where
+    that is not there, what the names of its card kernels show (the
+    profiler misses launches late in the run, so the names may be none)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True,
+                                                  scale=scale)).name
+    except (AttributeError, TypeError, ValueError, ImportError):
+        pass
+    import torch.nn.functional as F
+    names = card_launches(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale), 2, 1)
+    low = " ".join(names).lower()
+    for key, backend in (("cudnn", "CUDNN_ATTENTION"), ("flash", "FLASH_ATTENTION"),
+                         ("fmha", "EFFICIENT_ATTENTION"), ("cutlass", "EFFICIENT_ATTENTION")):
+        if key in low:
+            return backend
+    return "unknown (no kernel seen)" if not names else "MATH"
+
+
+def flash_dv_timing_phase(torch, gen) -> dict:
+    """The flash kernels at MLA's materialized pair (q and k 192 wide, v
+    128; 128 heads, causal, scale 192^-0.5) at MAT_TIMING_SHAPES in bf16
+    and float32: the forward and the backward (its launches: dq, dV, dK),
+    each checked against its plain version (of each output's largest,
+    BWD_TOL) and repeated bitwise, then timed by CUDA events and card time
+    beside its bound (``flash_bound_ms`` / ``flash_bwd_bound_ms`` with Dv),
+    the plain version (key chunks of min(512, S)) and SDPA on the same
+    tensors (its backward by ``torch.autograd.grad``; the backend it picks
+    named, ``sdpa_backend``).  Returns the kernels line's two rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import ref
+
+    phase("the flash kernels at MLA's materialized pair (192, 128): checked, then timed "
+          "beside the bound, the plain version and SDPA (CUDA events, card time)")
+    H, Dk, Dv = 128, 192, 128
+    scale = Dk ** -0.5
+    src = "src/repro_torch/kernels/csrc/"
+    rows = {"fwd": {"name": "flash_attention (Dk 192, Dv 128)", "route": "cuda",
+                    "source": src + "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:77 "
+                                "(flash_attention_pallas); at this pair the reference "
+                                "runs src/repro/models/mla.py:101 (attention.attention on "
+                                "MLA's materialized form, XLA code)"},
+            "bwd": {"name": "flash_attention_bwd (Dk 192, Dv 128)", "route": "cuda",
+                    "source": src + "flash_attention_bwd.cuh",
+                    "replaces": "src/repro/models/attention.py:202 (_flash_bwd_rule, XLA "
+                                "code: no Pallas kernel) at src/repro/models/mla.py:101"}}
+    for B, S in MAT_TIMING_SHAPES:
+        chunk = min(512, S)
+        for dt in (torch.bfloat16, torch.float32):
+            name = "bfloat16" if dt == torch.bfloat16 else "float32"
+            q, k = (torch.randn(B, S, H, Dk, generator=gen).to("cuda", dt) for _ in range(2))
+            v, do = (torch.randn(B, S, H, Dv, generator=gen).to("cuda", dt) for _ in range(2))
+            o, lse = kfa.flash_attention_lse_cuda(q, k, v, True, scale)
+            grads = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True, scale)
+            o2, lse2 = kfa.flash_attention_lse_cuda(q, k, v, True, scale)
+            grads2 = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True, scale)
+            o_r, lse_r = ref.flash_attention_fwd_lse(q, k, v, True, scale, chunk)
+            g_r = ref.flash_attention_bwd(q, k, v, lse, do, True, scale, chunk)
+            torch.cuda.synchronize()
+            errs = [((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip((o, lse, *grads), (o_r, lse_r, *g_r))]
+            abs_f = (o.float() - o_r.float()).abs().max().item()
+            abs_b = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, g_r))
+            same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+            print(f"{name} (B, S) = {(B, S)}: of each output's largest o {errs[0]:.3g}, lse "
+                  f"{errs[1]:.3g}, dq {errs[2]:.3g}, dk {errs[3]:.3g}, dv {errs[4]:.3g} "
+                  f"(tol {BWD_TOL[name]}); repeated bitwise {same}")
+            if not (max(errs) <= BWD_TOL[name] and same):
+                fail(f"the flash kernels at (192, 128), {name} {(B, S)}: {errs}, "
+                     f"repeated bitwise {same}")
+            del o2, lse2, grads2, o_r, lse_r, g_r
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+            dot = do.transpose(1, 2)
+            backend = sdpa_backend(torch, qt, kt, vt, scale)
+            eb = q.element_size()
+            big = S > 512
+            calls = {
+                "fwd": (lambda: kfa.flash_attention_cuda(q, k, v, True, scale),
+                        lambda: ref.flash_attention_fwd_lse(q, k, v, True, scale, chunk),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               scale=scale),
+                        kfa.flash_bound_ms(B, S, S, H, Dk, True, eb, Dv=Dv)),
+                "bwd": (lambda: kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True, scale),
+                        lambda: ref.flash_attention_bwd(q, k, v, lse, do, True, scale, chunk),
+                        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                        kfa.flash_bwd_bound_ms(B, S, S, H, Dk, True, eb, Dv=Dv))}
+            for d, (kern, plain, lib, (bound, by)) in calls.items():
+                r = {"max_abs_err": abs_f if d == "fwd" else abs_b, "errors": errs,
+                     "bound_ms": bound, "bound_by": by, "library_backend": backend}
+                for what, fn in (("kernel", kern), ("plain", plain), ("library", lib)):
+                    fast = what != "plain"
+                    r[f"{what}_ms"] = cuda_ms(fn, iters=(5 if big else 30) if fast else 3,
+                                              warmup=2 if fast else 1)
+                    r[f"{what}_device_us"] = device_us_per_call(
+                        fn, iters=(3 if big else 10) if fast else 2, warmup=1,
+                        what=f"{d} {what}, {name} {(B, S)}")
+                print(f"  {d} {name} {(B, S)}: kernel {r['kernel_ms']:.4f} ms (CUDA "
+                      f"events), card {r['kernel_device_us']} us; bound "
+                      f"{r['bound_ms']:.4g} ms ({by}), {r['kernel_ms'] / bound:.1f}x; plain "
+                      f"{r['plain_ms']:.4f} ms, card {r['plain_device_us']} us; SDPA "
+                      f"({backend}) {r['library_ms']:.4f} ms, card "
+                      f"{r['library_device_us']} us")
+                rows[d].setdefault(name, {})[f"B{B}_S{S}"] = r
+            del q, k, v, do, o, lse, grads, qt, kt, vt, ot, dot, calls
+            torch.cuda.empty_cache()
+    for d, row in rows.items():
+        # the line's numbers: bf16 at A15's training shape (the step's)
+        bf = row["bfloat16"]["B2_S256"]
+        row.update({"max_abs_err": max(row[n][sh]["max_abs_err"] for n in
+                                       ("bfloat16", "float32") for sh in row[n]),
+                    "ms": bf["kernel_ms"], "plain_ms": bf["plain_ms"],
+                    "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+                    "library_ms": bf["library_ms"], "device_us": bf["kernel_device_us"],
+                    "library": "torch.nn.functional.scaled_dot_product_attention ("
+                               + bf["library_backend"] + ")"
+                               + (", its backward" if d == "bwd" else "")})
+    return rows
+
+
 def family_phases(torch) -> dict:
     """The slice of the last model families on the card: flash attention at
     D = 128 with grok-1's and pixtral-12b's GQA (G = 6 and 4) on both
@@ -4223,11 +4455,14 @@ def family_phases(torch) -> dict:
                               ModelCtx(rules={"mla_materialized": True}))
     torch.cuda.synchronize()
     mla_err = (o_abs - o_mat).abs().max().item()
+    mat_launches = kfa.LAUNCHES - before
     print(f"B = {B}, S = {S}, {cfg32.n_heads} heads: materialized against absorbed "
           f"max abs diff {mla_err:.3g} (tol {MLA_EQUIV_TOL}; max |out| "
-          f"{o_abs.abs().max().item():.3g}); flash launches {kfa.LAUNCHES - before}")
-    if not (mla_err <= MLA_EQUIV_TOL and kfa.LAUNCHES == before):
-        fail(f"deepseek-v2 MLA forms {mla_err:.3g} apart, or a flash launch")
+          f"{o_abs.abs().max().item():.3g}); flash launches {mat_launches} (the "
+          f"materialized form's: want 1)")
+    if not (mla_err <= MLA_EQUIV_TOL and mat_launches == 1):
+        fail(f"deepseek-v2 MLA forms {mla_err:.3g} apart, or flash launches "
+             f"{mat_launches} (want 1)")
     del o_abs, o_mat
     cfg_cf = dataclasses.replace(cfg32, capacity_factor=float(cfg32.n_experts))
     m = Model(cfg_cf)
@@ -4251,6 +4486,7 @@ def family_phases(torch) -> dict:
         fail(f"deepseek-v2 incremental decode against the full forward: "
              f"{pre_err:.3g} / {dec_err:.3g}")
     fam["deepseek-v2-236b"].update({"mla_forms_err": mla_err,
+                                    "materialized_flash_launches": mat_launches,
                                     "prefill_vs_forward_err": pre_err,
                                     "decode_vs_forward_err": dec_err})
     del full_lg, lg_pre, cache, lg_dec, p32, m
@@ -4258,6 +4494,10 @@ def family_phases(torch) -> dict:
 
     out["mla"] = mla_kernel_phase(torch, B, S, gen)
     out["mla"]["fwd"]["launches"] = fam["deepseek-v2-236b"]["mla_launches_per_prefill"]
+    # MLA's materialized form on the flash kernels at full width
+    mat = mla_materialized_phase(torch, B, S, gen)
+    out["flash_dv"] = flash_dv_timing_phase(torch, gen)
+    out["flash_dv"]["fwd"]["layer_check"] = mat
 
     # ------------------------------ the reduced three, card against CPU
     phase("the reduced deepseek-v2, grok-1 and pixtral-12b (float32) on the "
@@ -4342,8 +4582,9 @@ def _norm_rel(a, b) -> float:
 
 def _train_parts(torch, model, opt, state, batch, ctx):
     """One train step in its three parts, each ended by a synchronise, under
-    the profiler: (new state, loss, card busy ms by part, kernels seen).
-    The state is donated, as the Trainer's step donates it."""
+    the profiler: (new state, loss, card busy ms by part, kernels seen, host
+    wall ms by part).  The state is donated, as the Trainer's step donates
+    it."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.optim.optimizers import tree_leaves, tree_map, tree_unflatten
 
@@ -4370,14 +4611,18 @@ def _train_parts(torch, model, opt, state, batch, ctx):
     kern = device_intervals(prof)
     busy = {n: busy_us([iv for iv in kern if lo <= iv[0] <= hi]) / 1e3
             for n, (lo, hi) in spans.items()}
-    return {"params": new[0], "opt": new[1]}, loss, busy, len(kern)
+    wall = {n: (hi - lo) / 1e3 for n, (lo, hi) in spans.items()}
+    return {"params": new[0], "opt": new[1]}, loss, busy, len(kern), wall
 
 
-def a15_trainer(torch, arch, cfg, B, S):
+def a15_trainer(torch, arch, cfg, B, S, materialized=False):
     """Profiled bf16 ``Trainer`` steps of ``cfg`` on one fixed batch: a
     warm-up step, two steps under the profiler (the second measured), one
-    step in its parts (forward, backward, update) -> the numbers.  A step
-    that runs out of the card's memory fails the run."""
+    step in its parts (forward, backward, update) -> the numbers.  With
+    ``materialized`` (an MLA model) one more step in its parts on the same
+    state with ``ctx.rules["mla_materialized"]`` set: its loss, flash calls,
+    peak and wall.  A step that runs out of the card's memory fails the
+    run."""
     from repro_torch.kernels import flash_attention_cuda as kfa
     from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.launch.train import Trainer, batch_to
@@ -4423,13 +4668,16 @@ def a15_trainer(torch, arch, cfg, B, S):
     print(f"  {len(big)} leaves over AdamW's slice cut ({optimizers.SLICE_ELEMS:,} "
           f"elements), {in_place} of them updated in place over {tr.step} steps")
     busy = busy_us(seen) / 1e6
-    state, loss_parts, part_busy, n_kern = _train_parts(
+    state, loss_parts, part_busy, n_kern, _ = _train_parts(
         torch, tr.model, tr.optimizer, tr.state,
         batch_to(tr.data.get_batch(0), "cuda"), tr.ctx)
     tr.state = None
-    del state
     steps = tr.step + 1
     flash = (kfa.LAUNCHES - before[0], kfa.WGMMA_LAUNCHES - before[1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if materialized:
+        res["materialized"] = _materialized_step(torch, tr, state, cfg)
+    del state
     mla_n = (kmla.LAUNCHES - before[2], kmla.BWD_LAUNCHES - before[3])
     losses = list(tr.metrics_vals) + [loss_parts]
     res.update({
@@ -4442,7 +4690,7 @@ def a15_trainer(torch, arch, cfg, B, S):
         "mla_launches_per_step": mla_n[0] / steps,
         "mla_bwd_launches_per_step": mla_n[1] / steps,
         "sliced_leaves": len(big), "sliced_leaves_in_place": in_place,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        "peak_gb": peak_gb})
     print(f"  losses over {steps} steps {[round(x, 5) for x in losses]}; a step "
           f"{wall * 1e3:.2f} ms under the profiler ({warm_ms:.2f} ms the first), "
           f"{len(seen)} kernels, card busy {busy * 1e3:.2f} ms, idle "
@@ -4456,6 +4704,51 @@ def a15_trainer(torch, arch, cfg, B, S):
         fail(f"{cfg.name} bf16 training at published width: losses {losses} not "
              "finite or not falling on a fixed batch")
     return res
+
+
+def _materialized_step(torch, tr, state, cfg) -> dict:
+    """One bf16 step of ``tr``'s model in its parts (``_train_parts``) on
+    ``state`` (donated) with MLA's materialized form: its loss, flash
+    launches (forward, backward calls, MLA kernels), peak, card busy and
+    host wall by part (each part ended by a synchronise)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention_cuda as kfa
+    from repro_torch.kernels import mla_attention_cuda as kmla
+    from repro_torch.launch.train import batch_to
+
+    ctx = dataclasses.replace(tr.ctx, rules={**tr.ctx.rules, "mla_materialized": True})
+    n0 = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.BWD_LAUNCHES, kmla.LAUNCHES,
+          kmla.BWD_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        new, loss, busy, n_kern, parts = _train_parts(
+            torch, tr.model, tr.optimizer, state, batch_to(tr.data.get_batch(0), "cuda"), ctx)
+    except torch.cuda.OutOfMemoryError as err:
+        fail(f"{cfg.name}: the materialized MLA step ran out of the card's memory: "
+             f"{str(err).splitlines()[0][:300]}")
+    wall = sum(parts.values())
+    n = tuple(a - b for a, b in zip((kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.BWD_LAUNCHES,
+                                     kmla.LAUNCHES, kmla.BWD_LAUNCHES), n0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    del new
+    out = {"loss": loss, "flash_launches": n[0], "wgmma_launches": n[1],
+           "flash_bwd_launches": n[2], "mla_launches": n[3], "mla_bwd_launches": n[4],
+           "peak_gb": peak, "card_gb": total, "wall_ms": wall, "wall_ms_by_part": parts,
+           "busy_ms_by_part": busy, "kernels": n_kern}
+    print(f"  the same state, one more bf16 step with MLA's materialized form (in its "
+          f"parts, under the profiler): loss {loss:.5f}, flash forward launches {n[0]} "
+          f"(bf16 wgmma {n[1]}), backward calls {n[2]}, MLA kernels {n[3]} / {n[4]}; "
+          f"peak {peak:.2f} GB of the card's {total:.2f} GB; {wall:.2f} ms (host wall of "
+          f"the parts); by part (ms, wall / card busy): " + ", ".join(
+              f"{k} {parts[k]:.2f} / {v:.2f}" for k, v in busy.items()))
+    want = (cfg.n_layers, cfg.n_layers, cfg.n_layers, 0, 0)
+    if not (math.isfinite(loss) and n == want):
+        fail(f"{cfg.name}: the materialized step's loss {loss} or its launches (flash "
+             f"forward, bf16, backward, MLA forward, backward) {n} (want {want})")
+    return out
 
 
 def tree_leaves_of(tree):
@@ -4572,7 +4865,7 @@ def family_train_phases(torch) -> dict:
     print(f"state reckoned: {n:,} parameters x (2 B bf16 + 4 + 4 B float32 "
           f"moments) = {reckoned:.2f} GB; with bf16 gradients "
           f"{n * 12 / 1e9:.2f} GB before any activation or update temporary")
-    res = a15_trainer(torch, arch, dcfg, B, A15_TEXT)
+    res = a15_trainer(torch, arch, dcfg, B, A15_TEXT, materialized=True)
     res["state_reckoned_gb"] = reckoned
     print(f"  peak {res['peak_gb']:.2f} GB against the reckoned state "
           f"{reckoned:.2f} GB ({n * 12 / 1e9:.2f} GB with the gradients)")
@@ -4584,7 +4877,8 @@ def family_train_phases(torch) -> dict:
         fail(f"{arch} training step: MLA launches (forward, backward) a step {got} "
              f"(want {want}), flash launches {res['flash_launches_per_step']} (want 0)")
     out["mla"] = {"a15_step": {k: res[k] for k in (
-        "mla_launches_per_step", "mla_bwd_launches_per_step", "step_ms", "peak_gb")}}
+        "mla_launches_per_step", "mla_bwd_launches_per_step", "step_ms", "peak_gb")},
+        "a15_materialized_step": res["materialized"]}
     gc.collect()
     torch.cuda.empty_cache()
     fam[arch] = res
@@ -5811,8 +6105,11 @@ def main() -> None:
         # decode's and the dry run's, or the families' training phases
         # alone, after the build
         if only == "a15":
-            alone = {"mla_kernels": mla_kernel_phase(torch, FAMILY_BATCH, FAMILY_PROMPT,
-                                                     torch.Generator().manual_seed(22)),
+            gen = torch.Generator().manual_seed(22)
+            alone = {"mla_kernels": mla_kernel_phase(torch, FAMILY_BATCH, FAMILY_PROMPT, gen),
+                     "mla_materialized": mla_materialized_phase(torch, FAMILY_BATCH,
+                                                                FAMILY_PROMPT, gen),
+                     "flash_dv": flash_dv_timing_phase(torch, gen),
                      **family_train_phases(torch)}
         elif only == "a12":
             measured = mesh_train_step(torch)
@@ -6144,6 +6441,13 @@ def main() -> None:
     flash_row.update(a15["flash"])
     flash_f32_row.update(a15["flash_f32"])
     step = a15["mla"]["a15_step"]
+    dv_rows = families["flash_dv"]
+    mat_step = a15["mla"]["a15_materialized_step"]
+    dv_rows["fwd"]["launches"] = mat_step["flash_launches"]
+    dv_rows["bwd"]["launches"] = mat_step["flash_bwd_launches"]
+    for row in dv_rows.values():
+        row["paths"] = ("deepseek-v2's A15 bf16 step with MLA's materialized form "
+                        "(launches a step); one a layer in its full-width forward check")
     mla_rows["fwd"]["launches_per_a15_step"] = step["mla_launches_per_step"]
     mla_rows["bwd"]["launches"] = step["mla_bwd_launches_per_step"]
     mla_rows["bwd"]["paths"] = ("deepseek-v2's A15 bf16 Trainer step (launches a step); "
@@ -6177,7 +6481,8 @@ def main() -> None:
     print(smi)
     print(json.dumps({"kernels": [lstm_row, stack_row, fwd_train_row, bwd_row,
                                   soa_row, flash_row, flash_f32_row, ssd_row,
-                                  *bwd_rows, mla_rows["fwd"], mla_rows["bwd"]]}))
+                                  *bwd_rows, mla_rows["fwd"], mla_rows["bwd"],
+                                  dv_rows["fwd"], dv_rows["bwd"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,17 +3,22 @@
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas (the
 // Pallas body `_kernel`):
 //
-//   q (B,Sq,H,D), k and v (B,Sk,H,D), one head count H (GQA callers expand
-//   K/V first)  ->  o (B,Sq,H,D) in q's type,
+//   q (B,Sq,H,D), k (B,Sk,H,D) and v (B,Sk,H,Dv), one head count H (GQA
+//   callers expand K/V first)  ->  o (B,Sq,H,Dv) in q's type,
 //   o = softmax(scale * q.k^T [masked]) . v
 //
 // with the causal mask q_off + qpos >= kpos when `causal` (q_off >= 0 is the
 // global position of q's first row, a rank's sequence block against the
 // whole sequence's keys; 0 for the whole sequence); masked
 // scores are -1e30 and the row sum is floored at 1e-30 before the
-// division, as in the TPU kernel.  D is 16, 32, 64, 96 or 128 (a template
-// parameter: zamba2 and the dense configs have 64 or 128, phi3-mini 96,
-// the reduced test configs 16); the columns a kernel pads D with are zero
+// division, as in the TPU kernel.  (D, Dv) is a built pair, two template
+// parameters: (16, 16), (32, 32), (64, 64), (96, 96) or (128, 128) (zamba2
+// and the dense configs have 64 or 128, phi3-mini 96, the reduced test
+// configs 16), or (192, 128), MLA's materialized head at deepseek-v2's
+// width (qk_nope + qk_rope, v_head_dim; the wrapper pads a narrower pair of
+// two widths, the reduced config's (24, 16), to a built one).  The
+// instances of one width keep the code they had before the pair existed.
+// The columns a kernel pads D with are zero
 // (the products over them add nothing) and never stored.  q, k and v are
 // read through their batch, sequence and head strides (the last dimension
 // must be contiguous).  Rows past Sq and keys past Sk are masked (the TPU
@@ -59,7 +64,10 @@
 //   CUDA cores while the tensor cores finish P.V; O is rescaled once that
 //   product is in.  The epilogue divides by max(l, 1e-30), stages bf16 O through the
 //   Q tile's shared memory in the same swizzled layout and stores it by TMA,
-//   which clips rows past Sq and columns past D.
+//   which clips rows past Sq and columns past Dv.
+//   At (192, 128) (Cfg<192, 128>): Q and K tiles are three boxes, V tiles
+//   two; S takes 12 k steps of m64n64k16, P.V is n = 128 (as at D = 128);
+//   two stages of K (24 KiB) and V (16 KiB) beside Q (24 KiB), 105 KiB.
 //
 // float32: flash_attention_tf32_kernel, at float32 accuracy (3xTF32).
 //   Its contract is 3e-5 against the plain version.  One TF32 product
@@ -108,16 +116,22 @@
 //   registers).  S of tile t is issued with P.V of tile t-1, and the
 //   softmax of tile t runs while P.V finishes.  The epilogue divides by
 //   max(l, 1e-30) and stores O from the accumulators, two floats a store.
-//   Shared memory (Cfg<D>::SMEM; hi and lo double every tile; Q and K keep
-//   D rounded up to 32 columns, V^T max(D, 64) rows; + 1 KiB of alignment;
-//   one block a SM):
-//     D        Q tiles      K stage x depth   V^T stage x depth   total
-//     16, 32   2 x 16 KiB   16 KiB x 2        32 KiB x 2          129 KiB
-//     64       2 x 32       32 x 2            32 x 2              193
-//     96       1 x 48       48 x 1            48 x 2              193
-//     128      1 x 64       64 x 1            64 x 1              193
+//   Shared memory (Cfg<D, Dv>::SMEM; hi and lo double every tile; Q and K
+//   keep D rounded up to 32 columns, V^T max(Dv, 64) rows; + 1 KiB of
+//   alignment; one block a SM):
+//     D, Dv      Q tiles      K stage x depth   V^T stage x depth   total
+//     16, 32     2 x 16 KiB   16 KiB x 2        32 KiB x 2          129 KiB
+//     64         2 x 32       32 x 2            32 x 2              193
+//     96         1 x 48       48 x 1            48 x 2              193
+//     128        1 x 64       64 x 1            64 x 1              193
+//     192, 128   1 x 96       48 x 1 (a piece)  64 x 1              209
 //   With one K stage the producers store K of tile t+1 while the consumer
 //   is still in the softmax and P.V of tile t; D = 128 also waits for V.
+//   At (192, 128) a whole hi + lo K tile (96 KiB) beside Q's (96 KiB) and a
+//   V^T stage (64 KiB) would pass a block's 227 KiB, so K comes in two
+//   pieces of 96 columns through one slot (Cfg::KH): S is the sum of the
+//   two pieces' products over their half of Q's columns, the first waited
+//   for and its slot given back before the producers store the second.
 //   Card times, the variants measured and what bounds them: PERF.md
 //   (tools/flash_f32_timing.py).
 
@@ -155,13 +169,19 @@ constexpr int MAX_WG = 2;
 constexpr int MAX_STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// D: the width of q and k; DV: v's (and o's)
+template <int D, int DV>
 struct Cfg {
   static constexpr int DK = (D + 31) / 32 * 32;   // Q and K columns in shared memory
-  static constexpr int DN = D < 64 ? 64 : D;      // V^T rows = O columns (n of P.V)
+  static constexpr int DN = DV < 64 ? 64 : DV;    // V^T rows = O columns (n of P.V)
   static constexpr int KS = D / 8;                // k steps of Q.K^T
   static constexpr int OREG = DN / 2;             // O accumulator floats a thread
-  static constexpr int QT = WG_Q * DK * 4;        // bytes of a Q or K tile, hi or lo
+  static constexpr int QT = WG_Q * DK * 4;        // bytes of a Q tile, hi or lo
+  // a K tile comes in KH pieces of DK / KH columns, one a ring slot: at
+  // D = 192 a whole hi + lo K tile (96 KiB) beside Q's (96 KiB) and a V^T
+  // stage (64 KiB) would not fit a block's 227 KiB
+  static constexpr int KH = D > 128 ? 2 : 1;
+  static constexpr int KT = QT / KH;              // bytes of a K piece, hi or lo
   static constexpr int VT = DN * BN * 4;          // bytes of a V^T tile, hi or lo
   // consumer warpgroups, each 64 q rows of the block, sharing the K and
   // V^T tiles (at D = 96 two fit only with one V stage, and measured
@@ -172,11 +192,12 @@ struct Cfg {
   // producer threads of each ring
   static constexpr int PROD = 64;
   static constexpr int THREADS = CONSUMERS + 2 * PROD;
-  static constexpr int KST = D <= 64 ? 2 : 1;     // depth of the K ring
-  static constexpr int VST = D <= 96 ? 2 : 1;     // depth of the V ring
+  static constexpr int KST = D <= 64 ? 2 : 1;     // depth of the K ring (pieces)
+  static constexpr int VST = DV <= 96 ? 2 : 1;    // depth of the V ring
   // + 1 KiB to align the tiles to the swizzle's 1024-byte period
   static constexpr size_t SMEM =
-      1024 + (size_t)2 * QT * (WG + KST) + (size_t)2 * VT * VST;
+      1024 + (size_t)2 * QT * WG + (size_t)2 * KT * KST + (size_t)2 * VT * VST;
+  static_assert(SMEM <= 232448 - 1024, "a block's shared memory");
 };
 
 // d += P . V^T over the tile's 8 k steps, P split in registers (pl, ph)
@@ -211,14 +232,14 @@ __device__ __forceinline__ int tiles_for(int q0, int rows, int Sq, int Sk, int c
   return causal ? min(n, (min(q0 + rows, Sq) - 1 + q_off) / BN + 1) : n;
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(Cfg<D, DV>::THREADS, 1)
 flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
                             float* __restrict__ lse, int Sq, int Sk, int H, int n_qt,
                             Strides sq, Strides sk, Strides sv, Strides so, float scale_log2,
                             int causal, int q_off) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   // q_full; k_full[s], v_full[s]; k_empty[s][w], v_empty[s][w]: an empty
   // barrier a consumer warpgroup, so that one whose causal rows end a tile
@@ -227,7 +248,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = base;                           // warpgroup w: hi, then lo
   uint8_t* sK = sQ + 2 * C::QT * C::WG;         // stage s: hi, then lo
-  uint8_t* sV = sK + 2 * C::QT * C::KST;        // stage s: hi, then lo
+  uint8_t* sV = sK + 2 * C::KT * C::KST;        // stage s: hi, then lo
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 1 + MAX_STAGES;
@@ -274,21 +295,26 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
     for (int w = 0; w < C::WG; ++w)
       n_kw[w] = q0 + w * WG_Q < Sq ? tiles_for(q0 + w * WG_Q, WG_Q, Sq, Sk, causal, q_off)
                                   : 0;
-    auto wait_empty = [&](uint64_t* empty, int t, int st) {
+    // the slot of fill t (a tile, or a K piece) is free once every
+    // warpgroup that reads fill t - st (its first `per` x n_kw[w]) gave it back
+    auto wait_empty = [&](uint64_t* empty, int t, int st, int per) {
 #pragma unroll
       for (int w = 0; w < C::WG; ++w)
-        if (t - st >= 0 && t - st < n_kw[w])
+        if (t - st >= 0 && t - st < per * n_kw[w])
           mbar_wait(&empty[(t % st) * MAX_WG + w], ((t / st) & 1) ^ 1);
     };
     if (ptid < C::PROD) {
+      // K, a piece of DK / KH columns at a time
+      constexpr int KW = C::DK / C::KH;
       const float* kb = k + b * sk.b + h * sk.h;
-      Rows<C::DK, C::PROD, Round::bits> kt;
-      for (int t = 0; t < n_kt; ++t) {
-        const int s = t % C::KST;
-        kt.load(kb + (int64_t)t * BN * sk.s, sk.s, min(BN, Sk - t * BN), D, true, ptid);
-        wait_empty(k_empty, t, C::KST);
-        uint8_t* slot = sK + s * 2 * C::QT;
-        kt.store(slot, slot + C::QT, ptid);
+      Rows<KW, C::PROD, Round::bits> kt;
+      for (int n = 0; n < n_kt * C::KH; ++n) {
+        const int t = n / C::KH, c0 = (n % C::KH) * KW, s = n % C::KST;
+        kt.load(kb + (int64_t)t * BN * sk.s + c0, sk.s, min(BN, Sk - t * BN), min(KW, D - c0),
+                true, ptid);
+        wait_empty(k_empty, n, C::KST, C::KH);
+        uint8_t* slot = sK + s * 2 * C::KT;
+        kt.store(slot, slot + C::KT, ptid);
         fence_async_shared();
         mbar_arrive(&k_full[s]);
       }
@@ -299,8 +325,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
       Cols<C::DN, C::PROD, Round::bits> vt;
       for (int t = 0; t < n_kt; ++t) {
         const int s = t % C::VST;
-        vt.load(vb + (int64_t)t * BN * sv.s, sv.s, min(BN, Sk - t * BN), D, true, unit, vtid);
-        wait_empty(v_empty, t, C::VST);
+        vt.load(vb + (int64_t)t * BN * sv.s, sv.s, min(BN, Sk - t * BN), DV, true, unit, vtid);
+        wait_empty(v_empty, t, C::VST, 1);
         uint8_t* slot = sV + s * 2 * C::VT;
         vt.store(slot, slot + C::VT, vtid);
         fence_async_shared();
@@ -327,16 +353,29 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
   uint32_t ph[32], pl[32];
   const uint32_t q_hi = smem_u32(sQ + wg * 2 * C::QT), q_lo = q_hi + C::QT;
 
-  // S = Q.K^T of tile t into sc, issued and committed (not waited for)
+  // S = Q.K^T of tile t into sc, issued and committed (not waited for);
+  // with K in pieces, each piece but the last waited for and given back
+  // before the next is taken (the last is given back by the caller, kslot)
+  uint64_t* my_k_empty = k_empty + wg;
   auto issue_qk = [&](int t) {
-    const int s = t % C::KST;
     zero(sc);
-    mbar_wait(&k_full[s], (t / C::KST) & 1);
-    const uint32_t k_hi = smem_u32(sK + s * 2 * C::QT);
-    wg_fence();
-    mma3_ss_n64(sc, q_hi, q_lo, k_hi, k_hi + C::QT, C::KS, BN);
-    wg_commit();
+#pragma unroll
+    for (int p = 0; p < C::KH; ++p) {
+      const int n = t * C::KH + p, s = n % C::KST;
+      mbar_wait(&k_full[s], (n / C::KST) & 1);
+      const uint32_t k_hi = smem_u32(sK + s * 2 * C::KT);
+      wg_fence();
+      mma3_ss_n64(sc, q_hi + p * C::KT, q_lo + p * C::KT, k_hi, k_hi + C::KT, C::KS / C::KH,
+                  BN);
+      wg_commit();
+      if (p + 1 < C::KH) {
+        wg_wait_all();
+        mbar_arrive(&my_k_empty[s * MAX_WG]);
+      }
+    }
   };
+  // the K slot of tile t's last piece
+  auto kslot = [](int t) { return (t * C::KH + C::KH - 1) % C::KST; };
   // O += P.V of tile t (P in ph, pl), issued and committed
   auto issue_pv = [&](int t) {
     const int s = t % C::VST;
@@ -404,14 +443,13 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
       split<Round::bits>(sc[4 * kk + 3], ph[4 * kk + 3], pl[4 * kk + 3]);
     }
   };
-  uint64_t* my_k_empty = k_empty + wg;
   uint64_t* my_v_empty = v_empty + wg;
 
   mbar_wait(q_full, 0);
   issue_qk(0);
   wg_wait_all();
   fence_regs(sc);
-  mbar_arrive(&my_k_empty[0]);
+  mbar_arrive(&my_k_empty[kslot(0) * MAX_WG]);
   softmax(0);
   pack_p();
   for (int t = 1; t < n_t; ++t) {
@@ -419,7 +457,7 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
     issue_pv(t - 1);
     wg_wait_one();   // S of tile t is in; P_{t-1}.V_{t-1} may still run
     fence_regs(sc);
-    mbar_arrive(&my_k_empty[(t % C::KST) * MAX_WG]);
+    mbar_arrive(&my_k_empty[kslot(t) * MAX_WG]);
     softmax(t);
     wg_wait_all();
     fence_regs(oacc);
@@ -447,24 +485,25 @@ flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict
     const int i = qw + row0 + ((r % 4) >= 2 ? 8 : 0);
     const int col = (r / 4) * 8 + cq;
     const float inv = (r % 4) >= 2 ? inv1 : inv0;
-    if (i < Sq && col < D)
+    if (i < Sq && col < DV)
       *reinterpret_cast<float2*>(ob + (int64_t)i * so.s + col) =
           make_float2(oacc[r] * inv, oacc[r + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
            float scale, int causal, int q_off, int device, cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   // 16-byte loads: 16-byte-aligned bases and strides of whole float4s
   const void* ptrs[] = {q, k, v, o};
   const Strides strides[] = {sq, sk, sv, so};
   for (int i = 0; i < 4; ++i)
     if ((uintptr_t)ptrs[i] % 16 || strides[i].b % 4 || strides[i].s % 4 || strides[i].h % 4)
       return -3;
-  auto kern = flash_attention_tf32_kernel<D>;
-  const size_t smem = Cfg<D>::SMEM;
+  auto kern = flash_attention_tf32_kernel<D, DV>;
+  const size_t smem = C::SMEM;
   static bool smem_set[64] = {};   // per device; setting it twice is harmless
   if (device < 0 || device >= 64 || !smem_set[device]) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -472,37 +511,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     if (err != cudaSuccess) return (int)err;
     if (device >= 0 && device < 64) smem_set[device] = true;
   }
-  const int64_t n_qt = (Sq + Cfg<D>::BM - 1) / Cfg<D>::BM;
+  const int64_t n_qt = (Sq + C::BM - 1) / C::BM;
   if (B * H > 0x7fffffff || n_qt > 65535) return -1;
   const dim3 grid((unsigned)(B * H), (unsigned)n_qt);
-  kern<<<grid, Cfg<D>::THREADS, smem, stream>>>((const float*)q, (const float*)k,
-                                                (const float*)v, (float*)o, lse, (int)Sq,
-                                                (int)Sk, (int)H, (int)n_qt, sq, sk, sv, so,
-                                                scale * LOG2E, causal, q_off);
+  kern<<<grid, C::THREADS, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                           (float*)o, lse, (int)Sq, (int)Sk, (int)H, (int)n_qt,
+                                           sq, sk, sv, so, scale * LOG2E, causal, q_off);
   return (int)cudaGetLastError();
-}
-
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
-             int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, int causal, int q_off, int dev, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 96:
-      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    default: return -1;
-  }
 }
 
 }  // namespace tf32
@@ -520,16 +535,21 @@ constexpr int CONSUMERS = 128;         // warps 0-3
 constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// D: the width of q and k; DV: v's (and o's)
+template <int D, int DV>
 struct Cfg {
-  static constexpr int DP = (D + 63) / 64 * 64;   // columns in shared memory
-  static constexpr int CH = DP / 64;           // boxes per tile
+  static constexpr int DP = (D + 63) / 64 * 64;   // Q and K columns in shared memory
+  static constexpr int CH = DP / 64;           // boxes per Q or K tile
   static constexpr int KS = D / 16;            // k steps of Q.K^T
-  static constexpr int OREG = DP / 2;          // O accumulator floats a thread
-  static constexpr int TILE = CH * BOX_BYTES;  // bytes of one Q, K or V tile
+  static constexpr int DPV = (DV + 63) / 64 * 64;  // V (and O) columns in shared memory
+  static constexpr int CHV = DPV / 64;         // boxes per V tile
+  static constexpr int OREG = DPV / 2;         // O accumulator floats a thread
+  static constexpr int TILE = CH * BOX_BYTES;  // bytes of one Q or K tile
+  static constexpr int TILEV = CHV * BOX_BYTES;   // bytes of one V tile
   static constexpr int STAGES = D <= 64 ? 3 : 2;
   // + 1 KiB to align the tiles to the 128-byte swizzle's 1024-byte period
-  static constexpr size_t SMEM = 1024 + (size_t)TILE * (1 + 2 * STAGES);
+  static constexpr size_t SMEM = 1024 + (size_t)TILE * (1 + STAGES) + (size_t)TILEV * STAGES;
+  static_assert(DPV <= DP, "O is staged through the Q tile");
 };
 
 // the consumer warpgroup's own barrier (id 1; 0 is __syncthreads)
@@ -537,7 +557,7 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -545,7 +565,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
                              int Sq, int Sk, int H, int n_qt, float scale_log2, int causal,
                              int q_off) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * MAX_STAGES];
@@ -586,9 +606,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(&k_full[s], C::TILE);
         for (int c = 0; c < C::CH; ++c)
           tma_load_4d(sK + s * C::TILE + c * BOX_BYTES, &tk, &k_full[s], c * 64, h, t * BN, b);
-        mbar_expect_tx(&v_full[s], C::TILE);
-        for (int c = 0; c < C::CH; ++c)
-          tma_load_4d(sV + s * C::TILE + c * BOX_BYTES, &tv, &v_full[s], c * 64, h, t * BN, b);
+        mbar_expect_tx(&v_full[s], C::TILEV);
+        for (int c = 0; c < C::CHV; ++c)
+          tma_load_4d(sV + s * C::TILEV + c * BOX_BYTES, &tv, &v_full[s], c * 64, h, t * BN, b);
       }
     }
     return;
@@ -628,11 +648,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto issue_pv = [&](int t) {
     const int s = t % STAGES;
     mbar_wait(&v_full[s], (t / STAGES) & 1);
-    const uint32_t v_addr = smem_u32(sV + s * C::TILE);
+    const uint32_t v_addr = smem_u32(sV + s * C::TILEV);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      if constexpr (C::DP == 128)
+      if constexpr (C::DPV == 128)
         wgmma_rs_n128(o, pa + 4 * kk, desc_mnmajor(v_addr + kk * 16 * 128));
       else
         wgmma_rs_n64(o, pa + 4 * kk, desc_mnmajor(v_addr + kk * 16 * 128));
@@ -736,26 +756,27 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   consumers_sync();
   if (tid == 0) {
-    for (int c = 0; c < C::CH; ++c) tma_store_4d(&to, sQ + c * BOX_BYTES, c * 64, h, q0, b);
+    for (int c = 0; c < C::CHV; ++c) tma_store_4d(&to, sQ + c * BOX_BYTES, c * 64, h, q0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides so,
            float scale, int causal, int q_off, int device, cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   CUtensorMap tq, tk, tv, to;
   int rc;
   static_assert(BM == TMA_ROWS, "a q tile is one box of rows");
   if ((rc = cached_map(&tq, q, B, Sq, H, D, sq)) != 0) return rc;
   if ((rc = cached_map(&tk, k, B, Sk, H, D, sk)) != 0) return rc;
-  if ((rc = cached_map(&tv, v, B, Sk, H, D, sv)) != 0) return rc;
-  if ((rc = cached_map(&to, o, B, Sq, H, D, so)) != 0) return rc;
-  auto kern = flash_attention_wgmma_kernel<D>;
-  const size_t smem = Cfg<D>::SMEM;
+  if ((rc = cached_map(&tv, v, B, Sk, H, DV, sv)) != 0) return rc;
+  if ((rc = cached_map(&to, o, B, Sq, H, DV, so)) != 0) return rc;
+  auto kern = flash_attention_wgmma_kernel<D, DV>;
+  const size_t smem = C::SMEM;
   static bool smem_set[64] = {};   // per device; setting it twice is harmless
   if (device < 0 || device >= 64 || !smem_set[device]) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -771,48 +792,42 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t B,
-             int64_t Sq, int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
-             Strides so, float scale, int causal, int q_off, int dev, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 96:
-      return launch<96>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal, q_off, dev,
-                         st);
-    default: return -1;
-  }
-}
-
 }  // namespace tc
+
+// the launch of one built (D, DV) pair on the route of `dtype` (0 float32,
+// 1 bfloat16)
+template <int D, int DV>
+int launch_pair(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                int64_t B, int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk,
+                Strides sv, Strides so, float scale, int causal, int q_off, int dev,
+                cudaStream_t st) {
+  if (dtype == 0)
+    return tf32::launch<D, DV>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal,
+                               q_off, dev, st);
+  if (dtype == 1)
+    return tc::launch<D, DV>(q, k, v, o, lse, B, Sq, Sk, H, sq, sk, sv, so, scale, causal,
+                             q_off, dev, st);
+  return -2;
+}
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success); -1 for a shape the
-// kernel does not take (D not 16, 32, 64, 96 or 128, an empty or oversized
+// kernel does not take ((D, Dv) not a built pair: (16, 16), (32, 32),
+// (64, 64), (96, 96), (128, 128) or (192, 128); an empty or oversized
 // grid), -2 for a dtype code other than 0 (float32) or 1 (bfloat16), -3
 // when a tensor cannot be read as it is (a base not 16-byte aligned, a
 // stride not a multiple of 16 bytes: no bfloat16 tensor map, no float32
-// 16-byte loads; the wrapper copies such tensors first).  Strides are in
-// elements: (batch, sequence, head) for each of q, k, v and o.  `lse` is
-// null or a contiguous float32 (B, H, Sq) tensor that receives each row's
-// log-sum-exp.  `q_off` (>= 0, read only when `causal`) is the global
-// position of q's first row under the causal mask.  float32 runs the 3xTF32
-// kernel, bfloat16 the bf16 one.
+// 16-byte loads; the wrapper copies such tensors first).  D is the width of
+// q and k, Dv that of v and o.  Strides are in elements: (batch, sequence,
+// head) for each of q, k, v and o.  `lse` is null or a contiguous float32
+// (B, H, Sq) tensor that receives each row's log-sum-exp.  `q_off` (>= 0,
+// read only when `causal`) is the global position of q's first row under
+// the causal mask.  float32 runs the 3xTF32 kernel, bfloat16 the bf16 one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
-                                   int64_t D, int64_t qb, int64_t qs, int64_t qh, int64_t kb,
-                                   int64_t ks, int64_t kh, int64_t vb, int64_t vs,
+                                   int64_t D, int64_t Dv, int64_t qb, int64_t qs, int64_t qh,
+                                   int64_t kb, int64_t ks, int64_t kh, int64_t vb, int64_t vs,
                                    int64_t vh, int64_t ob, int64_t os, int64_t oh,
                                    float scale, int causal, int q_off, int dtype,
                                    int device, void* stream) {
@@ -820,16 +835,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       Sq > ((int64_t)1 << 30) || Sk > ((int64_t)1 << 30) || q_off < 0 ||
       q_off > ((int64_t)1 << 30))
     return -1;
+  if (dtype != 0 && dtype != 1) return -2;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (dtype == 0)
-    return tf32::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, q_off,
-                          device, st);
-  if (dtype == 1)
-    return tc::dispatch(q, k, v, o, l, B, Sq, Sk, H, D, sq, sk, sv, so, scale, causal, q_off,
-                        device, st);
-  return -2;
+#define PAIR(DK_, DV_)                                                                    \
+  if (D == DK_ && Dv == DV_)                                                              \
+    return launch_pair<DK_, DV_>(dtype, q, k, v, o, l, B, Sq, Sk, H, sq, sk, sv, so, scale,   \
+                              causal, q_off, device, st);
+  PAIR(16, 16)
+  PAIR(32, 32)
+  PAIR(64, 64)
+  PAIR(96, 96)
+  PAIR(128, 128)
+  PAIR(192, 128)
+#undef PAIR
+  return -1;
 }

@@ -5,21 +5,30 @@
 // and the port ran its plain version (ref.flash_attention_bwd) on the card
 // in every training step.  It computes what that plain version computes:
 //
-//   q, do (B,Sq,H,D), k, v (B,Sk,H,D) (GQA callers expand K/V first), lse
-//   (B,H,Sq) float32 as the forward stores it  ->  dq, dk, dv in q's type,
+//   q (B,Sq,H,D), k (B,Sk,H,D), v (B,Sk,H,Dv), do (B,Sq,H,Dv) (GQA callers
+//   expand K/V first), lse (B,H,Sq) float32 as the forward stores it  ->
+//   dq, dk, dv in q's type,
 //   p  = exp(scale q.k^T - lse), masked as the forward masks (causal with
 //        the query offset q_off, ragged Sq and Sk), 0 where masked
 //   dp = do.v^T,  Dr = rowsum(p * dp) / rowsum(p) over all keys (the port's
 //        D, from the recomputed p; not sum(do * o), see ref.py)
 //   ds = p * (dp - Dr) * scale,  dq = ds.k,  dk = ds^T.q,  dv = p^T.do
 //
-// for D in {16, 32, 64, 96, 128}.  Both routes take two launches on the
-// same stream and are deterministic (no atomics; each output element is
-// written by one thread of one block): a dq pass, one block per (64-row q
-// tile, head, batch), that first walks the key tiles for Dr (stored for
-// the second launch) and then walks them again for dq; and a dk/dv pass,
-// one block per (64-key tile, head, batch), over the q tiles whose rows
-// see the key tile.  The grids walk the tiles with the most work first.
+// for the built (D, Dv) pairs: (16, 16), (32, 32), (64, 64), (96, 96),
+// (128, 128) and (192, 128) (MLA's materialized head).  Both routes take
+// two launches on the same stream and are deterministic (no atomics; each
+// output element is written by one thread of one block): a dq pass, one
+// block per (64-row q tile, head, batch), that first walks the key tiles
+// for Dr (stored for the second launch) and then walks them again for dq;
+// and a dk/dv pass, one block per (64-key tile, head, batch), over the q
+// tiles whose rows see the key tile.  The grids walk the tiles with the
+// most work first.  At (192, 128) the dk/dv pass is two launches, a dV
+// pass and a dK pass (Cfg::SPLIT_KV, each recomputing S^T): on the bf16
+// route the two accumulators (96 + 64 floats a thread) do not fit one
+// warpgroup's registers beside S^T, dP^T and the split fragments; on the
+// float32 route K and V resident (five units, 160 KiB) leave room for two
+// ring units and no P^T tile.  The instances of one width keep the code
+// they had before the pair existed.
 //
 // What bounds it (flash_attention_cuda.flash_bwd_cost): the five products
 // over the causal pairs.  At zamba2-1.2b's training shape (B=2, S=512,
@@ -60,10 +69,14 @@
 //   dV += P^T.dO, forms dS^T from dP^T = V.dO^T while dV runs, then issues
 //   dK += dS^T.Q, which runs on while the next q tile's S^T and dP^T are
 //   issued.  Both accumulators stay in registers.
-//   Shared memory (Cfg<D>::SMEM, 1 KiB of alignment): two resident tiles
+//   Shared memory (Cfg<D, Dv>::SMEM, 1 KiB of alignment): two resident tiles
 //   and ST stages of two, a tile 8 KiB at D <= 64 (ST 3: 65 KiB) and 16
 //   KiB above (two 64-column boxes, ST 2: 97 KiB); two blocks an SM, but
 //   one at D > 64 in the dk/dv pass (two accumulators of 64 floats).
+//   At (192, 128) Q and K tiles are three boxes (24 KiB), dO and V two
+//   (121 KiB); dQ += dS.K and dK += dS^T.Q are n = 192, three n64 products
+//   a k step, one a box; one block an SM in every pass (the dq pass's dQ is
+//   96 floats a thread beside S, dP and the fragments).
 //
 // float32 (namespace tf32): 3xTF32 on tf32 wgmma.  A float32 operand is
 //   split into hi = x truncated to tf32 and lo = x - hi (hopper.cuh's
@@ -106,6 +119,12 @@
 //   warpgroups') and a ring of 3, dk/dv 2 and 4 and two P^T tiles (225 KiB
 //   each); D = 96 and 128 dq 4 and 3, dk/dv 4 and 2 and one P^T tile (225
 //   and 209 KiB); one block a SM.
+//   At (192, 128): the dq pass holds Q (3 units) and dO (2) and a ring of
+//   2 (225 KiB), so a product over D takes its K units one at a time, each
+//   waited for and given back; the dV and dK passes (flash_bwd_part_kernel,
+//   one consumer and one producer warpgroup) hold K (3) and V (2) and a
+//   ring of 2 (225 KiB) and run every product a unit at a time: simple,
+//   not fast.
 
 // Card times against the bound, SDPA's backward and the plain version:
 // PERF.md (chip_smoke.py's backward timing phase).
@@ -162,21 +181,44 @@ namespace tf32 {
 constexpr int MAX_ST = 4;
 constexpr int PTILE = BT * BT * 4;     // bytes of the P^T tile one warpgroup hands the other
 
-template <int D>
+// D: the width of q and k; DV: v's (and dO's).  A pair of two widths takes
+// whole chunks of both (every unit two boxes) and DV < D.
+template <int D, int DV>
 struct Cfg {
   static constexpr int NC = (D + 63) / 64;             // 64-column chunks of D
+  static constexpr int NV = (DV + 63) / 64;            // 64-column chunks of DV
   static constexpr int QW = NC == 1 ? 2 : 1;           // dq pass: consumer warpgroups
-  static constexpr int QST = 3;                        // dq pass: ring units
+  // dq pass: ring units (two where Q and dO resident take five)
+  static constexpr int QST = NC + NV > 4 ? 2 : 3;
   static constexpr int KST = NC == 1 ? 4 : 2;          // dk/dv pass: ring units
   static constexpr int PB = NC == 1 ? 2 : 1;           // P^T buffers
-  static constexpr size_t SMEM_Q = 1024 + (size_t)UNIT * (2 * NC * QW + QST);
-  static constexpr size_t SMEM_KV = 1024 + (size_t)UNIT * (2 * NC + KST) + (size_t)PB * PTILE;
-  // k steps of chunk c of a product over D
+  static constexpr size_t SMEM_Q = 1024 + (size_t)UNIT * ((NC + NV) * QW + QST);
+  static constexpr size_t SMEM_KV = 1024 + (size_t)UNIT * (NC + NV + KST) + (size_t)PB * PTILE;
+  // D != DV: the dk/dv pass as two launches of one consumer warpgroup (a
+  // dV pass, a dK pass: K and V resident (five units) leave no room for a
+  // P^T tile beside two ring units), no P^T tile
+  static constexpr bool SPLIT_KV = D != DV;
+  static constexpr size_t SMEM_PART = 1024 + (size_t)UNIT * (NC + NV + KST);
+  // k steps of chunk c of a product over D, over DV
   static __device__ __forceinline__ int ks(int c) { return min(8, (D - 64 * c) / 8); }
+  static __device__ __forceinline__ int ksv(int c) { return min(8, (DV - 64 * c) / 8); }
   // the 32-column TMA boxes of chunk c that hold columns below D
   static __host__ __device__ constexpr int boxes(int c) {
     return ((D - 64 * c < 64 ? D - 64 * c : 64) + 31) / 32;
   }
+  // the boxes of a resident or streamed unit of chunk c, and of chunks 0 .. n - 1
+  static __host__ __device__ constexpr int unit_boxes(int c) {
+    return c == 0 ? boxes(0) : boxes(1);
+  }
+  static __host__ __device__ constexpr int chunk_boxes(int n) {
+    int t = 0;
+    for (int c = 0; c < n; ++c) t += unit_boxes(c);
+    return t;
+  }
+  static_assert(D == DV || (D % 64 == 0 && DV % 64 == 0 && DV < D),
+                "a pair of two widths: whole 64-column chunks, DV < D");
+  static_assert(SMEM_Q <= 232448 - 1024 && (SPLIT_KV ? SMEM_PART : SMEM_KV) <= 232448 - 1024,
+                "a block's shared memory");
 };
 
 // how a ring unit is made
@@ -198,7 +240,7 @@ struct UnitSrc {
 // unit's hi half, a transposed unit's lo half), once the slot is free; a
 // MADE unit's landed phase completes with no load (so that every slot's
 // phases stay one a use).
-template <int D, int ST>
+template <typename C, int ST>
 __device__ __forceinline__ void issue_unit(const UnitSrc& u, int n, uint8_t* ring,
                                            uint64_t* empty, uint64_t* landed, int h, int b) {
   const int s = n % ST;
@@ -207,7 +249,7 @@ __device__ __forceinline__ void issue_unit(const UnitSrc& u, int n, uint8_t* rin
     mbar_arrive(&landed[s]);
     return;
   }
-  const int nb = u.c == 0 ? Cfg<D>::boxes(0) : Cfg<D>::boxes(1);
+  const int nb = C::unit_boxes(u.c);
   mbar_expect_tx(&landed[s], nb * BOX_BYTES);
   uint8_t* dst = ring + s * UNIT + (u.how == COL ? UNIT_HALF : 0);
   for (int x = 0; x < nb; ++x)
@@ -251,7 +293,7 @@ __device__ __forceinline__ void pair_pass(uint8_t* unit, uint8_t* tunit, int nb,
 }
 
 // The producer warpgroup: the resident units (for each of W 64-row blocks
-// from `row`, NC units of tensor ra's rows, then NC of rb's), then units 0
+// from `row`, NC units of tensor ra's rows, then NV of rb's), then units 0
 // .. total - 1 of the stream (`unit(n)` their sources), each into ring slot
 // n % ST; with `rows`, the first 64 threads also store rowval(n, ptid)
 // into rows[64 slot + ptid] beside the unit (loaded before the pass, so
@@ -261,43 +303,44 @@ __device__ __forceinline__ void pair_pass(uint8_t* unit, uint8_t* tunit, int nb,
 // which the consumers may free only once unit n is in), else at its turn.
 // Every thread then waits for the unit to land, takes its pass (lo_pass,
 // transpose_unit, pair_pass) and publishes it (a PAIR with the next).
-template <int D, int ST, int W, typename U, typename R>
+template <typename C, int ST, int W, typename U, typename R>
 __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap* rb, int row,
                                         uint8_t* res, uint64_t* res_landed, uint64_t* res_full,
                                         U unit, R rowval, float* rows, int total, uint8_t* ring,
                                         uint64_t* landed, uint64_t* full, uint64_t* empty, int h,
                                         int b, int ptid) {
-  constexpr int NC = Cfg<D>::NC;
+  constexpr int NC = C::NC, NV = C::NV, NR = NC + NV;
   if (ptid == 0) {
-    mbar_expect_tx(res_landed, 2 * W * (Cfg<D>::boxes(0) + (NC > 1 ? Cfg<D>::boxes(1) : 0)) *
-                                   BOX_BYTES);
+    mbar_expect_tx(res_landed, W * (C::chunk_boxes(NC) + C::chunk_boxes(NV)) * BOX_BYTES);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        for (int x = 0; x < Cfg<D>::boxes(c); ++x) {
-          tma_load_4d(res + (2 * w * NC + c) * UNIT + x * BOX_BYTES, ra, res_landed,
+        for (int x = 0; x < C::unit_boxes(c); ++x) {
+          tma_load_4d(res + (w * NR + c) * UNIT + x * BOX_BYTES, ra, res_landed,
                       64 * c + 32 * x, h, row + 64 * w, b);
-          tma_load_4d(res + ((2 * w + 1) * NC + c) * UNIT + x * BOX_BYTES, rb, res_landed,
-                      64 * c + 32 * x, h, row + 64 * w, b);
+          if (c < NV)
+            tma_load_4d(res + (w * NR + NC + c) * UNIT + x * BOX_BYTES, rb, res_landed,
+                        64 * c + 32 * x, h, row + 64 * w, b);
         }
       }
     }
-    if (total > 0) issue_unit<D, ST>(unit(0), 0, ring, empty, landed, h, b);
+    if (total > 0) issue_unit<C, ST>(unit(0), 0, ring, empty, landed, h, b);
   }
   mbar_wait(res_landed, 0);
 #pragma unroll
-  for (int c = 0; c < 2 * NC * W; ++c) lo_pass(res + c * UNIT, Cfg<D>::boxes(c % NC), ptid);
+  for (int c = 0; c < NR * W; ++c)
+    lo_pass(res + c * UNIT, C::unit_boxes(c % NR < NC ? c % NR : c % NR - NC), ptid);
   fence_async_shared();
   mbar_arrive(res_full);
   int issued = 1;   // thread 0: the units whose loads it has issued
   for (int n = 0; n < total; ++n) {
     const UnitSrc u = unit(n);
     if (ptid == 0) {
-      if (issued == n) issue_unit<D, ST>(u, n, ring, empty, landed, h, b);
+      if (issued == n) issue_unit<C, ST>(u, n, ring, empty, landed, h, b);
       issued = n + 1;
       if (n + 1 < total && mbar_test(&empty[(n + 1) % ST], (((n + 1) / ST) & 1) ^ 1)) {
-        issue_unit<D, ST>(unit(n + 1), n + 1, ring, empty, landed, h, b);
+        issue_unit<C, ST>(unit(n + 1), n + 1, ring, empty, landed, h, b);
         issued = n + 2;
       }
     }
@@ -305,7 +348,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* ra, const CUtensorMap
     const int s = n % ST;
     const float x = rows != nullptr && ptid < 64 ? rowval(n, ptid) : 0.f;
     mbar_wait(&landed[s], (n / ST) & 1);
-    const int nb = u.c == 0 ? Cfg<D>::boxes(0) : Cfg<D>::boxes(1);
+    const int nb = C::unit_boxes(u.c);
     const int s2 = (n + 1) % ST;
     if (u.how == PAIR) {
       mbar_wait(&empty[s2], (((n + 1) / ST) & 1) ^ 1);
@@ -348,20 +391,20 @@ struct Ring {
 
 // the dq pass
 
-template <int D>
-__global__ void __launch_bounds__(128 * (Cfg<D>::QW + 1), 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(128 * (Cfg<D, DV>::QW + 1), 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, float* __restrict__ Dsum,
                     float* __restrict__ dq, int Sq, int Sk, int H, int n_qb, float scale,
                     int causal, int q_off) {
-  using C = Cfg<D>;
-  constexpr int NC = C::NC, ST = C::QST, W = C::QW;
+  using C = Cfg<D, DV>;
+  constexpr int NC = C::NC, NV = C::NV, ST = C::QST, W = C::QW;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 + 3 * MAX_ST];
   uint8_t* base = align1024(smem_raw);
-  uint8_t* sQ = base;                  // each warpgroup's NC Q units, then its NC dO units
-  uint8_t* ring = base + 2 * NC * W * UNIT;
+  uint8_t* sQ = base;                  // each warpgroup's NC Q units, then its NV dO units
+  uint8_t* ring = base + (NC + NV) * W * UNIT;
   uint64_t* res_landed = bars;
   uint64_t* res_full = bars + 1;
   uint64_t* landed = bars + 2;
@@ -384,25 +427,26 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
   __syncthreads();
 
-  // the stream: the D pass's K and V of each key tile (2 NC units), then
-  // the dq pass's K, V and K^T (3 NC)
-  const int n1 = 2 * NC * n_kt;
+  // the stream: the D pass's K and V of each key tile (NC + NV units),
+  // then the dq pass's K, V and K^T (2 NC + NV)
+  constexpr int U1 = NC + NV, U2 = 2 * NC + NV;
+  const int n1 = U1 * n_kt;
   const auto unit = [&](int n) {
     if (n < n1) {
-      const int k = n % (2 * NC);
-      return UnitSrc{k < NC ? &tk : &tv, n / (2 * NC) * BT, k % NC, ROW};
+      const int k = n % U1;
+      return UnitSrc{k < NC ? &tk : &tv, n / U1 * BT, k < NC ? k : k - NC, ROW};
     }
-    const int k = (n - n1) % (3 * NC);
-    return UnitSrc{k < NC || k >= 2 * NC ? &tk : &tv, (n - n1) / (3 * NC) * BT, k % NC,
-                   k >= 2 * NC ? COL : ROW};
+    const int k = (n - n1) % U2;
+    return UnitSrc{k < NC || k >= U1 ? &tk : &tv, (n - n1) / U2 * BT,
+                   k < NC ? k : k < U1 ? k - NC : k - U1, k >= U1 ? COL : ROW};
   };
 
   // the role of this thread's warpgroup, warp-uniform for the compiler
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (wg == W) {
-    produce<D, ST, W>(&tq, &tdo, q0, sQ, res_landed, res_full, unit,
-                      [](int, int) { return 0.f; }, nullptr, 5 * NC * n_kt, ring, landed, full,
-                      empty, h, b, tid - 128 * W);
+    produce<C, ST, W>(&tq, &tdo, q0, sQ, res_landed, res_full, unit,
+                      [](int, int) { return 0.f; }, nullptr, (U1 + U2) * n_kt, ring, landed,
+                      full, empty, h, b, tid - 128 * W);
     return;
   }
 
@@ -417,7 +461,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const float* lrow = lse + ((int64_t)b * H + h) * Sq;
   const float la = ia < Sq ? lrow[ia] * LOG2E : 0.f, lb = ib < Sq ? lrow[ib] * LOG2E : 0.f;
   const float sl2 = scale * LOG2E;
-  const uint32_t aQ = smem_u32(sQ + 2 * NC * wg * UNIT), adO = aQ + NC * UNIT;
+  const uint32_t aQ = smem_u32(sQ + (NC + NV) * wg * UNIT), adO = aQ + NC * UNIT;
   const Ring<ST> in{full, empty, ring};
 
   // s becomes p for the key tile at k0, 0 where masked
@@ -439,32 +483,49 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   // S = Q.K^T into s (the K units from unit k) and dP = dO.V^T into dp (the
   // V units from unit k + NC), issued back to back; at NC = 2, whose ring
   // cannot hold both, S is waited and its units given back before V's are
-  // taken.  Waited by the caller; then give_kv.
+  // taken; where the ring cannot hold NC units (D = 192), S is a unit at a
+  // time, each waited and given back.  Waited by the caller; then give_kv.
   const auto sdp = [&](float (&s)[32], float (&dp)[32], int k) {
-    uint32_t ak[NC], av[NC];
+    uint32_t ak[NC], av[NV];
+    if constexpr (NC > ST) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ak[c] = in.take(k + c);
-    if constexpr (NC == 1) av[0] = in.take(k + 1);
-    wg_fence();
+      for (int c = 0; c < NC; ++c) {
+        ak[c] = in.take(k + c);
+        wg_fence();
+        mma_ss(s, aQ + c * UNIT, ak[c], C::ks(c), c == 0);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+        in.give(k + c);
+      }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) mma_ss(s, aQ + c * UNIT, ak[c], C::ks(c), c == 0);
-    if constexpr (NC > 1) {
-      wg_commit();
-      wg_wait_all();
-      fence_regs(s);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) in.give(k + c);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) av[c] = in.take(k + NC + c);
+      for (int c = 0; c < NV; ++c) av[c] = in.take(k + NC + c);
       wg_fence();
+    } else {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ak[c] = in.take(k + c);
+      if constexpr (NC == 1) av[0] = in.take(k + 1);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) mma_ss(s, aQ + c * UNIT, ak[c], C::ks(c), c == 0);
+      if constexpr (NC > 1) {
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) in.give(k + c);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) av[c] = in.take(k + NC + c);
+        wg_fence();
+      }
     }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) mma_ss(dp, adO + c * UNIT, av[c], C::ks(c), c == 0);
+    for (int c = 0; c < NV; ++c) mma_ss(dp, adO + c * UNIT, av[c], C::ksv(c), c == 0);
     wg_commit();
   };
   const auto give_kv = [&](int k) {
 #pragma unroll
-    for (int c = NC == 1 ? 0 : NC; c < 2 * NC; ++c) in.give(k + c);
+    for (int c = NC == 1 ? 0 : NC; c < NC + NV; ++c) in.give(k + c);
   };
   const auto skip = [&](int k, int n) {
     for (int i = 0; i < n; ++i) in.skip(k + i);
@@ -475,11 +536,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   float pdp_a = 0.f, pdp_b = 0.f, ps_a = 0.f, ps_b = 0.f;
   float s[32], dp[32];
   for (int t = 0; t < nw; ++t) {
-    sdp(s, dp, 2 * NC * t);
+    sdp(s, dp, U1 * t);
     wg_wait_all();
     fence_regs(s);
     fence_regs(dp);
-    give_kv(2 * NC * t);
+    give_kv(U1 * t);
     probs(s, t * BT);
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
@@ -492,7 +553,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       }
     }
   }
-  skip(2 * NC * nw, 2 * NC * (n_kt - nw));
+  skip(U1 * nw, U1 * (n_kt - nw));
   const float Da = row_sum4(pdp_a) / row_sum4(ps_a), Db = row_sum4(pdp_b) / row_sum4(ps_b);
   if (lane % 4 == 0) {
     float* drow = Dsum + ((int64_t)b * H + h) * Sq;
@@ -506,7 +567,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   for (int c = 0; c < NC; ++c) zero(acc[c]);
   uint32_t ah[32], al[32];
   for (int t = 0; t < nw; ++t) {
-    const int k = n1 + 3 * NC * t;
+    const int k = n1 + U2 * t;
     sdp(s, dp, k);
     wg_wait_all();
     fence_regs(s);
@@ -517,19 +578,32 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int r = 0; r < 32; ++r) s[r] = s[r] * (dp[r] - ((r % 4) >= 2 ? Db : Da)) * scale;
     pack_a(s, ah, al);
     uint32_t akt[NC];
+    if constexpr (NC > ST) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) akt[c] = in.take(k + 2 * NC + c);
-    wg_fence();
+      for (int c = 0; c < NC; ++c) {     // dQ += dS.K, a K^T unit at a time
+        akt[c] = in.take(k + U1 + c);
+        wg_fence();
+        mma_rs(acc[c], ah, al, akt[c]);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc[c]);
+        in.give(k + U1 + c);
+      }
+    } else {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) mma_rs(acc[c], ah, al, akt[c]);   // dQ += dS.K
-    wg_commit();
-    wg_wait_all();
+      for (int c = 0; c < NC; ++c) akt[c] = in.take(k + U1 + c);
+      wg_fence();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      for (int c = 0; c < NC; ++c) mma_rs(acc[c], ah, al, akt[c]);   // dQ += dS.K
+      wg_commit();
+      wg_wait_all();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) in.give(k + 2 * NC + c);
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) in.give(k + U1 + c);
+    }
   }
-  skip(n1 + 3 * NC * nw, 3 * NC * (n_kt - nw));
+  skip(n1 + U2 * nw, U2 * (n_kt - nw));
 
   // ----------------------------------------------------------- epilogue
   const int64_t rs = (int64_t)H * D;
@@ -581,7 +655,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const float* __restrict__ Dsum, float* __restrict__ dk,
                       float* __restrict__ dv, int Sq, int Sk, int H, float scale, int causal,
                       int q_off) {
-  using C = Cfg<D>;
+  using C = Cfg<D, D>;
   constexpr int NC = C::NC, ST = C::KST, PB = C::PB, U = 4 * NC;
   constexpr int READERS = NC == 1 ? 1 : 2;   // warpgroups that give back each unit
   extern __shared__ uint8_t smem_raw[];
@@ -644,7 +718,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       if (k != 0 && k != ODO || i >= Sq) return 0.f;
       return k == 0 ? __ldg(lrow + i) * LOG2E : __ldg(drow + i);
     };
-    produce<D, ST, 1>(&tk, &tv, k0, sK, res_landed, res_full, unit, rowval, rows, U * ntile,
+    produce<C, ST, 1>(&tk, &tv, k0, sK, res_landed, res_full, unit, rowval, rows, U * ntile,
                       ring, landed, full, empty, h, b, tid - 256);
     return;
   }
@@ -778,11 +852,182 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+// The dk/dv pass of a pair of two widths (Cfg::SPLIT_KV) as two launches,
+// each one consumer warpgroup and one producer warpgroup: DV_ONLY computes
+// S^T = K.Q^T, P^T and dV += P^T.dO; DK_ONLY S^T, P^T, dP^T = V.dO^T, dS^T
+// and dK += dS^T.Q (S^T twice a call: the price of the split).  K and V
+// are resident (V unread by DV_ONLY, for one layout), a q tile's units
+// stream through a ring of KST = 2 units: Q rows (NC) and dO^T (NV) for
+// dV; Q rows, dO rows (NV) and Q^T (NC) for dK.  The ring holds fewer
+// units than a product over D takes, so every product runs a unit at a
+// time, each waited for and its unit given back: simple, not fast.
+enum Part : int { DV_ONLY, DK_ONLY };
+
+template <int D, int DV, int PART>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_part_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ Dsum, float* __restrict__ out, int Sq, int Sk,
+                      int H, float scale, int causal, int q_off) {
+  using C = Cfg<D, DV>;
+  constexpr int NC = C::NC, NV = C::NV, ST = C::KST;
+  constexpr int U = PART == DV_ONLY ? NC + NV : 2 * NC + NV;   // units of a q tile
+  constexpr int NO = PART == DV_ONLY ? NV : NC;                // chunks of the output
+  constexpr int WO = PART == DV_ONLY ? DV : D;                 // its width
+  constexpr int OB = PART == DV_ONLY ? NC : NC + NV;           // its product's first unit
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 + 3 * MAX_ST];
+  // beside each slot: the q tile's lse * log2(e) with its first Q unit, its
+  // Dr with its first dO unit (DK_ONLY), 0 past Sq
+  __shared__ float rows[ST * BT];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* sK = base;                  // NC units, then V's NV
+  uint8_t* ring = base + (NC + NV) * UNIT;
+  uint64_t* res_landed = bars;
+  uint64_t* res_full = bars + 1;
+  uint64_t* landed = bars + 2;
+  uint64_t* full = bars + 2 + MAX_ST;
+  uint64_t* empty = bars + 2 + 2 * MAX_ST;
+
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int k0 = (int)blockIdx.y * BT;      // the first key tiles see the most q tiles
+  const int n_qt = (Sq + BT - 1) / BT;
+  // the first q tile with a row that sees a key of this tile
+  const int it0 = causal ? max(0, k0 - q_off) / BT : 0;
+  const int ntile = max(0, n_qt - it0);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(res_landed, 1);
+    mbar_init(res_full, 128);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const auto unit = [&](int n) {
+    const int k = n % U, row = (it0 + n / U) * BT;
+    if (k < NC) return UnitSrc{&tq, row, k, ROW};
+    if (PART == DV_ONLY) return UnitSrc{&tdo, row, k - NC, COL};
+    if (k < NC + NV) return UnitSrc{&tdo, row, k - NC, ROW};
+    return UnitSrc{&tq, row, k - NC - NV, COL};
+  };
+
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 1) {
+    const float* lrow = lse + ((int64_t)b * H + h) * Sq;
+    const float* drow = Dsum + ((int64_t)b * H + h) * Sq;
+    const auto rowval = [&](int n, int t) {
+      const int k = n % U, i = (it0 + n / U) * BT + t;
+      if ((k != 0 && (PART == DV_ONLY || k != NC)) || i >= Sq) return 0.f;
+      return k == 0 ? __ldg(lrow + i) * LOG2E : __ldg(drow + i);
+    };
+    produce<C, ST, 1>(&tk, &tv, k0, sK, res_landed, res_full, unit, rowval, rows, U * ntile,
+                      ring, landed, full, empty, h, b, tid - 128);
+    return;
+  }
+
+  // ------------------------------------------------------- consumers
+  const int warp = tid / 32, lane = tid % 32;
+  const int ja = k0 + acc_row(warp, lane, 0), jb = ja + 8;   // this thread's keys
+  const float sl2 = scale * LOG2E;
+  const Ring<ST> in{full, empty, ring};
+  const uint32_t aK = smem_u32(sK), aV = aK + NC * UNIT;
+  float acc[NO][32];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) zero(acc[c]);
+  float s[32], v[16];
+  uint32_t ah[32], al[32];
+  // v[2 (r / 4) + r % 2]: the row value staged beside unit n for column
+  // acc_col(lane, r)
+  const auto row_vals = [&](int n) {
+#pragma unroll
+    for (int m = 0; m < 16; ++m)
+      v[m] = rows[(n % ST) * BT + 8 * (m / 2) + 2 * (lane % 4) + m % 2];
+  };
+
+  mbar_wait(res_full, 0);
+  for (int j = 0; j < ntile; ++j) {
+    const int i0 = (it0 + j) * BT, n0 = U * j;
+    // S^T = K.Q^T, a Q unit at a time; v: lse * log2(e)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint32_t bu = in.take(n0 + c);
+      if (c == 0) row_vals(n0);
+      wg_fence();
+      mma_ss(s, aK + c * UNIT, bu, C::ks(c), c == 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      in.give(n0 + c);
+    }
+    // P^T, masked on the tiles a mask cuts (a branch on the whole tile)
+    if (i0 + BT > Sq || (causal && k0 + BT - 1 > i0 + q_off)) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int i = i0 + acc_col(lane, r), jk = (r % 4) >= 2 ? jb : ja;
+        const bool keep = i < Sq && !(causal && jk > i + q_off);
+        s[r] = keep ? exp2f(s[r] * sl2 - v[2 * (r / 4) + r % 2]) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = exp2f(s[r] * sl2 - v[2 * (r / 4) + r % 2]);
+    }
+    if constexpr (PART == DK_ONLY) {
+      // dP^T = V.dO^T, a dO unit at a time; v: Dr; then dS^T into s
+      float dp[32];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const uint32_t bu = in.take(n0 + NC + c);
+        if (c == 0) row_vals(n0 + NC);
+        wg_fence();
+        mma_ss(dp, aV + c * UNIT, bu, C::ksv(c), c == 0);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(dp);
+        in.give(n0 + NC + c);
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = s[r] * (dp[r] - v[2 * (r / 4) + r % 2]) * scale;
+    }
+    // dV += P^T.dO (the dO^T units) or dK += dS^T.Q (the Q^T units)
+    pack_a(s, ah, al);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      const uint32_t bu = in.take(n0 + OB + c);
+      wg_fence();
+      mma_rs(acc[c], ah, al, bu);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc[c]);
+      in.give(n0 + OB + c);
+    }
+  }
+
+  // ----------------------------------------------------------- epilogue
+  const int64_t rs = (int64_t)H * WO;
+  float* o = out + ((int64_t)b * Sk * H + h) * WO;
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+#pragma unroll
+    for (int r = 0; r < 32; r += 2) {
+      const int j = (r % 4) >= 2 ? jb : ja;
+      const int col = 64 * c + acc_col(lane, r);
+      if (j < Sk && col < WO) store2(o + j * rs + col, acc[c][r], acc[c][r + 1]);
+    }
+  }
+}
+
+template <int D, int DV>
 int launch(const float* q, const float* k, const float* v, const float* dO, const float* lse,
            float* Dsum, float* dq, float* dk, float* dv, int64_t B, int64_t Sq, int64_t Sk,
            int64_t H, Strides sq, Strides sk, Strides sv, Strides sdo, float scale, int causal,
            int q_off, int device, cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   // 16-byte-aligned bases, strides of whole 16 bytes (the wrapper copies
   // what fails), read through float32 tensor maps
   const void* ptrs[] = {q, k, v, dO};
@@ -794,22 +1039,36 @@ int launch(const float* q, const float* k, const float* v, const float* dO, cons
   int rc;
   if ((rc = cached_map(&tq, q, B, Sq, H, D, sq, 4)) != 0) return rc;
   if ((rc = cached_map(&tk, k, B, Sk, H, D, sk, 4)) != 0) return rc;
-  if ((rc = cached_map(&tv, v, B, Sk, H, D, sv, 4)) != 0) return rc;
-  if ((rc = cached_map(&tdo, dO, B, Sq, H, D, sdo, 4)) != 0) return rc;
-  static bool done_dq[64] = {}, done_kv[64] = {};   // per device
-  auto kq = flash_bwd_dq_kernel<D>;
-  auto kkv = flash_bwd_dkdv_kernel<D>;
-  if ((rc = set_smem(kq, Cfg<D>::SMEM_Q, done_dq, device)) != 0) return rc;
-  if ((rc = set_smem(kkv, Cfg<D>::SMEM_KV, done_kv, device)) != 0) return rc;
-  constexpr int W = Cfg<D>::QW;
+  if ((rc = cached_map(&tv, v, B, Sk, H, DV, sv, 4)) != 0) return rc;
+  if ((rc = cached_map(&tdo, dO, B, Sq, H, DV, sdo, 4)) != 0) return rc;
+  static bool done_dq[64] = {}, done_kv[64] = {}, done_k[64] = {};   // per device
+  auto kq = flash_bwd_dq_kernel<D, DV>;
+  if ((rc = set_smem(kq, C::SMEM_Q, done_dq, device)) != 0) return rc;
+  constexpr int W = C::QW;
   const int64_t n_qb = (Sq + BT * W - 1) / (BT * W), n_kt = (Sk + BT - 1) / BT;
   if (B * H > 0x7fffffff || n_qb > 65535 || n_kt > 65535) return -1;
-  kq<<<dim3((unsigned)(B * H), (unsigned)n_qb), 128 * (W + 1), Cfg<D>::SMEM_Q, stream>>>(
+  kq<<<dim3((unsigned)(B * H), (unsigned)n_qb), 128 * (W + 1), C::SMEM_Q, stream>>>(
       tq, tk, tv, tdo, lse, Dsum, dq, (int)Sq, (int)Sk, (int)H, (int)n_qb, scale, causal, q_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3((unsigned)(B * H), (unsigned)n_kt), 384, Cfg<D>::SMEM_KV, stream>>>(
-      tq, tk, tv, tdo, lse, Dsum, dk, dv, (int)Sq, (int)Sk, (int)H, scale, causal, q_off);
+  const dim3 grid((unsigned)(B * H), (unsigned)n_kt);
+  if constexpr (C::SPLIT_KV) {
+    auto kv = flash_bwd_part_kernel<D, DV, DV_ONLY>;
+    auto kk = flash_bwd_part_kernel<D, DV, DK_ONLY>;
+    if ((rc = set_smem(kv, C::SMEM_PART, done_kv, device)) != 0) return rc;
+    if ((rc = set_smem(kk, C::SMEM_PART, done_k, device)) != 0) return rc;
+    kv<<<grid, 256, C::SMEM_PART, stream>>>(tq, tk, tv, tdo, lse, Dsum, dv, (int)Sq, (int)Sk,
+                                            (int)H, scale, causal, q_off);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    kk<<<grid, 256, C::SMEM_PART, stream>>>(tq, tk, tv, tdo, lse, Dsum, dk, (int)Sq, (int)Sk,
+                                            (int)H, scale, causal, q_off);
+  } else {
+    auto kkv = flash_bwd_dkdv_kernel<D>;
+    if ((rc = set_smem(kkv, C::SMEM_KV, done_kv, device)) != 0) return rc;
+    kkv<<<grid, 384, C::SMEM_KV, stream>>>(tq, tk, tv, tdo, lse, Dsum, dk, dv, (int)Sq,
+                                           (int)Sk, (int)H, scale, causal, q_off);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -823,17 +1082,32 @@ namespace bf16 {
 constexpr int MAX_ST = 3;
 constexpr int THREADS = 128 + 32;     // a consumer warpgroup, a producer warp
 
-template <int D>
+// D: the width of q and k; DV: v's (and dO's)
+template <int D, int DV>
 struct Cfg {
-  static constexpr int DP = (D + 63) / 64 * 64;   // columns in shared memory
-  static constexpr int CH = DP / 64;              // boxes of a tile
-  static constexpr int KS = D / 16;               // k steps of a product over D
+  static constexpr int DP = (D + 63) / 64 * 64;   // Q and K columns in shared memory
+  static constexpr int CH = DP / 64;              // boxes of a Q or K tile
   static constexpr int OREG = DP / 2;             // floats a thread of a 64 x DP accumulator
-  static constexpr int TILE = CH * BOX_BYTES;     // bytes of a 64-row tile
-  static constexpr int ST = D <= 64 ? 3 : 2;      // ring stages of two tiles
-  static constexpr size_t SMEM = 1024 + (size_t)TILE * (2 + 2 * ST);
-  static constexpr int KV_BLOCKS = D <= 64 ? 2 : 1;   // dk/dv blocks an SM
+  static constexpr int TILE = CH * BOX_BYTES;     // bytes of a 64-row Q or K tile
+  static constexpr int DPV = (DV + 63) / 64 * 64; // V and dO columns in shared memory
+  static constexpr int CHV = DPV / 64;            // boxes of a V or dO tile
+  static constexpr int OREGV = DPV / 2;           // floats a thread of a 64 x DPV accumulator
+  static constexpr int TILEV = CHV * BOX_BYTES;   // bytes of a 64-row V or dO tile
+  static constexpr int ST = D <= 64 ? 3 : 2;      // ring stages of a Q/K and a V/dO tile
+  static constexpr size_t SMEM = 1024 + (size_t)(TILE + TILEV) * (1 + ST);
+  // blocks an SM: the dq pass, and the dk/dv pass (two accumulators of 64
+  // floats above 64); at D = 192 one dq block (its dQ accumulator is 96
+  // floats a thread)
+  static constexpr int DQ_BLOCKS = D <= 128 ? 2 : 1;
+  static constexpr int KV_BLOCKS = D <= 64 ? 2 : 1;
+  // the dk/dv pass as one launch (both accumulators), or, where they do not
+  // fit one warpgroup's registers together (D = 192, DV = 128: 96 + 64
+  // floats a thread), as two: a dV pass and a dK pass
+  static constexpr bool SPLIT_KV = D != DV;
 };
+
+// what a dk/dv launch computes
+enum Part : int { BOTH, DV_ONLY, DK_ONLY };
 
 // x and y, neighbouring columns of an accumulator row, as bf16x2 hi =
 // bf16(x) and lo = bf16(x - hi)
@@ -865,7 +1139,9 @@ __device__ __forceinline__ void mma_over_d(float (&d)[32], uint32_t a, uint32_t 
 }
 
 // d (64 x DP) += (hi + lo fragments) . B over the 64 rows of tile b, read
-// MN-major (the transpose bit): lo terms, then hi
+// MN-major (the transpose bit): lo terms, then hi.  DP = 192 is three n64
+// products, one a 64-column box (an n64 accumulator's 32 floats are the
+// wider one's 32 c .. 32 c + 31)
 template <int DP>
 __device__ __forceinline__ void mma_over_rows(float (&d)[DP / 2], const uint32_t (&hi)[16],
                                               const uint32_t (&lo)[16], uint32_t b) {
@@ -874,32 +1150,37 @@ __device__ __forceinline__ void mma_over_rows(float (&d)[DP / 2], const uint32_t
     const uint32_t* a = part == 0 ? lo : hi;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = desc_mnmajor(b + kk * 16 * 128);
-      if constexpr (DP == 128)
-        wgmma_rs_n128(d, a + 4 * kk, db);
-      else
-        wgmma_rs_n64(d, a + 4 * kk, db);
+      if constexpr (DP == 192) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(d + 32 * c), a + 4 * kk,
+                       desc_mnmajor(b + c * BOX_BYTES + kk * 16 * 128));
+      } else if constexpr (DP == 128) {
+        wgmma_rs_n128(d, a + 4 * kk, desc_mnmajor(b + kk * 16 * 128));
+      } else {
+        wgmma_rs_n64(d, a + 4 * kk, desc_mnmajor(b + kk * 16 * 128));
+      }
     }
   }
 }
 
 // the dq pass
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, Cfg<D, DV>::DQ_BLOCKS)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, float* __restrict__ Dsum,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int n_qt, float scale,
                     int causal, int q_off) {
-  using C = Cfg<D>;
-  constexpr int ST = C::ST;
+  using C = Cfg<D, DV>;
+  constexpr int ST = C::ST, STAGE = C::TILE + C::TILEV;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * MAX_ST];
   uint8_t* base = align1024(smem_raw);
   uint8_t* sQ = base;
   uint8_t* sdO = base + C::TILE;
-  uint8_t* ring = base + 2 * C::TILE;    // stage s: K at ring + 2 s TILE, V after it
+  uint8_t* ring = base + STAGE;          // stage s: K at ring + s STAGE, V after it
   uint64_t* res_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + MAX_ST;
@@ -921,21 +1202,22 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   if (tid >= 128) {
     // --------------------------------------------------- producer warp
     if (tid == 128) {
-      mbar_expect_tx(res_full, 2 * C::TILE);
+      mbar_expect_tx(res_full, STAGE);
       for (int c = 0; c < C::CH; ++c) {
         tma_load_4d(sQ + c * BOX_BYTES, &tq, res_full, c * 64, h, q0, b);
-        tma_load_4d(sdO + c * BOX_BYTES, &tdo, res_full, c * 64, h, q0, b);
+        if (c < C::CHV) tma_load_4d(sdO + c * BOX_BYTES, &tdo, res_full, c * 64, h, q0, b);
       }
       int n = 0;
       for (int pass = 0; pass < 2; ++pass) {
         for (int t = 0; t < n_kt; ++t, ++n) {
           const int s = n % ST;
           mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
-          mbar_expect_tx(&full[s], 2 * C::TILE);
-          uint8_t* st = ring + s * 2 * C::TILE;
+          mbar_expect_tx(&full[s], STAGE);
+          uint8_t* st = ring + s * STAGE;
           for (int c = 0; c < C::CH; ++c) {
             tma_load_4d(st + c * BOX_BYTES, &tk, &full[s], c * 64, h, t * BT, b);
-            tma_load_4d(st + C::TILE + c * BOX_BYTES, &tv, &full[s], c * 64, h, t * BT, b);
+            if (c < C::CHV)
+              tma_load_4d(st + C::TILE + c * BOX_BYTES, &tv, &full[s], c * 64, h, t * BT, b);
           }
         }
       }
@@ -955,13 +1237,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
   // S = Q.K^T and dP = dO.V^T of stage st, issued as two groups
   auto issue_sdp = [&](int st) {
-    const uint32_t kt = smem_u32(ring + st * 2 * C::TILE);
+    const uint32_t kt = smem_u32(ring + st * STAGE);
     zero(s);
     zero(dp);
     wg_fence();
     mma_over_d<D>(s, aQ, kt);
     wg_commit();
-    mma_over_d<D>(dp, adO, kt + C::TILE);
+    mma_over_d<DV>(dp, adO, kt + C::TILE);
     wg_commit();
   };
   // the next stage, once it is full -> its slot
@@ -1035,7 +1317,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int r = 0; r < 32; ++r) s[r] = s[r] * (dp[r] - ((r % 4) >= 2 ? Db : Da)) * scale;
     pack_hl(s, hi, lo);
     wg_fence();
-    mma_over_rows<C::DP>(acc, hi, lo, smem_u32(ring + st * 2 * C::TILE));
+    mma_over_rows<C::DP>(acc, hi, lo, smem_u32(ring + st * STAGE));
     wg_commit();
     prev = st;
   }
@@ -1056,8 +1338,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
 // the dk/dv pass
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, Cfg<D>::KV_BLOCKS)
+// PART: both gradients (BOTH), or dV or dK alone (Cfg::SPLIT_KV); a
+// launch of one reads the tiles of both and stores its own
+template <int D, int DV, int PART>
+__global__ void __launch_bounds__(THREADS, Cfg<D, DV>::KV_BLOCKS)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -1065,8 +1349,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const float* __restrict__ Dsum, __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, float scale,
                       int causal, int q_off) {
-  using C = Cfg<D>;
-  constexpr int ST = C::ST;
+  using C = Cfg<D, DV>;
+  static_assert(PART != BOTH || D == DV, "one launch for both gradients at D = DV only");
+  constexpr int ST = C::ST, STAGE = C::TILE + C::TILEV;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * MAX_ST];
   // each stage's q rows: lse * log2(e), then Dr (0 past Sq)
@@ -1074,7 +1359,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* base = align1024(smem_raw);
   uint8_t* sK = base;
   uint8_t* sV = base + C::TILE;
-  uint8_t* ring = base + 2 * C::TILE;    // stage s: Q at ring + 2 s TILE, dO after it
+  uint8_t* ring = base + STAGE;          // stage s: Q at ring + s STAGE, dO after it
   uint64_t* res_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + MAX_ST;
@@ -1099,10 +1384,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     // --------------------------------------------------- producer warp
     const int lane = tid - 128;
     if (lane == 0) {
-      mbar_expect_tx(res_full, 2 * C::TILE);
+      mbar_expect_tx(res_full, STAGE);
       for (int c = 0; c < C::CH; ++c) {
         tma_load_4d(sK + c * BOX_BYTES, &tk, res_full, c * 64, h, k0, b);
-        tma_load_4d(sV + c * BOX_BYTES, &tv, res_full, c * 64, h, k0, b);
+        if (c < C::CHV) tma_load_4d(sV + c * BOX_BYTES, &tv, res_full, c * 64, h, k0, b);
       }
     }
     const float* lrow = lse + ((int64_t)b * H + h) * Sq;
@@ -1120,11 +1405,12 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       rows[s][1][2 * lane] = d0;
       rows[s][1][2 * lane + 1] = d1;
       if (lane == 0) {
-        mbar_expect_tx(&full[s], 2 * C::TILE);
-        uint8_t* st = ring + s * 2 * C::TILE;
+        mbar_expect_tx(&full[s], STAGE);
+        uint8_t* st = ring + s * STAGE;
         for (int c = 0; c < C::CH; ++c) {
           tma_load_4d(st + c * BOX_BYTES, &tq, &full[s], c * 64, h, it * BT, b);
-          tma_load_4d(st + C::TILE + c * BOX_BYTES, &tdo, &full[s], c * 64, h, it * BT, b);
+          if (c < C::CHV)
+            tma_load_4d(st + C::TILE + c * BOX_BYTES, &tdo, &full[s], c * 64, h, it * BT, b);
         }
       } else {
         mbar_arrive(&full[s]);
@@ -1138,7 +1424,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int ja = k0 + acc_row(warp, lane, 0), jb = ja + 8;   // this thread's keys
   const float sl2 = scale * LOG2E;
   const uint32_t aK = smem_u32(sK), aV = smem_u32(sV);
-  float dka[C::OREG], dva[C::OREG];
+  constexpr bool WANT_DK = PART != DV_ONLY, WANT_DV = PART != DK_ONLY;
+  float dka[WANT_DK ? C::OREG : 1], dva[WANT_DV ? C::OREGV : 1];
   zero(dka);
   zero(dva);
   float s[32], dp[32];
@@ -1149,15 +1436,19 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int it = it0; it < n_qt; ++it, ++n) {
     const int st = n % ST;
     mbar_wait(&full[st], (n / ST) & 1);
-    const uint32_t aQ = smem_u32(ring + st * 2 * C::TILE), adO = aQ + C::TILE;
+    const uint32_t aQ = smem_u32(ring + st * STAGE), adO = aQ + C::TILE;
     zero(s);
-    zero(dp);
+    if constexpr (WANT_DK) zero(dp);
     wg_fence();
     mma_over_d<D>(s, aK, aQ);     // S^T = K.Q^T: rows keys, columns q
     wg_commit();
-    mma_over_d<D>(dp, aV, adO);   // dP^T = V.dO^T
-    wg_commit();
-    wg_wait_one();                // the previous dS^T.Q and S^T are in
+    if constexpr (WANT_DK) {
+      mma_over_d<DV>(dp, aV, adO);   // dP^T = V.dO^T
+      wg_commit();
+      wg_wait_one();              // the previous dS^T.Q and S^T are in
+    } else {
+      wg_wait_all();              // the previous P^T.dO and S^T are in
+    }
     fence_regs(s);
     if (prev >= 0) mbar_arrive(&empty[prev]);
     const float* lr = rows[st][0];
@@ -1170,19 +1461,35 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       const bool keep = !edge || (i < Sq && !(causal && j > i + q_off));
       s[r] = keep ? exp2f(s[r] * sl2 - lr[col]) : 0.f;
     }
-    pack_hl(s, hi, lo);
-    wg_fence();
-    mma_over_rows<C::DP>(dva, hi, lo, adO);   // dV += P^T.dO
-    wg_commit();
-    wg_wait_one();                            // dP^T is in; dV may still run
-    fence_regs(dp);
+    if constexpr (PART == BOTH) {
+      pack_hl(s, hi, lo);
+      wg_fence();
+      mma_over_rows<C::DPV>(dva, hi, lo, adO);  // dV += P^T.dO
+      wg_commit();
+      wg_wait_one();                            // dP^T is in; dV may still run
+      fence_regs(dp);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) dp[r] = s[r] * (dp[r] - dr[acc_col(lane, r)]) * scale;
-    wg_wait_all();                            // dV is in: its fragments are free
-    pack_hl(dp, hi, lo);
-    wg_fence();
-    mma_over_rows<C::DP>(dka, hi, lo, aQ);    // dK += dS^T.Q
-    wg_commit();
+      for (int r = 0; r < 32; ++r) dp[r] = s[r] * (dp[r] - dr[acc_col(lane, r)]) * scale;
+      wg_wait_all();                            // dV is in: its fragments are free
+      pack_hl(dp, hi, lo);
+      wg_fence();
+      mma_over_rows<C::DP>(dka, hi, lo, aQ);    // dK += dS^T.Q
+      wg_commit();
+    } else if constexpr (PART == DV_ONLY) {
+      pack_hl(s, hi, lo);
+      wg_fence();
+      mma_over_rows<C::DPV>(dva, hi, lo, adO);  // dV += P^T.dO
+      wg_commit();
+    } else {
+      wg_wait_all();                            // dP^T is in
+      fence_regs(dp);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) dp[r] = s[r] * (dp[r] - dr[acc_col(lane, r)]) * scale;
+      pack_hl(dp, hi, lo);
+      wg_fence();
+      mma_over_rows<C::DP>(dka, hi, lo, aQ);    // dK += dS^T.Q
+      wg_commit();
+    }
     prev = st;
   }
   wg_wait_all();
@@ -1191,34 +1498,46 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   if (prev >= 0) mbar_arrive(&empty[prev]);
 
   // ----------------------------------------------------------- epilogue
-  const int64_t rs = (int64_t)H * D;
-  const int64_t o = ((int64_t)b * Sk * H + h) * D;
+  if constexpr (WANT_DK) {
+    const int64_t rs = (int64_t)H * D;
+    const int64_t o = ((int64_t)b * Sk * H + h) * D;
 #pragma unroll
-  for (int r = 0; r < C::OREG; r += 2) {
-    const int j = (r % 4) >= 2 ? jb : ja;
-    const int col = acc_col(lane, r);
-    if (j < Sk && col < D) {
-      store2(dk + o + j * rs + col, dka[r], dka[r + 1]);
-      store2(dv + o + j * rs + col, dva[r], dva[r + 1]);
+    for (int r = 0; r < C::OREG; r += 2) {
+      const int j = (r % 4) >= 2 ? jb : ja;
+      const int col = acc_col(lane, r);
+      if (j < Sk && col < D) {
+        store2(dk + o + j * rs + col, dka[r], dka[r + 1]);
+        if constexpr (PART == BOTH) store2(dv + o + j * rs + col, dva[r], dva[r + 1]);
+      }
+    }
+  } else {
+    const int64_t rs = (int64_t)H * DV;
+    const int64_t o = ((int64_t)b * Sk * H + h) * DV;
+#pragma unroll
+    for (int r = 0; r < C::OREGV; r += 2) {
+      const int j = (r % 4) >= 2 ? jb : ja;
+      const int col = acc_col(lane, r);
+      if (j < Sk && col < DV) store2(dv + o + j * rs + col, dva[r], dva[r + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            float* Dsum, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, Strides sq, Strides sk, Strides sv, Strides sdo,
            float scale, int causal, int q_off, int device, cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   CUtensorMap tq, tk, tv, tdo;
   int rc;
   if ((rc = cached_map(&tq, q, B, Sq, H, D, sq)) != 0) return rc;
   if ((rc = cached_map(&tk, k, B, Sk, H, D, sk)) != 0) return rc;
-  if ((rc = cached_map(&tv, v, B, Sk, H, D, sv)) != 0) return rc;
-  if ((rc = cached_map(&tdo, dO, B, Sq, H, D, sdo)) != 0) return rc;
-  const size_t smem = Cfg<D>::SMEM;
-  static bool done_dq[64] = {}, done_kv[64] = {};   // per device
-  auto kq = flash_bwd_dq_kernel<D>;
-  auto kkv = flash_bwd_dkdv_kernel<D>;
+  if ((rc = cached_map(&tv, v, B, Sk, H, DV, sv)) != 0) return rc;
+  if ((rc = cached_map(&tdo, dO, B, Sq, H, DV, sdo)) != 0) return rc;
+  const size_t smem = C::SMEM;
+  static bool done_dq[64] = {}, done_kv[64] = {}, done_k[64] = {};   // per device
+  auto kq = flash_bwd_dq_kernel<D, DV>;
+  auto kkv = flash_bwd_dkdv_kernel<D, DV, C::SPLIT_KV ? DV_ONLY : BOTH>;
   if ((rc = set_smem(kq, smem, done_dq, device)) != 0) return rc;
   if ((rc = set_smem(kkv, smem, done_kv, device)) != 0) return rc;
   const int64_t n_qt = (Sq + BT - 1) / BT, n_kt = (Sk + BT - 1) / BT;
@@ -1229,6 +1548,14 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   if (err != cudaSuccess) return (int)err;
   kkv<<<dim3((unsigned)(B * H), (unsigned)n_kt), THREADS, smem, stream>>>(
       tq, tk, tv, tdo, lse, Dsum, dk, dv, (int)Sq, (int)Sk, (int)H, scale, causal, q_off);
+  if constexpr (C::SPLIT_KV) {
+    auto kk = flash_bwd_dkdv_kernel<D, DV, DK_ONLY>;
+    if ((rc = set_smem(kk, smem, done_k, device)) != 0) return rc;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    kk<<<dim3((unsigned)(B * H), (unsigned)n_kt), THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, Dsum, dk, dv, (int)Sq, (int)Sk, (int)H, scale, causal, q_off);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1236,29 +1563,30 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
 
 // ------------------------------------------------------------- the entry
 
-// the launches of input type T at head dim D
-template <typename T, int D>
+// the launches of input type T at the pair (D, DV)
+template <typename T, int D, int DV>
 int launch_typed(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                  float* Dsum, void* dq, void* dk, void* dv, int64_t B, int64_t Sq, int64_t Sk,
                  int64_t H, Strides sq, Strides sk, Strides sv, Strides sdo, float scale,
                  int causal, int q_off, int dev, cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value)
-    return tf32::launch<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dO,
-                           lse, Dsum, (float*)dq, (float*)dk, (float*)dv, B, Sq, Sk, H, sq, sk,
-                           sv, sdo, scale, causal, q_off, dev, st);
+    return tf32::launch<D, DV>((const float*)q, (const float*)k, (const float*)v,
+                               (const float*)dO, lse, Dsum, (float*)dq, (float*)dk, (float*)dv,
+                               B, Sq, Sk, H, sq, sk, sv, sdo, scale, causal, q_off, dev, st);
   else
-    return bf16::launch<D>(q, k, v, dO, lse, Dsum, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-                           (__nv_bfloat16*)dv, B, Sq, Sk, H, sq, sk, sv, sdo, scale, causal,
-                           q_off, dev, st);
+    return bf16::launch<D, DV>(q, k, v, dO, lse, Dsum, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
+                               (__nv_bfloat16*)dv, B, Sq, Sk, H, sq, sk, sv, sdo, scale, causal,
+                               q_off, dev, st);
 }
 
 // The entry of a translation unit built for input type T (its dtype code:
-// 0 float32, 1 bfloat16): argument checks, then the two launches.
+// 0 float32, 1 bfloat16): argument checks, then the launches of the built
+// pair (D, Dv).
 template <typename T>
 int run(int dtype_code, const void* q, const void* k, const void* v, const void* dO,
         const void* lse, void* Dsum, void* dq, void* dk, void* dv, int64_t B, int64_t Sq,
-        int64_t Sk, int64_t H, int64_t D, Strides sq, Strides sk, Strides sv, Strides sdo,
-        float scale, int causal, int q_off, int dtype, int device, void* stream) {
+        int64_t Sk, int64_t H, int64_t D, int64_t Dv, Strides sq, Strides sk, Strides sv,
+        Strides sdo, float scale, int causal, int q_off, int dtype, int device, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       Sq > ((int64_t)1 << 30) || Sk > ((int64_t)1 << 30) || q_off < 0 ||
       q_off > ((int64_t)1 << 30))
@@ -1269,24 +1597,18 @@ int run(int dtype_code, const void* q, const void* k, const void* v, const void*
   const float* l = (const float*)lse;
   float* ds = (float*)Dsum;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_typed<T, 16>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, sdo,
-                                 scale, causal, q_off, device, st);
-    case 32:
-      return launch_typed<T, 32>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, sdo,
-                                 scale, causal, q_off, device, st);
-    case 64:
-      return launch_typed<T, 64>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, sdo,
-                                 scale, causal, q_off, device, st);
-    case 96:
-      return launch_typed<T, 96>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, sdo,
-                                 scale, causal, q_off, device, st);
-    case 128:
-      return launch_typed<T, 128>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, sdo,
-                                  scale, causal, q_off, device, st);
-    default: return -1;
-  }
+#define PAIR(DK_, DV_)                                                                      \
+  if (D == DK_ && Dv == DV_)                                                                \
+    return launch_typed<T, DK_, DV_>(q, k, v, dO, l, ds, dq, dk, dv, B, Sq, Sk, H, sq, sk, sv, \
+                                  sdo, scale, causal, q_off, device, st);
+  PAIR(16, 16)
+  PAIR(32, 32)
+  PAIR(64, 64)
+  PAIR(96, 96)
+  PAIR(128, 128)
+  PAIR(192, 128)
+#undef PAIR
+  return -1;
 }
 
 }  // namespace

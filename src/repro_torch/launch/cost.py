@@ -125,16 +125,17 @@ def _nbytes(tree) -> int:
 def _kernel_flops(func, args) -> float:
     name = func.overloadpacket.__name__
     if name in ("flash_attention", "flash_attention_lse"):
-        q, k = args[0], args[1]
+        q, k, v = args[0], args[1], args[2]
         B, Sq, H, D = q.shape
         q_offset = args[5] if len(args) > 5 else 0
-        return flash_cost(B, Sq, k.shape[1], H, D, args[3], q.element_size(), q_offset)[0]
+        return flash_cost(B, Sq, k.shape[1], H, D, args[3], q.element_size(), q_offset,
+                          v.shape[-1])[0]
     if name == "flash_attention_bwd":
-        q, k = args[0], args[1]
+        q, k, v = args[0], args[1], args[2]
         B, Sq, H, D = q.shape
         q_offset = args[7] if len(args) > 7 else 0
         return flash_bwd_cost(B, Sq, k.shape[1], H, D, args[5], q.element_size(),
-                              q_offset)[0]
+                              q_offset, v.shape[-1])[0]
     if name in ("mla_attention", "mla_attention_lse", "mla_attention_bwd"):
         q, k, v = args[0], args[1], args[2]
         B, Sq, H, Dk = q.shape

@@ -21,10 +21,12 @@ cache, or, on a mesh, over this rank's shard of it
 flash-decode, its ``pmax`` / ``psum`` as all-reduces over process groups).
 A rank's block of queries against the whole sequence's keys takes the
 kernel with the causal mask offset by the block's first position
-(``q_offset``).  Attention that the kernel cannot take (MLA's shared
-576-wide key and 512-wide value) runs ``plain_attention``: the JAX
-package's chunked flash VJP or its naive path, chosen as the reference's
-``attention.attention`` chooses, plain.
+(``q_offset``).  v may be narrower than q and k: MLA's materialized form
+(q and k 192 wide, v 128 at deepseek-v2's width) takes the kernel too.
+MLA's absorbed form (one shared key head 576 wide, value head 512) runs
+its own kernels on the card (``models.mla.latent_attention``) and, on the
+CPU, ``plain_attention``: the JAX package's chunked flash VJP or its naive
+path, chosen as the reference's ``attention.attention`` chooses, plain.
 """
 
 from __future__ import annotations
@@ -152,7 +154,8 @@ def attention(q, k, v, causal: bool, scale: Optional[float] = None,
               kernels: Optional[str] = None, chunk: Optional[int] = None,
               q_offset: int = 0):
     """Full-sequence attention through ``kops.flash_attention``.
-    q (B,Sq,KV,G,Dh); k, v (B,Sk,KV,Dh) -> (B,Sq,KV,G,Dh) in q's type.  K/V
+    q, k (B,Sq,KV,G,Dh), (B,Sk,KV,Dh); v (B,Sk,KV,Dv) -> (B,Sq,KV,G,Dv) in
+    q's type (Dv = Dh but in MLA's materialized form).  K/V
     are expanded to the H = KV * G query heads first (the kernel's layout,
     as ``flash_attention.py`` asks of GQA callers); ``kernels`` is
     ``ModelCtx.kernels``, ``chunk`` its ``attn_chunk`` (the backward's key
@@ -165,7 +168,7 @@ def attention(q, k, v, causal: bool, scale: Optional[float] = None,
         v = v.repeat_interleave(G, dim=2)
     o = kops.flash_attention(q4, k, v, causal, scale, chunk=chunk, force=kernels,
                              q_offset=q_offset)
-    return o.reshape(B, S, KV, G, Dh)
+    return o.reshape(B, S, KV, G, v.shape[-1])
 
 
 # ---------------------------------------------------------------------------

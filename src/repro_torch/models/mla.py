@@ -13,19 +13,22 @@ The port of ``repro.models.mla``, with its two exactly equivalent forms:
   ``ctx.rules["mla_materialized"]``): per-head K (qk_nope + qk_rope wide)
   and V (v_head_dim wide).
 
-Neither form runs the flash kernel, which takes k and v of one shape and
-head dims up to 128 only.  The JAX package computes both with
-``attention.attention`` (its chunked flash VJP where the key length is a
-multiple of ``ctx.attn_chunk``, else the naive path: XLA code, no Pallas
-kernel).  On the card the absorbed form's attention runs the hand-written
-MLA kernels (``kops.mla_attention``, ``kernels/csrc/mla_attention.cu``:
-one shared key and value head, forward and backward); the materialized
-form (a tests and ablation path) and the one-token decode stay plain, as
-everything does on the CPU: float32 scores and softmax routed as the
-reference routes them (``attention.plain_attention``: ``ChunkedAttention``
-over key chunks, which holds one (S, chunk) score tile at a time in
-either pass, or ``naive_attention``).  Which form runs is decided by
-``cfg.use_mla`` and ``ctx.rules`` alone.
+The JAX package computes both with ``attention.attention`` (its chunked
+flash VJP where the key length is a multiple of ``ctx.attn_chunk``, else
+the naive path: XLA code, no Pallas kernel).  The materialized form runs
+``attention.attention`` as every other family does: the flash kernels on
+the card, forward and backward (``kops.flash_attention``: q and k of one
+width, v of its own, (192, 128) at deepseek-v2's width, the reduced
+config's (24, 16) padded to a built pair), their plain versions on the
+CPU (``FlashAttention`` over key chunks of ``ctx.attn_chunk``, one (S,
+chunk) score tile at a time in either pass).  The absorbed form's
+attention runs the hand-written MLA kernels on the card
+(``kops.mla_attention``, ``kernels/csrc/mla_attention.cu``: one shared
+key and value head, forward and backward) and plain on the CPU: float32
+scores and softmax routed as the reference routes them
+(``attention.plain_attention``: ``ChunkedAttention`` over key chunks, or
+``naive_attention``).  The one-token decode stays plain.  Which form runs
+is decided by ``cfg.use_mla`` and ``ctx.rules`` alone.
 """
 
 from __future__ import annotations
@@ -145,7 +148,8 @@ def mla_train(x, params, cfg, positions, ctx):
 
 def _mla_train_materialized(x, params, cfg, positions, ctx):
     """Full attention with per-head K (qk + qr wide) and V (vd wide), as
-    KV = H heads of one group each."""
+    KV = H heads of one group each, through ``attention.attention`` (the
+    flash kernels on the card)."""
     B, S, _ = x.shape
     h, qr, vd = cfg.n_heads, cfg.qk_rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _project_q(x, params, cfg, positions)
@@ -155,9 +159,9 @@ def _mla_train_materialized(x, params, cfg, positions, ctx):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, h, qr)], dim=-1)
     o = _on_local_heads(
-        lambda q, k, v: attn_lib.plain_attention(
-            q[:, :, :, None, :], k, v, True, ctx.attn_chunk,
-            use_chunked=ctx.use_chunked_attn, scale=_scale(cfg))[:, :, :, 0],
+        lambda q, k, v: attn_lib.attention(
+            q[:, :, :, None, :], k, v, True, scale=_scale(cfg), kernels=ctx.kernels,
+            chunk=ctx.attn_chunk)[:, :, :, 0],
         q, (k, v), ctx, shared=False)
     return o.reshape(B, S, h * vd) @ params["wo"]
 

@@ -375,6 +375,15 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros(1, 8, 2, 64, device=card)
     with pytest.raises(ValueError, match="head dim"):
         kfa.flash_attention_cuda(q[..., :48], q[..., :48], q[..., :48])
+    # pairs of two widths no built pair covers, forward and backward
+    z = torch.zeros(1, 8, 2, 256, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8, device=card)
+    for dk, dv in ((200, 128), (192, 136)):
+        with pytest.raises(ValueError, match="head dims"):
+            kfa.flash_attention_cuda(z[..., :dk], z[..., :dk], z[..., :dv])
+        with pytest.raises(ValueError, match="head dims"):
+            kfa.flash_attention_bwd_cuda(z[..., :dk], z[..., :dk], z[..., :dv], lse,
+                                         z[..., :dv])
     with pytest.raises(TypeError):
         kfa.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -889,6 +898,75 @@ def test_flash_attention_bwd_kernel_reads_strided_views(card):
                                         do.contiguous(), True)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# MLA's materialized form: q and k 192 wide (qk_nope + qk_rope), v 128
+# (v_head_dim) at deepseek-v2's width, the kernels' (192, 128) instances;
+# the reduced config's (24, 16) padded to a built pair.  Tolerances: of each
+# output's largest, float32 1e-4, bf16 1e-2 (BWD_TOL; the forward's o and
+# lse too).
+DV_CASES = [(2, 256, 256, 16, 192, 128, True, 0),    # A15's training shape, 16 heads
+            (1, 200, 237, 3, 192, 128, False, 0), (2, 70, 70, 2, 192, 128, True, 0),
+            (1, 64, 256, 2, 192, 128, True, 192),  # a sequence block at q_offset
+            (2, 1, 38, 2, 192, 128, True, 0), (2, 100, 100, 2, 24, 16, True, 0)]
+
+
+def _dv_case(gen, B, Sq, Sk, H, Dk, Dv, dtype, device):
+    return (_randn(gen, B, Sq, H, Dk, dtype=dtype, device=device),
+            _randn(gen, B, Sk, H, Dk, dtype=dtype, device=device),
+            _randn(gen, B, Sk, H, Dv, dtype=dtype, device=device),
+            _randn(gen, B, Sq, H, Dv, dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Dk,Dv,causal,q_offset", DV_CASES)
+def test_flash_kernels_at_mlas_materialized_pair_match_plain(B, Sq, Sk, H, Dk, Dv, causal,
+                                                             q_offset, dtype, card):
+    """The forward with its lse and the backward at (Dk, Dv) against
+    ``ref.flash_attention_fwd_lse`` / ``ref.flash_attention_bwd``, one
+    forward launch and one backward call each, every call repeated
+    bitwise."""
+    gen = torch.Generator().manual_seed(Sq + Sk + Dk)
+    q, k, v, do = _dv_case(gen, B, Sq, Sk, H, Dk, Dv, dtype, card)
+    scale = Dk ** -0.5
+    n0 = (kfa.LAUNCHES, kfa.BWD_LAUNCHES)
+    o, lse = kfa.flash_attention_lse_cuda(q, k, v, causal, scale, q_offset)
+    got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, scale, q_offset)
+    assert (kfa.LAUNCHES - n0[0], kfa.BWD_LAUNCHES - n0[1]) == (1, 1)
+    o2, lse2 = kfa.flash_attention_lse_cuda(q, k, v, causal, scale, q_offset)
+    again = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, causal, scale, q_offset)
+    o_r, lse_r = ref.flash_attention_fwd_lse(q, k, v, causal, scale, None, q_offset)
+    want = ref.flash_attention_bwd(q, k, v, lse, do, causal, scale, None, q_offset)
+    torch.cuda.synchronize()
+    assert tuple(o.shape) == (B, Sq, H, Dv)
+    _leafwise((o, lse), (o_r, lse_r), BWD_TOL[dtype])
+    _leafwise(got, want, BWD_TOL[dtype])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_mlas_materialized_pair_read_strided_views(dtype, card):
+    """q, k and v as the model makes them (views of wider tensors: q and k
+    the first 192 columns of 256, v a head-strided view) and do a
+    transposed view: the forward and backward equal those of contiguous
+    copies bitwise."""
+    gen = torch.Generator().manual_seed(31)
+    B, S, H = 2, 130, 4
+    qk = _randn(gen, B, S, 2, H, 256, dtype=dtype, device=card)[..., :192]
+    q, k = qk.unbind(2)
+    v = _randn(gen, B, S, 2 * H, 128, dtype=dtype, device=card)[:, :, ::2]
+    do = _randn(gen, B, H, S, 128, dtype=dtype, device=card).transpose(1, 2)
+    o, lse = kfa.flash_attention_lse_cuda(q, k, v, True, 0.1)
+    c = [t.contiguous() for t in (q, k, v, do)]
+    o2, lse2 = kfa.flash_attention_lse_cuda(*c[:3], True, 0.1)
+    got = kfa.flash_attention_bwd_cuda(q, k, v, lse, do, True, 0.1)
+    want = kfa.flash_attention_bwd_cuda(*c[:3], lse, c[3], True, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

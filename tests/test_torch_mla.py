@@ -15,13 +15,16 @@ Reduced deepseek-v2 in float32, the JAX package's weights carried across by
 * the gradients of the absorbed form against ``jax.grad``'s, each leaf
   within 1e-3 of its largest magnitude.
 
-MLA's attention runs no flash kernel (one shared 576-wide key head and a
-512-wide value at full width; the flash kernel takes k and v of one shape
-and D <= 128): on the card the absorbed form's attention runs MLA's own
-kernels, on the CPU the plain versions these tests hold.  Two tests marked
-``cuda`` show it on a card: the MLA route launches no flash kernel (the
-prefill one MLA attention kernel, the materialized form and the decode
-none), and ``kops.flash_attention`` at D = 576 raises.
+The absorbed form's attention (one shared 576-wide key head and a 512-wide
+value at full width) runs MLA's own kernels on the card; the materialized
+form runs ``attention.attention``, the flash kernels on the card (q and k
+qk_nope + qk_rope wide, v v_head_dim wide), their plain versions
+(``FlashAttention``) on the CPU: a test here holds that it goes through
+``kops.flash_attention``.  Two tests marked ``cuda`` show the routes on a
+card: the absorbed prefill launches one MLA attention kernel and no flash
+kernel, the materialized form one flash forward (and, with a gradient, one
+flash backward call), the decode none; and ``kops.flash_attention`` at
+D = 576 raises.
 They need no JAX: this module imports it only where a test compares with
 the JAX package, so ``python -m pytest -q -m cuda tests/test_torch_mla.py``
 runs where JAX is not installed.
@@ -186,6 +189,40 @@ def test_absorbed_gradients_match_jax_grad(J):
         assert np.abs(a.numpy() - b).max() <= GRAD_TOL * max(np.abs(b).max(), 1e-30), i
 
 
+def test_materialized_form_goes_through_the_flash_operator(J, monkeypatch):
+    """On the CPU the materialized form's attention is one call of
+    ``kops.flash_attention`` a layer (q and k qk_nope + qk_rope wide, v
+    v_head_dim wide, the scale over the q/k width, the key chunk
+    ``attn_chunk``), the plain ``FlashAttention`` with a gradient, and no
+    call of ``attention.plain_attention``; its output and gradients are
+    the JAX package's (``test_chunked_route_matches_the_jax_package``)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention as attn_lib
+    calls, real = [], kops.flash_attention
+
+    def counted(q, k, v, *args, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), args, kw))
+        return real(q, k, v, *args, **kw)
+
+    def refused(*args, **kw):
+        raise AssertionError("plain_attention on the materialized route")
+
+    monkeypatch.setattr(kops, "flash_attention", counted)
+    monkeypatch.setattr(attn_lib, "plain_attention", refused)
+    tc = J.tc
+    p = tree_map(lambda t: t.detach().requires_grad_(True), J.tp)
+    xt = torch.from_numpy(_x(3)).requires_grad_(True)
+    ctx = ModelCtx(attn_chunk=16, rules={"mla_materialized": True}, remat="none")
+    out = mla.mla_train(xt, p, tc, torch.arange(S), ctx)
+    dk, dv = tc.qk_nope_head_dim + tc.qk_rope_head_dim, tc.v_head_dim
+    H = tc.n_heads
+    assert calls == [((B, S, H, dk), (B, S, H, dk), (B, S, H, dv), (True, mla._scale(tc)),
+                      {"chunk": 16, "force": None, "q_offset": 0})]
+    assert out.grad_fn is not None and dk != dv
+    grads = torch.autograd.grad(torch.sum(out ** 2), [xt] + tree_leaves(p))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
 CHUNK = 20
 S_LONG = 4 * CHUNK       # four key chunks: the reference's flash VJP route
 
@@ -251,10 +288,15 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_mla_route_launches_no_flash_kernel(dtype, card):
-    """Prefill, the materialized form and a decode step of the reduced
-    deepseek-v2's MLA on the card: the flash kernel's launch count does not
-    move, the prefill launches one MLA attention kernel (the materialized
-    form and the decode stay plain); the card's answer is the CPU's."""
+    """The reduced deepseek-v2's MLA on the card, each route with its own
+    kernels: the absorbed prefill launches one MLA attention kernel and no
+    flash kernel, the decode step none; the materialized form one flash
+    forward (on the route of its type: bf16 ``wgmma`` or 3xTF32) and, with
+    a gradient, one flash backward call and no MLA kernel.  The card's
+    answers are the CPU's: the prefill's output and the materialized
+    form's within 1e-4 in float32 and 5e-2 of the largest in bf16, the
+    materialized form's gradients (the input's and every attention
+    leaf's) within 1e-3 of each largest in float32 and 5e-2 in bf16."""
     from repro_torch.kernels import flash_attention_cuda as kfa
     from repro_torch.kernels import mla_attention_cuda as kmla
     from repro_torch.models.model import Model
@@ -263,20 +305,50 @@ def test_the_mla_route_launches_no_flash_kernel(dtype, card):
     lp = tree_map(lambda t: t[0], p["moe_layers"]["attn"])
     lp_card = tree_map(lambda t: t.to(card), lp)
     x = torch.from_numpy(_x(5)).to(dtype)
-    before, mla_before = kfa.LAUNCHES, kmla.LAUNCHES
+    mat = ModelCtx(rules={"mla_materialized": True}, remat="none")
+    f32 = dtype == torch.float32
+
+    def close(a, b, tol):
+        a, b = a.detach().cpu().float(), b.detach().float()
+        assert (a - b).abs().max().item() <= tol * max(b.abs().max().item(), 1e-30)
+
+    fa = (kfa.LAUNCHES, kfa.WGMMA_LAUNCHES, kfa.TF32_LAUNCHES, kfa.BWD_LAUNCHES)
+    mla_before = kmla.LAUNCHES
     with torch.no_grad():
         o, cache = mla.mla_prefill(x.to(card), lp_card, cfg, torch.arange(S, device=card),
                                    null_ctx())
-        mla.mla_train(x.to(card), lp_card, cfg, torch.arange(S, device=card),
-                      ModelCtx(rules={"mla_materialized": True}))
+        torch.cuda.synchronize()
+        assert kfa.LAUNCHES == fa[0] and kmla.LAUNCHES == mla_before + 1
+        o_mat = mla.mla_train(x.to(card), lp_card, cfg, torch.arange(S, device=card), mat)
+        torch.cuda.synchronize()
+        assert kfa.LAUNCHES == fa[0] + 1 and kmla.LAUNCHES == mla_before + 1
+        assert (kfa.TF32_LAUNCHES if f32 else kfa.WGMMA_LAUNCHES) == fa[2 if f32 else 1] + 1
         cache = {k: torch.cat([v, v.new_zeros(B, 1, v.shape[-1])], 1)
                  for k, v in cache.items()}
         mla.mla_decode(x[:, :1].to(card), lp_card, cfg, cache, S, null_ctx())
         torch.cuda.synchronize()
         o_cpu, _ = mla.mla_prefill(x, lp, cfg, torch.arange(S), null_ctx())
-    assert kfa.LAUNCHES == before and kmla.LAUNCHES == mla_before + 1
-    tol = 1e-4 if dtype == torch.float32 else 5e-2 * o_cpu.abs().max().item()
-    assert (o.cpu().float() - o_cpu.float()).abs().max().item() <= tol
+        o_mat_cpu = mla.mla_train(x, lp, cfg, torch.arange(S), mat)
+    assert kfa.LAUNCHES == fa[0] + 1 and kmla.LAUNCHES == mla_before + 1
+    for a, b in ((o, o_cpu), (o_mat, o_mat_cpu)):
+        if f32:
+            assert (a.cpu() - b).abs().max().item() <= 1e-4
+        else:
+            close(a, b, 5e-2)
+
+    grads = {}
+    for dev, leaves in ((card, lp_card), ("cpu", lp)):
+        pp = tree_map(lambda t: t.detach().requires_grad_(True), leaves)
+        xt = x.to(dev).requires_grad_(True)
+        n0 = (kfa.LAUNCHES, kfa.BWD_LAUNCHES, kmla.LAUNCHES)
+        out = mla.mla_train(xt, pp, cfg, torch.arange(S, device=dev), mat)
+        grads[str(dev)] = torch.autograd.grad(out.float().pow(2).sum(), [xt] + tree_leaves(pp))
+        if dev == card:
+            torch.cuda.synchronize()
+            assert (kfa.LAUNCHES - n0[0], kfa.BWD_LAUNCHES - n0[1], kmla.LAUNCHES - n0[2]) \
+                == (1, 1, 0)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        close(a, b, 1e-3 if f32 else 5e-2)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,9 @@ path's shapes:
   (``mla_attention_bwd_cuda``), at deepseek-v2's training shape (B=2,
   S=256, 128 query heads on one key head Dk=576 and one value head Dv=512,
   causal, scale 192^-0.5), bf16 and float32;
+* with ``--only flash_fwd``: the flash-attention forward
+  (``flash_attention_cuda``) at the flash backward's seven shapes, beside
+  its bound (``flash_bound_ms``), its plain version and SDPA's forward;
 
 each as card time a call (torch.profiler, the kernels' launches only) and
 CUDA-events milliseconds a call, beside its bound (the checkout's
@@ -31,8 +34,9 @@ time of a call is built from the launches the profiler saw: per kernel name
 the mean time of a launch seen, times the name's launches a call (those
 seen over the calls issued, rounded, at least 1); MLA's rows also give it
 per kernel name (``*_by_name``), and the CUDA-events time gives a row its
-number where the profiler saw no launch.  ``--only flash,ssd,mla`` times a
-subset; for MLA, ``--dtype float32`` (or ``bfloat16``) one type and
+number where the profiler saw no launch.  With no ``--only`` it times
+flash, ssd and mla; ``--only`` takes any of flash, ssd, mla and flash_fwd;
+for MLA, ``--dtype float32`` (or ``bfloat16``) one type and
 ``--kernels-only`` the kernels alone (no plain version, no SDPA: the quick
 way to time ablation copies, ``tools/mla_probe.py copy``).
 
@@ -60,7 +64,8 @@ FLASH = {"zamba2 bf16": (2, 512, 32, 64, True, "bfloat16"),
 SSD = (2, 256, 64, 64, 64)     # B, Q, H, P, N
 # deepseek-v2's MLA attention at its training shape: B, S, H, Dk, Dv, scale
 MLA = (2, 256, 128, 576, 512, 192 ** -0.5)
-PARTS = ("flash", "ssd", "mla")
+PARTS = ("flash", "ssd", "mla", "flash_fwd")
+DEFAULT_PARTS = ("flash", "ssd", "mla")      # what a run with no --only times
 
 
 def _card_by_name(torch, fn, iters=20, warmup=5):
@@ -139,7 +144,8 @@ def _mla(torch, F, randn, out, dtypes=("bfloat16", "float32"), reference=True):
         torch.cuda.empty_cache()
 
 
-def measure(root: Path, parts=PARTS, dtypes=("bfloat16", "float32"), reference=True) -> dict:
+def measure(root: Path, parts=DEFAULT_PARTS, dtypes=("bfloat16", "float32"),
+            reference=True) -> dict:
     """Every number of one checkout (run in its own process)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -159,6 +165,24 @@ def measure(root: Path, parts=PARTS, dtypes=("bfloat16", "float32"), reference=T
 
     if "mla" in parts:
         _mla(torch, F, randn, out, dtypes, reference)
+    for name, (B, S, H, D, causal, dt) in FLASH.items():
+        if "flash_fwd" not in parts:
+            break
+        dtype = getattr(torch, dt)
+        q, k, v = (randn(B, S, H, D, dtype=dtype) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound, by = kfa.flash_bound_ms(B, S, S, H, D, causal, q.element_size())
+        out[name + " fwd"] = {
+            "card_us": _card_us(torch, lambda: kfa.flash_attention_cuda(q, k, v, causal)),
+            "ms": _events_ms(torch, lambda: kfa.flash_attention_cuda(q, k, v, causal)),
+            "plain_card_us": _card_us(
+                torch, lambda: ref.flash_attention_fwd_lse(q, k, v, causal, None, S),
+                iters=5, warmup=2) if reference else None,
+            "sdpa_card_us": _card_us(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters=10, warmup=3) if reference else None,
+            "bound_us": bound * 1e3, "bound_by": by}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     for name, (B, S, H, D, causal, dt) in FLASH.items():
         if "flash" not in parts:
             break
@@ -207,7 +231,7 @@ def measure(root: Path, parts=PARTS, dtypes=("bfloat16", "float32"), reference=T
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", action="append", help="checkout to time (repeatable)")
-    ap.add_argument("--only", default=",".join(PARTS),
+    ap.add_argument("--only", default=",".join(DEFAULT_PARTS),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     help="MLA: time this type alone")
